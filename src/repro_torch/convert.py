@@ -1,0 +1,43 @@
+"""Carry a fabric and its slot state across from the JAX package.
+
+The port has no weights: what crosses between the two packages is the
+fabric (as assembler text, which both packages emit and parse alike)
+and the resumable slot state (as numpy arrays).  Neither function
+imports the JAX package; the caller hands over plain text and arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import asm
+from repro_torch.core.engine import SlotState
+from repro_torch.core.graph import Graph
+
+DEVICE_FIELDS = ("fv", "fl", "full", "val", "ptr", "out_last", "out_count")
+HOST_FIELDS = ("active", "base", "last", "fired", "quiesced", "dispatches",
+               "cap", "stalled")
+
+
+def graph_from_asm(text: str, name: str = "asm") -> Graph:
+    """The port's :class:`Graph` from ``repro.core.asm.emit`` text, so
+    both packages run literally the same fabric."""
+    return asm.parse(text, name=name)
+
+
+def slot_state_from_numpy(arrays, device="cuda") -> SlotState:
+    """The port's :class:`SlotState` from a JAX ``SlotState``'s fields
+    given as numpy arrays (``arrays[name]`` for every name in
+    :data:`DEVICE_FIELDS` and :data:`HOST_FIELDS`).  Device fields
+    become int32 tensors on ``device``; host fields stay numpy with the
+    JAX package's dtypes."""
+    missing = [k for k in (*DEVICE_FIELDS, *HOST_FIELDS) if k not in arrays]
+    if missing:
+        raise ValueError(f"slot state lacks fields {missing}")
+    dev = {k: torch.tensor(np.asarray(arrays[k], np.int32), device=device)
+           for k in DEVICE_FIELDS}
+    host = {k: np.array(arrays[k], dtype=np.int64) for k in HOST_FIELDS}
+    host["active"] = host["active"].astype(np.int32)
+    host["quiesced"] = host["quiesced"].astype(bool)
+    return SlotState(**dev, **host, active_dev=torch.tensor(
+        host["active"], device=device))

@@ -1,0 +1,733 @@
+"""Static dataflow token engine (PyTorch port of ``repro.core.engine``).
+
+Cycle-accurate reproduction of the paper's fabric:
+
+* every arc is a register pair ``(full, value)`` — the 16-bit data
+  register + 1-bit status register of paper Fig. 5;
+* a node *fires* when all its input arcs are full and all its output
+  arcs are empty (static dataflow: one token per arc);
+* one engine cycle = every ready node fires simultaneously;
+* environment buses: *input* arcs are strobed with the next token of
+  their feed stream as soon as they drain; *const* arcs always present
+  their value; *output* arcs are drained every cycle, with the last
+  value and a token count recorded.
+
+Backends:
+
+* ``"cuda"`` (default) — a host loop over fused K-cycle blocks, each
+  block one launch of the fire-block kernel
+  (:mod:`repro_torch.kernels.dataflow_fire`); with ``device="cpu"`` the
+  same loop runs the kernel's plain PyTorch version.  Scalar int32
+  tokens.
+* ``"reference"`` — :func:`run_reference`, the pure-numpy oracle.
+
+Non-determinism note: ``ndmerge`` resolves same-cycle arrivals with a
+fixed priority (input ``a`` wins).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import hashlib
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import Graph, Op
+
+_MAX_IN = 3
+_MAX_OUT = 2
+
+# -- _plan memoization ------------------------------------------------------
+# The plan depends only on the graph's asm signature, so one process-wide
+# LRU serves every engine and reference run of the same fabric.  The
+# cached arrays are frozen read-only: sharing is safe because no
+# consumer mutates a plan.
+_PLAN_CACHE: collections.OrderedDict = collections.OrderedDict()
+_PLAN_CACHE_MAX = 256
+
+
+def _plan(graph: Graph):
+    """Memoized :func:`_plan_build` keyed on the asm signature (nodes,
+    consts, inits), so a mutated Graph re-keys automatically."""
+    from repro_torch.core import asm
+    key = hashlib.sha256(asm.emit(graph).encode()).hexdigest()
+    hit = _PLAN_CACHE.get(key)
+    if hit is not None:
+        _PLAN_CACHE.move_to_end(key)
+        return hit
+    p = _plan_build(graph)
+    for v in p.values():
+        if isinstance(v, np.ndarray):
+            v.flags.writeable = False
+    _PLAN_CACHE[key] = p
+    if len(_PLAN_CACHE) > _PLAN_CACHE_MAX:
+        _PLAN_CACHE.popitem(last=False)
+    return p
+
+
+def _plan_build(graph: Graph):
+    """Static (numpy) arrays describing the fabric, in graph order:
+    arc slots A (+ an always-full FULL_PAD and an always-empty
+    EMPTY_PAD slot padding missing inputs and outputs) and the node
+    table opcode[N], in_idx[N,3], out_idx[N,2]."""
+    graph.validate()
+    arcs = graph.arcs
+    input_arcs = graph.input_arcs()
+    output_arcs = graph.output_arcs()
+    aidx = {a: i for i, a in enumerate(arcs)}
+    A = len(arcs)
+    FULL_PAD = A        # dummy slot, always full (pads missing inputs)
+    EMPTY_PAD = A + 1   # dummy slot, always empty (pads missing outputs)
+
+    N = len(graph.nodes)
+    opcode = np.zeros((N,), np.int32)
+    in_idx = np.full((N, _MAX_IN), FULL_PAD, np.int32)
+    out_idx = np.full((N, _MAX_OUT), EMPTY_PAD, np.int32)
+    for i, n in enumerate(graph.nodes):
+        opcode[i] = int(n.op)
+        for k, a in enumerate(n.inputs):
+            in_idx[i, k] = aidx[a]
+        for k, a in enumerate(n.outputs):
+            out_idx[i, k] = aidx[a]
+
+    const_mask = np.zeros((A + 2,), bool)
+    for a in graph.consts:
+        const_mask[aidx[a]] = True
+
+    return dict(
+        arcs=arcs, aidx=aidx, A=A, FULL_PAD=FULL_PAD, EMPTY_PAD=EMPTY_PAD,
+        opcode=opcode, in_idx=in_idx, out_idx=out_idx,
+        const_mask=const_mask, input_arcs=input_arcs,
+        output_arcs=output_arcs,
+    )
+
+
+@dataclasses.dataclass
+class EngineResult:
+    outputs: dict       # arc -> last token value (numpy scalar)
+    counts: dict        # arc -> number of tokens drained
+    cycles: int
+    fired: int          # total node firings
+    dispatches: int | None = None   # kernel launches (blocks) ridden
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Resumable state of B fabric *slots* (continuous batching).
+
+    A slot is one stream's worth of arc registers, feed pointers, and
+    output accumulators riding the shared fabric.  Slots have
+    independent lifecycles: a quiesced slot can be harvested and
+    refilled with a new request's feed stream while the other slots
+    keep running — see
+    :class:`repro_torch.serve.dataflow_server.DataflowServer`.
+
+    Device tensors (int32; leading axis = B slots):
+      fv[B, n_in, L], fl[B, n_in]   packed feed streams (L grows on
+                                    demand, power-of-two)
+      full/val[B, A2]               arc registers
+      ptr[B, n_in]                  per-arc feed pointers
+      out_last/out_count[B, n_out]  output-bus accumulators
+      active_dev[B]                 device mirror of ``active``
+                                    (refreshed on admission/harvest)
+
+    Host arrays (numpy; the per-slot clock):
+      active[B]     1 while a request occupies the slot (gates the
+                    kernel's feed/fire/drain — inactive slots are
+                    skipped, not stepped)
+      base[B]       slot-local cycles simulated so far
+      last[B]       slot-local cycle of last progress
+      fired[B]      node firings of the resident request
+      quiesced[B]   latest block had an idle tail (idle is absorbing,
+                    so the resident request is finished)
+      dispatches[B] block launches the resident request has ridden
+      cap[B]        per-slot cycle cap (engine max_cycles unless the
+                    admission overrode it via ``reset_slots(caps=)``)
+      stalled[B]    consecutive blocks with zero progress while the
+                    slot stayed active — the stall watchdog's counter
+    """
+    fv: torch.Tensor
+    fl: torch.Tensor
+    full: torch.Tensor
+    val: torch.Tensor
+    ptr: torch.Tensor
+    out_last: torch.Tensor
+    out_count: torch.Tensor
+    active: np.ndarray
+    base: np.ndarray
+    last: np.ndarray
+    fired: np.ndarray
+    quiesced: np.ndarray
+    dispatches: np.ndarray
+    cap: np.ndarray
+    stalled: np.ndarray
+    active_dev: torch.Tensor
+
+    @property
+    def slots(self) -> int:
+        return int(self.active.shape[0])
+
+    def free_slots(self) -> list[int]:
+        return [b for b in range(self.slots) if not self.active[b]]
+
+    def quiesced_slots(self) -> list[int]:
+        return [b for b in range(self.slots)
+                if self.active[b] and self.quiesced[b]]
+
+
+def pack_feeds(input_arcs, feeds, token_shape=(), dtype=np.int32,
+               pad_rows: int | None = None, min_len: int = 1):
+    """Dense (feed_vals[n_in, L, *ts], feed_len[n_in]) from an arc->stream
+    mapping.  pad_rows forces at least that many stream rows (the kernel
+    wants n_in >= 1); min_len floors L (so a stream axis always
+    exists)."""
+    feeds = dict(feeds or {})
+    unknown = set(feeds) - set(input_arcs)
+    if unknown:
+        raise ValueError(f"feeds for non-input arcs: {sorted(unknown)}")
+    ts = tuple(token_shape)
+    n_in = max(len(input_arcs), pad_rows or 0)
+    max_len = max((np.shape(v)[0] for v in feeds.values()), default=0)
+    max_len = max(max_len, min_len)
+    feed_vals = np.zeros((n_in, max_len, *ts), dtype)
+    feed_len = np.zeros((n_in,), np.int32)
+    for k, a in enumerate(input_arcs):
+        if a in feeds:
+            v = np.asarray(feeds[a], dtype)
+            if v.shape[1:] != ts:
+                v = np.broadcast_to(
+                    v.reshape(v.shape[0], *([1] * len(ts))),
+                    (v.shape[0], *ts)).astype(dtype)
+            feed_vals[k, :v.shape[0]] = v
+            feed_len[k] = v.shape[0]
+    return feed_vals, feed_len
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; a missing card is an error,
+    never a silent move to the CPU."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} but no CUDA device is available; "
+            "pass device=\"cpu\" to run the plain PyTorch versions of the "
+            "kernels on the CPU")
+    return dev
+
+
+BACKENDS = ("cuda", "reference")
+
+
+class DataflowEngine:
+    """Cycle-accurate executor for a static dataflow :class:`Graph`.
+
+    backend:
+      * ``"cuda"``      — the fused fire-block kernel: K cycles +
+        environment feed/drain per launch, arc registers in shared
+        memory within a block.  Batched runs launch one CTA per stream.
+        With ``device="cpu"`` the blocks run the kernel's plain PyTorch
+        version instead.
+      * ``"reference"`` — the pure-numpy oracle (:func:`run_reference`).
+
+    Both backends share one :func:`_plan` layout and report
+    bit-identical outputs/counts/fired/cycles; ``cycles`` is
+    reconstructed from the last progress cycle, so block-granular
+    quiescence detection does not change the reported cycle count.
+    """
+
+    def __init__(self, graph: Graph, max_cycles: int = 100_000,
+                 backend: str = "cuda", block_cycles: int = 1,
+                 device="cuda"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+        if block_cycles < 1:
+            raise ValueError("block_cycles must be >= 1")
+        self.graph = graph
+        self.max_cycles = max_cycles
+        self.backend = backend
+        self.block_cycles = int(block_cycles)
+        self.device = resolve_device(device)
+        self.p = _plan(graph)
+        self._steps: dict[tuple[int, bool], object] = {}
+        self._tables = None
+        if backend == "cuda":
+            from repro_torch.kernels.dataflow_fire import (block_plan_arrays,
+                                                           device_tables)
+            self._tables = device_tables(block_plan_arrays(graph),
+                                         self.device)
+
+    # -- public ---------------------------------------------------------
+    def run(self, feeds: Mapping[str, object] | None = None,
+            max_cycles: int | None = None) -> EngineResult:
+        """feeds: arc -> [k] stream of tokens (k may vary per arc)."""
+        max_cycles = max_cycles or self.max_cycles
+        if self.backend == "reference":
+            return run_reference(self.graph, feeds, max_cycles=max_cycles)
+        return self._run_cuda(feeds, max_cycles)
+
+    def run_batch(self, feeds_batch, max_cycles: int | None = None
+                  ) -> list[EngineResult]:
+        """Execute B independent token streams through one fabric.
+
+        feeds_batch: sequence of B feed dicts (streams may have unequal
+        lengths — shorter streams quiesce early and idle harmlessly).
+        Returns one EngineResult per stream, bit-identical to running
+        each stream alone."""
+        max_cycles = max_cycles or self.max_cycles
+        feeds_batch = list(feeds_batch)
+        if not feeds_batch:
+            raise ValueError(
+                "run_batch: feeds_batch is empty — pass at least one "
+                "feed dict (use run() for a single stream)")
+        if self.backend == "reference":
+            return [run_reference(self.graph, f, max_cycles=max_cycles)
+                    for f in feeds_batch]
+        L = max((max((np.shape(v)[0] for v in (f or {}).values()),
+                     default=0) for f in feeds_batch), default=0)
+        packed = [pack_feeds(self.p["input_arcs"], f, pad_rows=1,
+                             min_len=max(L, 1)) for f in feeds_batch]
+        feed_vals = np.stack([fv for fv, _ in packed])
+        feed_len = np.stack([fl for _, fl in packed])
+        return self._run_cuda_batch(feed_vals, feed_len, max_cycles)
+
+    def _result_from_state(self, out_last, out_count, cycles, fired,
+                           dispatches):
+        """Per-arc result dicts from flat (host) accumulators."""
+        out_arcs = self.p["output_arcs"]
+        return EngineResult(
+            outputs={a: out_last[i] for i, a in enumerate(out_arcs)},
+            counts={a: int(out_count[i]) for i, a in enumerate(out_arcs)},
+            cycles=cycles, fired=fired, dispatches=dispatches)
+
+    # -- resumable slot API (continuous batching) ------------------------
+    #
+    # Lifecycle: init_state(B) -> all slots free; reset_slots() admits
+    # requests into free slots; step_block() advances every *active*
+    # slot by exactly block_cycles fabric cycles in one launch (inactive
+    # slots are clock-gated out of feed/fire/drain); harvest() extracts
+    # finished results and frees the slots.  Because admissions happen
+    # only at block boundaries and each slot carries its own cycle
+    # clock, a request's result is bit-identical to running it alone
+    # via run().
+    def _check_slot_api(self):
+        if self.backend == "reference":
+            raise ValueError("the resumable slot API needs the cuda "
+                             "backend, not 'reference'")
+
+    def _state0_rows(self):
+        """(full0[A2], val0[A2]) int32 rows of a freshly-reset slot."""
+        p = self.p
+        full = np.zeros((p["A"] + 2,), np.int32)
+        val = np.zeros((p["A"] + 2,), np.int32)
+        full[p["FULL_PAD"]] = 1
+        for a, v in self.graph.consts.items():
+            full[p["aidx"][a]] = 1
+            val[p["aidx"][a]] = int(v)
+        for a, v in self.graph.inits.items():    # one-shot initial tokens
+            full[p["aidx"][a]] = 1
+            val[p["aidx"][a]] = int(v)
+        return full, val
+
+    def _dev(self, x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=self.device)
+
+    def _zeros(self, *shape):
+        return torch.zeros(shape, dtype=torch.int32, device=self.device)
+
+    def init_state(self, slots: int) -> SlotState:
+        """Fresh B-slot state, every slot free (active == 0)."""
+        self._check_slot_api()
+        if slots < 1:
+            raise ValueError("slots must be >= 1")
+        p = self.p
+        B = int(slots)
+        n_in = max(len(p["input_arcs"]), 1)
+        n_out = max(len(p["output_arcs"]), 1)
+        full0, val0 = self._state0_rows()
+        z64 = lambda: np.zeros((B,), np.int64)
+        return SlotState(
+            fv=self._zeros(B, n_in, 1), fl=self._zeros(B, n_in),
+            full=self._dev(full0).repeat(B, 1),
+            val=self._dev(val0).repeat(B, 1),
+            ptr=self._zeros(B, n_in), out_last=self._zeros(B, n_out),
+            out_count=self._zeros(B, n_out),
+            active=np.zeros((B,), np.int32), base=z64(), last=z64(),
+            fired=z64(), quiesced=np.zeros((B,), bool), dispatches=z64(),
+            cap=np.full((B,), self.max_cycles, np.int64), stalled=z64(),
+            active_dev=self._zeros(B))
+
+    def reset_slots(self, state: SlotState, slot_ids,
+                    new_feeds, caps=None) -> SlotState:
+        """Admit one request per slot id: fresh arc registers + the new
+        feed stream.  Slots must be free (never-used or harvested);
+        everything else keeps its state untouched.
+
+        Only the admitted slots' rows travel to the device, and they are
+        written into the state's buffers in place (a few indexed
+        writes for the whole round, not launches per slot): continue
+        from the returned state.
+
+        caps: optional per-admission cycle caps (one entry per slot id;
+        ``None`` entries fall back to the engine's ``max_cycles``) — a
+        request-level budget the scheduler enforces by shortening
+        blocks and ``harvest`` clamps cycle accounting to."""
+        self._check_slot_api()
+        slot_ids = list(slot_ids)
+        new_feeds = list(new_feeds)
+        if len(slot_ids) != len(new_feeds):
+            raise ValueError(f"{len(slot_ids)} slot ids but "
+                             f"{len(new_feeds)} feed dicts")
+        if not slot_ids:
+            return state
+        if caps is None:
+            caps = [None] * len(slot_ids)
+        if len(caps) != len(slot_ids):
+            raise ValueError(f"{len(slot_ids)} slot ids but "
+                             f"{len(caps)} caps")
+        for b, c in zip(slot_ids, caps):
+            if c is not None and int(c) < 1:
+                raise ValueError(f"slot {b}: cap must be >= 1, got {c}")
+        busy = [b for b in slot_ids if state.active[b]]
+        if busy:
+            raise ValueError(f"slots {busy} still hold unharvested "
+                             "requests (harvest before refilling)")
+        p = self.p
+        packed = [pack_feeds(p["input_arcs"], f, pad_rows=1)
+                  for f in new_feeds]
+        need = max(fv.shape[1] for fv, _ in packed)
+        fv = state.fv
+        L = fv.shape[2]
+        if need > L:        # grow the stream buffer (power of two)
+            L = 1 << (int(need) - 1).bit_length()
+            grown = self._zeros(fv.shape[0], fv.shape[1], L)
+            grown[:, :, :fv.shape[2]] = fv
+            fv = grown
+        rows = np.zeros((len(slot_ids), fv.shape[1], need), np.int32)
+        for k, (f, _) in enumerate(packed):
+            rows[k, :, :f.shape[1]] = f
+        ids = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
+        fv.index_fill_(0, ids, 0)
+        fv[ids, :, :need] = self._dev(rows)
+        state.fl.index_copy_(0, ids, self._dev(np.stack([fl for _, fl
+                                                         in packed])))
+        full0, val0 = self._state0_rows()
+        state.full[ids] = self._dev(full0)
+        state.val[ids] = self._dev(val0)
+        for x in (state.ptr, state.out_last, state.out_count):
+            x.index_fill_(0, ids, 0)
+        active = state.active.copy()
+        for host in (base := state.base.copy(), last := state.last.copy(),
+                     fired := state.fired.copy(),
+                     disp := state.dispatches.copy(),
+                     stalled := state.stalled.copy()):
+            host[slot_ids] = 0
+        cap = state.cap.copy()
+        for b, c in zip(slot_ids, caps):
+            cap[b] = self.max_cycles if c is None else int(c)
+        quiesced = state.quiesced.copy()
+        active[slot_ids] = 1
+        quiesced[slot_ids] = False
+        return SlotState(fv, state.fl, state.full, state.val, state.ptr,
+                         state.out_last, state.out_count, active, base,
+                         last, fired, quiesced, disp, cap=cap,
+                         stalled=stalled, active_dev=self._dev(active))
+
+    def step_block(self, state: SlotState,
+                   n_cycles: int | None = None) -> SlotState:
+        """Advance every active slot by ``n_cycles`` (default
+        ``block_cycles``) fabric cycles in ONE launch; free slots are
+        clock-gated out.  Per-slot clocks (base/last/fired) advance on
+        the host after one device-to-host read per block; a slot whose
+        block had an idle tail is marked ``quiesced`` (idle is absorbing
+        — the request is done)."""
+        self._check_slot_api()
+        nb = self.block_cycles if n_cycles is None else int(n_cycles)
+        if nb < 1:
+            raise ValueError("n_cycles must be >= 1")
+        if not state.active.any():
+            return state
+        *dev, f, lp = self._step(nb, True)(
+            state.fv, state.fl, state.full, state.val, state.ptr,
+            state.out_last, state.out_count, state.active_dev)
+        f, lp = torch.cat([f, lp], 1).cpu().numpy().T  # one sync per block
+        fired = state.fired + f
+        last = np.where(lp > 0, state.base + lp, state.last)
+        base = state.base + np.where(state.active > 0, nb, 0)
+        quiesced = np.where(state.active > 0, lp < nb, state.quiesced)
+        disp = state.dispatches + (state.active > 0)
+        # progress counter: an active slot whose whole block was idle
+        # stalls by one more block; any progress resets it.  A healthy
+        # idle slot is harvested as quiesced the same heartbeat, so a
+        # *growing* stall count means the quiescence signal is being
+        # withheld — the watchdog's trigger.
+        stalled = np.where(state.active > 0,
+                           np.where(lp > 0, 0, state.stalled + 1),
+                           state.stalled)
+        return SlotState(state.fv, state.fl, *dev, state.active.copy(),
+                         base, last, fired, quiesced, disp,
+                         cap=state.cap, stalled=stalled,
+                         active_dev=state.active_dev)
+
+    def harvest(self, state: SlotState, slot_ids
+                ) -> tuple[SlotState, list[EngineResult]]:
+        """Extract the resident requests' EngineResults from the given
+        (active) slots and free them.  Results follow the same
+        accounting as run(): cycles = last progress cycle + 1 trailing
+        idle cycle, capped at the slot's cycle cap (per-request if the
+        admission set one); dispatches = blocks the request rode."""
+        self._check_slot_api()
+        slot_ids = list(slot_ids)
+        idle = [b for b in slot_ids if not state.active[b]]
+        if idle:
+            raise ValueError(f"slots {idle} are free — nothing to harvest")
+        ids = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
+        acc = torch.cat([state.out_last[ids], state.out_count[ids]], 1)
+        acc = acc.cpu().numpy()
+        n_out = state.out_last.shape[1]
+        results = [self._result_from_state(
+            acc[k, :n_out], acc[k, n_out:],
+            int(min(state.last[b] + 1, state.cap[b])),
+            int(state.fired[b]), int(state.dispatches[b]))
+            for k, b in enumerate(slot_ids)]
+        active = state.active.copy()
+        quiesced = state.quiesced.copy()
+        active[slot_ids] = 0
+        quiesced[slot_ids] = False
+        return dataclasses.replace(state, active=active, quiesced=quiesced,
+                                   active_dev=self._dev(active)), results
+
+    # -- cuda backend (host loop over fused blocks) ----------------------
+    def _step(self, n_cycles: int, batched: bool):
+        """Block step for a given size, made lazily and cached (the
+        device tables are built once in __init__ and shared)."""
+        key = (n_cycles, batched)
+        step = self._steps.get(key)
+        if step is None:
+            from repro_torch.kernels import ops as _kops
+            _, step = _kops.make_block_step(
+                self.graph, n_cycles, batched=batched, tables=self._tables,
+                device=self.device)
+            self._steps[key] = step
+        return step
+
+    def _state0(self, batch: int | None = None):
+        p = self.p
+        n_in = max(len(p["input_arcs"]), 1)
+        n_out = max(len(p["output_arcs"]), 1)
+        full, val = self._state0_rows()
+        lead = () if batch is None else (batch,)
+        return (self._dev(full).repeat(*lead, 1),
+                self._dev(val).repeat(*lead, 1),
+                self._zeros(*lead, n_in), self._zeros(*lead, n_out),
+                self._zeros(*lead, n_out))
+
+    def _run_cuda(self, feeds, max_cycles: int) -> EngineResult:
+        K = self.block_cycles
+        fv, fl = pack_feeds(self.p["input_arcs"], feeds, pad_rows=1)
+        fv, fl = self._dev(fv), self._dev(fl)
+        state = self._state0()
+        base = last = fired = dispatches = 0
+        while True:
+            nb = min(K, max_cycles - base)  # never simulate past the cap
+            *state, f, lp = self._step(nb, False)(fv, fl, *state)
+            f, lp = torch.cat([f, lp]).tolist()   # one sync per block
+            dispatches += 1
+            fired += f
+            if lp > 0:
+                last = base + lp
+            base += nb
+            if lp < nb or base >= max_cycles:
+                break   # idle block tail => quiescent (idle is absorbing)
+        cycles = min(last + 1, max_cycles)
+        return self._result_from_state(
+            state[3].cpu().numpy(), state[4].cpu().numpy(), cycles, fired,
+            dispatches)
+
+    def _run_cuda_batch(self, feed_vals, feed_len,
+                        max_cycles: int) -> list[EngineResult]:
+        K = self.block_cycles
+        B = feed_vals.shape[0]
+        fv, fl = self._dev(feed_vals), self._dev(feed_len)
+        state = self._state0(batch=B)
+        base = dispatches = 0
+        last = np.zeros((B,), np.int64)
+        fired = np.zeros((B,), np.int64)
+        ones = torch.ones((B,), dtype=torch.int32, device=self.device)
+        while True:
+            nb = min(K, max_cycles - base)  # never simulate past the cap
+            *state, f, lp = self._step(nb, True)(fv, fl, *state, ones)
+            f, lp = torch.cat([f, lp], 1).cpu().numpy().T
+            dispatches += 1
+            fired += f
+            last = np.where(lp > 0, base + lp, last)
+            base += nb
+            if (lp < nb).all() or base >= max_cycles:
+                break
+        out_last, out_count = state[3].cpu().numpy(), state[4].cpu().numpy()
+        return [self._result_from_state(
+            out_last[b], out_count[b],
+            int(min(last[b] + 1, max_cycles)), int(fired[b]), dispatches)
+            for b in range(B)]
+
+
+# ---------------------------------------------------------------------------
+# Pure-numpy reference engine (the port's own oracle)
+# ---------------------------------------------------------------------------
+def alu_numpy(op, a, b, dtype):
+    """Numpy mirror of the engine ALU.
+
+    Integer overflow wraps two's-complement and float specials follow
+    IEEE — numpy's over/invalid warnings are suppressed because that
+    wrapping IS the contract.  :func:`run_reference` enters one errstate
+    around the whole run and calls :func:`_alu_numpy` directly."""
+    with np.errstate(all="ignore"):
+        return _alu_numpy(op, a, b, dtype)
+
+
+def _alu_numpy(op, a, b, dtype):
+    is_int = np.issubdtype(dtype, np.integer)
+    if op in (Op.COPY, Op.BRANCH, Op.SINK):
+        return a
+    if op == Op.ADD: return a + b
+    if op == Op.SUB: return a - b
+    if op == Op.MUL: return a * b
+    if op == Op.DIV:
+        return np.where(b == 0, 0, a // np.where(b == 0, 1, b)) if is_int \
+            else np.where(b == 0, 0.0, a / np.where(b == 0, 1.0, b))
+    if op == Op.AND:
+        return (a & b) if is_int else ((a != 0) & (b != 0)).astype(dtype)
+    if op == Op.OR:
+        return (a | b) if is_int else ((a != 0) | (b != 0)).astype(dtype)
+    if op == Op.XOR:
+        return (a ^ b) if is_int else ((a != 0) ^ (b != 0)).astype(dtype)
+    if op == Op.MAX:
+        if is_int:
+            return np.maximum(a, b)
+        # signed-zero tie: max(+0., -0.) is +0. in either order, where
+        # np.maximum keeps b's zero
+        return np.where((a == 0) & (b == 0), a + b, np.maximum(a, b))
+    if op == Op.MIN:
+        if is_int:
+            return np.minimum(a, b)
+        # dually min(+0., -0.) is -0. in either order
+        return np.where((a == 0) & (b == 0), -(-a + -b), np.minimum(a, b))
+    if op == Op.SHL:
+        return (a << np.clip(b, 0, 31)) if is_int else a * np.exp2(b)
+    if op == Op.SHR:
+        if is_int:
+            return a >> np.clip(b, 0, 31)
+        two_b = np.exp2(b)
+        return a / np.where(two_b == 0, 1, two_b)
+    if op == Op.NOT: return (a == 0).astype(dtype)
+    if op == Op.IFGT: return (a > b).astype(dtype)
+    if op == Op.IFGE: return (a >= b).astype(dtype)
+    if op == Op.IFLT: return (a < b).astype(dtype)
+    if op == Op.IFLE: return (a <= b).astype(dtype)
+    if op == Op.IFEQ: return (a == b).astype(dtype)
+    if op == Op.IFDF: return (a != b).astype(dtype)
+    raise AssertionError(op)
+
+
+def run_reference(graph: Graph, feeds=None, token_shape=(), dtype=np.int32,
+                  max_cycles: int = 100_000) -> EngineResult:
+    """Slow, obviously-correct mirror of :class:`DataflowEngine`.  One
+    errstate for the whole run: integer wraparound / float specials are
+    the ALU contract (see :func:`alu_numpy`)."""
+    with np.errstate(all="ignore"):
+        return _run_reference(graph, feeds, token_shape, dtype, max_cycles)
+
+
+def _run_reference(graph, feeds, token_shape, dtype,
+                   max_cycles) -> EngineResult:
+    p = _plan(graph)
+    feeds = {a: np.asarray(v, dtype).reshape(-1, *token_shape)
+             if np.asarray(v).ndim == 1 and token_shape == ()
+             else np.broadcast_to(
+                 np.asarray(v, dtype).reshape(np.shape(v)[0],
+                                              *([1] * len(token_shape))),
+                 (np.shape(v)[0], *token_shape))
+             if np.asarray(v).ndim == 1
+             else np.asarray(v, dtype)
+             for a, v in (feeds or {}).items()}
+    full = {a: False for a in p["arcs"]}
+    val = {a: np.zeros(token_shape, dtype) for a in p["arcs"]}
+    for a, v in graph.consts.items():
+        full[a] = True
+        val[a] = np.full(token_shape, v, dtype)
+    for a, v in graph.inits.items():    # one-shot initial tokens
+        full[a] = True
+        val[a] = np.full(token_shape, v, dtype)
+    ptr = {a: 0 for a in p["input_arcs"]}
+    out_last = {a: np.zeros(token_shape, dtype) for a in p["output_arcs"]}
+    out_count = {a: 0 for a in p["output_arcs"]}
+
+    def compute(op, a, b):
+        return _alu_numpy(op, a, b, dtype)   # caller holds the errstate
+
+    def truthy(v):
+        return np.asarray(v).ravel()[0] != 0
+
+    cycles = fired = 0
+    progress = True
+    while progress and cycles < max_cycles:
+        progress = False
+        # 1. feed
+        for a in p["input_arcs"]:
+            if not full[a] and a in feeds and ptr[a] < len(feeds[a]):
+                val[a] = feeds[a][ptr[a]]
+                full[a] = True
+                ptr[a] += 1
+                progress = True
+        # 2. fire (simultaneous: snapshot)
+        sfull = dict(full)
+        sval = dict(val)
+        plans = []
+        for n_idx, n in enumerate(graph.nodes):
+            i = n.inputs
+            o = n.outputs
+            if n.op == Op.NDMERGE:
+                rdy = (sfull[i[0]] or sfull[i[1]]) and not sfull[o[0]]
+                if rdy:
+                    src = i[0] if sfull[i[0]] else i[1]
+                    plans.append((n_idx, [src], [(o[0], sval[src])]))
+            elif n.op == Op.DMERGE:
+                if sfull[i[2]]:
+                    src = i[0] if truthy(sval[i[2]]) else i[1]
+                    if sfull[src] and not sfull[o[0]]:
+                        plans.append((n_idx, [src, i[2]],
+                                      [(o[0], sval[src])]))
+            elif n.op == Op.BRANCH:
+                if sfull[i[0]] and sfull[i[1]]:
+                    dst = o[0] if truthy(sval[i[1]]) else o[1]
+                    if not sfull[dst]:
+                        plans.append((n_idx, list(i), [(dst, sval[i[0]])]))
+            else:
+                if all(sfull[x] for x in i) and not any(sfull[x] for x in o):
+                    aop = sval[i[0]]
+                    bop = sval[i[1]] if len(i) > 1 else aop
+                    z = compute(n.op, aop, bop)
+                    plans.append((n_idx, list(i), [(x, z) for x in o]))
+        for n_idx, cons, prods in plans:
+            for x in cons:
+                full[x] = False
+            for x, v in prods:
+                full[x] = True
+                val[x] = v
+            fired += 1
+            progress = True
+        for a in graph.consts:
+            full[a] = True
+        # 3. drain
+        for a in p["output_arcs"]:
+            if full[a]:
+                out_last[a] = val[a]
+                out_count[a] += 1
+                full[a] = False
+                progress = True
+        cycles += 1
+    return EngineResult(outputs=out_last, counts=out_count, cycles=cycles,
+                        fired=fired)

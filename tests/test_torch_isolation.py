@@ -1,0 +1,92 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+it never moves to the CPU behind the caller's back."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import library  # noqa: E402
+from repro_torch.core.engine import DataflowEngine  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import dataflow_fire as df  # noqa: E402
+from repro_torch.serve import dataflow_server  # noqa: E402
+from repro_torch.testing import STATE_KEYS, random_block_inputs  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_IMPORTS_ALL = """
+import importlib, pkgutil, sys
+sys.modules["jax"] = None            # any import of jax now fails
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = [m for m in sys.modules
+       if m.startswith("jax.") or m == "repro" or m.startswith("repro.")]
+assert sys.modules["jax"] is None and not bad, bad
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = subprocess.run([sys.executable, "-c", _IMPORTS_ALL], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 14   # every module was imported
+
+
+_FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
+                        r"|from\s+repro\b(?!_))", re.M)
+
+
+def test_no_jax_or_repro_import_in_source():
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) >= 15
+    for f in files:
+        hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+
+
+def test_default_device_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dataflow_server.clear_engine_cache()
+    graph = library.fibonacci_graph().graph
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DataflowEngine(graph)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dataflow_server.DataflowServer(graph)
+
+
+def test_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
+    def no_build():
+        raise AssertionError("a CPU call must not build the kernel")
+    real_load = _build.load
+    monkeypatch.setattr(_build, "load", no_build)
+    launches = (df.fire_block_cuda.launches,
+                df.fire_block_batched_cuda.launches)
+    tables = df.block_plan_arrays(library.dot_product_graph(4).graph)
+    x = {k: torch.tensor(v) for k, v in random_block_inputs(
+        tables, 3, 5, np.random.default_rng(0)).items()}
+    args = [x["feed_vals"], x["feed_len"], *(x[k] for k in STATE_KEYS)]
+    for dt in (tables, df.device_tables(tables, "cpu")):
+        out = df.fire_block_batched_cuda(dt, *args, n_cycles=4,
+                                         active=x["active"])
+        assert all(o.device.type == "cpu" for o in out)
+        out = df.fire_block_cuda(dt, *(a[0] for a in args), n_cycles=4)
+        assert all(o.device.type == "cpu" for o in out)
+    assert (df.fire_block_cuda.launches,
+            df.fire_block_batched_cuda.launches) == launches
+    if not torch.cuda.is_available():
+        assert launches == (0, 0) and real_load.cache_info().currsize == 0
