@@ -6,25 +6,37 @@
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
 1. device  — the card's name and power limit (nvidia-smi);
-2. build   — nvcc builds the fire-block kernel from ``src/`` into
-             ``build/``; prints the time and the ``-Xptxas -v`` report;
-3. kernel  — the kernel against its plain PyTorch version on the card,
-             bit for bit (7 benches, B = 64 with parked slots,
-             K in {1, 16, 64}; and both serving states the main path
-             gives it: dot_prod at B = 1024, L = 4096 and bubble_sort(8)
-             at B = 256, K = 64, with the B = 1 slice of each); random
-             graphs fed int32 edge operands against the numpy oracle;
-             kernel and plain times at the dot_prod serving shapes;
-4. engine  — ``DataflowEngine.run`` / ``run_batch`` on the card against
-             ``run_reference``, every EngineResult field, 7 benches;
+2. build   — nvcc builds the fire-block and fire-step kernels from
+             ``src/`` into ``build/``; prints the time and the
+             ``-Xptxas -v`` report;
+3. kernel  — every instantiation against its plain PyTorch version on
+             the card, bit for bit: the block kernel dense and
+             specialized (``optimize``), unprofiled and profiled, batched
+             and single-stream, on 7 benches (B = 64 with parked slots,
+             K in {1, 16, 64}, random counters in) and 64 random graphs
+             (control operators included; the spec kernel also against
+             the dense one on the same permuted tables); the fire step on
+             random states; the serving states the main path gives the
+             kernels (dot_prod at B = 1024, L = 4096, dense and
+             optimized+profiled, bubble_sort(8) at B = 256, with the B = 1
+             slice of each); random graphs fed int32 edge operands
+             through the engine against the numpy oracle; device times
+             of every instantiation at the dot_prod serving state;
+4. engine  — ``DataflowEngine(optimize=, profile=)`` ``run`` /
+             ``run_batch`` against ``run_reference`` (7 benches, both
+             flags, K in {1, 16, 64}); ``optimize_graph`` fabrics on the
+             card; ``run_fabric`` (one fire-step launch per cycle)
+             against ``run_reference``, with its microseconds per cycle
+             beside the fused engine's (the paper's Table-1 comparison);
 5. serving — ``DataflowServer(slots=1024, block_cycles=64)`` on the
-             paper's dot-product fabric at n = 32: 2048 requests of
-             256..4096 tokens; then bubble_sort(8) at 256 slots.  The
-             launch counts are read here; 16 sampled results per
-             deployment are then checked against ``run_reference`` and
-             a solo ``run`` (those runs are not counted);
-6. trace   — the dot_prod serving run again under ``torch.profiler``
-             (CPU and CUDA): the device's busy time and idle share;
+             paper's dot-product fabric at n = 32, 2048 requests of
+             256..4096 tokens: dense, then optimized and profiled; then
+             bubble_sort(8) at 256 slots.  The launch counts are read
+             here; 16 sampled results per deployment are then checked
+             against ``run_reference``, a solo ``run`` and (profiled) a
+             solo replay of the same blocks (those runs are not counted);
+6. trace   — the optimized, profiled dot_prod serving run again under
+             ``torch.profiler`` (CPU and CUDA): busy time and idle share;
 7. summary — the ``kernels`` JSON line, the card, and the result line.
 
 The launch counts in the summary come from phases 4 and 5 (the main
@@ -48,6 +60,25 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12     # H100 SXM 32-bit rate outside the tensor cores
 SOURCE = "src/repro_torch/kernels/csrc/dataflow_fire.cu"
+JAX_KERNELS = "src/repro/kernels/dataflow_fire.py"
+
+# one row per Pallas kernel of the path: (file:line, Pallas function)
+ROWS = {
+    "fire_block": (f"{JAX_KERNELS}:477",
+                   "fire_block_pallas -> _block_kernel (:390)"),
+    "fire_block_prof": (f"{JAX_KERNELS}:428",
+                        "fire_block_pallas(prof=) -> _block_kernel_prof"),
+    "fire_block_batched": (f"{JAX_KERNELS}:519",
+                           "fire_block_batched_pallas -> "
+                           "_batched_block_kernel (:405)"),
+    "fire_block_batched_prof": (f"{JAX_KERNELS}:448",
+                                "fire_block_batched_pallas(prof=) -> "
+                                "_batched_block_kernel_prof"),
+    "fire_block_spec": (f"{JAX_KERNELS}:117",
+                        "_ready_and_z_spec, traced into rows 1-4 when "
+                        "class_slices is set"),
+    "fire_step": (f"{JAX_KERNELS}:247", "fire_step_pallas -> _kernel (:196)"),
+}
 
 
 def log(*a):
@@ -70,6 +101,26 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+def launch_counts() -> dict:
+    """Launches per Pallas row, from the wrappers' counts: unprofiled and
+    profiled launches of each entry, and the specialized rule's launches
+    (of either entry, profiled or not)."""
+    from repro_torch.kernels import dataflow_fire as df
+    one, bat = df.fire_block_cuda, df.fire_block_batched_cuda
+    return {"fire_block": one.launches, "fire_block_prof": one.prof_launches,
+            "fire_block_batched": bat.launches,
+            "fire_block_batched_prof": bat.prof_launches,
+            "fire_block_spec": one.spec_launches + bat.spec_launches,
+            "fire_step": df.fire_step_cuda.launches}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import dataflow_fire as df
+    for w in (df.fire_block_cuda, df.fire_block_batched_cuda):
+        w.launches = w.prof_launches = w.spec_launches = 0
+    df.fire_step_cuda.launches = 0
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean milliseconds of fn() on the card, from CUDA events."""
     import torch
@@ -106,47 +157,25 @@ def profiled_ms(fn, reps: int, kernel: str | None = None) -> float:
 
 
 def max_abs_err(got, want) -> int:
+    check(len(got) == len(want), f"{len(got)} outputs, want {len(want)}")
     return max(int((g.long() - w.long()).abs().max()) for g, w in
                zip(got, want))
 
 
-def random_graph(seed: int):
-    """A random well-formed acyclic fabric over the whole opcode set,
-    reading environment streams, open producer outputs and const buses
-    holding int32 edge values."""
-    from repro_torch.core.graph import ARITY, Graph, Op
-    from repro_torch.testing import EDGE_VALS
-    rng = np.random.default_rng(5000 + seed)
-    g = Graph(name=f"random{seed}")
-    open_arcs: list[str] = []
-    n = {"a": 0, "x": 0, "c": 0}
+def hold(err, rows, got, want, what) -> None:
+    """Kernel outputs ``got`` equal the reference ``want`` bit for bit;
+    the error is recorded under every Pallas row in ``rows``."""
+    e = max_abs_err(got, want)
+    for r in rows:
+        err[r] = max(err[r], e)
+    check(e == 0, f"{what}: kernel != reference (max |err| {e})")
 
-    def fresh(tag):
-        n[tag] += 1
-        return f"{tag}{n[tag]}"
 
-    def src(first):
-        r = rng.random()
-        if first:
-            return fresh("x")
-        if open_arcs and r < 0.55:
-            return open_arcs.pop(int(rng.integers(len(open_arcs))))
-        if r < 0.75:
-            return g.const(fresh("c"), int(rng.choice(EDGE_VALS)))
-        return fresh("x")
-
-    ops = list(Op)
-    for i in range(int(rng.integers(6, 14))):
-        op = ops[seed % len(ops)] if i == 0 else ops[rng.integers(len(ops))]
-        n_in, n_out = ARITY[op]
-        ins = [src(i == 0 and k == 0) for k in range(n_in)]
-        outs = [fresh("a") for _ in range(n_out)]
-        g.add(op, ins, outs)
-        open_arcs.extend(outs)
-    if not open_arcs:
-        g.add(Op.ADD, [fresh("x"), g.const(fresh("c"), 1)], ["z_out"])
-    g.validate()
-    return g
+def block_rows(batched: bool, prof, spec: bool) -> list:
+    """The Pallas rows one block-kernel launch stands for."""
+    rows = [("fire_block_batched" if batched else "fire_block")
+            + ("_prof" if prof is not None else "")]
+    return rows + (["fire_block_spec"] if spec else [])
 
 
 def serving_workload(name, bench, n_req, seed, max_len=4096):
@@ -167,41 +196,102 @@ def serving_workload(name, bench, n_req, seed, max_len=4096):
 
 
 # ---------------------------------------------------------------------------
-# phases
+# phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def phase_kernel(dev):
-    """Kernel vs plain on random mid-run states, and random graphs fed
-    edge operands vs the oracle.  Returns each entry's max |error|."""
+def hold_blocks(dev, tables, x, prof, Ks, err, tag) -> int:
+    """Both block entries on numpy ``tables`` (dense or optimized):
+    batched over every stream of the random inputs ``x`` (parked ones
+    included), single on stream 0, each unprofiled and profiled with the
+    counters ``prof``, for each K, against the plain version; an
+    optimized plan's spec kernel also against the dense kernel on the
+    same permuted tables.  Returns the firings of the plain runs."""
     import torch
+    from repro_torch.kernels import dataflow_fire as df
+    from repro_torch.testing import STATE_KEYS
+    dt = df.device_tables(tables, dev)
+    spec = dt.class_slices is not None
+    dense = df.device_tables(dict(tables, class_slices=None), dev) \
+        if spec else None
+    t = {k: torch.tensor(v, device=dev) for k, v in x.items()}
+    args = [t["feed_vals"], t["feed_len"], *(t[k] for k in STATE_KEYS)]
+    one = [a[0] for a in args]
+    cnt = tuple(torch.tensor(p, device=dev) for p in prof)
+    fired = 0
+    for K in Ks:
+        for pr in (None, cnt):
+            kw = dict(n_cycles=K, active=t["active"], prof=pr)
+            got = df.fire_block_batched_cuda(dt, *args, **kw)
+            want = df.fire_block_batched(dt, *args, **kw)
+            hold(err, block_rows(True, pr, spec), got, want,
+                 f"{tag} batched K={K} prof={pr is not None}")
+            fired += int(want[5].sum())
+            pr1 = None if pr is None else tuple(p[0] for p in pr)
+            got1 = df.fire_block_cuda(dt, *one, n_cycles=K, prof=pr1)
+            hold(err, block_rows(False, pr, spec), got1,
+                 df.fire_block(dt, *one, n_cycles=K, prof=pr1),
+                 f"{tag} single K={K} prof={pr is not None}")
+            if spec:
+                hold(err, ["fire_block_spec"], got,
+                     df.fire_block_batched_cuda(dense, *args, **kw),
+                     f"{tag} batched spec vs dense K={K}")
+                hold(err, ["fire_block_spec"], got1,
+                     df.fire_block_cuda(dense, *one, n_cycles=K, prof=pr1),
+                     f"{tag} single spec vs dense K={K}")
+    return fired
+
+
+def hold_fire_step(dev, tables, x, err, tag) -> None:
+    """The fire-step kernel against its plain version on every stream's
+    registers of the random inputs ``x``."""
+    import torch
+    from repro_torch.kernels import dataflow_fire as df
+    dt = df.device_tables(tables, dev)
+    for b in range(x["full"].shape[0]):
+        full = torch.tensor(x["full"][b], device=dev)
+        val = torch.tensor(x["val"][b], device=dev)
+        hold(err, ["fire_step"], df.fire_step_cuda(dt, full, val),
+             df.fire_step(dt, full, val), f"{tag} fire step")
+
+
+def phase_kernel(dev) -> dict:
+    """Every instantiation against its plain version on random mid-run
+    states of the 7 benches and of 64 random graphs; random graphs fed
+    edge operands through the engine against the oracle.  Returns each
+    Pallas row's max |error|."""
     from repro_torch.core import library
     from repro_torch.core.engine import DataflowEngine, run_reference
     from repro_torch.kernels import dataflow_fire as df
-    from repro_torch.testing import (EDGE_VALS, STATE_KEYS,
-                                     assert_same_result, random_block_inputs)
-    err = {"fire_block": 0, "fire_block_batched": 0}
+    from repro_torch.testing import (EDGE_VALS, assert_same_result,
+                                     random_block_inputs, random_graph,
+                                     random_prof)
+    err = dict.fromkeys(ROWS, 0)
     for name, build in library.BENCHES.items():
-        tables = df.block_plan_arrays(build().graph)
-        dt = df.device_tables(tables, dev)
-        rng = np.random.default_rng(len(name))
-        x = {k: torch.tensor(v, device=dev) for k, v in
-             random_block_inputs(tables, 64, 96, rng).items()}
-        args = [x["feed_vals"], x["feed_len"], *(x[k] for k in STATE_KEYS)]
-        for K in (1, 16, 64):
-            got = df.fire_block_batched_cuda(dt, *args, n_cycles=K,
-                                             active=x["active"])
-            want = df.fire_block_batched(dt, *args, n_cycles=K,
-                                         active=x["active"])
-            e = max_abs_err(got, want)
-            err["fire_block_batched"] = max(err["fire_block_batched"], e)
-            check(e == 0, f"batched kernel != plain: {name} K={K}")
-            check(int(want[5].sum()) > 0, f"nothing fired: {name} K={K}")
-            one = [a[0] for a in args]
-            e = max_abs_err(df.fire_block_cuda(dt, *one, n_cycles=K),
-                            df.fire_block(dt, *one, n_cycles=K))
-            err["fire_block"] = max(err["fire_block"], e)
-            check(e == 0, f"single kernel != plain: {name} K={K}")
-        log(f"  {name:12s} kernel == plain at B=64, K=1/16/64 "
-            f"({int(x['active'].sum())} active)")
+        g = build().graph
+        for opt in (False, True):
+            tables = df.block_plan_arrays(g, optimize=opt)
+            rng = np.random.default_rng(len(name) + 100 * opt)
+            x = random_block_inputs(tables, 64, 96, rng)
+            fired = hold_blocks(dev, tables, x, random_prof(tables, 64, rng),
+                                (1, 16, 64), err, f"{name} opt={opt}")
+            check(fired > 0, f"nothing fired: {name} opt={opt}")
+            if not opt:
+                hold_fire_step(dev, tables, x, err, name)
+        log(f"  {name:12s} dense and spec, unprofiled and profiled kernels "
+            f"== plain at B=64, K=1/16/64 ({int(x['active'].sum())} active);"
+            f" spec == dense; fire step == plain")
+    for seed in range(64):
+        g = random_graph(seed)
+        rng = np.random.default_rng(seed)
+        tables = df.block_plan_arrays(g, optimize=True)
+        x = random_block_inputs(tables, 16, 24, rng)
+        hold_blocks(dev, tables, x, random_prof(tables, 16, rng), (8,), err,
+                    g.name)
+        dense = df.block_plan_arrays(g)
+        hold_fire_step(dev, dense, random_block_inputs(dense, 4, 1, rng),
+                       err, g.name)
+    log("  64 random graphs (NDMERGE/DMERGE/BRANCH among them): spec kernel "
+        "== plain == dense kernel, unprofiled and profiled, K=8; fire step "
+        "== plain")
     n_cases = 0
     for seed in range(24):
         g = random_graph(seed)
@@ -209,25 +299,33 @@ def phase_kernel(dev):
         feeds = [{a: rng.choice(EDGE_VALS, 1 + (s + seed) % 5)
                   .astype(np.int32) for a in g.input_arcs()}
                  for s in range(4)]
-        wants = [run_reference(g, f, max_cycles=192) for f in feeds]
-        eng = DataflowEngine(g, block_cycles=4 + seed % 3 * 6,
-                             max_cycles=192, device=dev)
-        for f, w in zip(feeds, wants):
-            assert_same_result(eng.run(f), w, g.name, dispatches=False)
-        for got, w in zip(eng.run_batch(feeds), wants):
-            assert_same_result(got, w, g.name, dispatches=False)
-        n_cases += len(feeds)
-    log(f"  {n_cases} random-graph runs (edge operands) == run_reference")
+        wants = [run_reference(g, f, max_cycles=192, profile=True)
+                 for f in feeds]
+        for opt in (False, True):
+            eng = DataflowEngine(g, block_cycles=4 + seed % 3 * 6,
+                                 max_cycles=192, device=dev, optimize=opt,
+                                 profile=opt)
+            got = [eng.run(f) for f in feeds] + eng.run_batch(feeds)
+            for r, w in zip(got, wants + wants):
+                assert_same_result(r, w, g.name, dispatches=False)
+                if opt:
+                    np.testing.assert_array_equal(r.node_fires, w.node_fires)
+                    r.profile.check()
+            n_cases += len(got)
+    log(f"  {n_cases} random-graph runs (edge operands; dense, and optimized "
+        "+ profiled) == run_reference")
     return err
 
 
-def captured_state(dev, graph, reqs, slots, blocks=8):
+def captured_state(dev, graph, reqs, slots, optimize=False, profile=False,
+                   blocks=8):
     """The serving state after ``blocks`` heartbeats of a throwaway
     server over the first ``slots`` requests: the inputs the main path
     gives the kernel, taken outside it so its launch counts stay clean."""
     from repro_torch.kernels import dataflow_fire as df
     from repro_torch.serve.dataflow_server import DataflowServer
-    srv = DataflowServer(graph, slots=slots, block_cycles=64, device=dev)
+    srv = DataflowServer(graph, slots=slots, block_cycles=64, device=dev,
+                         optimize=optimize, profile=profile)
     for r in reqs[:slots]:
         srv.submit(r)
     for _ in range(blocks):
@@ -235,140 +333,344 @@ def captured_state(dev, graph, reqs, slots, blocks=8):
     st = srv.state
     active = st.active_dev
     check(int(active.sum()) > 0, f"{graph.name}: no slot still active")
-    return dict(tables=df.device_tables(df.block_plan_arrays(graph), dev),
+    tables = df.block_plan_arrays(graph, optimize=optimize)
+    return dict(np_tables=tables, tables=df.device_tables(tables, dev),
                 K=64, fv=st.fv, fl=st.fl, active=active,
                 one=int(active.nonzero()[0]),        # first active slot
-                state=[st.full, st.val, st.ptr, st.out_last, st.out_count])
+                state=[st.full, st.val, st.ptr, st.out_last, st.out_count],
+                prof=st.prof)
 
 
-def kernel_vs_plain(st) -> dict:
+def kernel_vs_plain(st, tables=None, prof=None) -> dict:
     """Both entries against their plain versions on a captured serving
     state, bit for bit: the batched one at the full slot count, the
-    single one on the first active slot's row.  Returns each entry's
-    max |error|."""
+    single one on the first active slot's row.  ``tables`` (default the
+    state's own) and ``prof`` (the state's counters, or None) pick the
+    instantiation.  Returns each Pallas row's max |error|."""
     from repro_torch.kernels import dataflow_fire as df
-    tables, K, act = st["tables"], st["K"], st["active"]
+    tables = st["tables"] if tables is None else tables
+    K, act = st["K"], st["active"]
+    spec = tables.class_slices is not None
     args = [st["fv"], st["fl"], *st["state"]]
-    want = df.fire_block_batched(tables, *args, n_cycles=K, active=act)
-    err = {"fire_block_batched": max_abs_err(
-        df.fire_block_batched_cuda(tables, *args, n_cycles=K, active=act),
-        want)}
+    err = dict.fromkeys(ROWS, 0)
+    want = df.fire_block_batched(tables, *args, n_cycles=K, active=act,
+                                 prof=prof)
+    hold(err, block_rows(True, prof, spec),
+         df.fire_block_batched_cuda(tables, *args, n_cycles=K, active=act,
+                                    prof=prof), want, "serving state")
     check(int(want[5].sum()) > 0, "nothing fired in the captured state")
-    one = [a[st["one"]].contiguous() for a in args]
-    err["fire_block"] = max_abs_err(df.fire_block_cuda(tables, *one,
-                                                       n_cycles=K),
-                                    df.fire_block(tables, *one, n_cycles=K))
-    for k, e in err.items():
-        check(e == 0, f"{k} kernel != plain on the serving state")
+    b = st["one"]
+    one = [a[b].contiguous() for a in args]
+    p1 = None if prof is None else tuple(p[b].contiguous() for p in prof)
+    hold(err, block_rows(False, prof, spec),
+         df.fire_block_cuda(tables, *one, n_cycles=K, prof=p1),
+         df.fire_block(tables, *one, n_cycles=K, prof=p1),
+         "serving state, B=1")
     return err
 
 
-def time_kernels(st):
-    """CUDA-event times of both entries and their plain versions on a
-    captured mid-run serving state (dot_prod, B = 1024, K = 64), with
-    the least time the card could take for the same work."""
-    import torch
-    from repro_torch.kernels import dataflow_fire as df
-    tables, K = st["tables"], st["K"]
-    state = st["state"]
-    B, A2 = state[0].shape
-    n_in, n_out = state[2].shape[1], state[3].shape[1]
+def block_bound(tables, args, out, active_rows, K, prof):
+    """The least time the card could take for one block launch: the
+    bytes it must move (tables, every state and counter array read and
+    written once, feed_len, active, fired/last_prog, and the feed tokens
+    this launch consumed) over HBM bandwidth, against one 32-bit
+    operation per node, arc, feed row and drain row (and counter) per
+    active stream per cycle over the scalar rate."""
+    rows, A2 = args[2].shape[0], args[2].shape[1]
+    n_in, n_out = args[4].shape[1], args[5].shape[1]
     N2 = tables["opcode"].shape[0]
     table_bytes = sum(t.numel() * 4 for t in tables.values())
+    tokens = int((out[2] - args[4]).sum())           # feed tokens consumed
+    per_row = 2 * (2 * A2 + n_in + 2 * n_out) + n_in + 2 + 1
+    per_cycle = N2 + A2 + n_in + n_out
+    if prof is not None:
+        per_row += 2 * (3 * N2 + 2 * A2)
+        per_cycle += 3 * N2 + 2 * A2
+    nbytes = table_bytes + 4 * rows * per_row + 4 * tokens
+    ops = active_rows * K * per_cycle
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, tokens=tokens)
 
-    def bound(rows, active_rows, args, out):
-        tokens = int((out[2] - args[4]).sum())       # feed tokens consumed
-        nbytes = (table_bytes + 4 * rows * (2 * (2 * A2 + n_in + 2 * n_out)
-                                            + n_in + 2 + 1) + 4 * tokens)
-        ops = active_rows * K * (N2 + A2 + n_in + n_out)
-        t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-        return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-                nbytes, tokens)
 
-    def timed(run_k, run_p, reps):
-        """Kernel device time (profiler; CUDA events per call when the
-        profiler sees no device time), per-call times with events, and
-        the plain version's per-call and summed device times."""
-        dev_ms = profiled_ms(run_k, reps, "fire_block_kernel")
-        call_ms = cuda_ms(run_k, reps)
-        return dict(ms=dev_ms or call_ms,
-                    ms_from="profiler" if dev_ms else "cuda events",
-                    call_ms=call_ms, plain_ms=cuda_ms(run_p, 3, warmup=1),
-                    plain_device_ms=profiled_ms(run_p, 2))
+def timed(run_k, run_p, reps, kernel):
+    """Kernel device time (profiler; CUDA events per call when the
+    profiler sees no device time), per-call times with events, and the
+    plain version's per-call and summed device times."""
+    dev_ms = profiled_ms(run_k, reps, kernel)
+    call_ms = cuda_ms(run_k, reps)
+    return dict(ms=dev_ms or call_ms,
+                ms_from="profiler" if dev_ms else "cuda events",
+                call_ms=call_ms, plain_ms=cuda_ms(run_p, 3, warmup=1),
+                plain_device_ms=profiled_ms(run_p, 2))
 
-    out = {}
-    args = [st["fv"], st["fl"], *state]
-    act = st["active"]
-    run_k = lambda: df.fire_block_batched_cuda(tables, *args, n_cycles=K,
-                                               active=act)
-    run_p = lambda: df.fire_block_batched(tables, *args, n_cycles=K,
-                                          active=act)
-    b_ms, b_by, nbytes, tokens = bound(B, int(act.sum()), args, run_k())
-    out["fire_block_batched"] = dict(
-        **timed(run_k, run_p, 20),
-        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, tokens=tokens,
-        shape=f"B={B} slots ({int(act.sum())} active), K={K}, "
-              f"L={args[0].shape[2]}, N2={N2}, A2={A2}, n_in={n_in}")
-    b1 = st["one"]
-    one = [a[b1].contiguous() for a in args]
-    run_k1 = lambda: df.fire_block_cuda(tables, *one, n_cycles=K)
-    run_p1 = lambda: df.fire_block(tables, *one, n_cycles=K)
-    r = [x[None] for x in run_k1()]
-    b_ms, b_by, nbytes, tokens = bound(1, 1, [a[b1:b1 + 1] for a in args],
-                                       r)
-    out["fire_block"] = dict(
-        **timed(run_k1, run_p1, 50),
-        bound_ms=b_ms, bound_by=b_by, bytes=nbytes, tokens=tokens,
-        shape=f"B=1, K={K}, L={one[0].shape[1]}")
-    for k, v in out.items():
-        log(f"  {k:18s} kernel {v['ms']:.4f} ms ({v['ms_from']}; "
+
+def time_block(st, tables, prof, batched):
+    """Times and bound of one block instantiation on a captured serving
+    state: all slots (batched) or the first active slot's row (B = 1)."""
+    from repro_torch.kernels import dataflow_fire as df
+    K, act = st["K"], st["active"]
+    args = [st["fv"], st["fl"], *st["state"]]
+    if batched:
+        run_k = lambda: df.fire_block_batched_cuda(
+            tables, *args, n_cycles=K, active=act, prof=prof)
+        run_p = lambda: df.fire_block_batched(
+            tables, *args, n_cycles=K, active=act, prof=prof)
+        b = block_bound(tables, args, run_k(), int(act.sum()), K, prof)
+        shape = (f"B={args[2].shape[0]} slots ({int(act.sum())} active), "
+                 f"K={K}, L={args[0].shape[2]}")
+        reps = 20
+    else:
+        i = st["one"]
+        one = [a[i].contiguous() for a in args]
+        p1 = None if prof is None else tuple(p[i].contiguous() for p in prof)
+        run_k = lambda: df.fire_block_cuda(tables, *one, n_cycles=K, prof=p1)
+        run_p = lambda: df.fire_block(tables, *one, n_cycles=K, prof=p1)
+        b = block_bound(tables, [a[i:i + 1] for a in args],
+                        [x[None] for x in run_k()], 1, K, p1)
+        shape = f"B=1, K={K}, L={one[0].shape[1]}"
+        reps = 50
+    N2, A2 = tables["opcode"].shape[0], tables["prod_node"].shape[0]
+    return dict(**timed(run_k, run_p, reps, "fire_block_kernel"), **b,
+                shape=f"{shape}, N2={N2}, A2={A2}")
+
+
+def time_fire_step(dev, graph):
+    """Times and bound of the fire step on a random state of ``graph``'s
+    tables (what ``run_fabric`` launches once per cycle)."""
+    import torch
+    from repro_torch.kernels import dataflow_fire as df
+    from repro_torch.testing import random_block_inputs
+    tables = df.block_plan_arrays(graph)
+    dt = df.device_tables(tables, dev)
+    x = random_block_inputs(tables, 1, 1, np.random.default_rng(3))
+    full = torch.tensor(x["full"][0], device=dev)
+    val = torch.tensor(x["val"][0], device=dev)
+    run_k = lambda: df.fire_step_cuda(dt, full, val)
+    run_p = lambda: df.fire_step(dt, full, val)
+    N2, A2 = dt["opcode"].shape[0], dt["prod_node"].shape[0]
+    nbytes = sum(dt[k].numel() * 4 for k in df.STEP_KEYS) + 4 * (4 * A2 + 1)
+    ops = N2 + A2
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return dict(**timed(run_k, run_p, 200, "fire_step_kernel"),
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, tokens=0,
+                shape=f"{graph.name}: one CTA, N2={N2}, A2={A2}")
+
+
+def log_times(times):
+    for k, v in times.items():
+        log(f"  {k:30s} kernel {v['ms']:.4f} ms ({v['ms_from']}; "
             f"{v['call_ms']:.4f} ms per wrapper call)  plain "
             f"{v['plain_ms']:.3f} ms per call ({v['plain_device_ms']:.3f} "
-            f"ms on the device)  bound {v['bound_ms']:.5f} ms "
+            f"ms on the device)  bound {v['bound_ms']:.6f} ms "
             f"({v['bound_by']}: {v['bytes']} B, {v['tokens']} feed tokens)"
             f"  [{v['shape']}]")
-    return out
+
+
+def phase_serving_states(dev, dot, dot_reqs, bub, bub_reqs, errs):
+    """Every instantiation against its plain version on the serving
+    states the main path gives the kernels, and their device times at
+    the dot_prod states.  Returns the times by Pallas row, and by
+    instantiation at the optimized, profiled state."""
+    import torch
+    from repro_torch.kernels import dataflow_fire as df
+
+    def merge(err):
+        for k, e in err.items():
+            errs[k] = max(errs[k], e)
+
+    times = {}
+    for name, bench, slots, reqs in (("dot_prod", dot, 1024, dot_reqs),
+                                     ("bubble_sort", bub, 256, bub_reqs)):
+        st = captured_state(dev, bench.graph, reqs, slots)
+        merge(kernel_vs_plain(st))
+        log(f"  {name:12s} dense kernel == plain on the serving state "
+            f"(B={slots}, L={st['fv'].shape[2]}, K=64, "
+            f"{int(st['active'].sum())} active; B=1 slot {st['one']})")
+        if name == "dot_prod":
+            times["fire_block_batched"] = time_block(st, st["tables"], None,
+                                                     True)
+            times["fire_block"] = time_block(st, st["tables"], None, False)
+        del st
+    # the optimized, profiled deployment's state: its tables are permuted,
+    # so the dense instantiation runs on the same permuted tables without
+    # the buckets
+    st = captured_state(dev, dot.graph, dot_reqs, 1024, optimize=True,
+                        profile=True)
+    spec = st["tables"]
+    dense = df.device_tables(dict(st["np_tables"], class_slices=None), dev)
+    variants = {"dense": (dense, None), "spec": (spec, None),
+                "prof": (dense, st["prof"]), "spec+prof": (spec, st["prof"])}
+    for v, (tables, prof) in variants.items():
+        merge(kernel_vs_plain(st, tables, prof))
+    log(f"  dot_prod     dense, spec, prof and spec+prof kernels == plain on "
+        f"the optimized, profiled serving state (B=1024, L="
+        f"{st['fv'].shape[2]}, {int(st['active'].sum())} active; B=1 slot "
+        f"{st['one']})")
+    by_variant = {v: time_block(st, t, p, True)
+                  for v, (t, p) in variants.items()}
+    by_variant["spec+prof B=1"] = time_block(st, spec, st["prof"], False)
+    times["fire_block_batched_prof"] = by_variant["prof"]
+    times["fire_block_spec"] = by_variant["spec"]
+    times["fire_block_prof"] = time_block(st, dense, st["prof"], False)
+    del st
+    times["fire_step"] = time_fire_step(dev, dot.graph)
+    torch.cuda.empty_cache()
+    log_times(times)
+    log("  by instantiation at the optimized, profiled dot_prod state:")
+    log_times(by_variant)
+    d = by_variant["dense"]["ms"]
+    log(f"  ratios to dense: spec {by_variant['spec']['ms'] / d:.3f}, prof "
+        f"{by_variant['prof']['ms'] / d:.3f}, spec+prof "
+        f"{by_variant['spec+prof']['ms'] / d:.3f}")
+    return times, by_variant
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the engine, the passes and the per-cycle baseline
+# ---------------------------------------------------------------------------
+def hold_engine(got, want, tag, profile, same_window) -> None:
+    """Every EngineResult field of ``got`` equals the oracle's; with
+    ``profile`` also node_fires and the counter partition, and with
+    ``same_window`` (both simulated the same cycles) every counter."""
+    from repro_torch.testing import assert_same_result
+    assert_same_result(got, want, tag, dispatches=False)
+    if not profile:
+        check(got.profile is None and got.node_fires is None,
+              f"{tag}: an unprofiled run carries a profile")
+        return
+    np.testing.assert_array_equal(got.node_fires, want.node_fires,
+                                  err_msg=str(tag))
+    got.profile.check()
+    if same_window:
+        assert_same_result(got, want, tag, dispatches=False, profile=True)
 
 
 def phase_engine(dev):
     from repro_torch.core import library
     from repro_torch.core.engine import DataflowEngine, run_reference
-    from repro_torch.testing import assert_same_result
     for name, build in library.BENCHES.items():
         bench = build()
         feeds = [library.random_feeds(name, bench, 1 + 3 * b,
                                       np.random.default_rng(b))
                  for b in range(8)]
-        wants = [run_reference(bench.graph, f) for f in feeds]
-        for K in (1, 16):
-            eng = DataflowEngine(bench.graph, block_cycles=K, device=dev)
-            for f, w in zip(feeds, wants):
-                assert_same_result(eng.run(f), w, (name, K),
-                                   dispatches=False)
-            got = eng.run_batch(feeds)
-            for g, w in zip(got, wants):
-                assert_same_result(g, w, (name, K, "batch"),
-                                   dispatches=False)
-        log(f"  {name:12s} run + run_batch(B=8) == run_reference, K=1/16")
+        wants = [run_reference(bench.graph, f, profile=True) for f in feeds]
+        for opt in (False, True):
+            for prof in (False, True):
+                for K in (1, 16, 64):
+                    eng = DataflowEngine(bench.graph, block_cycles=K,
+                                         device=dev, optimize=opt,
+                                         profile=prof)
+                    tag = (name, K, opt, prof)
+                    for f, w in zip(feeds, wants):
+                        # one-cycle blocks simulate the oracle's cycles
+                        hold_engine(eng.run(f), w, tag, prof, K == 1)
+                    for g, w in zip(eng.run_batch(feeds), wants):
+                        hold_engine(g, w, tag + ("batch",), prof, False)
+        log(f"  {name:12s} run + run_batch(B=8) == run_reference, "
+            "optimize x profile, K=1/16/64 (K=1: every counter)")
 
 
-def time_slot_api(engine) -> dict:
+def phase_passes(dev):
+    """``optimize_graph`` fabrics on the card keep the authored fabric's
+    outputs and token counts."""
+    from repro_torch.core import library
+    from repro_torch.core.engine import DataflowEngine, run_reference
+    from repro_torch.core.passes import optimize_graph
+    for name, build in library.BENCHES.items():
+        bench = build()
+        g, rep = optimize_graph(bench.graph)
+        eng = DataflowEngine(g, block_cycles=16, device=dev, optimize=True,
+                             profile=True)
+        for b in range(4):
+            f = library.random_feeds(name, bench, 2 + 5 * b,
+                                     np.random.default_rng(b))
+            want = run_reference(bench.graph, f)
+            got = eng.run(f)
+            check(got.counts == want.counts, f"{name}: counts after passes")
+            for a, c in want.counts.items():
+                check(c == 0 or int(got.outputs[a]) == int(want.outputs[a]),
+                      f"{name}: {a} after passes")
+            got.profile.check()
+            check(got.profile.fired == got.fired, f"{name}: node_fires sum")
+        log(f"  {name:12s} optimize_graph ({rep.summary()}): outputs and "
+            "counts == the authored fabric's")
+
+
+def phase_run_fabric(dev) -> dict:
+    """``run_fabric`` (one fire-step launch and one read per cycle) on the
+    7 benches against ``run_reference``, and its microseconds per cycle
+    beside the fused engine's at K = 16 on the same feeds (the JAX
+    package's Table-1 sweep: 20 iterations for fibonacci, 8 tokens
+    otherwise, B = 1)."""
+    from repro_torch.core import library
+    from repro_torch.core.engine import DataflowEngine, run_reference
+    from repro_torch.kernels import ops
+    from repro_torch.testing import assert_same_result
+
+    def wall_us(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        return float(np.median(ts)) * 1e6
+
+    table = {}
+    for name, build in library.BENCHES.items():
+        bench = build()
+        k = 20 if name == "fibonacci" else 8
+        feeds = library.random_feeds(name, bench, k, np.random.default_rng(0))
+        want = run_reference(bench.graph, feeds)
+        compiled = ops.make_fire_step(bench.graph, dev)
+        got = ops.run_fabric(bench.graph, feeds, compiled=compiled,
+                             device=dev)
+        assert_same_result(got, want, (name, "run_fabric"), dispatches=False)
+        check(got.dispatches == got.cycles, f"{name}: one launch per cycle")
+        eng = DataflowEngine(bench.graph, block_cycles=16, device=dev)
+        fused = eng.run(feeds)
+        assert_same_result(fused, want, (name, "fused"), dispatches=False)
+        per = wall_us(lambda: ops.run_fabric(bench.graph, feeds,
+                                             compiled=compiled, device=dev))
+        fus = wall_us(lambda: eng.run(feeds))
+        table[name] = dict(cycles=got.cycles,
+                           percycle_us_per_cycle=per / got.cycles,
+                           fused_k16_us_per_cycle=fus / fused.cycles,
+                           fused_dispatches=fused.dispatches,
+                           ratio=per / fus)
+        log(f"  {name:12s} run_fabric == run_reference ({got.cycles} cycles,"
+            f" {got.dispatches} launches): {per / got.cycles:.1f} us/cycle;"
+            f" fused K=16: {fus / fused.cycles:.2f} us/cycle "
+            f"({fused.dispatches} launches); ratio {per / fus:.1f}x")
+    return table
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serving
+# ---------------------------------------------------------------------------
+def time_slot_api(engine) -> tuple[dict, list]:
     """Wrap the engine's slot-API methods with wall-clock accumulators
     (seconds per method; step_block ends in its one device sync, so its
-    time includes the kernel).  Returns the live totals."""
-    totals = {}
+    time includes the kernel) and record each heartbeat's block length.
+    Returns the live totals and the block lengths."""
+    totals, blocks = {}, []
     for k in ("reset_slots", "step_block", "harvest"):
         fn = getattr(engine, k)
         totals[k] = 0.0
 
-        def timed(*a, _fn=fn, _k=k, **kw):
+        def timed_call(*a, _fn=fn, _k=k, **kw):
+            if _k == "step_block":
+                blocks.append(kw["n_cycles"])
             t = time.perf_counter()
             try:
                 return _fn(*a, **kw)
             finally:
                 totals[_k] += time.perf_counter() - t
-        setattr(engine, k, timed)
-    return totals
+        setattr(engine, k, timed_call)
+    return totals, blocks
 
 
 def expected_last(name, bench, feeds):
@@ -382,18 +684,20 @@ def expected_last(name, bench, feeds):
     return bench.reference(v)[-1]
 
 
-def phase_serving(dev, name, bench, slots, reqs, lens):
-    """Serve the workload; check every result against Bench.reference;
-    return the stats, the results sorted by uid and the server's cap."""
+def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
+                  profile=False):
+    """Serve the workload; check every result against Bench.reference
+    (and, profiled, every profile's partition); return the stats, the
+    results sorted by uid, the server's cap and the heartbeats' block
+    lengths."""
     import torch
     from repro_torch.core import library
-    from repro_torch.kernels import dataflow_fire as df
     from repro_torch.serve.dataflow_server import DataflowServer
     torch.cuda.reset_peak_memory_stats()
     srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
-                         device=dev)
-    host_s = time_slot_api(srv.engine)
-    launches0 = df.fire_block_batched_cuda.launches
+                         device=dev, optimize=optimize, profile=profile)
+    host_s, blocks = time_slot_api(srv.engine)
+    batched0 = launch_counts()
     half = len(reqs) // 2
     t0 = time.perf_counter()
     for r in reqs[:half]:
@@ -409,13 +713,21 @@ def phase_serving(dev, name, bench, slots, reqs, lens):
     for k in list(vars(srv.engine)):
         if k in host_s:
             delattr(srv.engine, k)          # back to the plain methods
-    launches = df.fire_block_batched_cuda.launches - launches0
+    row = "fire_block_batched" + ("_prof" if profile else "")
+    launches = launch_counts()[row] - batched0[row]
     check(len(results) == len(reqs), "a request got no result")
+    check(len(blocks) == srv.block, "a heartbeat went unrecorded")
     results.sort(key=lambda r: r.uid)
     out_arcs = bench.out_arcs or [bench.out_arc]
     truncated = []
     for r, req, k in zip(results, reqs, lens):
         check(r.uid == req.uid and r.error is None, f"request {r.uid}")
+        if profile:
+            r.engine.profile.check()
+            check(r.engine.profile.fired == r.engine.fired,
+                  f"request {r.uid}: node_fires sum")
+        else:
+            check(r.engine.profile is None, f"request {r.uid}: profile")
         if req.max_cycles is not None:
             check(r.status == "truncated" and r.engine.cycles == 500,
                   f"request {r.uid} should truncate at 500 cycles")
@@ -428,11 +740,12 @@ def phase_serving(dev, name, bench, slots, reqs, lens):
                   f"request {r.uid}: {a} count")
             check(int(r.engine.outputs[a]) == int(last[i]),
                   f"request {r.uid}: {a} value")
-    check(srv.block <= launches,
+    check(srv.block == launches,
           f"{srv.block} server blocks but {launches} kernel launches")
     res = np.array([r.metrics.residency_blocks for r in results])
-    stats = dict(requests=len(reqs), slots=slots, blocks=srv.block,
-                 launches=launches, wall_s=wall, req_per_s=len(reqs) / wall,
+    stats = dict(requests=len(reqs), slots=slots, optimize=optimize,
+                 profile=profile, blocks=srv.block, launches=launches,
+                 wall_s=wall, req_per_s=len(reqs) / wall,
                  tokens=int(lens.sum()), truncated=len(truncated),
                  residency_p50=float(np.percentile(res, 50)),
                  residency_p99=float(np.percentile(res, 99)),
@@ -440,13 +753,30 @@ def phase_serving(dev, name, bench, slots, reqs, lens):
                  max_memory_allocated=torch.cuda.max_memory_allocated(),
                  seconds_in={k: round(v, 4) for k, v in host_s.items()},
                  card=card_line())
-    log(f"  {bench.graph.name}: {json.dumps(stats)}")
-    return stats, results, srv.max_cycles
+    log(f"  {bench.graph.name} optimize={optimize} profile={profile}: "
+        f"{json.dumps(stats)}")
+    return stats, results, srv.max_cycles, blocks
 
 
-def check_sampled(dev, bench, reqs, results, max_cycles):
+def replay(engine, req, result, blocks, cap):
+    """The request alone through the slot API, riding the same block
+    lengths the server gave it: the solo run whose every field (launch
+    count and profile window included) the served result must equal."""
+    m = result.metrics
+    st = engine.init_state(1)
+    st = engine.reset_slots(st, [0], [req.feeds], caps=[cap])
+    for nb in blocks[m.admitted_block:m.finished_block]:
+        st = engine.step_block(st, n_cycles=nb)
+    _, (res,) = engine.harvest(st, [0])
+    return res
+
+
+def check_sampled(dev, bench, reqs, results, max_cycles, blocks,
+                  optimize=False, profile=False):
     """16 sampled results (4 truncated) against ``run_reference`` and a
-    solo ``DataflowEngine.run`` in every EngineResult field."""
+    solo ``DataflowEngine.run`` in every EngineResult field; profiled,
+    also against a solo replay of the same blocks in every field,
+    profile arrays included."""
     from repro_torch.core.engine import DataflowEngine, run_reference
     from repro_torch.testing import assert_same_result
     rng = np.random.default_rng(1)
@@ -455,21 +785,37 @@ def check_sampled(dev, bench, reqs, results, max_cycles):
     sample = list(rng.choice(truncated, min(4, len(truncated)),
                              replace=False)) + list(
         rng.choice(done, min(12, len(done)), replace=False))
-    solo = DataflowEngine(bench.graph, block_cycles=64, device=dev)
+    solo = DataflowEngine(bench.graph, block_cycles=64, device=dev,
+                          optimize=optimize, profile=profile)
     t_ref = time.perf_counter()
+    same_window = 0
     for uid in sample:
         req, r = reqs[uid - 1], results[uid - 1]
         cap = req.max_cycles or max_cycles
-        assert_same_result(r.engine, run_reference(bench.graph, req.feeds,
-                                                   max_cycles=cap),
-                           ("sample", uid), dispatches=False)
+        want = run_reference(bench.graph, req.feeds, max_cycles=cap,
+                             profile=profile)
+        assert_same_result(r.engine, want, ("sample", uid), dispatches=False)
         # a served request may ride more, shorter blocks than its solo
         # run (a neighbour's budget shortens a heartbeat's block), so
-        # the launch counts differ by design; every other field agrees
-        assert_same_result(r.engine, solo.run(req.feeds, max_cycles=cap),
-                           ("solo", uid), dispatches=False)
+        # the launch counts and the profiled window may differ by design
+        alone = solo.run(req.feeds, max_cycles=cap)
+        assert_same_result(r.engine, alone, ("solo", uid), dispatches=False)
+        if profile:
+            np.testing.assert_array_equal(r.engine.node_fires,
+                                          want.node_fires)
+            np.testing.assert_array_equal(r.engine.node_fires,
+                                          alone.node_fires)
+            if r.engine.profile.cycles == alone.profile.cycles:
+                assert_same_result(r.engine, alone, ("solo", uid),
+                                   dispatches=False, profile=True)
+                same_window += 1
+            assert_same_result(r.engine, replay(solo, req, r, blocks, cap),
+                               ("replay", uid), profile=True)
     log(f"  {bench.graph.name}: {len(sample)} sampled results == "
-        f"run_reference and solo run ({time.perf_counter() - t_ref:.1f} s)")
+        f"run_reference and solo run"
+        + (f" (profile window equal in {same_window}), == solo replay of "
+           "the same blocks in every field" if profile else "")
+        + f" ({time.perf_counter() - t_ref:.1f} s)")
 
 
 def device_busy_us(prof) -> tuple[float, dict]:
@@ -491,18 +837,19 @@ def device_busy_us(prof) -> tuple[float, dict]:
     return busy, per
 
 
-def trace_serving(dev, bench, slots, reqs, untraced_wall):
+def trace_serving(dev, bench, slots, reqs, untraced_wall, optimize,
+                  profile):
     """Serve the workload again under torch.profiler (CPU and CUDA
     activities): the card's busy time, its idle share of the traced
     wall time, and what the tracing cost in wall time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.serve.dataflow_server import DataflowServer
     srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
-                         device=dev)
+                         device=dev, optimize=optimize, profile=profile)
     half = len(reqs) // 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r in reqs[:half]:
             srv.submit(r)
@@ -517,10 +864,10 @@ def trace_serving(dev, bench, slots, reqs, untraced_wall):
     check(n == len(reqs), "the traced run lost a request")
     busy_us, per = device_busy_us(prof)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-    out = dict(traced_wall_s=wall, untraced_wall_s=untraced_wall,
-               device_busy_s=busy_us / 1e6,
+    out = dict(optimize=optimize, profile=profile, traced_wall_s=wall,
+               untraced_wall_s=untraced_wall, device_busy_s=busy_us / 1e6,
                idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
-               device_s_by_name={k: v / 1e6 for k, v in top})
+               device_s_by_name={k[:96]: v / 1e6 for k, v in top})
     log(f"  {bench.graph.name}: {json.dumps(out)}")
     if not busy_us:
         log("  the profiler recorded no device events: idle share not "
@@ -536,7 +883,6 @@ def main() -> int:
         return 1
     from repro_torch.core import library
     from repro_torch.kernels import _build
-    from repro_torch.kernels import dataflow_fire as df
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -551,73 +897,72 @@ def main() -> int:
     lib = _build.load()
     log(f"  nvcc built {_build.SOURCE.name} in {lib.build_seconds:.2f} s")
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if "registers" in line or "spill" in line or "smem" in line \
+                or "Function properties" in line or "Compiling" in line:
             log("  " + line.strip())
 
     dot = library.dot_product_graph(32)
     dot_reqs, dot_lens = serving_workload("dot_prod", dot, 2048, seed=0)
     bub = library.bubble_sort_graph(8)
-    bub_reqs, bub_lens = serving_workload("bubble_sort", bub, 512, seed=1)
+    bub_reqs, bub_lens = serving_workload("bubble_sort", bub, 256, seed=1)
 
-    log("== phase 3: kernel vs plain on the card")
+    log("== phase 3: kernels vs plain on the card")
     errs = phase_kernel(dev)
-    for name, bench, slots, reqs in (("dot_prod", dot, 1024, dot_reqs),
-                                     ("bubble_sort", bub, 256, bub_reqs)):
-        st = captured_state(dev, bench.graph, reqs, slots)
-        for k, e in kernel_vs_plain(st).items():
-            errs[k] = max(errs[k], e)
-        log(f"  {name:12s} kernel == plain on the serving state "
-            f"(B={slots}, L={st['fv'].shape[2]}, K=64, "
-            f"{int(st['active'].sum())} active; B=1 slot {st['one']})")
-        if name == "dot_prod":
-            times = time_kernels(st)
-        del st
-    torch.cuda.empty_cache()
+    times, by_variant = phase_serving_states(dev, dot, dot_reqs, bub,
+                                             bub_reqs, errs)
+    log(f"  phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 4: engine (main path: counts from here on)")
-    df.fire_block_cuda.launches = 0
-    df.fire_block_batched_cuda.launches = 0
+    reset_counts()
     phase_engine(dev)
+    phase_passes(dev)
+    table1 = phase_run_fabric(dev)
+    log(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 5: serving")
+    deployments = (
+        ("dot_prod", "dot_prod", dot, 1024, dot_reqs, dot_lens, False, False),
+        ("dot_prod_opt_prof", "dot_prod", dot, 1024, dot_reqs, dot_lens,
+         True, True),
+        ("bubble_sort", "bubble_sort", bub, 256, bub_reqs, bub_lens, False,
+         False))
     serve, served = {}, {}
-    for name, bench, slots, reqs, lens in (
-            ("dot_prod", dot, 1024, dot_reqs, dot_lens),
-            ("bubble_sort", bub, 256, bub_reqs, bub_lens)):
-        serve[name], *served[name] = phase_serving(dev, name, bench, slots,
-                                                   reqs, lens)
-    launches = {"fire_block": df.fire_block_cuda.launches,
-                "fire_block_batched": df.fire_block_batched_cuda.launches}
+    for key, name, bench, slots, reqs, lens, opt, prof in deployments:
+        serve[key], *served[key] = phase_serving(dev, name, bench, slots,
+                                                 reqs, lens, opt, prof)
+    launches = launch_counts()
     log(f"  main-path launches (phases 4-5): {json.dumps(launches)}")
     for k, n in launches.items():
         check(n > 0, f"{k} was never launched on the main path")
-    for name, bench, reqs in (("dot_prod", dot, dot_reqs),
-                              ("bubble_sort", bub, bub_reqs)):
-        check_sampled(dev, bench, reqs, *served[name])
+    for key, name, bench, slots, reqs, lens, opt, prof in deployments:
+        check_sampled(dev, bench, reqs, *served[key], optimize=opt,
+                      profile=prof)
     del served, bub_reqs
+    log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    log("== phase 6: trace of the dot_prod serving run")
-    serve["dot_prod"]["trace"] = trace_serving(
-        dev, dot, 1024, dot_reqs, serve["dot_prod"]["wall_s"])
+    log("== phase 6: trace of the optimized, profiled dot_prod serving run")
+    serve["dot_prod_opt_prof"]["trace"] = trace_serving(
+        dev, dot, 1024, dot_reqs, serve["dot_prod_opt_prof"]["wall_s"],
+        optimize=True, profile=True)
     del dot_reqs
 
     log("== phase 7: summary")
-    replaces = {
-        "fire_block": "src/repro/kernels/dataflow_fire.py:477",
-        "fire_block_batched": "src/repro/kernels/dataflow_fire.py:519"}
-    pallas = {"fire_block": "fire_block_pallas -> _block_kernel (:390)",
-              "fire_block_batched": "fire_block_batched_pallas -> "
-                                    "_batched_block_kernel (:405)"}
     kernels = [dict(name=k, route="cuda", source=SOURCE,
-                    replaces=replaces[k], pallas=pallas[k],
+                    replaces=ROWS[k][0], pallas=ROWS[k][1],
                     launches=launches[k], max_abs_err=errs[k],
                     library_ms=None, matches_plain=errs[k] == 0,
                     **{f: times[k][f] for f in (
                         "ms", "ms_from", "call_ms", "plain_ms",
                         "plain_device_ms", "bound_ms", "bound_by",
                         "shape")})
-               for k in ("fire_block", "fire_block_batched")]
+               for k in ROWS]
+    for k in kernels:
+        check(k["max_abs_err"] == 0, f"{k['name']} disagrees with plain")
     log(json.dumps({"serving": serve}))
+    log(json.dumps({"table1_us_per_cycle": table1}))
+    log(json.dumps({"block_by_instantiation": {
+        v: {f: t[f] for f in ("ms", "call_ms", "bound_ms", "shape")}
+        for v, t in by_variant.items()}}))
     log(f"  total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

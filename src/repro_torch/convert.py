@@ -30,7 +30,9 @@ def slot_state_from_numpy(arrays, device="cuda") -> SlotState:
     given as numpy arrays (``arrays[name]`` for every name in
     :data:`DEVICE_FIELDS` and :data:`HOST_FIELDS`).  Device fields
     become int32 tensors on ``device``; host fields stay numpy with the
-    JAX package's dtypes."""
+    JAX package's dtypes.  A profiled engine's state also carries
+    ``arrays["prof"]`` (the five counter arrays) and
+    ``arrays["prof_cycles"]``; both cross when present."""
     missing = [k for k in (*DEVICE_FIELDS, *HOST_FIELDS) if k not in arrays]
     if missing:
         raise ValueError(f"slot state lacks fields {missing}")
@@ -39,5 +41,12 @@ def slot_state_from_numpy(arrays, device="cuda") -> SlotState:
     host = {k: np.array(arrays[k], dtype=np.int64) for k in HOST_FIELDS}
     host["active"] = host["active"].astype(np.int32)
     host["quiesced"] = host["quiesced"].astype(bool)
+    prof = arrays.get("prof")
+    if prof is not None:
+        prof = tuple(torch.tensor(np.asarray(x, np.int32), device=device)
+                     for x in prof)
+    prof_cycles = arrays.get("prof_cycles")
+    if prof_cycles is not None:
+        prof_cycles = np.array(prof_cycles, dtype=np.int64)
     return SlotState(**dev, **host, active_dev=torch.tensor(
-        host["active"], device=device))
+        host["active"], device=device), prof=prof, prof_cycles=prof_cycles)

@@ -40,24 +40,26 @@ _MAX_IN = 3
 _MAX_OUT = 2
 
 # -- _plan memoization ------------------------------------------------------
-# The plan depends only on the graph's asm signature, so one process-wide
-# LRU serves every engine and reference run of the same fabric.  The
-# cached arrays are frozen read-only: sharing is safe because no
-# consumer mutates a plan.
+# The plan depends only on the graph's asm signature and the optimize
+# flag, so one process-wide LRU serves every engine and reference run of
+# the same fabric.  The cached arrays are frozen read-only: sharing is
+# safe because no consumer mutates a plan.
 _PLAN_CACHE: collections.OrderedDict = collections.OrderedDict()
 _PLAN_CACHE_MAX = 256
 
 
-def _plan(graph: Graph):
-    """Memoized :func:`_plan_build` keyed on the asm signature (nodes,
-    consts, inits), so a mutated Graph re-keys automatically."""
+def _plan(graph: Graph, optimize: bool = False):
+    """Memoized :func:`_plan_build` keyed on (asm signature, optimize):
+    the signature is the full text (nodes, consts, inits), so a mutated
+    Graph re-keys automatically."""
     from repro_torch.core import asm
-    key = hashlib.sha256(asm.emit(graph).encode()).hexdigest()
+    sig = hashlib.sha256(asm.emit(graph).encode()).hexdigest()
+    key = (sig, bool(optimize))
     hit = _PLAN_CACHE.get(key)
     if hit is not None:
         _PLAN_CACHE.move_to_end(key)
         return hit
-    p = _plan_build(graph)
+    p = _plan_build(graph, optimize)
     for v in p.values():
         if isinstance(v, np.ndarray):
             v.flags.writeable = False
@@ -67,15 +69,42 @@ def _plan(graph: Graph):
     return p
 
 
-def _plan_build(graph: Graph):
-    """Static (numpy) arrays describing the fabric, in graph order:
-    arc slots A (+ an always-full FULL_PAD and an always-empty
-    EMPTY_PAD slot padding missing inputs and outputs) and the node
-    table opcode[N], in_idx[N,3], out_idx[N,2]."""
+def _plan_build(graph: Graph, optimize: bool = False):
+    """Static (numpy) arrays describing the fabric: arc slots A (+ an
+    always-full FULL_PAD and an always-empty EMPTY_PAD slot padding
+    missing inputs and outputs) and the node table opcode[N],
+    in_idx[N,3], out_idx[N,2].
+
+    With ``optimize=True`` the plan is *opcode-class specialized*: arcs
+    are permuted into role order (inputs, outputs, internal, consts)
+    and nodes are stable-sorted by opcode, with each class's row range
+    recorded in ``class_slices`` — the fire rule can then evaluate one
+    opcode per bucket instead of the whole ALU for every node.  The
+    permutation is pure layout, so results are bit-identical to the
+    unoptimized plan.  ``node_perm``/``arc_perm`` map plan row ->
+    original index and ``node_inv``/``arc_inv`` are the inverses."""
     graph.validate()
     arcs = graph.arcs
     input_arcs = graph.input_arcs()
     output_arcs = graph.output_arcs()
+    if optimize:
+        # environment buses first (inputs, then outputs), then internal
+        # arcs, then consts
+        ordered: dict[str, None] = {}
+        for a in (*input_arcs, *output_arcs):
+            ordered.setdefault(a, None)
+        for a in arcs:
+            if a not in graph.consts:
+                ordered.setdefault(a, None)
+        for a in arcs:
+            ordered.setdefault(a, None)
+        old_pos = {a: i for i, a in enumerate(arcs)}
+        arcs = list(ordered)
+        arc_perm = np.asarray([old_pos[a] for a in arcs], np.int32)
+    else:
+        arc_perm = np.arange(len(arcs), dtype=np.int32)
+    arc_inv = np.empty_like(arc_perm)
+    arc_inv[arc_perm] = np.arange(len(arcs), dtype=np.int32)
     aidx = {a: i for i, a in enumerate(arcs)}
     A = len(arcs)
     FULL_PAD = A        # dummy slot, always full (pads missing inputs)
@@ -92,6 +121,26 @@ def _plan_build(graph: Graph):
         for k, a in enumerate(n.outputs):
             out_idx[i, k] = aidx[a]
 
+    if optimize:
+        node_perm = np.argsort(opcode, kind="stable").astype(np.int32)
+        opcode = opcode[node_perm]
+        in_idx = in_idx[node_perm]
+        out_idx = out_idx[node_perm]
+        class_slices = []
+        s = 0
+        while s < N:
+            e = s
+            while e < N and opcode[e] == opcode[s]:
+                e += 1
+            class_slices.append((int(opcode[s]), s, e))
+            s = e
+        class_slices = tuple(class_slices) or None
+    else:
+        node_perm = np.arange(N, dtype=np.int32)
+        class_slices = None
+    node_inv = np.empty_like(node_perm)
+    node_inv[node_perm] = np.arange(N, dtype=np.int32)
+
     const_mask = np.zeros((A + 2,), bool)
     for a in graph.consts:
         const_mask[aidx[a]] = True
@@ -100,8 +149,36 @@ def _plan_build(graph: Graph):
         arcs=arcs, aidx=aidx, A=A, FULL_PAD=FULL_PAD, EMPTY_PAD=EMPTY_PAD,
         opcode=opcode, in_idx=in_idx, out_idx=out_idx,
         const_mask=const_mask, input_arcs=input_arcs,
-        output_arcs=output_arcs,
+        output_arcs=output_arcs, class_slices=class_slices,
+        node_perm=node_perm, node_inv=node_inv,
+        arc_perm=arc_perm, arc_inv=arc_inv,
     )
+
+
+def _node_inputs_ready(opcode, in_idx, full, val):
+    """Per-node "all (selected) inputs present" on registers
+    ``full``/``val`` [..., A2] — the stall-attribution predicate of the
+    profile counters.  The fire rule implies it, so every profiled cycle
+    puts each node in exactly one of fired / stalled on input
+    (``~inputs_ready``) / stalled on output (``inputs_ready & ~ready``).
+    BRANCH takes the generic all-inputs reduction (its third input is
+    the always-full pad)."""
+    inf = full[..., in_idx] > 0                  # [..., N, 3]
+    in0, in1, in2 = inf.unbind(-1)
+    ctrl3 = val[..., in_idx[:, 2]] != 0
+    ir = inf.all(-1)
+    ir = torch.where(opcode == int(Op.NDMERGE), in0 | in1, ir)
+    return torch.where(opcode == int(Op.DMERGE),
+                       in2 & torch.where(ctrl3, in0, in1), ir)
+
+
+def _prof_zeros(n_nodes: int, n_arcs: int, batch: int | None = None,
+                device="cpu"):
+    """Fresh profile counters (nf, si, so, ab, ahw): int32 tensors over
+    the kernel tables' node rows (dummy row included) and arc slots."""
+    shp = () if batch is None else (batch,)
+    z = lambda n: torch.zeros((*shp, n), dtype=torch.int32, device=device)
+    return (z(n_nodes), z(n_nodes), z(n_nodes), z(n_arcs), z(n_arcs))
 
 
 @dataclasses.dataclass
@@ -111,6 +188,10 @@ class EngineResult:
     cycles: int
     fired: int          # total node firings
     dispatches: int | None = None   # kernel launches (blocks) ridden
+    node_fires: np.ndarray | None = None  # int64[N] per-node firings in
+                                          # graph order (profile=True;
+                                          # sums exactly to `fired`)
+    profile: object | None = None   # FabricProfile (profile=True)
 
 
 @dataclasses.dataclass
@@ -147,6 +228,14 @@ class SlotState:
                     admission overrode it via ``reset_slots(caps=)``)
       stalled[B]    consecutive blocks with zero progress while the
                     slot stayed active — the stall watchdog's counter
+
+    Profiling (engine profile=True only; None otherwise):
+      prof          tuple of the 5 counter tensors (node_fires,
+                    stall_in, stall_out [B, N2]; arc_busy, arc_hw
+                    [B, A2]; plan order) accumulated inside the kernel
+                    alongside the block step — no extra launches
+      prof_cycles[B] host tally of the cycles the resident request's
+                    slot was simulated for (its profiled-cycle count)
     """
     fv: torch.Tensor
     fl: torch.Tensor
@@ -164,6 +253,8 @@ class SlotState:
     cap: np.ndarray
     stalled: np.ndarray
     active_dev: torch.Tensor
+    prof: tuple | None = None
+    prof_cycles: np.ndarray | None = None
 
     @property
     def slots(self) -> int:
@@ -233,15 +324,20 @@ class DataflowEngine:
         version instead.
       * ``"reference"`` — the pure-numpy oracle (:func:`run_reference`).
 
-    Both backends share one :func:`_plan` layout and report
-    bit-identical outputs/counts/fired/cycles; ``cycles`` is
+    ``optimize=True`` builds the opcode-class-specialized plan (permuted
+    node and arc tables, the spec fire rule); ``profile=True`` carries
+    the five fabric counters through every block, inside the same
+    launch, and attaches a :class:`~repro_torch.obs.FabricProfile` to
+    each result.  Neither changes a result: every backend and flag
+    reports bit-identical outputs/counts/fired/cycles; ``cycles`` is
     reconstructed from the last progress cycle, so block-granular
     quiescence detection does not change the reported cycle count.
     """
 
     def __init__(self, graph: Graph, max_cycles: int = 100_000,
                  backend: str = "cuda", block_cycles: int = 1,
-                 device="cuda"):
+                 device="cuda", optimize: bool = False,
+                 profile: bool = False):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if block_cycles < 1:
@@ -251,14 +347,19 @@ class DataflowEngine:
         self.backend = backend
         self.block_cycles = int(block_cycles)
         self.device = resolve_device(device)
-        self.p = _plan(graph)
+        # the reference backend is the oracle: it always runs the graph
+        # as authored, whatever optimize says
+        self.optimize = bool(optimize)
+        self.profile = bool(profile)
+        self.p = _plan(graph, optimize=self.optimize)
         self._steps: dict[tuple[int, bool], object] = {}
         self._tables = None
         if backend == "cuda":
             from repro_torch.kernels.dataflow_fire import (block_plan_arrays,
                                                            device_tables)
-            self._tables = device_tables(block_plan_arrays(graph),
-                                         self.device)
+            self._tables = device_tables(
+                block_plan_arrays(graph, optimize=self.optimize),
+                self.device)
 
     # -- public ---------------------------------------------------------
     def run(self, feeds: Mapping[str, object] | None = None,
@@ -266,7 +367,8 @@ class DataflowEngine:
         """feeds: arc -> [k] stream of tokens (k may vary per arc)."""
         max_cycles = max_cycles or self.max_cycles
         if self.backend == "reference":
-            return run_reference(self.graph, feeds, max_cycles=max_cycles)
+            return run_reference(self.graph, feeds, max_cycles=max_cycles,
+                                 profile=self.profile)
         return self._run_cuda(feeds, max_cycles)
 
     def run_batch(self, feeds_batch, max_cycles: int | None = None
@@ -276,7 +378,8 @@ class DataflowEngine:
         feeds_batch: sequence of B feed dicts (streams may have unequal
         lengths — shorter streams quiesce early and idle harmlessly).
         Returns one EngineResult per stream, bit-identical to running
-        each stream alone."""
+        each stream alone (a profile counts the cycles the whole batch
+        was simulated for)."""
         max_cycles = max_cycles or self.max_cycles
         feeds_batch = list(feeds_batch)
         if not feeds_batch:
@@ -284,7 +387,8 @@ class DataflowEngine:
                 "run_batch: feeds_batch is empty — pass at least one "
                 "feed dict (use run() for a single stream)")
         if self.backend == "reference":
-            return [run_reference(self.graph, f, max_cycles=max_cycles)
+            return [run_reference(self.graph, f, max_cycles=max_cycles,
+                                  profile=self.profile)
                     for f in feeds_batch]
         L = max((max((np.shape(v)[0] for v in (f or {}).values()),
                      default=0) for f in feeds_batch), default=0)
@@ -295,13 +399,25 @@ class DataflowEngine:
         return self._run_cuda_batch(feed_vals, feed_len, max_cycles)
 
     def _result_from_state(self, out_last, out_count, cycles, fired,
-                           dispatches):
-        """Per-arc result dicts from flat (host) accumulators."""
+                           dispatches, prof=None):
+        """Per-arc result dicts from flat (host) accumulators.
+
+        prof: optional (nf, si, so, ab, ahw, profiled_cycles,
+        dispatches) plan-order counters, turned into a graph-order
+        :class:`~repro_torch.obs.FabricProfile`."""
         out_arcs = self.p["output_arcs"]
+        profile = node_fires = None
+        if prof is not None:
+            from repro_torch.obs.profile import FabricProfile
+            profile = FabricProfile.from_plan(self.graph, self.p, *prof[:5],
+                                              cycles=prof[5],
+                                              dispatches=prof[6])
+            node_fires = profile.node_fires
         return EngineResult(
             outputs={a: out_last[i] for i, a in enumerate(out_arcs)},
             counts={a: int(out_count[i]) for i, a in enumerate(out_arcs)},
-            cycles=cycles, fired=fired, dispatches=dispatches)
+            cycles=cycles, fired=fired, dispatches=dispatches,
+            node_fires=node_fires, profile=profile)
 
     # -- resumable slot API (continuous batching) ------------------------
     #
@@ -338,6 +454,14 @@ class DataflowEngine:
     def _zeros(self, *shape):
         return torch.zeros(shape, dtype=torch.int32, device=self.device)
 
+    def _prof0(self, batch: int | None = None):
+        """Fresh counters over the kernel tables (N+1 node rows), or
+        None on an unprofiled engine."""
+        if not self.profile:
+            return None
+        return _prof_zeros(len(self.graph.nodes) + 1, self.p["A"] + 2,
+                           batch=batch, device=self.device)
+
     def init_state(self, slots: int) -> SlotState:
         """Fresh B-slot state, every slot free (active == 0)."""
         self._check_slot_api()
@@ -358,13 +482,15 @@ class DataflowEngine:
             active=np.zeros((B,), np.int32), base=z64(), last=z64(),
             fired=z64(), quiesced=np.zeros((B,), bool), dispatches=z64(),
             cap=np.full((B,), self.max_cycles, np.int64), stalled=z64(),
-            active_dev=self._zeros(B))
+            active_dev=self._zeros(B), prof=self._prof0(B),
+            prof_cycles=z64() if self.profile else None)
 
     def reset_slots(self, state: SlotState, slot_ids,
                     new_feeds, caps=None) -> SlotState:
         """Admit one request per slot id: fresh arc registers + the new
-        feed stream.  Slots must be free (never-used or harvested);
-        everything else keeps its state untouched.
+        feed stream (and zeroed counters on a profiled engine).  Slots
+        must be free (never-used or harvested); everything else keeps
+        its state untouched.
 
         Only the admitted slots' rows travel to the device, and they are
         written into the state's buffers in place (a few indexed
@@ -417,7 +543,8 @@ class DataflowEngine:
         full0, val0 = self._state0_rows()
         state.full[ids] = self._dev(full0)
         state.val[ids] = self._dev(val0)
-        for x in (state.ptr, state.out_last, state.out_count):
+        for x in (state.ptr, state.out_last, state.out_count,
+                  *(state.prof or ())):
             x.index_fill_(0, ids, 0)
         active = state.active.copy()
         for host in (base := state.base.copy(), last := state.last.copy(),
@@ -425,6 +552,10 @@ class DataflowEngine:
                      disp := state.dispatches.copy(),
                      stalled := state.stalled.copy()):
             host[slot_ids] = 0
+        prof_cycles = state.prof_cycles
+        if prof_cycles is not None:
+            prof_cycles = prof_cycles.copy()
+            prof_cycles[slot_ids] = 0
         cap = state.cap.copy()
         for b, c in zip(slot_ids, caps):
             cap[b] = self.max_cycles if c is None else int(c)
@@ -434,7 +565,8 @@ class DataflowEngine:
         return SlotState(fv, state.fl, state.full, state.val, state.ptr,
                          state.out_last, state.out_count, active, base,
                          last, fired, quiesced, disp, cap=cap,
-                         stalled=stalled, active_dev=self._dev(active))
+                         stalled=stalled, active_dev=self._dev(active),
+                         prof=state.prof, prof_cycles=prof_cycles)
 
     def step_block(self, state: SlotState,
                    n_cycles: int | None = None) -> SlotState:
@@ -450,13 +582,17 @@ class DataflowEngine:
             raise ValueError("n_cycles must be >= 1")
         if not state.active.any():
             return state
-        *dev, f, lp = self._step(nb, True)(
+        res = self._step(nb, True)(
             state.fv, state.fl, state.full, state.val, state.ptr,
-            state.out_last, state.out_count, state.active_dev)
+            state.out_last, state.out_count, state.active_dev,
+            *(state.prof or ()))
+        dev, f, lp = res[:5], res[5], res[6]
+        prof = tuple(res[7:]) or None
         f, lp = torch.cat([f, lp], 1).cpu().numpy().T  # one sync per block
         fired = state.fired + f
         last = np.where(lp > 0, state.base + lp, state.last)
-        base = state.base + np.where(state.active > 0, nb, 0)
+        ran = np.where(state.active > 0, nb, 0)
+        base = state.base + ran
         quiesced = np.where(state.active > 0, lp < nb, state.quiesced)
         disp = state.dispatches + (state.active > 0)
         # progress counter: an active slot whose whole block was idle
@@ -467,10 +603,14 @@ class DataflowEngine:
         stalled = np.where(state.active > 0,
                            np.where(lp > 0, 0, state.stalled + 1),
                            state.stalled)
+        prof_cycles = state.prof_cycles
+        if prof_cycles is not None:
+            prof_cycles = prof_cycles + ran
         return SlotState(state.fv, state.fl, *dev, state.active.copy(),
                          base, last, fired, quiesced, disp,
                          cap=state.cap, stalled=stalled,
-                         active_dev=state.active_dev)
+                         active_dev=state.active_dev, prof=prof,
+                         prof_cycles=prof_cycles)
 
     def harvest(self, state: SlotState, slot_ids
                 ) -> tuple[SlotState, list[EngineResult]]:
@@ -478,20 +618,29 @@ class DataflowEngine:
         (active) slots and free them.  Results follow the same
         accounting as run(): cycles = last progress cycle + 1 trailing
         idle cycle, capped at the slot's cycle cap (per-request if the
-        admission set one); dispatches = blocks the request rode."""
+        admission set one); dispatches = blocks the request rode.  Only
+        the harvested rows leave the device, in one transfer."""
         self._check_slot_api()
         slot_ids = list(slot_ids)
         idle = [b for b in slot_ids if not state.active[b]]
         if idle:
             raise ValueError(f"slots {idle} are free — nothing to harvest")
         ids = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
-        acc = torch.cat([state.out_last[ids], state.out_count[ids]], 1)
-        acc = acc.cpu().numpy()
-        n_out = state.out_last.shape[1]
+        cols = (state.out_last, state.out_count, *(state.prof or ()))
+        acc = torch.cat([x[ids] for x in cols], 1).cpu().numpy()
+        bounds = np.cumsum([0] + [x.shape[1] for x in cols])
+        parts = [acc[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+        def prof_row(k, b):
+            if state.prof is None:
+                return None
+            return (*(x[k] for x in parts[2:]), int(state.prof_cycles[b]),
+                    int(state.dispatches[b]))
         results = [self._result_from_state(
-            acc[k, :n_out], acc[k, n_out:],
+            parts[0][k], parts[1][k],
             int(min(state.last[b] + 1, state.cap[b])),
-            int(state.fired[b]), int(state.dispatches[b]))
+            int(state.fired[b]), int(state.dispatches[b]),
+            prof=prof_row(k, b))
             for k, b in enumerate(slot_ids)]
         active = state.active.copy()
         quiesced = state.quiesced.copy()
@@ -510,7 +659,7 @@ class DataflowEngine:
             from repro_torch.kernels import ops as _kops
             _, step = _kops.make_block_step(
                 self.graph, n_cycles, batched=batched, tables=self._tables,
-                device=self.device)
+                device=self.device, profile=self.profile)
             self._steps[key] = step
         return step
 
@@ -530,10 +679,12 @@ class DataflowEngine:
         fv, fl = pack_feeds(self.p["input_arcs"], feeds, pad_rows=1)
         fv, fl = self._dev(fv), self._dev(fl)
         state = self._state0()
+        prof = self._prof0() or ()
         base = last = fired = dispatches = 0
         while True:
             nb = min(K, max_cycles - base)  # never simulate past the cap
-            *state, f, lp = self._step(nb, False)(fv, fl, *state)
+            res = self._step(nb, False)(fv, fl, *state, *prof)
+            state, f, lp, prof = res[:5], res[5], res[6], res[7:]
             f, lp = torch.cat([f, lp]).tolist()   # one sync per block
             dispatches += 1
             fired += f
@@ -543,9 +694,12 @@ class DataflowEngine:
             if lp < nb or base >= max_cycles:
                 break   # idle block tail => quiescent (idle is absorbing)
         cycles = min(last + 1, max_cycles)
+        host = torch.cat([state[3], state[4], *prof]).cpu().numpy()
+        n_out = state[3].shape[0]
         return self._result_from_state(
-            state[3].cpu().numpy(), state[4].cpu().numpy(), cycles, fired,
-            dispatches)
+            host[:n_out], host[n_out:2 * n_out], cycles, fired, dispatches,
+            prof=(*_split(host[2 * n_out:], prof), base, dispatches)
+            if prof else None)
 
     def _run_cuda_batch(self, feed_vals, feed_len,
                         max_cycles: int) -> list[EngineResult]:
@@ -553,13 +707,15 @@ class DataflowEngine:
         B = feed_vals.shape[0]
         fv, fl = self._dev(feed_vals), self._dev(feed_len)
         state = self._state0(batch=B)
+        prof = self._prof0(B) or ()
         base = dispatches = 0
         last = np.zeros((B,), np.int64)
         fired = np.zeros((B,), np.int64)
         ones = torch.ones((B,), dtype=torch.int32, device=self.device)
         while True:
             nb = min(K, max_cycles - base)  # never simulate past the cap
-            *state, f, lp = self._step(nb, True)(fv, fl, *state, ones)
+            res = self._step(nb, True)(fv, fl, *state, ones, *prof)
+            state, f, lp, prof = res[:5], res[5], res[6], res[7:]
             f, lp = torch.cat([f, lp], 1).cpu().numpy().T
             dispatches += 1
             fired += f
@@ -567,11 +723,21 @@ class DataflowEngine:
             base += nb
             if (lp < nb).all() or base >= max_cycles:
                 break
-        out_last, out_count = state[3].cpu().numpy(), state[4].cpu().numpy()
+        host = torch.cat([state[3], state[4], *prof], 1).cpu().numpy()
+        n_out = state[3].shape[1]
         return [self._result_from_state(
-            out_last[b], out_count[b],
-            int(min(last[b] + 1, max_cycles)), int(fired[b]), dispatches)
+            host[b, :n_out], host[b, n_out:2 * n_out],
+            int(min(last[b] + 1, max_cycles)), int(fired[b]), dispatches,
+            prof=(*_split(host[b, 2 * n_out:], prof), base, dispatches)
+            if prof else None)
             for b in range(B)]
+
+
+def _split(row, like):
+    """Cut a concatenated host row back into arrays as wide as the last
+    axes of the tensors ``like``."""
+    bounds = np.cumsum([0] + [x.shape[-1] for x in like])
+    return [row[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
 
 
 # ---------------------------------------------------------------------------
@@ -633,16 +799,21 @@ def _alu_numpy(op, a, b, dtype):
 
 
 def run_reference(graph: Graph, feeds=None, token_shape=(), dtype=np.int32,
-                  max_cycles: int = 100_000) -> EngineResult:
-    """Slow, obviously-correct mirror of :class:`DataflowEngine`.  One
-    errstate for the whole run: integer wraparound / float specials are
-    the ALU contract (see :func:`alu_numpy`)."""
+                  max_cycles: int = 100_000,
+                  profile: bool = False) -> EngineResult:
+    """Slow, obviously-correct mirror of :class:`DataflowEngine`, on the
+    graph as authored (the unoptimized plan).  ``profile=True`` also
+    counts the five fabric counters (the oracle for the engine's
+    profiled runs).  One errstate for the whole run: integer
+    wraparound / float specials are the ALU contract (see
+    :func:`alu_numpy`)."""
     with np.errstate(all="ignore"):
-        return _run_reference(graph, feeds, token_shape, dtype, max_cycles)
+        return _run_reference(graph, feeds, token_shape, dtype, max_cycles,
+                              profile)
 
 
-def _run_reference(graph, feeds, token_shape, dtype,
-                   max_cycles) -> EngineResult:
+def _run_reference(graph, feeds, token_shape, dtype, max_cycles,
+                   profile=False) -> EngineResult:
     p = _plan(graph)
     feeds = {a: np.asarray(v, dtype).reshape(-1, *token_shape)
              if np.asarray(v).ndim == 1 and token_shape == ()
@@ -670,6 +841,25 @@ def _run_reference(graph, feeds, token_shape, dtype,
 
     def truthy(v):
         return np.asarray(v).ravel()[0] != 0
+
+    N = len(graph.nodes)
+    if profile:
+        nf = np.zeros((N,), np.int64)
+        si = np.zeros((N,), np.int64)
+        so = np.zeros((N,), np.int64)
+        ab = np.zeros((len(p["arcs"]),), np.int64)
+        ahw = np.zeros((len(p["arcs"]),), np.int64)
+
+    def inputs_ready(n, sfull, sval):
+        """Mirror of :func:`_node_inputs_ready` on the dict registers."""
+        i = n.inputs
+        if n.op == Op.NDMERGE:
+            return sfull[i[0]] or sfull[i[1]]
+        if n.op == Op.DMERGE:
+            if not sfull[i[2]]:
+                return False
+            return sfull[i[0]] if truthy(sval[i[2]]) else sfull[i[1]]
+        return all(sfull[x] for x in i)
 
     cycles = fired = 0
     progress = True
@@ -721,6 +911,20 @@ def _run_reference(graph, feeds, token_shape, dtype,
             progress = True
         for a in graph.consts:
             full[a] = True
+        if profile:
+            fired_set = {n_idx for n_idx, _, _ in plans}
+            for n_idx, n in enumerate(graph.nodes):
+                if n_idx in fired_set:
+                    nf[n_idx] += 1
+                elif inputs_ready(n, sfull, sval):
+                    so[n_idx] += 1
+                else:
+                    si[n_idx] += 1
+            # occupancy sample point: post-fire, pre-drain
+            for k, a in enumerate(p["arcs"]):
+                if full[a]:
+                    ab[k] += 1
+                    ahw[k] = 1
         # 3. drain
         for a in p["output_arcs"]:
             if full[a]:
@@ -729,5 +933,15 @@ def _run_reference(graph, feeds, token_shape, dtype,
                 full[a] = False
                 progress = True
         cycles += 1
+    prof_obj = node_fires = None
+    if profile:
+        from repro_torch.obs.profile import FabricProfile
+        node_names, arc_names = FabricProfile.names_for(graph)
+        prof_obj = FabricProfile(
+            node_names=node_names, arc_names=arc_names,
+            node_fires=nf, stall_in=si, stall_out=so,
+            arc_busy=ab, arc_hw=ahw, cycles=cycles, dispatches=0)
+        node_fires = nf
     return EngineResult(outputs=out_last, counts=out_count, cycles=cycles,
-                        fired=fired)
+                        fired=fired, node_fires=node_fires,
+                        profile=prof_obj)

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernel library at first use.
 
-``nvcc`` compiles ``csrc/dataflow_fire.cu`` for Hopper (``sm_90a``) into
+``nvcc`` compiles ``csrc/dataflow_fire.cu`` (the fire-block and
+fire-step kernels) for Hopper (``sm_90a``) into
 a shared library with a plain C interface, written under ``build/`` at
 the repository root (named by the source's hash) and loaded with
 :mod:`ctypes`.  The build happens once per process, at the first launch;
@@ -55,8 +56,14 @@ def load() -> ctypes.CDLL:
     lib.build_seconds = time.perf_counter() - t0
     lib.build_log = proc.stdout + proc.stderr
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.fire_block_launch.argtypes = [vp] * 27 + [ci] * 7 + [vp]
+    # every pointer and the stream as c_void_p: without argtypes ctypes
+    # would pass 32-bit ints and cut them
+    lib.fire_block_launch.argtypes = [vp] * 38 + [ci] * 9 + [vp]
     lib.fire_block_launch.restype = ci
+    lib.fire_step_launch.argtypes = [vp] * 13 + [ci] * 2 + [vp]
+    lib.fire_step_launch.restype = ci
+    lib.fire_block_smem_bytes.argtypes = [ci] * 5
+    lib.fire_block_smem_bytes.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci
     lib.fire_block_error_string.argtypes = [ci]

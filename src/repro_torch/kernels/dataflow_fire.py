@@ -1,4 +1,5 @@
-"""The fire-block kernel: K fused feed -> fire -> drain engine cycles.
+"""The fire-block kernel: K fused feed -> fire -> drain engine cycles,
+and the one-cycle fire step.
 
 One engine cycle of the paper's fabric, as the JAX package's Pallas
 kernels compute it (``fire_block_pallas`` / ``fire_block_batched_pallas``
@@ -7,7 +8,9 @@ in ``repro/kernels/dataflow_fire.py``):
 1. **feed** — every empty input arc is strobed with the next token of
    its stream (``feed_vals``/``feed_len`` with a per-arc pointer);
 2. **fire** — every node whose rule holds on the post-feed registers
-   fires at once (the dense rule of :func:`_ready_and_z`);
+   fires at once: the dense rule of :func:`_ready_and_z`, or, over an
+   opcode-bucketed plan (``class_slices``), the specialized rule of
+   :func:`_ready_and_z_spec` — bit-identical;
 3. **drain** — output arcs are emptied into last-value and token-count
    accumulators.
 
@@ -16,17 +19,23 @@ unique producer and consumer (the paper's one-sender/one-receiver
 channel rule).  ``last_prog`` is the 1-based index of the last cycle of
 the block that made progress, 0 for a block idle throughout; a block
 whose tail is idle means the fabric is quiescent (idle is absorbing).
+A profiled block also carries five counters (``prof``: node fires,
+stalls on input and on output per node row, busy cycles and high water
+per arc slot) sampled after the fire and before the drain.
+``fire_step`` is one fire alone, with no environment (the per-cycle
+baseline ``fire_step_pallas``).
 
 This module holds, side by side:
 
 * the table builders :func:`plan_arrays` / :func:`block_plan_arrays`
   (numpy, identical to the JAX package's);
-* the **plain PyTorch versions** :func:`fire_block` and
+* the **plain PyTorch versions** :func:`fire_block`,
   :func:`fire_block_batched` (B streams as an explicit leading
-  dimension, with the per-stream ``active`` gate);
-* the **kernel wrappers** :func:`fire_block_cuda` and
-  :func:`fire_block_batched_cuda`.  On CUDA tensors they launch the
-  hand-written kernel ``csrc/dataflow_fire.cu`` (built at first use, see
+  dimension, with the per-stream ``active`` gate) and :func:`fire_step`;
+* the **kernel wrappers** :func:`fire_block_cuda`,
+  :func:`fire_block_batched_cuda` and :func:`fire_step_cuda`.  On CUDA
+  tensors they launch the hand-written kernels of
+  ``csrc/dataflow_fire.cu`` (built at first use, see
   :mod:`repro_torch.kernels._build`) and count the launch; on CPU
   tensors they compute the plain version and build nothing.
 
@@ -35,6 +44,8 @@ Tables (int32; A2 = arcs + 2 pad slots, N2 = nodes + 1 dummy SINK row):
   prod_node/prod_slot[A2], cons_node/cons_slot[A2]   arc adjacency
   const_mask[A2], env_row[A2], out_mask[A2]          environment maps
   in_arc_idx[n_in], out_arc_idx[n_out]               feed / drain rows
+  class_slices ((op, lo, hi), ...)                   opcode buckets
+                                                     (optimized plans)
 """
 from __future__ import annotations
 
@@ -44,23 +55,30 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.core.engine import _node_inputs_ready, _plan
 from repro_torch.core.graph import Op
 
 TABLE_KEYS = ("opcode", "in_idx", "out_idx", "prod_node", "prod_slot",
               "cons_node", "cons_slot", "const_mask", "env_row",
               "in_arc_idx", "out_arc_idx", "out_mask")
+STEP_KEYS = TABLE_KEYS[:8]      # what one fire step reads
 
 _INT_MIN = -(2 ** 31)
+_CTRL_OPS = (int(Op.NDMERGE), int(Op.DMERGE), int(Op.BRANCH))
+# a plan has at most one bucket per opcode plus the trailing dummy row's
+MAX_CLASSES = len(Op) + 1
 
 
 # ---------------------------------------------------------------------------
 # Tables (numpy)
 # ---------------------------------------------------------------------------
-def plan_arrays(graph):
+def plan_arrays(graph, optimize: bool = False):
     """Static numpy tables incl. arc adjacency (dummy node N = never
-    ready; dummy slots pad)."""
-    from repro_torch.core.engine import _plan
-    p = _plan(graph)
+    ready; dummy slots pad).  With ``optimize=True`` the node table is
+    opcode-bucketed (see ``_plan``) and ``class_slices`` records each
+    class's row range; the dummy node rides as a trailing one-row SINK
+    bucket so the specialized rule covers all N+1 rows."""
+    p = _plan(graph, optimize=optimize)
     A2 = p["A"] + 2
     N = len(graph.nodes)
     opcode = np.concatenate([p["opcode"], [int(Op.SINK)]]).astype(np.int32)
@@ -72,22 +90,26 @@ def plan_arrays(graph):
     prod_slot = np.zeros((A2,), np.int32)
     cons_node = np.full((A2,), N, np.int32)
     cons_slot = np.zeros((A2,), np.int32)
+    node_row = p["node_inv"]    # original node index -> plan row
     for i, n in enumerate(graph.nodes):
         for s, arc in enumerate(n.outputs):
-            prod_node[p["aidx"][arc]] = i
+            prod_node[p["aidx"][arc]] = node_row[i]
             prod_slot[p["aidx"][arc]] = s
         for s, arc in enumerate(n.inputs):
             if arc not in graph.consts:      # consts are never consumed
-                cons_node[p["aidx"][arc]] = i
+                cons_node[p["aidx"][arc]] = node_row[i]
                 cons_slot[p["aidx"][arc]] = s
     const_mask = p["const_mask"].astype(np.int32)
+    class_slices = None
+    if p["class_slices"] is not None:
+        class_slices = (*p["class_slices"], (int(Op.SINK), N, N + 1))
     return dict(opcode=opcode, in_idx=in_idx, out_idx=out_idx,
                 prod_node=prod_node, prod_slot=prod_slot,
                 cons_node=cons_node, cons_slot=cons_slot,
-                const_mask=const_mask, plan=p)
+                const_mask=const_mask, plan=p, class_slices=class_slices)
 
 
-def block_plan_arrays(graph):
+def block_plan_arrays(graph, optimize: bool = False):
     """plan_arrays + environment maps for in-kernel feed/drain.
 
     env_row[A2]     row into the feed table for input arcs, n_in (a pad
@@ -99,7 +121,7 @@ def block_plan_arrays(graph):
     n_in/n_out are padded to at least 1 so the kernel never sees a
     zero-length axis.
     """
-    t = plan_arrays(graph)
+    t = plan_arrays(graph, optimize=optimize)
     p = t["plan"]
     A2 = p["A"] + 2
     n_in = max(len(p["input_arcs"]), 1)
@@ -121,13 +143,27 @@ def block_plan_arrays(graph):
 
 class FireTables(dict):
     """Device copies of the :data:`TABLE_KEYS` tables, bounds-checked on
-    the host by :func:`device_tables` — the only tables the kernel
-    takes, since it indexes shared memory with their values."""
+    the host by :func:`device_tables` — the only tables the kernels
+    take, since they index shared memory with their values.  An
+    optimized plan adds ``class_table`` (int32 [n_classes, 3] rows of
+    op, lo, hi), with ``class_slices`` (the same buckets as a tuple) and
+    ``control_free`` (no NDMERGE/DMERGE/BRANCH bucket) as attributes."""
+    class_slices = None
+    control_free = False
+
+
+def _class_slices(tables):
+    """The opcode buckets of numpy or device tables (None: dense)."""
+    if isinstance(tables, FireTables):
+        return tables.class_slices
+    return tables.get("class_slices")
 
 
 def device_tables(tables, device) -> FireTables:
     """int32 tensors on ``device`` from :func:`block_plan_arrays` tables,
-    after checking every index against the table sizes."""
+    after checking every index against the table sizes and, for an
+    optimized plan, that the buckets are contiguous, cover rows
+    0..N2 and hold their opcode on every row."""
     t = {k: np.asarray(tables[k], np.int32) for k in TABLE_KEYS}
     N2, A2 = t["opcode"].shape[0], t["prod_node"].shape[0]
     n_in = t["in_arc_idx"].shape[0]
@@ -135,20 +171,88 @@ def device_tables(tables, device) -> FireTables:
                   in_arc_idx=(n_in,), out_arc_idx=(t["out_arc_idx"].size,))
     bounds = dict(in_idx=A2, out_idx=A2, prod_node=N2, prod_slot=2,
                   cons_node=N2, cons_slot=3, env_row=n_in + 1,
-                  in_arc_idx=A2, out_arc_idx=A2)
+                  in_arc_idx=A2, out_arc_idx=A2, opcode=len(Op))
     for k, x in t.items():
         if x.shape != shapes.get(k, (A2,)):
             raise ValueError(f"table {k}: shape {x.shape}, want "
                              f"{shapes.get(k, (A2,))}")
         if k in bounds and x.size and (x.min() < 0 or x.max() >= bounds[k]):
             raise ValueError(f"table {k}: index outside [0, {bounds[k]})")
-    return FireTables({k: torch.tensor(x, device=device)
-                       for k, x in t.items()})
+    cs = tables.get("class_slices")
+    if cs is not None:
+        cs = tuple((int(op), int(lo), int(hi)) for op, lo, hi in cs)
+        if not 1 <= len(cs) <= MAX_CLASSES:
+            raise ValueError(f"{len(cs)} opcode buckets, want 1.."
+                             f"{MAX_CLASSES}")
+        edge = 0
+        for op, lo, hi in cs:
+            if lo != edge or hi <= lo or not 0 <= op < len(Op):
+                raise ValueError(f"bucket {(op, lo, hi)} does not follow "
+                                 f"row {edge}")
+            if (t["opcode"][lo:hi] != op).any():
+                raise ValueError(f"bucket {(op, lo, hi)}: opcode differs "
+                                 "on its rows")
+            edge = hi
+        if edge != N2:
+            raise ValueError(f"buckets cover rows 0..{edge}, want 0..{N2}")
+        t["class_table"] = np.asarray(cs, np.int32)
+    out = FireTables({k: torch.tensor(x, device=device)
+                      for k, x in t.items()})
+    if cs is not None:
+        out.class_slices = cs
+        out.control_free = not any(op in _CTRL_OPS for op, _, _ in cs)
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the yardstick on the card)
 # ---------------------------------------------------------------------------
+def _alu_op(op, a, b):
+    """One ALU opcode on int32 operands, as the JAX package's ``_alu_op``
+    computes it: wrapping arithmetic, shifts clipped to 0..31, floor
+    division with x // 0 == 0 and INT_MIN // -1 == INT_MIN (divided by 1
+    instead, as jnp wraps it); COPY, BRANCH and SINK pass ``a``."""
+    op = Op(op)
+    if op in (Op.COPY, Op.BRANCH, Op.SINK):
+        return a
+    if op == Op.ADD:
+        return a + b
+    if op == Op.SUB:
+        return a - b
+    if op == Op.MUL:
+        return a * b
+    if op == Op.DIV:
+        odd = (b == 0) | ((a == _INT_MIN) & (b == -1))
+        quot = torch.div(a, torch.where(odd, torch.ones_like(b), b),
+                         rounding_mode="floor")
+        return torch.where(b == 0, torch.zeros_like(a), quot)
+    if op == Op.AND:
+        return a & b
+    if op == Op.OR:
+        return a | b
+    if op == Op.XOR:
+        return a ^ b
+    if op == Op.MAX:
+        return torch.maximum(a, b)
+    if op == Op.MIN:
+        return torch.minimum(a, b)
+    if op == Op.SHL:
+        return torch.bitwise_left_shift(a, b.clamp(0, 31))
+    if op == Op.SHR:
+        return torch.bitwise_right_shift(a, b.clamp(0, 31))
+    cmp = {Op.NOT: lambda: a == 0, Op.IFGT: lambda: a > b,
+           Op.IFGE: lambda: a >= b, Op.IFLT: lambda: a < b,
+           Op.IFLE: lambda: a <= b, Op.IFEQ: lambda: a == b,
+           Op.IFDF: lambda: a != b}.get(op)
+    if cmp is None:
+        raise AssertionError(op)
+    return cmp().to(a.dtype)
+
+
+_ALU_OPS = tuple(op for op in Op if int(op) not in _CTRL_OPS
+                 and op not in (Op.COPY, Op.SINK))
+
+
 def _ready_and_z(opcode, in_idx, out_idx, full, val):
     """Dense firing rule on registers ``full``/``val`` [..., A2]: returns
     ready [..., N2] bool, z [..., N2] int32, consume [..., N2, 3] bool and
@@ -179,27 +283,9 @@ def _ready_and_z(opcode, in_idx, out_idx, full, val):
     ready = torch.where(is_br, in0 & in1 & torch.where(ctrl2, oe0, oe1),
                         ready)
 
-    i32 = torch.int32
-    bs = b.clamp(0, 31)
-    # floor division with the ALU's guards: x // 0 is 0, and
-    # INT_MIN // -1 wraps to INT_MIN (divide by 1 instead)
-    odd = (b == 0) | ((a == _INT_MIN) & (b == -1))
-    quot = torch.div(a, torch.where(odd, torch.ones_like(b), b),
-                     rounding_mode="floor")
-    zs = {
-        Op.ADD: a + b, Op.SUB: a - b, Op.MUL: a * b,
-        Op.DIV: torch.where(b == 0, torch.zeros_like(a), quot),
-        Op.AND: a & b, Op.OR: a | b, Op.XOR: a ^ b,
-        Op.MAX: torch.maximum(a, b), Op.MIN: torch.minimum(a, b),
-        Op.SHL: torch.bitwise_left_shift(a, bs),
-        Op.SHR: torch.bitwise_right_shift(a, bs),
-        Op.NOT: (a == 0).to(i32),
-        Op.IFGT: (a > b).to(i32), Op.IFGE: (a >= b).to(i32),
-        Op.IFLT: (a < b).to(i32), Op.IFLE: (a <= b).to(i32),
-        Op.IFEQ: (a == b).to(i32), Op.IFDF: (a != b).to(i32),
-        Op.NDMERGE: torch.where(in0, a, b),
-        Op.DMERGE: torch.where(ctrl3, a, b),
-    }
+    zs = {op: _alu_op(op, a, b) for op in _ALU_OPS}
+    zs[Op.NDMERGE] = torch.where(in0, a, b)
+    zs[Op.DMERGE] = torch.where(ctrl3, a, b)
     z = a
     for op, r in zs.items():
         z = torch.where(opcode == int(op), r, z)
@@ -218,10 +304,67 @@ def _ready_and_z(opcode, in_idx, out_idx, full, val):
     return ready, z, consume, produce
 
 
-def _fire_parts(tab, full, val):
+def _ready_and_z_spec(class_slices, in_idx, out_idx, full, val):
+    """Opcode-class-specialized firing rule over a bucketed node table
+    (the JAX package's ``_ready_and_z_spec``): each bucket computes its
+    own opcode's result on its rows; control-free fabrics keep the
+    ready/consume/produce masks as whole-array ops.  Same returns as
+    :func:`_ready_and_z`, bit-identical to it on the same tables."""
+    inf = full[..., in_idx] > 0                   # [..., N, 3]
+    oute = full[..., out_idx] == 0                # [..., N, 2]
+    a = val[..., in_idx[:, 0]]
+    b = val[..., in_idx[:, 1]]
+    all_in = inf.all(-1)
+    all_out = oute.all(-1)
+    base = all_in & all_out
+    if not any(op in _CTRL_OPS for op, _, _ in class_slices):
+        z = torch.cat([_alu_op(op, a[..., lo:hi], b[..., lo:hi])
+                       for op, lo, hi in class_slices], -1)
+        return (base, z, base[..., None] & torch.ones_like(inf),
+                base[..., None] & torch.ones_like(oute))
+    r_p, z_p, c_p, p_p = [], [], [], []
+    for op, lo, hi in class_slices:
+        ak, bk = a[..., lo:hi], b[..., lo:hi]
+        infk, outek = inf[..., lo:hi, :], oute[..., lo:hi, :]
+        i0, i1, i2 = infk.unbind(-1)
+        if op == Op.NDMERGE:
+            rk = (i0 | i1) & all_out[..., lo:hi]
+            zk = torch.where(i0, ak, bk)
+            ck = torch.stack([i0, ~i0, torch.zeros_like(i0)], -1)
+            pk = torch.ones_like(outek)
+        elif op == Op.DMERGE:
+            c3 = val[..., in_idx[lo:hi, 2]] != 0
+            rk = i2 & torch.where(c3, i0, i1) & all_out[..., lo:hi]
+            zk = torch.where(c3, ak, bk)
+            ck = torch.stack([c3, ~c3, torch.ones_like(c3)], -1)
+            pk = torch.ones_like(outek)
+        elif op == Op.BRANCH:
+            c2 = bk != 0
+            rk = i0 & i1 & torch.where(c2, outek[..., 0], outek[..., 1])
+            zk = ak
+            ck = torch.ones_like(infk)
+            pk = torch.stack([c2, ~c2], -1)
+        else:
+            rk = base[..., lo:hi]
+            zk = _alu_op(op, ak, bk)
+            ck = torch.ones_like(infk)
+            pk = torch.ones_like(outek)
+        r_p.append(rk)
+        z_p.append(zk)
+        c_p.append(rk[..., None] & ck)
+        p_p.append(rk[..., None] & pk)
+    return (torch.cat(r_p, -1), torch.cat(z_p, -1), torch.cat(c_p, -2),
+            torch.cat(p_p, -2))
+
+
+def _fire_parts(tab, full, val, class_slices=None):
     """One fire step on [B, A2] registers: (full', val', ready[B, N2])."""
-    ready, z, consume, produce = _ready_and_z(
-        tab["opcode"], tab["in_idx"], tab["out_idx"], full, val)
+    if class_slices is None:
+        ready, z, consume, produce = _ready_and_z(
+            tab["opcode"], tab["in_idx"], tab["out_idx"], full, val)
+    else:
+        ready, z, consume, produce = _ready_and_z_spec(
+            class_slices, tab["in_idx"], tab["out_idx"], full, val)
     # arc-side gather (single producer / single consumer per channel)
     produced = produce[:, tab["prod_node"], tab["prod_slot"]]
     consumed = consume[:, tab["cons_node"], tab["cons_slot"]]
@@ -231,10 +374,12 @@ def _fire_parts(tab, full, val):
 
 
 def _block_body(tab, feed_vals, feed_len, full, val, ptr, out_last,
-                out_count, n_cycles: int):
+                out_count, n_cycles: int, class_slices=None, prof=None):
     """``n_cycles`` engine cycles over B streams (every array has a
     leading B axis).  Returns the five state arrays, then fired[B] (node
-    firings in this block) and last_prog[B]."""
+    firings in this block) and last_prog[B], then — when ``prof`` (the
+    five counter arrays) is given — the counters accumulated over the
+    block."""
     B, L = full.shape[0], feed_vals.shape[2]
     zero = torch.zeros((B,), dtype=torch.int32, device=full.device)
     fired, last_prog = zero, zero
@@ -251,8 +396,17 @@ def _block_body(tab, feed_vals, feed_len, full, val, ptr, out_last,
         full = torch.where(fed_arc, torch.ones_like(full), full)
         ptr = ptr + can_feed.to(ptr.dtype)
         # 2. fire every ready node
-        full, val, ready = _fire_parts(tab, full, val)
+        if prof is not None:
+            ir = _node_inputs_ready(tab["opcode"], tab["in_idx"], full, val)
+        full, val, ready = _fire_parts(tab, full, val, class_slices)
         n_fired = ready.sum(1, dtype=torch.int32)
+        if prof is not None:
+            # occupancy sample point: post-fire, pre-drain
+            nf, si, so, ab, ahw = prof
+            occ = (full > 0).to(torch.int32)
+            prof = (nf + ready.to(torch.int32), si + (~ir).to(torch.int32),
+                    so + (ir & ~ready).to(torch.int32), ab + occ,
+                    torch.maximum(ahw, occ))
         # 3. environment drains output buses
         got = full[:, tab["out_arc_idx"]] > 0
         out_last = torch.where(got, val[:, tab["out_arc_idx"]], out_last)
@@ -261,57 +415,74 @@ def _block_body(tab, feed_vals, feed_len, full, val, ptr, out_last,
         progress = can_feed.any(1) | (n_fired > 0) | got.any(1)
         fired = fired + n_fired
         last_prog = torch.where(progress, zero + (cyc + 1), last_prog)
-    return full, val, ptr, out_last, out_count, fired, last_prog
+    return (full, val, ptr, out_last, out_count, fired, last_prog,
+            *(prof or ()))
 
 
 def _long_tables(tables, device):
     return {k: torch.as_tensor(tables[k], device=device).long()
-            for k in TABLE_KEYS}
+            for k in TABLE_KEYS if k in tables}
 
 
 def fire_block_batched(tables, feed_vals, feed_len, full, val, ptr,
-                       out_last, out_count, *, n_cycles: int, active=None):
+                       out_last, out_count, *, n_cycles: int, active=None,
+                       prof=None):
     """Plain PyTorch batched block step: B streams through one fabric.
 
     feed_vals[B, n_in, L], feed_len[B, n_in], full/val[B, A2],
     ptr[B, n_in], out_last/out_count[B, n_out], all int32.  ``active``
     (int32[B], default all ones) is the per-stream clock gate: a stream
-    with active == 0 keeps its state and reports fired = last_prog = 0.
-    Returns (full', val', ptr', out_last', out_count', fired[B, 1],
-    last_prog[B, 1])."""
+    with active == 0 keeps its state (counters included) and reports
+    fired = last_prog = 0.  ``prof``: optional five counter arrays
+    (nf/si/so [B, N2], ab/ahw [B, A2]).  Returns (full', val', ptr',
+    out_last', out_count', fired[B, 1], last_prog[B, 1]), then the
+    counters when ``prof`` is given.  Tables with ``class_slices`` take
+    the specialized rule."""
     tab = _long_tables(tables, full.device)
+    old = (full, val, ptr, out_last, out_count, *(prof or ()))
     res = _block_body(tab, feed_vals, feed_len, full, val, ptr, out_last,
-                      out_count, n_cycles)
-    if active is None:
-        state, fired, lp = res[:5], res[5], res[6]
-    else:
+                      out_count, n_cycles, _class_slices(tables), prof)
+    state = res[:5] + res[7:]
+    fired, lp = res[5], res[6]
+    if active is not None:
         keep = active != 0
-        old = (full, val, ptr, out_last, out_count)
         state = tuple(torch.where(keep[:, None], n, o)
-                      for n, o in zip(res[:5], old))
-        fired = torch.where(keep, res[5], torch.zeros_like(res[5]))
-        lp = torch.where(keep, res[6], torch.zeros_like(res[6]))
-    return (*state, fired[:, None], lp[:, None])
+                      for n, o in zip(state, old))
+        fired = torch.where(keep, fired, torch.zeros_like(fired))
+        lp = torch.where(keep, lp, torch.zeros_like(lp))
+    return (*state[:5], fired[:, None], lp[:, None], *state[5:])
 
 
 def fire_block(tables, feed_vals, feed_len, full, val, ptr, out_last,
-               out_count, *, n_cycles: int):
+               out_count, *, n_cycles: int, prof=None):
     """Plain PyTorch single-stream block step: feed_vals[n_in, L],
-    feed_len[n_in], full/val[A2], ptr[n_in], out_last/out_count[n_out].
-    Returns (full', val', ptr', out_last', out_count', fired[1],
-    last_prog[1])."""
+    feed_len[n_in], full/val[A2], ptr[n_in], out_last/out_count[n_out],
+    optional counters ``prof`` (nf/si/so [N2], ab/ahw [A2]).  Returns
+    (full', val', ptr', out_last', out_count', fired[1], last_prog[1]),
+    then the counters when ``prof`` is given."""
     res = fire_block_batched(
         tables, *(x[None] for x in (feed_vals, feed_len, full, val, ptr,
                                      out_last, out_count)),
-        n_cycles=n_cycles)
-    return (*(x[0] for x in res[:5]), res[5][0], res[6][0])
+        n_cycles=n_cycles,
+        prof=None if prof is None else tuple(x[None] for x in prof))
+    return (*(x[0] for x in res[:5]), res[5][0], res[6][0],
+            *(x[0] for x in res[7:]))
+
+
+def fire_step(tables, full, val):
+    """Plain PyTorch fire step, no environment: registers full/val[A2]
+    -> (full', val', fired[1]).  Always the dense rule (as
+    ``fire_step_pallas``)."""
+    tab = _long_tables(tables, full.device)
+    nf, nv, ready = _fire_parts(tab, full[None], val[None])
+    return nf[0], nv[0], ready.sum(1, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 def _vp(x):
-    return ctypes.c_void_p(x.data_ptr())
+    return None if x is None else ctypes.c_void_p(x.data_ptr())
 
 
 @functools.cache
@@ -321,9 +492,29 @@ def _smem_limit(device_index: int) -> int:
     return _build.load().fire_block_smem_limit(device_index)
 
 
-def _launch(tables, feed_vals, feed_len, state, active, n_cycles, batched):
-    """Check the arguments and launch the CUDA kernel (grid = B);
-    returns the freshly allocated outputs."""
+def _check_tensors(named, dev):
+    """Every tensor on ``dev``, int32 and contiguous."""
+    for k, x in named:
+        if x.device != dev:
+            raise ValueError(f"{k} is on {x.device}, the state on {dev}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{k} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{k} must be contiguous")
+
+
+def _check_smem(index, nbytes, what):
+    if nbytes > _smem_limit(index):
+        raise ValueError(f"{what} needs {nbytes} B of shared memory per "
+                         f"CTA; the card gives {_smem_limit(index)}")
+
+
+def _launch(tables, feed_vals, feed_len, state, active, prof, n_cycles,
+            batched):
+    """Check the arguments and launch the fire-block kernel (grid = B):
+    the profiled instantiation when ``prof`` is given, the specialized
+    one when the tables carry opcode buckets.  Returns the freshly
+    allocated outputs."""
     from repro_torch.kernels import _build
     if not isinstance(tables, FireTables):
         raise TypeError("the kernel takes tables from device_tables() only")
@@ -343,14 +534,16 @@ def _launch(tables, feed_vals, feed_len, state, active, n_cycles, batched):
                 out_last=(*lead, n_out), out_count=(*lead, n_out))
     if active is not None:
         want["active"] = (B,)
-    args = dict(zip(want, (feed_vals, feed_len, *state, active)))
-    for k, x in (*args.items(), *tables.items()):
-        if x.device != dev:
-            raise ValueError(f"{k} is on {x.device}, the state on {dev}")
-        if x.dtype != torch.int32:
-            raise TypeError(f"{k} must be int32, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{k} must be contiguous")
+    prof_names = ("nf", "si", "so", "ab", "ahw")
+    if prof is not None:
+        if len(prof) != 5:
+            raise ValueError(f"prof holds {len(prof)} arrays, want 5")
+        for k, n in zip(prof_names, (N2, N2, N2, A2, A2)):
+            want[k] = (*lead, n)
+    args = dict(zip(want, (feed_vals, feed_len, *state,
+                           *([active] if active is not None else []),
+                           *(prof or ()))))
+    _check_tensors((*args.items(), *tables.items()), dev)
     for k, shape in want.items():
         if tuple(args[k].shape) != shape:
             raise ValueError(f"{k}: shape {tuple(args[k].shape)}, want "
@@ -360,26 +553,28 @@ def _launch(tables, feed_vals, feed_len, state, active, n_cycles, batched):
     lib = _build.load()
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    # dynamic arrays + the kernel's one static counter
-    smem = 4 * (2 * A2 + 2 * N2 + n_in + 2 * n_out + 1)
-    if smem > _smem_limit(index):
-        raise ValueError(f"fabric needs {smem} B of shared memory per "
-                         f"stream; the card gives {_smem_limit(index)}")
+    _check_smem(index, lib.fire_block_smem_bytes(
+        N2, A2, n_in, n_out, int(prof is not None)), "the fabric")
+    cls = tables.get("class_table")
     with torch.cuda.device(index):
         outs = [torch.empty_like(x) for x in state]
         fired = torch.empty((*lead, 1), dtype=torch.int32, device=dev)
         last_prog = torch.empty_like(fired)
+        prof_out = [torch.empty_like(x) for x in prof or ()]
+        none5 = [None] * 5
         err = lib.fire_block_launch(
-            *(_vp(tables[k]) for k in TABLE_KEYS),
+            *(_vp(tables[k]) for k in TABLE_KEYS), _vp(cls),
             _vp(feed_vals), _vp(feed_len), *(_vp(x) for x in state),
-            None if active is None else _vp(active),
+            _vp(active), *(_vp(x) for x in prof or none5),
             *(_vp(x) for x in outs), _vp(fired), _vp(last_prog),
+            *(_vp(x) for x in prof_out or none5),
             B, N2, A2, n_in, n_out, L, int(n_cycles),
+            0 if cls is None else cls.shape[0], int(tables.control_free),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError("fire_block kernel launch failed: "
                            + lib.fire_block_error_string(err).decode())
-    return (*outs, fired, last_prog)
+    return (*outs, fired, last_prog, *prof_out)
 
 
 def _on_cpu(*xs) -> bool:
@@ -391,38 +586,91 @@ def _on_cpu(*xs) -> bool:
     raise ValueError(f"tensors on mixed devices {sorted(devs)}")
 
 
+def _count(wrapper, tables, prof):
+    """One launch on ``wrapper``'s counts: ``prof_launches`` for the
+    profiled instantiation, else ``launches``; ``spec_launches`` also
+    counts those of the specialized rule."""
+    if prof is None:
+        wrapper.launches += 1
+    else:
+        wrapper.prof_launches += 1
+    if tables.class_slices is not None:
+        wrapper.spec_launches += 1
+
+
 def fire_block_cuda(tables, feed_vals, feed_len, full, val, ptr, out_last,
-                    out_count, *, n_cycles: int):
-    """Single-stream block step (the counterpart of ``fire_block_pallas``).
-    CUDA tensors launch the kernel with B = 1 and count the launch in
-    ``fire_block_cuda.launches``; CPU tensors take :func:`fire_block`."""
+                    out_count, *, n_cycles: int, prof=None):
+    """Single-stream block step (the counterpart of ``fire_block_pallas``,
+    with ``prof`` of its profiled form).  CUDA tensors launch the kernel
+    with B = 1 and count the launch (see :func:`_count`); CPU tensors
+    take :func:`fire_block`."""
     state = (full, val, ptr, out_last, out_count)
-    if _on_cpu(feed_vals, feed_len, *state):
+    if _on_cpu(feed_vals, feed_len, *state, *(prof or ())):
         return fire_block(tables, feed_vals, feed_len, *state,
-                          n_cycles=n_cycles)
-    out = _launch(tables, feed_vals, feed_len, state, None, n_cycles,
+                          n_cycles=n_cycles, prof=prof)
+    out = _launch(tables, feed_vals, feed_len, state, None, prof, n_cycles,
                   batched=False)
-    fire_block_cuda.launches += 1
+    _count(fire_block_cuda, tables, prof)
     return out
 
 
 def fire_block_batched_cuda(tables, feed_vals, feed_len, full, val, ptr,
                             out_last, out_count, *, n_cycles: int,
-                            active=None):
+                            active=None, prof=None):
     """Batched block step (the counterpart of
-    ``fire_block_batched_pallas``): one CTA per stream, parked streams
-    (active == 0) pass their state through.  CUDA tensors launch the
-    kernel and count the launch in ``fire_block_batched_cuda.launches``;
-    CPU tensors take :func:`fire_block_batched`."""
+    ``fire_block_batched_pallas``, with ``prof`` of its profiled form):
+    one CTA per stream, parked streams (active == 0) pass their state
+    and counters through.  CUDA tensors launch the kernel and count the
+    launch (see :func:`_count`); CPU tensors take
+    :func:`fire_block_batched`."""
     state = (full, val, ptr, out_last, out_count)
-    if _on_cpu(feed_vals, feed_len, *state, active):
+    if _on_cpu(feed_vals, feed_len, *state, active, *(prof or ())):
         return fire_block_batched(tables, feed_vals, feed_len, *state,
-                                  n_cycles=n_cycles, active=active)
-    out = _launch(tables, feed_vals, feed_len, state, active, n_cycles,
-                  batched=True)
-    fire_block_batched_cuda.launches += 1
+                                  n_cycles=n_cycles, active=active,
+                                  prof=prof)
+    out = _launch(tables, feed_vals, feed_len, state, active, prof,
+                  n_cycles, batched=True)
+    _count(fire_block_batched_cuda, tables, prof)
     return out
 
 
-fire_block_cuda.launches = 0
-fire_block_batched_cuda.launches = 0
+def fire_step_cuda(tables, full, val):
+    """One fire step, no environment (the counterpart of
+    ``fire_step_pallas``): full/val[A2] -> (full', val', fired[1]).
+    CUDA tensors launch the fire-step kernel (one CTA) and count it in
+    ``fire_step_cuda.launches``; CPU tensors take :func:`fire_step`."""
+    if _on_cpu(full, val):
+        return fire_step(tables, full, val)
+    from repro_torch.kernels import _build
+    if not isinstance(tables, FireTables):
+        raise TypeError("the kernel takes tables from device_tables() only")
+    dev = full.device
+    N2 = tables["opcode"].shape[0]
+    A2 = tables["prod_node"].shape[0]
+    _check_tensors((("full", full), ("val", val),
+                    *((k, tables[k]) for k in STEP_KEYS)), dev)
+    for k, x in (("full", full), ("val", val)):
+        if tuple(x.shape) != (A2,):
+            raise ValueError(f"{k}: shape {tuple(x.shape)}, want {(A2,)}")
+    lib = _build.load()
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    _check_smem(index, lib.fire_block_smem_bytes(N2, A2, 0, 0, 0),
+                "the fabric")
+    with torch.cuda.device(index):
+        full_o, val_o = torch.empty_like(full), torch.empty_like(val)
+        fired = torch.empty((1,), dtype=torch.int32, device=dev)
+        err = lib.fire_step_launch(
+            *(_vp(tables[k]) for k in STEP_KEYS), _vp(full), _vp(val),
+            _vp(full_o), _vp(val_o), _vp(fired), N2, A2,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if err:
+        raise RuntimeError("fire_step kernel launch failed: "
+                           + lib.fire_block_error_string(err).decode())
+    fire_step_cuda.launches += 1
+    return full_o, val_o, fired
+
+
+for _w in (fire_block_cuda, fire_block_batched_cuda):
+    _w.launches = _w.prof_launches = _w.spec_launches = 0
+fire_step_cuda.launches = 0

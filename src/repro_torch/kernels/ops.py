@@ -1,21 +1,26 @@
-"""Public block-step wrappers over the fire-block kernel.
+"""Public wrappers over the fire-block and fire-step kernels.
 
-On CUDA tensors the step launches the hand-written kernel; on CPU
-tensors (``device="cpu"``) it computes the plain PyTorch version — the
+On CUDA tensors the steps launch the hand-written kernels; on CPU
+tensors (``device="cpu"``) they compute the plain PyTorch versions — the
 wrappers in :mod:`repro_torch.kernels.dataflow_fire` decide by the
 tensors' device alone.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from repro_torch.kernels.dataflow_fire import (FireTables,
                                                block_plan_arrays,
                                                device_tables,
                                                fire_block_batched_cuda,
-                                               fire_block_cuda)
+                                               fire_block_cuda,
+                                               fire_step_cuda)
 
 
 def make_block_step(graph, n_cycles: int, batched: bool = False,
-                    tables=None, device="cuda"):
+                    tables=None, device="cuda", optimize: bool = False,
+                    profile: bool = False):
     """The fused K-cycle fire-block step for a fabric.
 
     Returns (tables, step).  Single-stream step signature:
@@ -27,21 +32,121 @@ def make_block_step(graph, n_cycles: int, batched: bool = False,
     ``active`` int32[B] clock gate: slots with active == 0 skip the
     block entirely (state frozen, fired/last_prog 0).  ``tables`` may be
     a prior call's tables (numpy, from :func:`block_plan_arrays`) or
-    device tables from :func:`device_tables`, reused as they are."""
+    device tables from :func:`device_tables`, reused as they are;
+    ``optimize=True`` builds opcode-bucketed tables (ignored when
+    ``tables`` is given: tables carry their own buckets).  With
+    profile=True the step takes five trailing counter arrays (nf, si,
+    so, ab, ahw — per-stream rows when batched) and returns them,
+    accumulated inside the same launch, after last_prog."""
     if tables is None:
-        tables = block_plan_arrays(graph)
+        tables = block_plan_arrays(graph, optimize=optimize)
     dt = tables if isinstance(tables, FireTables) \
         else device_tables(tables, device)
 
     if batched:
         def step(feed_vals, feed_len, full, val, ptr, out_last, out_count,
-                 active):
+                 active, *prof):
             return fire_block_batched_cuda(
                 dt, feed_vals, feed_len, full, val, ptr, out_last,
-                out_count, n_cycles=n_cycles, active=active)
+                out_count, n_cycles=n_cycles, active=active,
+                prof=_prof_arg(prof, profile))
     else:
-        def step(feed_vals, feed_len, full, val, ptr, out_last, out_count):
+        def step(feed_vals, feed_len, full, val, ptr, out_last, out_count,
+                 *prof):
             return fire_block_cuda(
                 dt, feed_vals, feed_len, full, val, ptr, out_last,
-                out_count, n_cycles=n_cycles)
+                out_count, n_cycles=n_cycles, prof=_prof_arg(prof, profile))
     return tables, step
+
+
+def _prof_arg(prof, profile):
+    """The counters a step was given: five arrays on a profiled step,
+    none on an unprofiled one."""
+    if len(prof) != (5 if profile else 0):
+        raise TypeError(f"a {'' if profile else 'un'}profiled step takes "
+                        f"{5 if profile else 0} counter arrays, got "
+                        f"{len(prof)}")
+    return tuple(prof) if profile else None
+
+
+def make_fire_step(graph, device="cuda"):
+    """The one-cycle fire step for a fabric (dense rule, unoptimized
+    plan); returns (tables, step(full, val) -> (full', val', fired[1]))
+    on tensors on ``device``."""
+    tables = block_plan_arrays(graph)
+    dt = device_tables(tables, device)
+
+    def step(full, val):
+        return fire_step_cuda(dt, full, val)
+    return tables, step
+
+
+def run_fabric(graph, feeds, max_cycles: int = 10_000, compiled=None,
+               device="cuda"):
+    """Drive a fabric to completion through the per-cycle fire-step
+    kernel, with the environment (feed/drain) on the host: one launch
+    and one device-to-host read per engine cycle.  The baseline the
+    fused block engine is measured against (the paper's Table-1
+    comparison).  Pass compiled=(tables, step) from
+    :func:`make_fire_step` to reuse one across calls.  Returns an
+    EngineResult with engine semantics (dispatches = cycles).
+
+    Unlike the JAX package's ``run_fabric``, the fabric starts with its
+    initial tokens (``graph.inits``) on their arcs, as every other
+    executor and ``run_reference`` start it: without them a loop fabric
+    never starts."""
+    from repro_torch.core.engine import EngineResult, resolve_device
+    dev = resolve_device(device)
+    tables, step = compiled if compiled is not None \
+        else make_fire_step(graph, dev)
+    p = tables["plan"]
+    A2 = p["A"] + 2
+    full = np.zeros((A2,), np.int32)
+    val = np.zeros((A2,), np.int32)
+    full[p["FULL_PAD"]] = 1
+    for a, v in (*graph.consts.items(), *graph.inits.items()):
+        full[p["aidx"][a]] = 1
+        val[p["aidx"][a]] = int(v)
+    feeds = {a: np.asarray(v, np.int32).reshape(-1)
+             for a, v in (feeds or {}).items()}
+    ptr = {a: 0 for a in p["input_arcs"]}
+    out_last = {a: np.int32(0) for a in p["output_arcs"]}
+    out_count = {a: 0 for a in p["output_arcs"]}
+    # host mirrors of the step's outputs (pinned on the card, so the
+    # three copies are queued behind the launch and waited on once)
+    pin = dev.type == "cuda"
+    host = [torch.empty((n,), dtype=torch.int32, pin_memory=pin)
+            for n in (A2, A2, 1)]
+    cycles = fired = 0
+    progress = True
+    while progress and cycles < max_cycles:
+        progress = False
+        for a in p["input_arcs"]:
+            i = p["aidx"][a]
+            if not full[i] and a in feeds and ptr[a] < len(feeds[a]):
+                val[i] = feeds[a][ptr[a]]
+                full[i] = 1
+                ptr[a] += 1
+                progress = True
+        res = step(torch.from_numpy(full).to(dev, non_blocking=pin),
+                   torch.from_numpy(val).to(dev, non_blocking=pin))
+        for h, r in zip(host, res):
+            h.copy_(r, non_blocking=pin)
+        if pin:
+            torch.cuda.current_stream(dev).synchronize()
+        full, val = host[0].numpy().copy(), host[1].numpy().copy()
+        full[p["EMPTY_PAD"]] = 0
+        full[p["FULL_PAD"]] = 1
+        k = int(host[2][0])
+        fired += k
+        progress = progress or k > 0
+        for a in p["output_arcs"]:
+            i = p["aidx"][a]
+            if full[i]:
+                out_last[a] = val[i]
+                out_count[a] += 1
+                full[i] = 0
+                progress = True
+        cycles += 1
+    return EngineResult(outputs=out_last, counts=out_count, cycles=cycles,
+                        fired=fired, dispatches=cycles)

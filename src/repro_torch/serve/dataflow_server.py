@@ -54,18 +54,24 @@ def graph_signature(graph: Graph) -> str:
 
 
 def cached_engine(graph: Graph, *, block_cycles: int = 16,
-                  max_cycles: int = 100_000,
-                  device="cuda") -> DataflowEngine:
-    """Engine for (graph signature, K, max_cycles, device) — built once
-    and shared by every server that presents the same fabric (the key
-    hashes the signature, not the graph object, so structurally equal
-    graphs share)."""
+                  max_cycles: int = 100_000, device="cuda",
+                  optimize: bool = False,
+                  profile: bool = False) -> DataflowEngine:
+    """Engine for (graph signature, K, max_cycles, device, optimize,
+    profile) — built once and shared by every server that presents the
+    same fabric (the key hashes the signature, not the graph object, so
+    structurally equal graphs share).  Both flags join the key: an
+    optimized engine runs other tables, and a profiled engine threads
+    counters through every step, so neither may stand in for the
+    other's."""
     key = (hashlib.sha256(graph_signature(graph).encode()).hexdigest(),
-           int(block_cycles), int(max_cycles), str(device))
+           int(block_cycles), int(max_cycles), str(device), bool(optimize),
+           bool(profile))
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         eng = DataflowEngine(graph, max_cycles=max_cycles,
-                             block_cycles=block_cycles, device=device)
+                             block_cycles=block_cycles, device=device,
+                             optimize=optimize, profile=profile)
         _ENGINE_CACHE[key] = eng
         while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:
             _ENGINE_CACHE.popitem(last=False)
@@ -87,7 +93,8 @@ class DataflowServer:
     Usage::
 
         srv = DataflowServer(graph, slots=8, block_cycles=16,
-                             max_queue=64, policy="reject")
+                             max_queue=64, policy="reject",
+                             optimize=True, profile=True)
         srv.submit(feeds_a)            # returns uid (or typed Rejected)
         srv.submit(Request(uid=7, feeds=feeds_b, deadline_blocks=50))
         done = srv.step()              # one K-cycle block; may finish 0+
@@ -100,13 +107,20 @@ class DataflowServer:
     harvest slots whose block had an idle tail.  Every submitted
     request receives exactly one :class:`Result` (value, truncated,
     expired, wedged, or a typed drop).
+
+    ``optimize=True`` serves every slot from the opcode-class-specialized
+    plan; ``profile=True`` carries the fabric counters through every
+    block, so each harvested ``Result.engine.profile`` is a
+    :class:`~repro_torch.obs.FabricProfile` of that request's residency.
+    Neither changes a result.  An explicit ``engine=`` decides both.
     """
 
     def __init__(self, graph: Graph, slots: int = 8,
                  block_cycles: int = 16, max_cycles: int = 100_000,
                  engine: DataflowEngine | None = None,
                  max_queue: int | None = None, policy: str = "reject",
-                 wedge_timeout_blocks: int = 32, device="cuda"):
+                 wedge_timeout_blocks: int = 32, device="cuda",
+                 optimize: bool = False, profile: bool = False):
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if policy not in POLICIES:
@@ -126,7 +140,8 @@ class DataflowServer:
                     f"({engine.graph.name!r}, not {graph.name!r})")
         else:
             engine = cached_engine(graph, block_cycles=block_cycles,
-                                   max_cycles=max_cycles, device=device)
+                                   max_cycles=max_cycles, device=device,
+                                   optimize=optimize, profile=profile)
         self.graph = graph
         self.slots = slots
         self.engine = engine

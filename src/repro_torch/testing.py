@@ -1,5 +1,6 @@
 """Helpers shared by the port's tests and ``chip_smoke.py``: random
-mid-run inputs for the fire block, and one checker for engine results.
+fabrics, random mid-run inputs for the fire block (and its counters),
+and one checker for engine results.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ EDGE_VALS = np.asarray([-(2 ** 31), 2 ** 31 - 1, -1, 0, 1, 31, 32, -32],
                        np.int64)
 
 STATE_KEYS = ("full", "val", "ptr", "out_last", "out_count")
+PROFILE_ARRAYS = ("node_fires", "stall_in", "stall_out", "arc_busy",
+                  "arc_hw")
 
 
 def random_block_inputs(tables, B: int, L: int, rng) -> dict:
@@ -47,11 +50,63 @@ def random_block_inputs(tables, B: int, L: int, rng) -> dict:
                 active=active)
 
 
-def assert_same_result(got, want, tag, dispatches: bool = True) -> None:
+def random_prof(tables, B: int, rng) -> tuple:
+    """Random counters (nf, si, so [B, N2]; ab [B, A2]; ahw 0/1 [B, A2])
+    as int32 numpy arrays: what a profiled block carries in mid-run."""
+    N2 = tables["opcode"].shape[0]
+    A2 = tables["prod_node"].shape[0]
+    cnt = lambda n: rng.integers(0, 1000, (B, n)).astype(np.int32)
+    return (cnt(N2), cnt(N2), cnt(N2), cnt(A2),
+            rng.integers(0, 2, (B, A2)).astype(np.int32))
+
+
+def random_graph(seed: int):
+    """A random well-formed acyclic fabric over the whole opcode set
+    (control operators included), reading environment streams, open
+    producer outputs and const buses holding int32 edge values."""
+    from repro_torch.core.graph import ARITY, Graph, Op
+    rng = np.random.default_rng(5000 + seed)
+    g = Graph(name=f"random{seed}")
+    open_arcs: list[str] = []
+    n = {"a": 0, "x": 0, "c": 0}
+
+    def fresh(tag):
+        n[tag] += 1
+        return f"{tag}{n[tag]}"
+
+    def src(first):
+        r = rng.random()
+        if first:
+            return fresh("x")
+        if open_arcs and r < 0.55:
+            return open_arcs.pop(int(rng.integers(len(open_arcs))))
+        if r < 0.75:
+            return g.const(fresh("c"), int(rng.choice(EDGE_VALS)))
+        return fresh("x")
+
+    ops = list(Op)
+    for i in range(int(rng.integers(6, 14))):
+        op = ops[seed % len(ops)] if i == 0 else ops[rng.integers(len(ops))]
+        n_in, n_out = ARITY[op]
+        ins = [src(i == 0 and k == 0) for k in range(n_in)]
+        outs = [fresh("a") for _ in range(n_out)]
+        g.add(op, ins, outs)
+        open_arcs.extend(outs)
+    if not open_arcs:
+        g.add(Op.ADD, [fresh("x"), g.const(fresh("c"), 1)], ["z_out"])
+    g.validate()
+    return g
+
+
+def assert_same_result(got, want, tag, dispatches: bool = True,
+                       profile: bool = False) -> None:
     """Every EngineResult field of ``got`` equals ``want``'s: cycles,
     fired, counts, the last value of every arc that drained a token, and
     (unless ``dispatches=False``, for oracles that launch nothing) the
-    launch count.  Works across the two packages' result types."""
+    launch count.  With ``profile=True`` also ``node_fires`` and the
+    FabricProfile: its names, its five counter arrays, its cycles and
+    (with ``dispatches``) its launch count.  Works across the two
+    packages' result types."""
     assert got.cycles == want.cycles, (tag, "cycles", got.cycles, want.cycles)
     assert got.fired == want.fired, (tag, "fired", got.fired, want.fired)
     assert dict(got.counts) == dict(want.counts), (tag, "counts",
@@ -64,3 +119,17 @@ def assert_same_result(got, want, tag, dispatches: bool = True) -> None:
     if dispatches:
         assert got.dispatches == want.dispatches, \
             (tag, "dispatches", got.dispatches, want.dispatches)
+    if profile:
+        np.testing.assert_array_equal(got.node_fires, want.node_fires,
+                                      err_msg=f"{tag} node_fires")
+        gp, wp = got.profile, want.profile
+        assert (gp.node_names, gp.arc_names) == (wp.node_names,
+                                                 wp.arc_names), tag
+        for k in PROFILE_ARRAYS:
+            np.testing.assert_array_equal(getattr(gp, k), getattr(wp, k),
+                                          err_msg=f"{tag} profile.{k}")
+        assert gp.cycles == wp.cycles, (tag, "profile.cycles", gp.cycles,
+                                        wp.cycles)
+        if dispatches:
+            assert gp.dispatches == wp.dispatches, (tag,
+                                                    "profile.dispatches")

@@ -1,5 +1,7 @@
-"""The fire-block CUDA kernel on the card: kernel against its plain
-PyTorch version, and the engine against the numpy oracle.
+"""The fire-block and fire-step CUDA kernels on the card: every
+instantiation (dense or specialized rule, unprofiled or profiled)
+against its plain PyTorch version, and the engine, ``run_fabric`` and
+the server against the numpy oracle.
 
 Every test here needs a CUDA card and skips without one (the ``cuda``
 fixture decides, never the module at import).  Run them on the card
@@ -14,10 +16,12 @@ from repro_torch.core import library  # noqa: E402
 from repro_torch.core.engine import (DataflowEngine, pack_feeds,  # noqa: E402
                                      run_reference)
 from repro_torch.kernels import dataflow_fire as df  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.serve.dataflow_server import DataflowServer  # noqa: E402
 from repro_torch.testing import (STATE_KEYS,  # noqa: E402
                                  assert_same_result,
-                                 random_block_inputs)
+                                 random_block_inputs, random_graph,
+                                 random_prof)
 
 pytestmark = pytest.mark.gpu
 
@@ -124,3 +128,125 @@ def test_pack_feeds_layout_feeds_the_kernel(cuda):
     for g, w in zip(df.fire_block_cuda(dt, *args, n_cycles=8),
                     df.fire_block(dt, *args, n_cycles=8)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def _assert_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("name", sorted(library.BENCHES))
+def test_profiled_and_spec_kernels_match_plain(cuda, name, optimize):
+    """The profiled instantiation (random counters in, parked streams
+    keep theirs) and, on an optimized plan, the spec instantiation,
+    against the plain version; the spec kernel also against the dense
+    kernel on the same permuted tables."""
+    tables = df.block_plan_arrays(_bench(name).graph, optimize=optimize)
+    dt = df.device_tables(tables, cuda)
+    assert (dt.class_slices is not None) == optimize
+    dense = df.device_tables(dict(tables, class_slices=None), cuda)
+    rng = np.random.default_rng(11)
+    x = {k: torch.tensor(v, device=cuda)
+         for k, v in random_block_inputs(tables, 16, 24, rng).items()}
+    prof = tuple(torch.tensor(p, device=cuda)
+                 for p in random_prof(tables, 16, rng))
+    args = [x["feed_vals"], x["feed_len"], *(x[k] for k in STATE_KEYS)]
+    w = df.fire_block_batched_cuda
+    for K in (1, 16, 64):
+        for pr in (None, prof):
+            counts = (w.launches, w.prof_launches, w.spec_launches)
+            got = w(dt, *args, n_cycles=K, active=x["active"], prof=pr)
+            assert (w.launches, w.prof_launches, w.spec_launches) == (
+                counts[0] + (pr is None), counts[1] + (pr is not None),
+                counts[2] + optimize)
+            _assert_equal(got, df.fire_block_batched(
+                dt, *args, n_cycles=K, active=x["active"], prof=pr))
+            _assert_equal(got, w(dense, *args, n_cycles=K,
+                                 active=x["active"], prof=pr))
+            parked = x["active"] == 0
+            for g, p in zip(got[7:], pr or ()):
+                assert torch.equal(g[parked], p[parked])
+            p1 = None if pr is None else tuple(p[0] for p in pr)
+            one = [a[0] for a in args]
+            _assert_equal(df.fire_block_cuda(dt, *one, n_cycles=K, prof=p1),
+                          df.fire_block(dt, *one, n_cycles=K, prof=p1))
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_spec_kernel_on_random_graphs(cuda, seed):
+    """Random fabrics with NDMERGE/DMERGE/BRANCH: spec == dense == plain."""
+    tables = df.block_plan_arrays(random_graph(seed), optimize=True)
+    dt = df.device_tables(tables, cuda)
+    dense = df.device_tables(dict(tables, class_slices=None), cuda)
+    rng = np.random.default_rng(seed)
+    x = {k: torch.tensor(v, device=cuda)
+         for k, v in random_block_inputs(tables, 8, 12, rng).items()}
+    prof = tuple(torch.tensor(p, device=cuda)
+                 for p in random_prof(tables, 8, rng))
+    args = [x["feed_vals"], x["feed_len"], *(x[k] for k in STATE_KEYS)]
+    for pr in (None, prof):
+        kw = dict(n_cycles=8, active=x["active"], prof=pr)
+        got = df.fire_block_batched_cuda(dt, *args, **kw)
+        _assert_equal(got, df.fire_block_batched(dt, *args, **kw))
+        _assert_equal(got, df.fire_block_batched_cuda(dense, *args, **kw))
+
+
+@pytest.mark.parametrize("name", sorted(library.BENCHES))
+def test_fire_step_kernel_matches_plain(cuda, name):
+    tables = df.block_plan_arrays(_bench(name).graph)
+    dt = df.device_tables(tables, cuda)
+    x = random_block_inputs(tables, 8, 1, np.random.default_rng(5))
+    for b in range(8):
+        full = torch.tensor(x["full"][b], device=cuda)
+        val = torch.tensor(x["val"][b], device=cuda)
+        n0 = df.fire_step_cuda.launches
+        got = df.fire_step_cuda(dt, full, val)
+        assert df.fire_step_cuda.launches == n0 + 1
+        _assert_equal(got, df.fire_step(dt, full, val))
+
+
+@pytest.mark.parametrize("name", sorted(library.BENCHES))
+def test_optimized_profiled_engine_matches_reference(cuda, name):
+    bench = _bench(name)
+    feeds = [library.random_feeds(name, bench, 1 + b % 5,
+                                  np.random.default_rng(b)) for b in range(6)]
+    wants = [run_reference(bench.graph, f, profile=True) for f in feeds]
+    for K in (1, 16):
+        eng = DataflowEngine(bench.graph, block_cycles=K, device=cuda,
+                             optimize=True, profile=True)
+        got = eng.run(feeds[0])
+        if K == 1:      # one-cycle blocks simulate the oracle's cycles
+            assert_same_result(got, wants[0], name, dispatches=False,
+                               profile=True)
+        for g, w in zip([got] + eng.run_batch(feeds), [wants[0]] + wants):
+            assert_same_result(g, w, (name, K), dispatches=False)
+            np.testing.assert_array_equal(g.node_fires, w.node_fires)
+            g.profile.check()
+
+
+@pytest.mark.parametrize("name", sorted(library.BENCHES))
+def test_run_fabric_matches_reference(cuda, name):
+    bench = _bench(name)
+    feeds = library.random_feeds(name, bench, 4, np.random.default_rng(2))
+    got = ops.run_fabric(bench.graph, feeds, device=cuda)
+    assert_same_result(got, run_reference(bench.graph, feeds), name,
+                       dispatches=False)
+    assert got.dispatches == got.cycles
+
+
+def test_profiled_optimized_server_matches_solo_runs(cuda):
+    bench = _bench("dot_prod")
+    feeds = [library.random_feeds("dot_prod", bench, 3 + 7 * i,
+                                  np.random.default_rng(i))
+             for i in range(12)]
+    srv = DataflowServer(bench.graph, slots=4, block_cycles=8, device=cuda,
+                         optimize=True, profile=True)
+    got = srv.run(feeds)
+    solo = DataflowEngine(bench.graph, block_cycles=8, device=cuda,
+                          optimize=True, profile=True)
+    for r, f in zip(got, feeds):
+        want = solo.run(f)
+        r.engine.profile.check()
+        assert_same_result(r.engine, want, r.uid, profile=True)

@@ -15,8 +15,10 @@ from repro_torch.core import library  # noqa: E402
 from repro_torch.core.engine import DataflowEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import dataflow_fire as df  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.serve import dataflow_server  # noqa: E402
-from repro_torch.testing import STATE_KEYS, random_block_inputs  # noqa: E402
+from repro_torch.testing import (STATE_KEYS,  # noqa: E402
+                                 random_block_inputs, random_prof)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"
@@ -43,7 +45,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", _IMPORTS_ALL], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 14   # every module was imported
+    assert int(out.stdout.split()[-1]) >= 18   # every module was imported
 
 
 _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
@@ -53,7 +55,7 @@ _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
 def test_no_jax_or_repro_import_in_source():
     files = sorted((SRC / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) >= 15
+    assert len(files) >= 20
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
@@ -67,6 +69,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
         DataflowEngine(graph)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         dataflow_server.DataflowServer(graph)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dataflow_server.DataflowServer(graph, optimize=True, profile=True)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ops.run_fabric(graph, library.fibonacci_graph().make_feeds(3))
 
 
 def test_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
@@ -74,19 +80,30 @@ def test_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
         raise AssertionError("a CPU call must not build the kernel")
     real_load = _build.load
     monkeypatch.setattr(_build, "load", no_build)
-    launches = (df.fire_block_cuda.launches,
-                df.fire_block_batched_cuda.launches)
-    tables = df.block_plan_arrays(library.dot_product_graph(4).graph)
-    x = {k: torch.tensor(v) for k, v in random_block_inputs(
-        tables, 3, 5, np.random.default_rng(0)).items()}
-    args = [x["feed_vals"], x["feed_len"], *(x[k] for k in STATE_KEYS)]
-    for dt in (tables, df.device_tables(tables, "cpu")):
-        out = df.fire_block_batched_cuda(dt, *args, n_cycles=4,
-                                         active=x["active"])
-        assert all(o.device.type == "cpu" for o in out)
-        out = df.fire_block_cuda(dt, *(a[0] for a in args), n_cycles=4)
-        assert all(o.device.type == "cpu" for o in out)
-    assert (df.fire_block_cuda.launches,
-            df.fire_block_batched_cuda.launches) == launches
+    wrappers = (df.fire_block_cuda, df.fire_block_batched_cuda)
+    counts = lambda: [getattr(w, k) for w in wrappers for k in (
+        "launches", "prof_launches", "spec_launches")] + [
+        df.fire_step_cuda.launches]
+    launches = counts()
+    for opt in (False, True):
+        tables = df.block_plan_arrays(library.dot_product_graph(4).graph,
+                                      optimize=opt)
+        x = {k: torch.tensor(v) for k, v in random_block_inputs(
+            tables, 3, 5, np.random.default_rng(0)).items()}
+        prof = tuple(torch.tensor(p) for p in random_prof(
+            tables, 3, np.random.default_rng(1)))
+        args = [x["feed_vals"], x["feed_len"], *(x[k] for k in STATE_KEYS)]
+        for dt in (tables, df.device_tables(tables, "cpu")):
+            for pr in (None, prof):
+                out = df.fire_block_batched_cuda(dt, *args, n_cycles=4,
+                                                 active=x["active"], prof=pr)
+                assert all(o.device.type == "cpu" for o in out)
+                out = df.fire_block_cuda(
+                    dt, *(a[0] for a in args), n_cycles=4,
+                    prof=None if pr is None else tuple(p[0] for p in pr))
+                assert all(o.device.type == "cpu" for o in out)
+            out = df.fire_step_cuda(dt, x["full"][0], x["val"][0])
+            assert all(o.device.type == "cpu" for o in out)
+    assert counts() == launches
     if not torch.cuda.is_available():
-        assert launches == (0, 0) and real_load.cache_info().currsize == 0
+        assert not any(launches) and real_load.cache_info().currsize == 0

@@ -1,4 +1,5 @@
-"""Port vs JAX package: fabric plans, the fire rule and the fire block.
+"""Port vs JAX package: fabric plans, the fire rule and the fire block,
+dense and opcode-class-specialized (``optimize=True``).
 
 The same inputs, made with numpy from a seed, go through the JAX
 function and the port's counterpart; every result must match bit for
@@ -24,10 +25,12 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import asm as tasm  # noqa: E402
 from repro_torch.core import library as tlib  # noqa: E402
+from repro_torch.core.engine import _plan  # noqa: E402
 from repro_torch.core.engine import _plan_build as t_plan_build  # noqa: E402
 from repro_torch.kernels import dataflow_fire as tdf  # noqa: E402
 from repro_torch.testing import (EDGE_VALS, STATE_KEYS,  # noqa: E402
                                  random_block_inputs)
+from repro_torch.testing import random_graph as port_random_graph  # noqa: E402
 
 # the seven hand-assembled benches, bubble_sort at two sizes
 BENCH_CASES = [("fibonacci", ()), ("vector_sum", ()), ("max_vector", ()),
@@ -245,3 +248,169 @@ def test_block_matches_jnp_ref(name, K):
     want = jref.fire_block_ref(jt, *(jnp.asarray(v) for v in _args(x, 0)),
                                n_cycles=K)
     _assert_block_equal(tdf.fire_block(tt, *_args(t, 0), n_cycles=K), want)
+
+
+# ---------------------------------------------------------------------------
+# optimized plans: arcs in role order, nodes bucketed by opcode
+# ---------------------------------------------------------------------------
+def _random_pair(seed):
+    """A random fabric in the JAX package and the same one in the port
+    (sent across as asm text)."""
+    tg = port_random_graph(seed)
+    return jasm.parse(tasm.emit(tg), name=tg.name), tg
+
+
+def _assert_plans_equal(jg, tg):
+    jp, tp = j_plan_build(jg, optimize=True), t_plan_build(tg, optimize=True)
+    assert set(tp) == set(jp)
+    for k, v in tp.items():
+        if isinstance(v, np.ndarray):
+            assert v.dtype == jp[k].dtype, k
+            assert np.array_equal(v, jp[k]), k
+        else:
+            assert v == jp[k], k
+    jt = jdf.block_plan_arrays(jg, optimize=True)
+    tt = tdf.block_plan_arrays(tg, optimize=True)
+    for k in tdf.TABLE_KEYS:
+        assert tt[k].dtype == np.int32
+        assert np.array_equal(tt[k], jt[k]), k
+    assert tt["class_slices"] == jt["class_slices"]
+    return tt
+
+
+@pytest.mark.parametrize("name,args", BENCH_CASES)
+def test_optimized_plans_match(name, args):
+    jg, tg = _graphs(name, args)
+    tt = _assert_plans_equal(jg, tg)
+    # the trailing one-row bucket of the dummy node, as in the JAX tables
+    assert tt["class_slices"][-1] == (int(Op.SINK), len(tg.nodes),
+                                      len(tg.nodes) + 1)
+    assert tdf.device_tables(tt, "cpu").class_slices == tt["class_slices"]
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_optimized_plans_match_random_graphs(seed):
+    _assert_plans_equal(*_random_pair(seed))
+
+
+def test_plan_memo_keys_on_optimize():
+    g = tlib.fibonacci_graph().graph
+    dense, spec = _plan(g), _plan(g, optimize=True)
+    assert dense is _plan(g) and spec is _plan(g, optimize=True)
+    assert dense["class_slices"] is None and spec["class_slices"]
+    assert not np.array_equal(dense["opcode"], spec["opcode"])
+
+
+def test_device_tables_check_the_class_table():
+    tt = tdf.block_plan_arrays(tlib.fibonacci_graph().graph, optimize=True)
+    cs = tt["class_slices"]
+    bad = [cs[1:],                                  # rows 0.. uncovered
+           cs[:-1],                                 # dummy row uncovered
+           ((cs[0][0], 0, cs[0][2] + 1), *cs[1:]),  # overlaps the next
+           ((cs[1][0], *cs[0][1:]), *cs[1:])]       # wrong opcode
+    for c in bad:
+        with pytest.raises(ValueError):
+            tdf.device_tables(dict(tt, class_slices=c), "cpu")
+    dt = tdf.device_tables(tt, "cpu")
+    assert not dt.control_free                      # fibonacci has control
+    assert tdf.device_tables(tdf.block_plan_arrays(
+        tlib.dot_product_graph(4).graph, optimize=True), "cpu").control_free
+
+
+# ---------------------------------------------------------------------------
+# the specialized fire rule
+# ---------------------------------------------------------------------------
+_j_spec = jax.jit(jdf._ready_and_z_spec, static_argnums=0)
+
+
+def _spec_both(class_slices, in_idx, out_idx, full, val, opcode):
+    want = _j_spec(class_slices, jnp.asarray(in_idx), jnp.asarray(out_idx),
+                   jnp.asarray(full), jnp.asarray(val))
+    t = [torch.tensor(x) for x in (in_idx, out_idx, full, val)]
+    got = tdf._ready_and_z_spec(class_slices, t[0].long(), t[1].long(),
+                                t[2], t[3])
+    dense = tdf._ready_and_z(torch.tensor(opcode), t[0].long(), t[1].long(),
+                             t[2], t[3])
+    for part, g, w, d in zip(("ready", "z", "consume", "produce"), got, want,
+                             dense):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=part)
+        np.testing.assert_array_equal(g.numpy(), d.numpy(), err_msg=part)
+
+
+def _bucketed(ops, per_op):
+    opcode = np.repeat(np.asarray([int(o) for o in ops], np.int32), per_op)
+    cs = tuple((int(o), k * per_op, (k + 1) * per_op)
+               for k, o in enumerate(ops))
+    return opcode, cs
+
+
+@pytest.mark.parametrize("control", [True, False])
+def test_spec_rule_edge_operands(control):
+    """A bucketed table of every opcode (or every control-free one),
+    random registers holding edge operands."""
+    ops = [o for o in Op if control or int(o) not in tdf._CTRL_OPS]
+    opcode, cs = _bucketed(ops, 12)
+    rng = np.random.default_rng(int(control))
+    N, A2 = opcode.shape[0], 80
+    in_idx = rng.integers(0, A2, (N, 3)).astype(np.int32)
+    out_idx = rng.integers(0, A2, (N, 2)).astype(np.int32)
+    for _ in range(4):
+        full = rng.integers(0, 2, A2).astype(np.int32)
+        val = rng.choice(EDGE_VALS, A2).astype(np.int32)
+        _spec_both(cs, in_idx, out_idx, full, val, opcode)
+
+
+def test_spec_rule_every_edge_operand_pair():
+    """Every ALU opcode, as its own bucket, on every (a, b) pair of edge
+    operands."""
+    a, b = np.meshgrid(EDGE_VALS, EDGE_VALS)
+    pairs = a.size
+    ops = [o for o in Op if int(o) not in tdf._CTRL_OPS]
+    opcode, cs = _bucketed(ops, pairs)
+    A2 = 2 * pairs + 2
+    val = np.concatenate([a.ravel(), b.ravel(), [0, 0]]).astype(np.int32)
+    full = np.ones(A2, np.int32)
+    full[-1] = 0                                 # an empty output slot
+    rows = np.tile(np.arange(pairs), len(ops))
+    in_idx = np.stack([rows, pairs + rows, np.full(rows.size, A2 - 2)], 1)
+    out_idx = np.full((rows.size, 2), A2 - 1)
+    _spec_both(cs, in_idx.astype(np.int32), out_idx.astype(np.int32), full,
+               val, opcode)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_spec_rule_random_graphs(seed):
+    """The rule over random fabrics' optimized tables (control operators
+    included), on random states with edge operands."""
+    tt = tdf.block_plan_arrays(port_random_graph(seed), optimize=True)
+    x = random_block_inputs(tt, 4, 2, np.random.default_rng(seed))
+    for b in range(4):
+        _spec_both(tt["class_slices"], tt["in_idx"], tt["out_idx"],
+                   x["full"][b], x["val"][b], tt["opcode"])
+
+
+# ---------------------------------------------------------------------------
+# the fire block over optimized tables (the spec instantiation)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name,K", [("fibonacci", 4), ("fir", 16)])
+def test_spec_block_matches_pallas_interpret(name, K):
+    jg, tg = _graphs(name)
+    jt = jdf.block_plan_arrays(jg, optimize=True)
+    tt = tdf.device_tables(tdf.block_plan_arrays(tg, optimize=True), "cpu")
+    x = random_block_inputs(tdf.block_plan_arrays(tg, optimize=True), 3, 6,
+                            np.random.default_rng(K))
+    x["active"][:] = 1
+    x["active"][1] = 0                          # one parked slot
+    t = {k: torch.tensor(v) for k, v in x.items()}
+    want = jdf.fire_block_batched_pallas(
+        jt, *(jnp.asarray(v) for v in _args(x)), n_cycles=K,
+        active=jnp.asarray(x["active"]), interpret=True)
+    got = tdf.fire_block_batched_cuda(tt, *_args(t), n_cycles=K,
+                                      active=t["active"])
+    dense = tdf.fire_block_batched(
+        tdf.block_plan_arrays(tg, optimize=True) | {"class_slices": None},
+        *_args(t), n_cycles=K, active=t["active"])
+    for g, w, d in zip(got, want, dense):
+        np.testing.assert_array_equal(g.numpy().reshape(np.shape(w)),
+                                      np.asarray(w))
+        assert torch.equal(g, d)
