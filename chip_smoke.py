@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; no phase is caught and skipped):
 
 1. device  — the card's name and power limit (nvidia-smi);
-2. build   — nvcc builds the fire-block and fire-step kernels from
-             ``src/`` into ``build/``; prints the time and the
-             ``-Xptxas -v`` report;
+2. build   — nvcc builds every kernel from ``src/`` into ``build/`` (the
+             fire-block and fire-step kernels, the two static-schedule
+             kernels; one compiler per source, all started together);
+             prints the time and the ``-Xptxas -v`` report;
 3. kernel  — every instantiation against its plain PyTorch version on
              the card, bit for bit: the block kernel dense and
              specialized (``optimize``), unprofiled and profiled, batched
@@ -21,22 +22,33 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              optimized+profiled, bubble_sort(8) at B = 256, with the B = 1
              slice of each); random graphs fed int32 edge operands
              through the engine against the numpy oracle; device times
-             of every instantiation at the dot_prod serving state;
+             of every instantiation at the dot_prod serving state; the
+             two schedule kernels against their plain versions on the 6
+             schedulable benches (K in {1, 16, 64}, parked slots, random
+             mid-plan positions, mixed feed lengths) and at full width
+             (the run over 1024 equal 4096-token dot_prod streams, the
+             slot step at the scheduled serving state, B = 1024, K = 64),
+             each also against the fire block over the same cycles, with
+             their times;
 4. engine  — ``DataflowEngine(optimize=, profile=)`` ``run`` /
              ``run_batch`` against ``run_reference`` (7 benches, both
-             flags, K in {1, 16, 64}); ``optimize_graph`` fabrics on the
-             card; ``run_fabric`` (one fire-step launch per cycle)
+             flags, K in {1, 16, 64}); ``schedule=True`` on the 6
+             schedulable benches (each run one launch of the run
+             kernel); ``optimize_graph`` fabrics on the card; ``run_fabric`` (one fire-step launch per cycle)
              against ``run_reference``, with its microseconds per cycle
              beside the fused engine's (the paper's Table-1 comparison);
 5. serving — ``DataflowServer(slots=1024, block_cycles=64)`` on the
              paper's dot-product fabric at n = 32, 2048 requests of
-             256..4096 tokens: dense, then optimized and profiled; then
-             bubble_sort(8) at 256 slots.  The launch counts are read
-             here; 16 sampled results per deployment are then checked
-             against ``run_reference``, a solo ``run`` and (profiled) a
-             solo replay of the same blocks (those runs are not counted);
-6. trace   — the optimized, profiled dot_prod serving run again under
-             ``torch.profiler`` (CPU and CUDA): busy time and idle share;
+             256..4096 tokens: dense, then optimized and profiled, then
+             optimized, profiled and scheduled (every result equal to the
+             dynamic deployment's in every field); then bubble_sort(8) at
+             256 slots.  The launch counts are read here; 16 sampled
+             results per deployment are then checked against
+             ``run_reference``, a solo ``run`` and (profiled) a solo
+             replay of the same blocks (those runs are not counted);
+6. trace   — the optimized, profiled dot_prod serving runs again under
+             ``torch.profiler`` (CPU and CUDA), dynamic and scheduled:
+             busy time and idle share;
 7. summary — the ``kernels`` JSON line, the card, and the result line.
 
 The launch counts in the summary come from phases 4 and 5 (the main
@@ -59,8 +71,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (data sheet)
 SCALAR_OPS_PER_S = 67e12     # H100 SXM 32-bit rate outside the tensor cores
-SOURCE = "src/repro_torch/kernels/csrc/dataflow_fire.cu"
+FIRE_SOURCE = "src/repro_torch/kernels/csrc/dataflow_fire.cu"
+SCHED_SOURCE = "src/repro_torch/kernels/csrc/schedule_fire.cu"
 JAX_KERNELS = "src/repro/kernels/dataflow_fire.py"
+JAX_SCHED = "src/repro/kernels/schedule_fire.py"
 
 # one row per Pallas kernel of the path: (file:line, Pallas function)
 ROWS = {
@@ -78,7 +92,13 @@ ROWS = {
                         "_ready_and_z_spec, traced into rows 1-4 when "
                         "class_slices is set"),
     "fire_step": (f"{JAX_KERNELS}:247", "fire_step_pallas -> _kernel (:196)"),
+    "sched_run": (f"{JAX_SCHED}:69",
+                  "make_sched_run (pallas_call :97 solo, :116 batched)"),
+    "sched_slot_step": (f"{JAX_SCHED}:134",
+                        "make_sched_slot_step (pallas_call :174)"),
 }
+SOURCES = {k: SCHED_SOURCE if k.startswith("sched") else FIRE_SOURCE
+           for k in ROWS}
 
 
 def log(*a):
@@ -106,19 +126,24 @@ def launch_counts() -> dict:
     profiled launches of each entry, and the specialized rule's launches
     (of either entry, profiled or not)."""
     from repro_torch.kernels import dataflow_fire as df
+    from repro_torch.kernels import schedule_fire as ksf
     one, bat = df.fire_block_cuda, df.fire_block_batched_cuda
     return {"fire_block": one.launches, "fire_block_prof": one.prof_launches,
             "fire_block_batched": bat.launches,
             "fire_block_batched_prof": bat.prof_launches,
             "fire_block_spec": one.spec_launches + bat.spec_launches,
-            "fire_step": df.fire_step_cuda.launches}
+            "fire_step": df.fire_step_cuda.launches,
+            "sched_run": ksf.sched_run_cuda.launches,
+            "sched_slot_step": ksf.sched_slot_step_cuda.launches}
 
 
 def reset_counts() -> None:
     from repro_torch.kernels import dataflow_fire as df
+    from repro_torch.kernels import schedule_fire as ksf
     for w in (df.fire_block_cuda, df.fire_block_batched_cuda):
         w.launches = w.prof_launches = w.spec_launches = 0
     df.fire_step_cuda.launches = 0
+    ksf.sched_run_cuda.launches = ksf.sched_slot_step_cuda.launches = 0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -314,7 +339,52 @@ def phase_kernel(dev) -> dict:
             n_cases += len(got)
     log(f"  {n_cases} random-graph runs (edge operands; dense, and optimized "
         "+ profiled) == run_reference")
+    for name, build in sched_benches().items():
+        for opt in (False, True):
+            ctx = DataflowEngine(build().graph, device=dev, schedule=True,
+                                 optimize=opt)._sched_ctx()
+            hold_sched(dev, ctx, np.random.default_rng(len(name) + 7 * opt),
+                       (1, 16, 64), err, f"{name} opt={opt}")
+        log(f"  {name:12s} sched slot step == plain at B=64, K=1/16/64 "
+            f"(mixed feed lengths, random plan positions, parked slots); "
+            f"sched run == plain at B=16 and B=1, whole and clipped "
+            f"({len(ctx.registry)} patterns)")
     return err
+
+
+def sched_benches() -> dict:
+    """The benches a static schedule can run (all but fibonacci)."""
+    from repro_torch.core import library
+    from repro_torch.core.schedule import schedulable
+    return {n: b for n, b in library.BENCHES.items()
+            if schedulable(b().graph)}
+
+
+def hold_sched(dev, ctx, rng, Ks, err, tag) -> None:
+    """Both schedule kernels against their plain versions over the
+    schedule context ``ctx``: the slot step at each K on random inputs
+    (B = 64, L = 96), the run over 16 streams and over one, whole and
+    clipped."""
+    import torch
+    from repro_torch.kernels import schedule_fire as ksf
+    from repro_torch.testing import (STATE_KEYS, random_sched_run_inputs,
+                                     random_sched_slot_inputs)
+    for K in Ks:
+        x = random_sched_slot_inputs(ctx, 64, K, 96, rng)
+        tabs = ksf.device_sched_tables(ctx, dev)
+        t = {k: torch.tensor(x[k], device=dev) for k in ("fv", *STATE_KEYS)}
+        args = (t["fv"], x["pids"], x["fsel"], *(t[k] for k in STATE_KEYS))
+        hold(err, ["sched_slot_step"], ksf.sched_slot_step_cuda(tabs, *args),
+             ksf.sched_slot_step(tabs, *args), f"{tag} slot step K={K}")
+    fv, plan = random_sched_run_inputs(ctx, 16, 96, rng)
+    tabs = ksf.device_sched_tables(ctx, dev)
+    fv = torch.tensor(fv, device=dev)
+    for upto in (plan.total, plan.total // 2 + 1):
+        program = ksf.flat_program(*plan.trace_struct(upto))
+        for f in (fv, fv[:1].contiguous()):
+            hold(err, ["sched_run"], ksf.sched_run_cuda(tabs, program, f),
+                 ksf.sched_run(tabs, program, f),
+                 f"{tag} run of {upto} cycles, B={f.shape[0]}")
 
 
 def captured_state(dev, graph, reqs, slots, optimize=False, profile=False,
@@ -394,16 +464,19 @@ def block_bound(tables, args, out, active_rows, K, prof):
                 bytes=nbytes, tokens=tokens)
 
 
-def timed(run_k, run_p, reps, kernel):
+def timed(run_k, run_p, reps, kernel, plain_reps=3, plain_profile=True):
     """Kernel device time (profiler; CUDA events per call when the
     profiler sees no device time), per-call times with events, and the
-    plain version's per-call and summed device times."""
+    plain version's per-call and (``plain_profile``) summed device
+    times (None: not measured)."""
     dev_ms = profiled_ms(run_k, reps, kernel)
     call_ms = cuda_ms(run_k, reps)
     return dict(ms=dev_ms or call_ms,
                 ms_from="profiler" if dev_ms else "cuda events",
-                call_ms=call_ms, plain_ms=cuda_ms(run_p, 3, warmup=1),
-                plain_device_ms=profiled_ms(run_p, 2))
+                call_ms=call_ms,
+                plain_ms=cuda_ms(run_p, plain_reps, warmup=1),
+                plain_device_ms=profiled_ms(run_p, 2) if plain_profile
+                else None)
 
 
 def time_block(st, tables, prof, batched):
@@ -462,10 +535,12 @@ def time_fire_step(dev, graph):
 
 def log_times(times):
     for k, v in times.items():
+        pd = v["plain_device_ms"]
+        pd = "not measured" if pd is None else f"{pd:.3f} ms"
         log(f"  {k:30s} kernel {v['ms']:.4f} ms ({v['ms_from']}; "
             f"{v['call_ms']:.4f} ms per wrapper call)  plain "
-            f"{v['plain_ms']:.3f} ms per call ({v['plain_device_ms']:.3f} "
-            f"ms on the device)  bound {v['bound_ms']:.6f} ms "
+            f"{v['plain_ms']:.3f} ms per call ({pd} on the device)"
+            f"  bound {v['bound_ms']:.6f} ms "
             f"({v['bound_by']}: {v['bytes']} B, {v['tokens']} feed tokens)"
             f"  [{v['shape']}]")
 
@@ -529,6 +604,156 @@ def phase_serving_states(dev, dot, dot_reqs, bub, bub_reqs, errs):
     return times, by_variant
 
 
+def sched_bound(tables, nbytes, work):
+    """Bound of a schedule-kernel launch: ``nbytes`` plus every table once
+    over HBM bandwidth, against ``work`` 32-bit operations (one per
+    feed, firing and drain the schedule performs) over the scalar
+    rate."""
+    nbytes += sum(t.numel() * 4 for t in tables.values())
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, work / SCALAR_OPS_PER_S
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, work=work)
+
+
+def window_work(ctx, counts) -> tuple[int, int]:
+    """(feeds + firings + drains, feed tokens) of the cycles ``counts``
+    (pid -> cycles) of one stream."""
+    reg = ctx.registry
+    ops = sum(n * (reg[p].fed.size + reg[p].n_fires + reg[p].n_drains)
+              for p, n in counts.items())
+    return ops, sum(n * reg[p].fed.size for p, n in counts.items())
+
+
+def fire_block_cycles(tables, fv, fl, state, active, cycles, K=64):
+    """The fire block run over ``cycles`` cycles in K-cycle launches:
+    the dynamic path's work for the same schedule."""
+    from repro_torch.kernels import dataflow_fire as df
+    state = list(state)
+    done = 0
+    while done < cycles:
+        nb = min(K, cycles - done)
+        state = list(df.fire_block_batched_cuda(
+            tables, fv, fl, *state, n_cycles=nb, active=active)[:5])
+        done += nb
+    return state
+
+
+def phase_sched_states(dev, dot, dot_reqs, errs, B=1024, L=4096,
+                       slots=1024):
+    """The schedule kernels at full width against their plain versions
+    and against the fire block over the same cycles, with their times:
+    the run over B = 1024 equal L = 4096-token dot_prod streams (n = 32),
+    the slot step at the scheduled serving state (1024 slots, K = 64)."""
+    import torch
+    from repro_torch.core.engine import DataflowEngine
+    from repro_torch.kernels import dataflow_fire as df
+    from repro_torch.kernels import schedule_fire as ksf
+    from repro_torch.serve.dataflow_server import DataflowServer
+    times, versus = {}, {}
+    # the run: one launch for the whole run of every stream
+    eng = DataflowEngine(dot.graph, device=dev, schedule=True)
+    ctx = eng._sched_ctx()
+    n_in = len(eng.p["input_arcs"])
+    t0 = time.perf_counter()
+    plan = ctx.plan_for((L,) * n_in)
+    plan.ensure(1 << 20)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+    program = ksf.flat_program(*plan.trace_struct(plan.total))
+    tabs = ksf.device_sched_tables(ctx, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fv = torch.randint(0, 9, (B, n_in, L), generator=gen, device=dev,
+                       dtype=torch.int32)
+    run_k = lambda: ksf.sched_run_cuda(tabs, program, fv)
+    run_p = lambda: ksf.sched_run(tabs, program, fv)
+    got = run_k()
+    hold(errs, ["sched_run"], got, run_p(), "dot_prod full-width run")
+    fire_t = df.device_tables(df.block_plan_arrays(dot.graph), dev)
+    fl = torch.full((B, n_in), L, dtype=torch.int32, device=dev)
+    ones = torch.ones((B,), dtype=torch.int32, device=dev)
+    dyn = lambda: fire_block_cycles(fire_t, fv, fl, eng._state0(batch=B),
+                                    ones, plan.total)
+    hold(errs, ["sched_run"], got, dyn()[3:5],
+         "dot_prod full-width run vs the fire block")
+    ops, tokens = window_work(ctx, plan.counts_between(0, plan.total))
+    nbytes = 4 * (B * tokens + 2 * B * got[0].shape[1]
+                  + sum(x.size for x in program.values()))
+    times["sched_run"] = dict(
+        **timed(run_k, run_p, 10, "sched_run_kernel", plain_reps=1,
+                plain_profile=False),
+        **sched_bound(tabs, nbytes, B * ops), tokens=B * tokens,
+        shape=f"dot_prod n=32: B={B} streams of {L} tokens, "
+              f"{plan.total} cycles ({len(program['seg_len'])} segments, "
+              f"{len(ctx.registry)} patterns)")
+    fire_ms = cuda_ms(dyn, 2, warmup=1)
+    versus["run"] = dict(
+        cycles=plan.total, sched_ms=times["sched_run"]["ms"],
+        sched_us_per_cycle=times["sched_run"]["ms"] * 1e3 / plan.total,
+        fire_block_ms=fire_ms,
+        fire_block_launches=-(-plan.total // 64),
+        fire_block_us_per_cycle=fire_ms * 1e3 / plan.total,
+        plan_build_ms=plan_ms, segments=[(len(p), r) for p, r in
+                                         plan.segments])
+    log(f"  dot_prod     sched run == plain == the fire block over "
+        f"{plan.total} cycles (B={B}, L={L}; plan built in "
+        f"{plan_ms:.1f} ms: {versus['run']['segments']})")
+    del fv, got
+    # the slot step at the scheduled serving state
+    srv = DataflowServer(dot.graph, slots=slots, block_cycles=64,
+                         device=dev, optimize=True, profile=True,
+                         schedule=True)
+    for r in dot_reqs[:slots]:
+        srv.submit(r)
+    for _ in range(8):
+        srv.step()
+    st, ctx, K = srv.state, srv.engine._sched_ctx(), 64
+    pids = np.zeros((st.slots, K), np.int32)
+    fsel = np.full((st.slots,), -1, np.int32)
+    ops = tokens = 0
+    for b in np.nonzero(st.active)[0]:
+        plan, pos = st.sched.plans[b], int(st.sched.pos[b])
+        plan.ensure(pos + K)
+        pids[b] = plan.pids_window(pos, pos + K)
+        fsel[b] = pids[b, -1]
+        o, t = window_work(ctx, plan.counts_between(pos, pos + K))
+        ops, tokens = ops + o, tokens + t
+    check(tokens > 0, "nothing fed in the scheduled serving state")
+    tabs = ksf.device_sched_tables(ctx, dev)
+    state = [st.full, st.val, st.ptr, st.out_last, st.out_count]
+    run_k = lambda: ksf.sched_slot_step_cuda(tabs, st.fv, pids, fsel, *state)
+    run_p = lambda: ksf.sched_slot_step(tabs, st.fv, pids, fsel, *state)
+    got = run_k()
+    hold(errs, ["sched_slot_step"], got, run_p(), "scheduled serving state")
+    fire_t = df.device_tables(df.block_plan_arrays(dot.graph, optimize=True),
+                              dev)
+    dyn = lambda: df.fire_block_batched_cuda(
+        fire_t, st.fv, st.fl, *state, n_cycles=K, active=st.active_dev)
+    hold(errs, ["sched_slot_step"], got, dyn()[:5],
+         "scheduled serving state vs the fire block")
+    per_row = 2 * (2 * ctx.A2 + 2 * ctx.oa_pad.size + ctx.ia_pad.size)
+    nbytes = 4 * (st.slots * (per_row + K + 1) + tokens)
+    active = int(st.active.sum())
+    times["sched_slot_step"] = dict(
+        **timed(run_k, run_p, 20, "sched_slot_step_kernel"),
+        **sched_bound(tabs, nbytes, ops), tokens=tokens,
+        shape=f"B={st.slots} slots ({active} active), K={K}, "
+              f"L={st.fv.shape[2]}, A2={ctx.A2}, {len(ctx.registry)} "
+              "patterns")
+    fire_ms = profiled_ms(dyn, 20, "fire_block_kernel") or cuda_ms(dyn, 20)
+    versus["slot_step"] = dict(
+        cycles=K, sched_ms=times["sched_slot_step"]["ms"],
+        fire_block_ms=fire_ms, active=active,
+        sched_us_per_cycle=times["sched_slot_step"]["ms"] * 1e3 / K,
+        fire_block_us_per_cycle=fire_ms * 1e3 / K)
+    log(f"  dot_prod     sched slot step == plain == the fire block on the "
+        f"scheduled serving state (B={st.slots}, {active} active, K={K})")
+    del srv, st, state, got
+    torch.cuda.empty_cache()
+    log_times(times)
+    log(f"  sched vs fire block: {json.dumps(versus)}")
+    return times, versus
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the engine, the passes and the per-cycle baseline
 # ---------------------------------------------------------------------------
@@ -572,6 +797,41 @@ def phase_engine(dev):
                         hold_engine(g, w, tag + ("batch",), prof, False)
         log(f"  {name:12s} run + run_batch(B=8) == run_reference, "
             "optimize x profile, K=1/16/64 (K=1: every counter)")
+
+
+def phase_engine_sched(dev):
+    """``schedule=True`` on the schedulable benches: every run one launch
+    of the run kernel (equal-length batches too), every field equal to
+    the oracle's, profile included (a scheduled run's profile covers the
+    oracle's cycles exactly)."""
+    from repro_torch.core import library
+    from repro_torch.core.engine import DataflowEngine, run_reference
+    from repro_torch.kernels import schedule_fire as ksf
+    for name, build in sched_benches().items():
+        bench = build()
+        feeds = [library.random_feeds(name, bench, 1 + 3 * b,
+                                      np.random.default_rng(b))
+                 for b in range(4)]
+        batch = [library.random_feeds(name, bench, 9,
+                                      np.random.default_rng(10 + b))
+                 for b in range(8)]      # one length: one scheduled launch
+        wants = [run_reference(bench.graph, f, profile=True)
+                 for f in feeds + batch]
+        for opt in (False, True):
+            for prof in (False, True):
+                eng = DataflowEngine(bench.graph, block_cycles=16,
+                                     device=dev, optimize=opt, profile=prof,
+                                     schedule=True)
+                tag = (name, "sched", opt, prof)
+                n0 = ksf.sched_run_cuda.launches
+                got = [eng.run(f) for f in feeds] + eng.run_batch(batch)
+                check(ksf.sched_run_cuda.launches == n0 + len(feeds) + 1,
+                      f"{tag}: a scheduled run missed the run kernel")
+                for g, w in zip(got, wants):
+                    hold_engine(g, w, tag, prof, True)
+        log(f"  {name:12s} schedule=True run + run_batch(B=8) == "
+            "run_reference, optimize x profile (every counter); one run "
+            "kernel launch each")
 
 
 def phase_passes(dev):
@@ -685,7 +945,7 @@ def expected_last(name, bench, feeds):
 
 
 def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
-                  profile=False):
+                  profile=False, schedule=False):
     """Serve the workload; check every result against Bench.reference
     (and, profiled, every profile's partition); return the stats, the
     results sorted by uid, the server's cap and the heartbeats' block
@@ -695,7 +955,9 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
     from repro_torch.serve.dataflow_server import DataflowServer
     torch.cuda.reset_peak_memory_stats()
     srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
-                         device=dev, optimize=optimize, profile=profile)
+                         device=dev, optimize=optimize, profile=profile,
+                         schedule=schedule)
+    check(srv.engine._sched_on == schedule, "the schedule flag was lost")
     host_s, blocks = time_slot_api(srv.engine)
     batched0 = launch_counts()
     half = len(reqs) // 2
@@ -713,7 +975,8 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
     for k in list(vars(srv.engine)):
         if k in host_s:
             delattr(srv.engine, k)          # back to the plain methods
-    row = "fire_block_batched" + ("_prof" if profile else "")
+    row = "sched_slot_step" if schedule else \
+        "fire_block_batched" + ("_prof" if profile else "")
     launches = launch_counts()[row] - batched0[row]
     check(len(results) == len(reqs), "a request got no result")
     check(len(blocks) == srv.block, "a heartbeat went unrecorded")
@@ -744,7 +1007,8 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
           f"{srv.block} server blocks but {launches} kernel launches")
     res = np.array([r.metrics.residency_blocks for r in results])
     stats = dict(requests=len(reqs), slots=slots, optimize=optimize,
-                 profile=profile, blocks=srv.block, launches=launches,
+                 profile=profile, schedule=schedule, blocks=srv.block,
+                 launches=launches,
                  wall_s=wall, req_per_s=len(reqs) / wall,
                  tokens=int(lens.sum()), truncated=len(truncated),
                  residency_p50=float(np.percentile(res, 50)),
@@ -753,8 +1017,8 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
                  max_memory_allocated=torch.cuda.max_memory_allocated(),
                  seconds_in={k: round(v, 4) for k, v in host_s.items()},
                  card=card_line())
-    log(f"  {bench.graph.name} optimize={optimize} profile={profile}: "
-        f"{json.dumps(stats)}")
+    log(f"  {bench.graph.name} optimize={optimize} profile={profile} "
+        f"schedule={schedule}: {json.dumps(stats)}")
     return stats, results, srv.max_cycles, blocks
 
 
@@ -772,7 +1036,7 @@ def replay(engine, req, result, blocks, cap):
 
 
 def check_sampled(dev, bench, reqs, results, max_cycles, blocks,
-                  optimize=False, profile=False):
+                  optimize=False, profile=False, schedule=False):
     """16 sampled results (4 truncated) against ``run_reference`` and a
     solo ``DataflowEngine.run`` in every EngineResult field; profiled,
     also against a solo replay of the same blocks in every field,
@@ -786,7 +1050,8 @@ def check_sampled(dev, bench, reqs, results, max_cycles, blocks,
                              replace=False)) + list(
         rng.choice(done, min(12, len(done)), replace=False))
     solo = DataflowEngine(bench.graph, block_cycles=64, device=dev,
-                          optimize=optimize, profile=profile)
+                          optimize=optimize, profile=profile,
+                          schedule=schedule)
     t_ref = time.perf_counter()
     same_window = 0
     for uid in sample:
@@ -818,6 +1083,26 @@ def check_sampled(dev, bench, reqs, results, max_cycles, blocks,
         + f" ({time.perf_counter() - t_ref:.1f} s)")
 
 
+def same_as_dynamic(sched, dyn, stats_s, stats_d) -> None:
+    """The scheduled deployment answered every request as the dynamic
+    deployment did: every EngineResult field (profile and launch count
+    included), every metric, residency p50/p99."""
+    import dataclasses
+    from repro_torch.testing import assert_same_result
+    check(len(sched) == len(dyn), "the deployments answered differently")
+    for s, d in zip(sched, dyn):
+        check(s.uid == d.uid and s.status == d.status, f"request {s.uid}")
+        assert_same_result(s.engine, d.engine, ("sched", s.uid), profile=True)
+        check(dataclasses.asdict(s.metrics) == dataclasses.asdict(d.metrics),
+              f"request {s.uid}: metrics differ")
+    for k in ("blocks", "residency_p50", "residency_p99"):
+        check(stats_s[k] == stats_d[k], f"{k}: scheduled {stats_s[k]}, "
+              f"dynamic {stats_d[k]}")
+    log(f"  dot_prod     scheduled deployment == dynamic optimized+profiled "
+        f"deployment on all {len(sched)} requests (every field, profile "
+        "and metrics included)")
+
+
 def device_busy_us(prof) -> tuple[float, dict]:
     """Microseconds in which the card ran anything (union of the device
     events' intervals in a torch.profiler trace), and device time per
@@ -838,7 +1123,7 @@ def device_busy_us(prof) -> tuple[float, dict]:
 
 
 def trace_serving(dev, bench, slots, reqs, untraced_wall, optimize,
-                  profile):
+                  profile, schedule=False):
     """Serve the workload again under torch.profiler (CPU and CUDA
     activities): the card's busy time, its idle share of the traced
     wall time, and what the tracing cost in wall time."""
@@ -846,7 +1131,8 @@ def trace_serving(dev, bench, slots, reqs, untraced_wall, optimize,
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.serve.dataflow_server import DataflowServer
     srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
-                         device=dev, optimize=optimize, profile=profile)
+                         device=dev, optimize=optimize, profile=profile,
+                         schedule=schedule)
     half = len(reqs) // 2
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -864,7 +1150,8 @@ def trace_serving(dev, bench, slots, reqs, untraced_wall, optimize,
     check(n == len(reqs), "the traced run lost a request")
     busy_us, per = device_busy_us(prof)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:6]
-    out = dict(optimize=optimize, profile=profile, traced_wall_s=wall,
+    out = dict(optimize=optimize, profile=profile, schedule=schedule,
+               traced_wall_s=wall,
                untraced_wall_s=untraced_wall, device_busy_s=busy_us / 1e6,
                idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
                device_s_by_name={k[:96]: v / 1e6 for k, v in top})
@@ -895,7 +1182,8 @@ def main() -> int:
 
     log("== phase 2: build")
     lib = _build.load()
-    log(f"  nvcc built {_build.SOURCE.name} in {lib.build_seconds:.2f} s")
+    log(f"  nvcc built {', '.join(f.name for f in _build.SOURCES)} into "
+        f"one library in {lib.build_seconds:.2f} s")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line or "smem" in line \
                 or "Function properties" in line or "Compiling" in line:
@@ -910,44 +1198,54 @@ def main() -> int:
     errs = phase_kernel(dev)
     times, by_variant = phase_serving_states(dev, dot, dot_reqs, bub,
                                              bub_reqs, errs)
+    sched_times, versus = phase_sched_states(dev, dot, dot_reqs, errs)
+    times.update(sched_times)
     log(f"  phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 4: engine (main path: counts from here on)")
     reset_counts()
     phase_engine(dev)
+    phase_engine_sched(dev)
     phase_passes(dev)
     table1 = phase_run_fabric(dev)
     log(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 5: serving")
     deployments = (
-        ("dot_prod", "dot_prod", dot, 1024, dot_reqs, dot_lens, False, False),
+        ("dot_prod", "dot_prod", dot, 1024, dot_reqs, dot_lens, False, False,
+         False),
         ("dot_prod_opt_prof", "dot_prod", dot, 1024, dot_reqs, dot_lens,
+         True, True, False),
+        ("dot_prod_sched", "dot_prod", dot, 1024, dot_reqs, dot_lens, True,
          True, True),
         ("bubble_sort", "bubble_sort", bub, 256, bub_reqs, bub_lens, False,
-         False))
+         False, False))
     serve, served = {}, {}
-    for key, name, bench, slots, reqs, lens, opt, prof in deployments:
+    for key, name, bench, slots, reqs, lens, opt, prof, sch in deployments:
         serve[key], *served[key] = phase_serving(dev, name, bench, slots,
-                                                 reqs, lens, opt, prof)
+                                                 reqs, lens, opt, prof, sch)
     launches = launch_counts()
     log(f"  main-path launches (phases 4-5): {json.dumps(launches)}")
     for k, n in launches.items():
         check(n > 0, f"{k} was never launched on the main path")
-    for key, name, bench, slots, reqs, lens, opt, prof in deployments:
+    same_as_dynamic(served["dot_prod_sched"][0],
+                    served["dot_prod_opt_prof"][0], serve["dot_prod_sched"],
+                    serve["dot_prod_opt_prof"])
+    for key, name, bench, slots, reqs, lens, opt, prof, sch in deployments:
         check_sampled(dev, bench, reqs, *served[key], optimize=opt,
-                      profile=prof)
+                      profile=prof, schedule=sch)
     del served, bub_reqs
     log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    log("== phase 6: trace of the optimized, profiled dot_prod serving run")
-    serve["dot_prod_opt_prof"]["trace"] = trace_serving(
-        dev, dot, 1024, dot_reqs, serve["dot_prod_opt_prof"]["wall_s"],
-        optimize=True, profile=True)
+    log("== phase 6: traces of the optimized, profiled dot_prod serving runs")
+    for key, sch in (("dot_prod_opt_prof", False), ("dot_prod_sched", True)):
+        serve[key]["trace"] = trace_serving(
+            dev, dot, 1024, dot_reqs, serve[key]["wall_s"], optimize=True,
+            profile=True, schedule=sch)
     del dot_reqs
 
     log("== phase 7: summary")
-    kernels = [dict(name=k, route="cuda", source=SOURCE,
+    kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=ROWS[k][0], pallas=ROWS[k][1],
                     launches=launches[k], max_abs_err=errs[k],
                     library_ms=None, matches_plain=errs[k] == 0,
@@ -960,6 +1258,7 @@ def main() -> int:
         check(k["max_abs_err"] == 0, f"{k['name']} disagrees with plain")
     log(json.dumps({"serving": serve}))
     log(json.dumps({"table1_us_per_cycle": table1}))
+    log(json.dumps({"sched_vs_fire_block": versus}))
     log(json.dumps({"block_by_instantiation": {
         v: {f: t[f] for f in ("ms", "call_ms", "bound_ms", "shape")}
         for v, t in by_variant.items()}}))

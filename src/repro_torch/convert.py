@@ -25,14 +25,23 @@ def graph_from_asm(text: str, name: str = "asm") -> Graph:
     return asm.parse(text, name=name)
 
 
-def slot_state_from_numpy(arrays, device="cuda") -> SlotState:
+def slot_state_from_numpy(arrays, device="cuda", engine=None) -> SlotState:
     """The port's :class:`SlotState` from a JAX ``SlotState``'s fields
     given as numpy arrays (``arrays[name]`` for every name in
     :data:`DEVICE_FIELDS` and :data:`HOST_FIELDS`).  Device fields
     become int32 tensors on ``device``; host fields stay numpy with the
     JAX package's dtypes.  A profiled engine's state also carries
     ``arrays["prof"]`` (the five counter arrays) and
-    ``arrays["prof_cycles"]``; both cross when present."""
+    ``arrays["prof_cycles"]``; both cross when present.
+
+    A scheduled engine's state (``schedule=``) crosses with its schedule
+    positions: ``arrays["sched_pos"]`` (int [B]) and
+    ``arrays["sched_flen"]`` (each slot's feed-length tuple, None for a
+    slot that never held a request), and, profiled, ``arrays["sched_prof"]``
+    (the five host counter arrays nf/si/so [B, N], ab/ahw [B, A2]).  Each
+    slot is bound to ``engine``'s own plan for its feed lengths (the
+    port's scheduled engine for the same fabric), so a state captured
+    mid-run resumes in the port."""
     missing = [k for k in (*DEVICE_FIELDS, *HOST_FIELDS) if k not in arrays]
     if missing:
         raise ValueError(f"slot state lacks fields {missing}")
@@ -48,5 +57,31 @@ def slot_state_from_numpy(arrays, device="cuda") -> SlotState:
     prof_cycles = arrays.get("prof_cycles")
     if prof_cycles is not None:
         prof_cycles = np.array(prof_cycles, dtype=np.int64)
+    sched = None
+    if "sched_pos" in arrays:
+        if engine is None or not engine._sched_on:
+            raise ValueError("a scheduled slot state needs the port's "
+                             "scheduled engine (engine=, schedule=True)")
+        sched = _slot_sched(engine, arrays)
     return SlotState(**dev, **host, active_dev=torch.tensor(
-        host["active"], device=device), prof=prof, prof_cycles=prof_cycles)
+        host["active"], device=device), prof=prof, prof_cycles=prof_cycles,
+        sched=sched)
+
+
+def _slot_sched(engine, arrays):
+    pos = np.array(arrays["sched_pos"], dtype=np.int64)
+    flens = list(arrays["sched_flen"])
+    sched = engine._make_slot_sched(pos.shape[0])
+    ctx = engine._sched_ctx()
+    for b, flen in enumerate(flens):
+        if flen is not None:
+            sched.reset(b, ctx.plan_for(tuple(int(x) for x in flen)))
+    sched.pos[:] = pos
+    if engine.profile:
+        counters = arrays.get("sched_prof")
+        if counters is None:
+            raise ValueError("a profiled scheduled state needs "
+                             "arrays['sched_prof']")
+        for name, x in zip(("nf", "si", "so", "ab", "ahw"), counters):
+            getattr(sched, name)[:] = np.asarray(x, np.int64)
+    return sched

@@ -236,6 +236,11 @@ class SlotState:
                     alongside the block step — no extra launches
       prof_cycles[B] host tally of the cycles the resident request's
                     slot was simulated for (its profiled-cycle count)
+
+    Scheduled engines (``schedule=``) carry no device counters:
+      sched         :class:`~repro_torch.core.schedule.SlotSched` — each
+                    slot's plan and schedule position, and (profiled) the
+                    counters accrued on the host from the plan
     """
     fv: torch.Tensor
     fl: torch.Tensor
@@ -255,6 +260,7 @@ class SlotState:
     active_dev: torch.Tensor
     prof: tuple | None = None
     prof_cycles: np.ndarray | None = None
+    sched: object = None
 
     @property
     def slots(self) -> int:
@@ -328,8 +334,13 @@ class DataflowEngine:
     node and arc tables, the spec fire rule); ``profile=True`` carries
     the five fabric counters through every block, inside the same
     launch, and attaches a :class:`~repro_torch.obs.FabricProfile` to
-    each result.  Neither changes a result: every backend and flag
-    reports bit-identical outputs/counts/fired/cycles; ``cycles`` is
+    each result.  ``schedule=True`` (or ``"auto"``) runs a control-free
+    fabric from its static firing schedule
+    (:mod:`repro_torch.core.schedule`): ``run`` is one launch of the
+    scheduled-run kernel, ``step_block`` one launch of the scheduled
+    slot-step kernel, and profiles are closed-form on the host.  None of
+    the three changes a result: every backend and flag reports
+    bit-identical outputs/counts/fired/cycles; ``cycles`` is
     reconstructed from the last progress cycle, so block-granular
     quiescence detection does not change the reported cycle count.
     """
@@ -337,7 +348,7 @@ class DataflowEngine:
     def __init__(self, graph: Graph, max_cycles: int = 100_000,
                  backend: str = "cuda", block_cycles: int = 1,
                  device="cuda", optimize: bool = False,
-                 profile: bool = False):
+                 profile: bool = False, schedule: bool | str = False):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if block_cycles < 1:
@@ -351,6 +362,27 @@ class DataflowEngine:
         # as authored, whatever optimize says
         self.optimize = bool(optimize)
         self.profile = bool(profile)
+        # schedule: False/None = dynamic interpreter; "auto" = run the
+        # static firing schedule when the fabric is control-free, dynamic
+        # otherwise; True = require the schedule (raise naming the
+        # blockers if the fabric can't be scheduled).  A plan that fails
+        # to lock onto a period in budget falls back to the dynamic run
+        # path (a performance decision, never a semantic one).
+        if schedule not in (False, None, True, "auto"):
+            raise ValueError("schedule must be False, True, or 'auto', "
+                             f"got {schedule!r}")
+        self.schedule = schedule
+        self._sched = None
+        self._sched_on = False
+        if schedule:
+            from repro_torch.core.schedule import schedule_blockers
+            blockers = schedule_blockers(graph)
+            if blockers and schedule is True:
+                raise ValueError(
+                    "schedule=True needs a statically schedulable "
+                    f"fabric, but this one has: {', '.join(blockers)} "
+                    "(use schedule='auto' to fall back dynamically)")
+            self._sched_on = not blockers
         self.p = _plan(graph, optimize=self.optimize)
         self._steps: dict[tuple[int, bool], object] = {}
         self._tables = None
@@ -361,11 +393,24 @@ class DataflowEngine:
                 block_plan_arrays(graph, optimize=self.optimize),
                 self.device)
 
+    def _sched_ctx(self):
+        """Lazy per-engine schedule state."""
+        if self._sched is None:
+            from repro_torch.core.schedule import ScheduleContext
+            self._sched = ScheduleContext(self.p, self.graph)
+        return self._sched
+
     # -- public ---------------------------------------------------------
     def run(self, feeds: Mapping[str, object] | None = None,
             max_cycles: int | None = None) -> EngineResult:
         """feeds: arc -> [k] stream of tokens (k may vary per arc)."""
         max_cycles = max_cycles or self.max_cycles
+        if self._sched_on:
+            from repro_torch.core import schedule as _sched
+            try:
+                return _sched.run_scheduled(self, feeds, max_cycles)
+            except _sched.ScheduleBail:
+                pass        # pathological period: dynamic path below
         if self.backend == "reference":
             return run_reference(self.graph, feeds, max_cycles=max_cycles,
                                  profile=self.profile)
@@ -386,6 +431,16 @@ class DataflowEngine:
             raise ValueError(
                 "run_batch: feeds_batch is empty — pass at least one "
                 "feed dict (use run() for a single stream)")
+        if self._sched_on:
+            from repro_torch.core import schedule as _sched
+            try:
+                res = _sched.run_batch_scheduled(self, feeds_batch,
+                                                 max_cycles)
+            except _sched.ScheduleBail:
+                res = None
+            if res is not None:     # None: mixed feed lengths — the
+                return res          # schedule is per-length; the dynamic
+                                    # path takes the ragged batch
         if self.backend == "reference":
             return [run_reference(self.graph, f, max_cycles=max_cycles,
                                   profile=self.profile)
@@ -482,8 +537,16 @@ class DataflowEngine:
             active=np.zeros((B,), np.int32), base=z64(), last=z64(),
             fired=z64(), quiesced=np.zeros((B,), bool), dispatches=z64(),
             cap=np.full((B,), self.max_cycles, np.int64), stalled=z64(),
-            active_dev=self._zeros(B), prof=self._prof0(B),
-            prof_cycles=z64() if self.profile else None)
+            active_dev=self._zeros(B),
+            # scheduled engines reconstruct profiles on the host from the
+            # plan (closed form): no device counters
+            prof=None if self._sched_on else self._prof0(B),
+            prof_cycles=z64() if self.profile else None,
+            sched=self._make_slot_sched(B) if self._sched_on else None)
+
+    def _make_slot_sched(self, slots: int):
+        from repro_torch.core.schedule import SlotSched
+        return SlotSched(self._sched_ctx(), slots, self.profile)
 
     def reset_slots(self, state: SlotState, slot_ids,
                     new_feeds, caps=None) -> SlotState:
@@ -562,18 +625,28 @@ class DataflowEngine:
         quiesced = state.quiesced.copy()
         active[slot_ids] = 1
         quiesced[slot_ids] = False
+        sched = state.sched
+        if self._sched_on:
+            from repro_torch.core.schedule import plan_key
+            if sched is None:
+                sched = self._make_slot_sched(state.slots)
+            ctx = self._sched_ctx()
+            for b, (_, fl) in zip(slot_ids, packed):
+                sched.reset(b, ctx.plan_for(plan_key(self, fl)))
         return SlotState(fv, state.fl, state.full, state.val, state.ptr,
                          state.out_last, state.out_count, active, base,
                          last, fired, quiesced, disp, cap=cap,
                          stalled=stalled, active_dev=self._dev(active),
-                         prof=state.prof, prof_cycles=prof_cycles)
+                         prof=state.prof, prof_cycles=prof_cycles,
+                         sched=sched)
 
     def step_block(self, state: SlotState,
                    n_cycles: int | None = None) -> SlotState:
         """Advance every active slot by ``n_cycles`` (default
         ``block_cycles``) fabric cycles in ONE launch; free slots are
         clock-gated out.  Per-slot clocks (base/last/fired) advance on
-        the host after one device-to-host read per block; a slot whose
+        the host after one device-to-host read per block (a scheduled
+        engine reads them off the plan: no read at all); a slot whose
         block had an idle tail is marked ``quiesced`` (idle is absorbing
         — the request is done)."""
         self._check_slot_api()
@@ -582,6 +655,9 @@ class DataflowEngine:
             raise ValueError("n_cycles must be >= 1")
         if not state.active.any():
             return state
+        if self._sched_on:
+            from repro_torch.core import schedule as _sched
+            return _sched.step_block_sched(self, state, nb)
         res = self._step(nb, True)(
             state.fv, state.fl, state.full, state.val, state.ptr,
             state.out_last, state.out_count, state.active_dev,
@@ -610,7 +686,7 @@ class DataflowEngine:
                          base, last, fired, quiesced, disp,
                          cap=state.cap, stalled=stalled,
                          active_dev=state.active_dev, prof=prof,
-                         prof_cycles=prof_cycles)
+                         prof_cycles=prof_cycles, sched=state.sched)
 
     def harvest(self, state: SlotState, slot_ids
                 ) -> tuple[SlotState, list[EngineResult]]:
@@ -632,6 +708,11 @@ class DataflowEngine:
         parts = [acc[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
 
         def prof_row(k, b):
+            # scheduled engines accrue the counters on the host from the
+            # plan (closed form); dynamic engines read the device rows
+            if self.profile and state.sched is not None:
+                return (*state.sched.prof_row(b), int(state.prof_cycles[b]),
+                        int(state.dispatches[b]))
             if state.prof is None:
                 return None
             return (*(x[k] for x in parts[2:]), int(state.prof_cycles[b]),

@@ -1,12 +1,15 @@
 """Build and load the CUDA kernel library at first use.
 
-``nvcc`` compiles ``csrc/dataflow_fire.cu`` (the fire-block and
-fire-step kernels) for Hopper (``sm_90a``) into
-a shared library with a plain C interface, written under ``build/`` at
-the repository root (named by the source's hash) and loaded with
-:mod:`ctypes`.  The build happens once per process, at the first launch;
-every new process builds afresh (a few seconds), so a library is never
-older than its source.  Nothing here runs at import time.
+``nvcc`` compiles every ``csrc/*.cu`` (``dataflow_fire.cu``: the
+fire-block and fire-step kernels; ``schedule_fire.cu``: the static-
+schedule kernels; both include ``csrc/alu.cuh``) for Hopper
+(``sm_90a``), one compiler per source, all started together, and links
+the objects into one shared library with a plain C interface.  It is
+written under ``build/`` at the repository root (named by a hash over
+every source and header) and loaded with :mod:`ctypes`.  The build
+happens once per process, at the first launch; every new process builds
+afresh (a few seconds), so a library is never older than its sources.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -19,10 +22,12 @@ import shutil
 import subprocess
 import time
 
-SOURCE = pathlib.Path(__file__).with_name("csrc") / "dataflow_fire.cu"
+CSRC = pathlib.Path(__file__).with_name("csrc")
+SOURCES = tuple(sorted(CSRC.glob("*.cu")))
+HEADERS = tuple(sorted(CSRC.glob("*.cuh")))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -31,41 +36,70 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (put it on PATH or set CUDA_HOME): "
-                       "the fire-block kernel is built from source at "
-                       "first use")
+                       "the CUDA kernels are built from source at first use")
 
 
-@functools.cache
-def load() -> ctypes.CDLL:
-    """The kernel library, built from the current source on first call.
-    The returned library carries ``build_seconds`` and ``build_log``
-    (the compiler's output, with the ``-Xptxas -v`` register and
-    shared-memory report)."""
-    source = SOURCE.read_bytes()
-    digest = hashlib.sha256(source).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"dataflow_fire_{digest}.so"
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(SOURCE)], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    lib.build_seconds = time.perf_counter() - t0
-    lib.build_log = proc.stdout + proc.stderr
+def _digest() -> str:
+    h = hashlib.sha256()
+    for f in (*SOURCES, *HEADERS):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # every pointer and the stream as c_void_p: without argtypes ctypes
     # would pass 32-bit ints and cut them
-    lib.fire_block_launch.argtypes = [vp] * 38 + [ci] * 9 + [vp]
-    lib.fire_block_launch.restype = ci
-    lib.fire_step_launch.argtypes = [vp] * 13 + [ci] * 2 + [vp]
-    lib.fire_step_launch.restype = ci
+    for name, n_ptr, n_int in (("fire_block_launch", 38, 9),
+                               ("fire_step_launch", 13, 2),
+                               ("sched_run_launch", 16, 7),
+                               ("sched_slot_step_launch", 25, 7)):
+        fn = getattr(lib, name)
+        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
+        fn.restype = ci
     lib.fire_block_smem_bytes.argtypes = [ci] * 5
     lib.fire_block_smem_bytes.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci
     lib.fire_block_error_string.argtypes = [ci]
     lib.fire_block_error_string.restype = ctypes.c_char_p
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built from the current sources on first call.
+    The returned library carries ``build_seconds`` and ``build_log``
+    (the compilers' output, with the ``-Xptxas -v`` register and
+    shared-memory report of every kernel)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"repro_torch_kernels_{_digest()}.so"
+    tag = f"{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    logs = []
+    for src, proc in zip(SOURCES, procs):
+        log = proc.communicate()[0]
+        logs.append(log)
+        if proc.returncode != 0:
+            for p in procs:
+                p.wait()
+            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+    tmp = out.with_name(f"{out.stem}.{tag}.so")
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernels failed:\n{link.stderr}")
+    os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.build_seconds = time.perf_counter() - t0
+    lib.build_log = "".join(logs) + link.stdout + link.stderr
+    _bind(lib)
     return lib

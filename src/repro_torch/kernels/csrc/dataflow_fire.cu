@@ -54,28 +54,18 @@
 //   * the per-stream active gate copies a parked stream's state (and its
 //     counters) through with the whole CTA, so no barrier ever diverges.
 //
-// Integer semantics follow jnp/numpy int32 exactly: ADD/SUB/MUL/SHL wrap
-// (computed in uint32), DIV is floor division with x // 0 == 0 and
-// INT_MIN // -1 == INT_MIN, shift counts are clipped to 0..31, SHR is
-// arithmetic, comparisons and NOT give 0 or 1.
+// Integer semantics follow jnp/numpy int32 exactly (the shared ALU of
+// alu.cuh).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (see ../_build.py); plain C interface for ctypes.
+// Build: ../_build.py compiles every .cu of this directory for sm_90a and
+// links them into one shared library; plain C interface for ctypes.
 
 #include <algorithm>
-#include <climits>
 #include <cuda_runtime.h>
 
-namespace {
+#include "alu.cuh"
 
-// Opcodes: src/repro_torch/core/graph.py Op (values are stable).
-enum : int {
-  OP_COPY = 0, OP_ADD = 1, OP_SUB = 2, OP_MUL = 3, OP_DIV = 4, OP_AND = 5,
-  OP_OR = 6, OP_XOR = 7, OP_MAX = 8, OP_MIN = 9, OP_SHL = 10, OP_SHR = 11,
-  OP_NOT = 12, OP_IFGT = 13, OP_IFGE = 14, OP_IFLT = 15, OP_IFLE = 16,
-  OP_IFEQ = 17, OP_IFDF = 18, OP_DMERGE = 19, OP_NDMERGE = 20,
-  OP_BRANCH = 21, OP_SINK = 22
-};
+namespace {
 
 // One bucket per opcode plus the trailing bucket of the dummy node row
 // (dataflow_fire.MAX_CLASSES); device_tables() checks the class table.
@@ -118,41 +108,13 @@ struct State {
   int* prof_o[kProfArrays];       // counters out (kProf only)
 };
 
-__device__ __forceinline__ int floor_div(int a, int b) {
-  if (b == 0) return 0;
-  if (a == INT_MIN && b == -1) return INT_MIN;   // wraps, as in jnp
-  int q = a / b;                                 // C truncates ...
-  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;  // ... floor instead
-  return q;
-}
-
-// The dense rule's ALU result z: `a` unless the opcode selects another.
+// The dense rule's ALU result z: the merges pick an input, every other
+// opcode is the shared ALU's.
 __device__ __forceinline__ int alu(int op, int a, int b, int c, bool in0) {
-  const unsigned ua = static_cast<unsigned>(a);
-  const unsigned ub = static_cast<unsigned>(b);
-  const int bs = min(max(b, 0), 31);
   switch (op) {
-    case OP_ADD: return static_cast<int>(ua + ub);
-    case OP_SUB: return static_cast<int>(ua - ub);
-    case OP_MUL: return static_cast<int>(ua * ub);
-    case OP_DIV: return floor_div(a, b);
-    case OP_AND: return a & b;
-    case OP_OR: return a | b;
-    case OP_XOR: return a ^ b;
-    case OP_MAX: return max(a, b);
-    case OP_MIN: return min(a, b);
-    case OP_SHL: return static_cast<int>(ua << bs);
-    case OP_SHR: return a >> bs;                 // arithmetic
-    case OP_NOT: return a == 0;
-    case OP_IFGT: return a > b;
-    case OP_IFGE: return a >= b;
-    case OP_IFLT: return a < b;
-    case OP_IFLE: return a <= b;
-    case OP_IFEQ: return a == b;
-    case OP_IFDF: return a != b;
     case OP_NDMERGE: return in0 ? a : b;
     case OP_DMERGE: return c != 0 ? a : b;
-    default: return a;                           // COPY, BRANCH, SINK
+    default: return alu_int(op, a, b);
   }
 }
 

@@ -1,0 +1,378 @@
+"""The static-schedule kernels: a whole scheduled run in one launch, and
+K scheduled cycles per slot for the resumable slot API.
+
+The counterparts of the JAX package's ``make_sched_run`` and
+``make_sched_slot_step`` (``repro/kernels/schedule_fire.py``).  Both
+read the same per-pattern tables (:meth:`ScheduleContext.slot_tables
+<repro_torch.core.schedule.ScheduleContext.slot_tables>` plus each
+pattern's fire count, the feed/drain arc rows and the const values).
+One scheduled cycle of pattern ``pid`` is, as the JAX slot path's
+``_slot_cycle`` computes it:
+
+1. **feed** — every feed row with ``t_feed[pid, r]`` loads
+   ``fv[r, clip(ptr[r], 0, L-1)]`` into its arc and advances its pointer;
+2. **fire** — every fire row ``k`` of the pattern computes
+   ``z = ALU(t_op, val[t_i0], val[t_i1])`` and writes it to ``t_o0`` and
+   ``t_o1`` (the drop sentinel ``A2`` is skipped); a scheduled cycle's
+   consumed and produced arcs are disjoint, so all reads see the
+   post-feed registers;
+3. **drain** — every output row with ``t_drain[pid, r]`` records the
+   arc's value and counts a token.
+
+pid 0 is the no-op pattern.  The run kernel starts each stream from the
+const values and runs a program — the plan's clipped segments flattened
+(:func:`flat_program`): segment offsets into a pid list, segment lengths
+and repetitions.  The slot kernel runs ``pids[b, :]`` from the slot's
+state and then sets ``full[b] = t_full[fsel[b]]`` unless ``fsel[b] ==
+-1`` (an inactive slot rides pid 0 with ``fsel = -1``).
+
+This module holds, side by side:
+
+* :func:`device_sched_tables` — the tables on a device, bounds-checked,
+  uploaded again whenever the pattern registry has grown since;
+* the **plain PyTorch versions** :func:`sched_run` and
+  :func:`sched_slot_step`;
+* the **kernel wrappers** :func:`sched_run_cuda` and
+  :func:`sched_slot_step_cuda`: on CUDA tensors they launch the
+  hand-written kernels of ``csrc/schedule_fire.cu`` (built at first use,
+  see :mod:`repro_torch.kernels._build`) and count the launch; on CPU
+  tensors they compute the plain version and build nothing.
+
+The program and the pid windows are host data (numpy): the wrappers
+check them on the host, on either device — every pid below the number of
+patterns the tables hold, so a stale table raises instead of running a
+no-op row — and copy them to the device with the launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import Op
+from repro_torch.kernels.dataflow_fire import (_CTRL_OPS, _alu_op,
+                                               _check_tensors, _on_cpu,
+                                               _smem_limit, _vp)
+
+TABLE_KEYS = ("op", "i0", "i1", "o0", "o1", "feed", "drain", "full",
+              "nfire", "ia", "oa", "val0")
+PROGRAM_KEYS = ("seg_off", "seg_len", "seg_reps", "pids")
+MAX_THREADS = 1024      # one thread per feed row, fire row and drain row
+
+
+class SchedTables(dict):
+    """Device copies of the :data:`TABLE_KEYS` tables of a schedule
+    context, checked on the host by :func:`device_sched_tables`:
+
+      op, i0, i1, o0, o1 [P, F]   fire rows of each pattern (pad rows:
+                                  COPY of FULL_PAD into the sentinel A2)
+      feed [P, n_in], drain [P, n_out], full [P, A2]   0/1 rows
+      nfire [P]                   fire rows of each pattern
+      ia [n_in], oa [n_out]       arc of each feed / drain row
+      val0 [A2]                   registers of a fresh run (const values)
+
+    ``n_patterns`` is the registry length the upload covers (pids at or
+    past it are stale), ``ops`` the opcodes of the real fire rows."""
+    n_patterns = 0
+    ops: tuple = ()
+
+
+def host_sched_tables(ctx) -> dict:
+    """The :data:`TABLE_KEYS` tables of ``ctx`` as int32 numpy arrays."""
+    t_op, t_i0, t_i1, t_o0, t_o1, t_feed, t_drain, t_full = ctx.slot_tables()
+    nfire = np.zeros((t_op.shape[0],), np.int32)
+    nfire[:len(ctx.registry)] = [p.n_fires for p in ctx.registry]
+    return dict(op=t_op, i0=t_i0, i1=t_i1, o0=t_o0, o1=t_o1, feed=t_feed,
+                drain=t_drain, full=t_full, nfire=nfire, ia=ctx.ia_pad,
+                oa=ctx.oa_pad, val0=ctx.state0_val())
+
+
+def check_sched_tables(t: dict) -> tuple:
+    """Raise unless the tables are consistent: shapes, fire indices
+    (reads below A2, writes at most A2), 0/1 rows, fire counts within F,
+    no control opcode.  Returns the opcodes of the real fire rows."""
+    P, F = t["op"].shape
+    A2 = t["val0"].shape[0]
+    n_in, n_out = t["ia"].shape[0], t["oa"].shape[0]
+    shapes = dict(op=(P, F), i0=(P, F), i1=(P, F), o0=(P, F), o1=(P, F),
+                  feed=(P, n_in), drain=(P, n_out), full=(P, A2),
+                  nfire=(P,), ia=(n_in,), oa=(n_out,), val0=(A2,))
+    for k, shape in shapes.items():
+        if t[k].shape != shape:
+            raise ValueError(f"table {k}: shape {t[k].shape}, want {shape}")
+    bounds = dict(i0=A2, i1=A2, o0=A2 + 1, o1=A2 + 1, feed=2, drain=2,
+                  full=2, nfire=F + 1, ia=A2, oa=A2, op=len(Op))
+    for k, hi in bounds.items():
+        if t[k].size and (t[k].min() < 0 or t[k].max() >= hi):
+            raise ValueError(f"table {k}: value outside [0, {hi})")
+    real = np.arange(F)[None, :] < t["nfire"][:, None]
+    ops = tuple(sorted({int(o) for o in t["op"][real]}))
+    if any(o in _CTRL_OPS for o in ops):
+        raise ValueError("a scheduled pattern fires a control operator")
+    return ops
+
+
+def device_sched_tables(ctx, device) -> SchedTables:
+    """The tables of schedule context ``ctx`` on ``device``, cached on the
+    context and uploaded again when its registry has grown since (new
+    feed lengths register new patterns mid-serving)."""
+    dev = torch.device(device)
+    key = str(dev)
+    tabs = ctx.device_tables.get(key)
+    if tabs is None or tabs.n_patterns < len(ctx.registry):
+        host = host_sched_tables(ctx)
+        ops = check_sched_tables(host)
+        tabs = SchedTables({k: torch.tensor(host[k], device=dev)
+                            for k in TABLE_KEYS})
+        tabs.n_patterns = len(ctx.registry)
+        tabs.ops = ops
+        ctx.device_tables[key] = tabs
+    return tabs
+
+
+def flat_program(struct, reps) -> dict:
+    """The run kernel's program from :meth:`ConcretePlan.trace_struct
+    <repro_torch.core.schedule.ConcretePlan.trace_struct>`: int32 numpy
+    ``seg_off``/``seg_len``/``seg_reps`` [S] (segment s runs
+    ``pids[seg_off[s]:seg_off[s] + seg_len[s]]`` ``seg_reps[s]`` times)
+    and the concatenated ``pids``."""
+    lens = [len(pids) for pids, _ in struct]
+    it = iter(np.asarray(reps).tolist())
+    return dict(
+        seg_off=np.asarray(np.cumsum([0] + lens[:-1]) if lens else [],
+                           np.int32),
+        seg_len=np.asarray(lens, np.int32),
+        seg_reps=np.asarray([next(it) if rep else 1 for _, rep in struct],
+                            np.int32),
+        pids=np.asarray([p for pids, _ in struct for p in pids], np.int32))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path, and the yardstick on the card)
+# ---------------------------------------------------------------------------
+def _cycle(tab, ops, fv, val, ptr, ol, oc, pid):
+    """One table-driven scheduled cycle over B rows (every array has a
+    leading B axis; ``pid`` is a long tensor [B])."""
+    B, _, L = fv.shape
+    A2 = val.shape[1]
+    drop = torch.zeros((B, 1), dtype=val.dtype, device=val.device)
+    fm = tab["feed"][pid]                                   # [B, n_in]
+    nxt = torch.gather(fv, 2, ptr.clamp(0, L - 1).long()[:, :, None])[..., 0]
+    tgt = torch.where(fm > 0, tab["ia"].long()[None], A2)
+    vx = torch.cat([val, drop], 1).scatter_(1, tgt, nxt)
+    ptr = ptr + fm
+    a = vx.gather(1, tab["i0"][pid].long())                 # [B, F]
+    b = vx.gather(1, tab["i1"][pid].long())
+    opv = tab["op"][pid]
+    z = a
+    for op in ops:
+        if Op(op) not in (Op.COPY, Op.SINK):
+            z = torch.where(opv == op, _alu_op(op, a, b), z)
+    vx = vx.scatter_(1, tab["o0"][pid].long(), z)
+    vx = vx.scatter_(1, tab["o1"][pid].long(), z)
+    val = vx[:, :A2].contiguous()
+    dm = tab["drain"][pid]
+    ol = torch.where(dm > 0, val[:, tab["oa"].long()], ol)
+    return val, ptr, ol, oc + dm
+
+
+def sched_run(tables, program, fv):
+    """Plain PyTorch scheduled run: B streams ``fv[B, n_in, L]`` from a
+    fresh start through the ``program`` (:func:`flat_program`) on
+    ``tables`` (:func:`device_sched_tables`).  Returns (out_last,
+    out_count), each int32 [B, n_out]."""
+    B = fv.shape[0]
+    dev = fv.device
+    val = tables["val0"][None].repeat(B, 1)
+    ptr = torch.zeros((B, tables["ia"].shape[0]), dtype=torch.int32,
+                      device=dev)
+    ol = torch.zeros((B, tables["oa"].shape[0]), dtype=torch.int32,
+                     device=dev)
+    oc = torch.zeros_like(ol)
+    pid_rows: dict[int, torch.Tensor] = {}
+    for off, n, reps in zip(program["seg_off"].tolist(),
+                            program["seg_len"].tolist(),
+                            program["seg_reps"].tolist()):
+        seg = [int(p) for p in program["pids"][off:off + n]]
+        for p in seg:
+            if p not in pid_rows:
+                pid_rows[p] = torch.full((B,), p, dtype=torch.long,
+                                         device=dev)
+        for _ in range(reps):
+            for p in seg:
+                val, ptr, ol, oc = _cycle(tables, tables.ops, fv, val, ptr,
+                                          ol, oc, pid_rows[p])
+    return ol, oc
+
+
+def sched_slot_step(tables, fv, pids, fsel, full, val, ptr, out_last,
+                    out_count):
+    """Plain PyTorch scheduled slot step: slot b runs the K cycles
+    ``pids[b, :]`` (host int32 [B, K]) from its state, then takes
+    ``full[b] = t_full[fsel[b]]`` unless ``fsel[b] == -1``.  fv[B, n_in,
+    L], full/val[B, A2], ptr[B, n_in], out_last/out_count[B, n_out], all
+    int32.  Returns (full', val', ptr', out_last', out_count')."""
+    dev = full.device
+    pids = torch.as_tensor(np.asarray(pids, np.int32), device=dev).long()
+    fsel = torch.as_tensor(np.asarray(fsel, np.int32), device=dev).long()
+    ol, oc = out_last, out_count
+    for j in range(pids.shape[1]):
+        val, ptr, ol, oc = _cycle(tables, tables.ops, fv, val, ptr, ol, oc,
+                                  pids[:, j])
+    full = torch.where(fsel[:, None] >= 0, tables["full"][fsel.clamp(min=0)],
+                       full)
+    return full, val, ptr, ol, oc
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+def _host_i32(x, name):
+    """Host int32 numpy copy of a program or pid array (numpy or CPU
+    tensor); pid windows never come from the device."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError(f"{name} is host data; got a tensor on "
+                             f"{x.device}")
+        x = x.numpy()
+    return np.ascontiguousarray(np.asarray(x), np.int32)
+
+
+def _check_tables(tables):
+    if not isinstance(tables, SchedTables):
+        raise TypeError("the kernel takes tables from device_sched_tables() "
+                        "only")
+
+
+def _check_pids(tables, pids, name, lo=0):
+    if pids.size and (pids.min() < lo or pids.max() >= tables.n_patterns):
+        raise ValueError(
+            f"{name}: pid outside [{lo}, {tables.n_patterns}) — the tables "
+            "hold fewer patterns than the schedule (stale tables: upload "
+            "again with device_sched_tables)")
+
+
+def _prepare(tables, named, dev):
+    """Argument checks common to both wrappers; returns (A2, n_in, n_out,
+    F, device index)."""
+    _check_tensors((*named, *tables.items()), dev)
+    A2 = tables["val0"].shape[0]
+    n_in, n_out = tables["ia"].shape[0], tables["oa"].shape[0]
+    F = tables["op"].shape[1]
+    threads = max(n_in, n_out, F)
+    if threads > MAX_THREADS:
+        raise ValueError(f"{threads} feed, drain or fire rows per pattern; "
+                         f"the kernel takes at most {MAX_THREADS}")
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    if 4 * A2 > _smem_limit(index):
+        raise ValueError(f"{A2} arc registers need {4 * A2} B of shared "
+                         f"memory per CTA; the card gives "
+                         f"{_smem_limit(index)}")
+    return A2, n_in, n_out, F, index
+
+
+def _table_ptrs(tables):
+    return [_vp(tables[k]) for k in TABLE_KEYS]
+
+
+def _raise_on(err, lib, what):
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.fire_block_error_string(err).decode())
+
+
+def sched_run_cuda(tables, program, fv):
+    """A whole scheduled run in one launch (the counterpart of
+    ``make_sched_run``, solo and batched): one CTA per stream of
+    ``fv[B, n_in, L]``.  CUDA tensors launch the kernel and count it in
+    ``sched_run_cuda.launches``; CPU tensors take :func:`sched_run`.
+    Returns (out_last, out_count) [B, n_out]."""
+    _check_tables(tables)
+    prog = {k: _host_i32(program[k], k) for k in PROGRAM_KEYS}
+    S, M = prog["seg_off"].size, prog["pids"].size
+    if not prog["seg_len"].size == prog["seg_reps"].size == S:
+        raise ValueError("seg_off, seg_len and seg_reps differ in length")
+    if S and (prog["seg_len"].min() < 0 or prog["seg_reps"].min() < 0
+              or prog["seg_off"].min() < 0
+              or (prog["seg_off"] + prog["seg_len"]).max() > M):
+        raise ValueError("a program segment lies outside its pid list")
+    _check_pids(tables, prog["pids"], "program")
+    if _on_cpu(fv, tables["val0"]):
+        return sched_run(tables, prog, fv)
+    from repro_torch.kernels import _build
+    dev = fv.device
+    A2, n_in, n_out, F, index = _prepare(tables, (("fv", fv),), dev)
+    if fv.dim() != 3 or fv.shape[1] != n_in or fv.shape[0] < 1 \
+            or fv.shape[2] < 1:
+        raise ValueError(f"fv: shape {tuple(fv.shape)}, want (B >= 1, "
+                         f"{n_in}, L >= 1)")
+    B, L = fv.shape[0], fv.shape[2]
+    lib = _build.load()
+    with torch.cuda.device(index):
+        flat = torch.as_tensor(np.concatenate(
+            [prog[k] for k in PROGRAM_KEYS] + [np.zeros(1, np.int32)]),
+            device=dev)
+        ol = torch.empty((B, n_out), dtype=torch.int32, device=dev)
+        oc = torch.empty_like(ol)
+        err = lib.sched_run_launch(
+            *_table_ptrs(tables), _vp(flat), _vp(fv), _vp(ol), _vp(oc),
+            S, B, A2, n_in, n_out, L, F,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, lib, "sched_run")
+    sched_run_cuda.launches += 1
+    return ol, oc
+
+
+def sched_slot_step_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
+                         out_count):
+    """K scheduled cycles per slot (the counterpart of
+    ``make_sched_slot_step``): one CTA per slot, ``pids`` (host int32
+    [B, K]) and ``fsel`` (host int32 [B]) from the plan.  CUDA tensors
+    launch the kernel and count it in ``sched_slot_step_cuda.launches``;
+    CPU tensors take :func:`sched_slot_step`.  Returns (full', val',
+    ptr', out_last', out_count')."""
+    _check_tables(tables)
+    pids = _host_i32(pids, "pids")
+    fsel = _host_i32(fsel, "fsel")
+    _check_pids(tables, pids, "pids")
+    _check_pids(tables, fsel, "fsel", lo=-1)
+    state = (full, val, ptr, out_last, out_count)
+    if _on_cpu(fv, *state, tables["val0"]):
+        return sched_slot_step(tables, fv, pids, fsel, *state)
+    from repro_torch.kernels import _build
+    dev = full.device
+    names = ("fv", "full", "val", "ptr", "out_last", "out_count")
+    A2, n_in, n_out, F, index = _prepare(tables, zip(names, (fv, *state)),
+                                         dev)
+    B = full.shape[0]
+    L = fv.shape[-1]
+    want = dict(fv=(B, n_in, L), full=(B, A2), val=(B, A2), ptr=(B, n_in),
+                out_last=(B, n_out), out_count=(B, n_out))
+    for k, x in zip(names, (fv, *state)):
+        if tuple(x.shape) != want[k]:
+            raise ValueError(f"{k}: shape {tuple(x.shape)}, want {want[k]}")
+    if pids.ndim != 2 or pids.shape[0] != B or fsel.shape != (B,):
+        raise ValueError(f"pids {pids.shape} / fsel {fsel.shape}: want "
+                         f"({B}, K) / ({B},)")
+    if B < 1 or L < 1:
+        raise ValueError("the kernel needs B >= 1 and L >= 1")
+    K = pids.shape[1]
+    lib = _build.load()
+    with torch.cuda.device(index):
+        ctl = torch.as_tensor(np.concatenate([pids.reshape(-1), fsel]),
+                              device=dev)
+        outs = [torch.empty_like(x) for x in state]
+        err = lib.sched_slot_step_launch(
+            *_table_ptrs(tables), _vp(fv), _vp(ctl), _vp(ctl[B * K:]),
+            *(_vp(x) for x in state), *(_vp(x) for x in outs),
+            B, K, A2, n_in, n_out, L, F,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _raise_on(err, lib, "sched_slot_step")
+    sched_slot_step_cuda.launches += 1
+    return tuple(outs)
+
+
+sched_run_cuda.launches = 0
+sched_slot_step_cuda.launches = 0

@@ -55,23 +55,25 @@ def graph_signature(graph: Graph) -> str:
 
 def cached_engine(graph: Graph, *, block_cycles: int = 16,
                   max_cycles: int = 100_000, device="cuda",
-                  optimize: bool = False,
-                  profile: bool = False) -> DataflowEngine:
+                  optimize: bool = False, profile: bool = False,
+                  schedule: bool | str = False) -> DataflowEngine:
     """Engine for (graph signature, K, max_cycles, device, optimize,
-    profile) — built once and shared by every server that presents the
-    same fabric (the key hashes the signature, not the graph object, so
-    structurally equal graphs share).  Both flags join the key: an
-    optimized engine runs other tables, and a profiled engine threads
-    counters through every step, so neither may stand in for the
-    other's."""
+    profile, schedule) — built once and shared by every server that
+    presents the same fabric (the key hashes the signature, not the graph
+    object, so structurally equal graphs share).  The flags join the key:
+    an optimized engine runs other tables, a profiled engine threads
+    counters through every step, and a scheduled engine runs other
+    kernels, so none may stand in for another's (``schedule`` keys as
+    ``str(schedule)``: True and "auto" stay apart)."""
     key = (hashlib.sha256(graph_signature(graph).encode()).hexdigest(),
            int(block_cycles), int(max_cycles), str(device), bool(optimize),
-           bool(profile))
+           bool(profile), str(schedule))
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         eng = DataflowEngine(graph, max_cycles=max_cycles,
                              block_cycles=block_cycles, device=device,
-                             optimize=optimize, profile=profile)
+                             optimize=optimize, profile=profile,
+                             schedule=schedule)
         _ENGINE_CACHE[key] = eng
         while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:
             _ENGINE_CACHE.popitem(last=False)
@@ -112,7 +114,10 @@ class DataflowServer:
     plan; ``profile=True`` carries the fabric counters through every
     block, so each harvested ``Result.engine.profile`` is a
     :class:`~repro_torch.obs.FabricProfile` of that request's residency.
-    Neither changes a result.  An explicit ``engine=`` decides both.
+    ``schedule=True`` (or ``"auto"``) steps a control-free fabric's slots
+    from its static firing schedule (one launch of the scheduled
+    slot-step kernel per block, no device read per block).  None of the
+    three changes a result.  An explicit ``engine=`` decides all three.
     """
 
     def __init__(self, graph: Graph, slots: int = 8,
@@ -120,7 +125,8 @@ class DataflowServer:
                  engine: DataflowEngine | None = None,
                  max_queue: int | None = None, policy: str = "reject",
                  wedge_timeout_blocks: int = 32, device="cuda",
-                 optimize: bool = False, profile: bool = False):
+                 optimize: bool = False, profile: bool = False,
+                 schedule: bool | str = False):
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if policy not in POLICIES:
@@ -141,7 +147,8 @@ class DataflowServer:
         else:
             engine = cached_engine(graph, block_cycles=block_cycles,
                                    max_cycles=max_cycles, device=device,
-                                   optimize=optimize, profile=profile)
+                                   optimize=optimize, profile=profile,
+                                   schedule=schedule)
         self.graph = graph
         self.slots = slots
         self.engine = engine

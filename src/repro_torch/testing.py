@@ -133,3 +133,48 @@ def assert_same_result(got, want, tag, dispatches: bool = True,
         if dispatches:
             assert gp.dispatches == wp.dispatches, (tag,
                                                     "profile.dispatches")
+
+
+def edge_ints(rng, shape):
+    """int32 values, a third of them edge operands."""
+    return np.where(rng.random(shape) < 0.3, rng.choice(EDGE_VALS, shape),
+                    rng.integers(-2 ** 31, 2 ** 31, shape)).astype(np.int32)
+
+
+def random_sched_slot_inputs(ctx, B: int, K: int, L: int, rng) -> dict:
+    """Random mid-run inputs for the scheduled slot step over a schedule
+    context ``ctx`` (:class:`~repro_torch.core.schedule.ScheduleContext`),
+    as int32 numpy arrays: each active slot's pid window at a random
+    position of a plan with random, mixed feed lengths (past quiescence
+    too), about a quarter of the slots parked (pid 0, fsel -1), random
+    registers, streams, pointers and accumulators.  Registers pattern
+    the slot may not really reach still test the kernel's arithmetic: a
+    scheduled cycle is defined on any registers."""
+    n_in, n_out = ctx.ia_pad.size, ctx.oa_pad.size
+    pids = np.zeros((B, K), np.int32)
+    fsel = np.full((B,), -1, np.int32)
+    for b in np.nonzero(rng.random(B) < 0.75)[0]:
+        plan = ctx.plan_for(tuple(int(x) for x in
+                                  rng.integers(1, L + 1, ctx.in_arc.size)))
+        plan.ensure(4 * L + 64)
+        pos = int(rng.integers(0, plan.total + K))
+        plan.ensure(pos + K)
+        pids[b] = plan.pids_window(pos, pos + K)
+        fsel[b] = pids[b, -1]
+    full = rng.integers(0, 2, (B, ctx.A2)).astype(np.int32)
+    return dict(fv=edge_ints(rng, (B, n_in, L)), pids=pids, fsel=fsel,
+                full=full, val=edge_ints(rng, (B, ctx.A2)),
+                ptr=rng.integers(0, L + 2, (B, n_in)).astype(np.int32),
+                out_last=edge_ints(rng, (B, n_out)),
+                out_count=rng.integers(0, 100, (B, n_out)).astype(np.int32))
+
+
+def random_sched_run_inputs(ctx, B: int, L: int, rng, cap: int = 1 << 20):
+    """Random inputs for the scheduled run over ``ctx``: B streams
+    (int32 numpy [B, n_in, L], a third edge operands) sharing one tuple
+    of random, mixed feed lengths, and that tuple's plan, extended to
+    quiescence or ``cap``."""
+    plan = ctx.plan_for(tuple(int(x) for x in
+                              rng.integers(1, L + 1, ctx.in_arc.size)))
+    plan.ensure(cap)
+    return edge_ints(rng, (B, ctx.ia_pad.size, L)), plan

@@ -1,7 +1,8 @@
-"""The fire-block and fire-step CUDA kernels on the card: every
-instantiation (dense or specialized rule, unprofiled or profiled)
-against its plain PyTorch version, and the engine, ``run_fabric`` and
-the server against the numpy oracle.
+"""The CUDA kernels on the card: every instantiation of the fire block
+(dense or specialized rule, unprofiled or profiled), the fire step and
+the two static-schedule kernels against their plain PyTorch versions,
+and the engine (dynamic and scheduled), ``run_fabric`` and the server
+against the numpy oracle.
 
 Every test here needs a CUDA card and skips without one (the ``cuda``
 fixture decides, never the module at import).  Run them on the card
@@ -17,13 +18,18 @@ from repro_torch.core.engine import (DataflowEngine, pack_feeds,  # noqa: E402
                                      run_reference)
 from repro_torch.kernels import dataflow_fire as df  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import schedule_fire as ksf  # noqa: E402
 from repro_torch.serve.dataflow_server import DataflowServer  # noqa: E402
+from repro_torch.core.schedule import schedulable  # noqa: E402
 from repro_torch.testing import (STATE_KEYS,  # noqa: E402
                                  assert_same_result,
                                  random_block_inputs, random_graph,
-                                 random_prof)
+                                 random_prof, random_sched_run_inputs,
+                                 random_sched_slot_inputs)
 
 pytestmark = pytest.mark.gpu
+SCHED_BENCHES = sorted(n for n, b in library.BENCHES.items()
+                       if schedulable(b().graph))
 
 
 @pytest.fixture
@@ -250,3 +256,124 @@ def test_profiled_optimized_server_matches_solo_runs(cuda):
         want = solo.run(f)
         r.engine.profile.check()
         assert_same_result(r.engine, want, r.uid, profile=True)
+
+
+# ---------------------------------------------------------------------------
+# the static-schedule kernels, the scheduled engine and server
+# ---------------------------------------------------------------------------
+def _sched_ctx(cuda, name, optimize=False):
+    return DataflowEngine(_bench(name).graph, device=cuda, schedule=True,
+                          optimize=optimize)._sched_ctx()
+
+
+def _slot_args(cuda, x):
+    t = {k: torch.tensor(x[k], device=cuda) for k in ("fv", *STATE_KEYS)}
+    return (t["fv"], x["pids"], x["fsel"], *(t[k] for k in STATE_KEYS))
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("name", SCHED_BENCHES)
+def test_sched_kernels_match_plain(cuda, name, optimize):
+    """Both schedule kernels against their plain versions: the slot step
+    at K in {1, 16, 64} (mixed feed lengths, random mid-plan positions,
+    parked slots keep their registers), the run over a batch and one
+    stream, whole and clipped."""
+    ctx = _sched_ctx(cuda, name, optimize)
+    rng = np.random.default_rng(13)
+    for K in (1, 16, 64):
+        x = random_sched_slot_inputs(ctx, 16, K, 24, rng)
+        tabs = ksf.device_sched_tables(ctx, cuda)
+        args = _slot_args(cuda, x)
+        n0 = ksf.sched_slot_step_cuda.launches
+        got = ksf.sched_slot_step_cuda(tabs, *args)
+        assert ksf.sched_slot_step_cuda.launches == n0 + 1
+        _assert_equal(got, ksf.sched_slot_step(tabs, *args))
+        parked = torch.tensor(x["fsel"] < 0, device=cuda)
+        assert parked.any() and torch.equal(got[0][parked], args[3][parked])
+    fv, plan = random_sched_run_inputs(ctx, 8, 24, rng)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    fv = torch.tensor(fv, device=cuda)
+    for upto in (plan.total, plan.total // 2 + 1):
+        program = ksf.flat_program(*plan.trace_struct(upto))
+        n0 = ksf.sched_run_cuda.launches
+        got = ksf.sched_run_cuda(tabs, program, fv)
+        assert ksf.sched_run_cuda.launches == n0 + 1
+        _assert_equal(got, ksf.sched_run(tabs, program, fv))
+        _assert_equal(ksf.sched_run_cuda(tabs, program, fv[:1].contiguous()),
+                      [g[:1] for g in got])
+
+
+def test_sched_kernels_reject_bad_arguments(cuda):
+    ctx = _sched_ctx(cuda, "fir")
+    rng = np.random.default_rng(0)
+    x = random_sched_slot_inputs(ctx, 4, 8, 12, rng)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    args = list(_slot_args(cuda, x))
+    bad = x["pids"].copy()
+    bad[0, 0] = tabs.n_patterns                 # a pid the tables lack
+    with pytest.raises(ValueError, match="stale"):
+        ksf.sched_slot_step_cuda(tabs, args[0], bad, *args[2:])
+    with pytest.raises(ValueError, match="host data"):
+        ksf.sched_slot_step_cuda(tabs, args[0],
+                                 torch.tensor(x["pids"], device=cuda),
+                                 *args[2:])
+    with pytest.raises(TypeError):              # int64 registers
+        ksf.sched_slot_step_cuda(tabs, *args[:3], args[3].long(), *args[4:])
+    with pytest.raises(ValueError):             # wrong arc count
+        ksf.sched_slot_step_cuda(tabs, *args[:3], args[3][:, :-1].clone(),
+                                 *args[4:])
+    with pytest.raises(ValueError):             # mixed devices
+        ksf.sched_slot_step_cuda(tabs, *args[:3], args[3].cpu(), *args[4:])
+    # new feed lengths register new patterns: the old upload is stale
+    n_in = ctx.in_arc.size
+    plan = ctx.plan_for(tuple(range(20, 20 + n_in)))
+    plan.ensure(1 << 20)
+    assert len(ctx.registry) > tabs.n_patterns
+    program = ksf.flat_program(*plan.trace_struct(plan.total))
+    fv = torch.zeros((1, n_in, 32), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="stale"):
+        ksf.sched_run_cuda(tabs, program, fv)
+    fresh = ksf.device_sched_tables(ctx, cuda)
+    _assert_equal(ksf.sched_run_cuda(fresh, program, fv),
+                  ksf.sched_run(fresh, program, fv))
+    with pytest.raises(TypeError):              # not from device_sched_tables
+        ksf.sched_run_cuda(dict(fresh), program, fv)
+
+
+@pytest.mark.parametrize("name", SCHED_BENCHES)
+def test_scheduled_engine_matches_reference(cuda, name):
+    """Scheduled run and run_batch go through the run kernel (one launch
+    each) and equal the oracle in every field, profile included."""
+    bench = _bench(name)
+    feeds = [library.random_feeds(name, bench, 6, np.random.default_rng(b))
+             for b in range(5)]
+    wants = [run_reference(bench.graph, f, profile=True) for f in feeds]
+    for opt in (False, True):
+        eng = DataflowEngine(bench.graph, block_cycles=16, device=cuda,
+                             optimize=opt, profile=True, schedule=True)
+        n0 = ksf.sched_run_cuda.launches
+        got = [eng.run(feeds[0])] + eng.run_batch(feeds)
+        assert ksf.sched_run_cuda.launches == n0 + 2
+        for g, w in zip(got, [wants[0]] + wants):
+            assert_same_result(g, w, (name, opt), dispatches=False,
+                               profile=True)
+
+
+def test_scheduled_server_matches_reference(cuda):
+    """The scheduled server steps every block through the slot kernel and
+    answers as solo runs and the oracle do, profile included."""
+    bench = _bench("dot_prod")
+    feeds = [library.random_feeds("dot_prod", bench, 3 + 7 * i,
+                                  np.random.default_rng(i))
+             for i in range(12)]
+    srv = DataflowServer(bench.graph, slots=4, block_cycles=8, device=cuda,
+                         optimize=True, profile=True, schedule=True)
+    n0 = ksf.sched_slot_step_cuda.launches
+    got = srv.run(feeds)
+    assert ksf.sched_slot_step_cuda.launches == n0 + srv.block
+    solo = DataflowEngine(bench.graph, block_cycles=8, device=cuda,
+                          optimize=True, profile=True)
+    for r, f in zip(got, feeds):
+        assert_same_result(r.engine, solo.run(f), r.uid, profile=True)
+        assert_same_result(r.engine, run_reference(bench.graph, f), r.uid,
+                           dispatches=False)
