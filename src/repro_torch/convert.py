@@ -1,8 +1,9 @@
-"""Carry a fabric and its slot state across from the JAX package.
+"""Carry a fabric, its slot state and an LM's parameters across from the
+JAX package.
 
-The port has no weights: what crosses between the two packages is the
-fabric (as assembler text, which both packages emit and parse alike)
-and the resumable slot state (as numpy arrays).  Neither function
+What crosses between the two packages is the fabric (as assembler text,
+which both packages emit and parse alike), the resumable slot state and
+the LM's parameter tree (both as numpy arrays).  No function here
 imports the JAX package; the caller hands over plain text and arrays.
 """
 from __future__ import annotations
@@ -85,3 +86,30 @@ def _slot_sched(engine, arrays):
         for name, x in zip(("nf", "si", "so", "ab", "ahw"), counters):
             getattr(sched, name)[:] = np.asarray(x, np.int64)
     return sched
+
+
+def lm_params_from_numpy(cfg, tree, device="cuda"):
+    """The port's LM parameters from the JAX package's ``init_params``
+    tree given as numpy (nested dicts of arrays; the layers' leaves
+    stacked ``[n_layers, ...]``, ``wqkv`` fused), as tensors on
+    ``device`` with the arrays' dtypes (numpy's, or ml_dtypes'
+    bfloat16).  Every key and shape must be the port's
+    (:func:`repro_torch.models.transformer.param_shapes`); a missing,
+    extra or misshapen leaf raises."""
+    from repro_torch.models.transformer import param_shapes
+
+    def carry(want, got, path):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                have = sorted(got) if isinstance(got, dict) else type(got)
+                raise ValueError(f"{path or 'params'}: keys {have}, want "
+                                 f"{sorted(want)}")
+            return {k: carry(want[k], got[k], f"{path}/{k}") for k in want}
+        a = np.array(got)            # a writable, contiguous copy
+        if a.shape != tuple(want):
+            raise ValueError(f"{path}: shape {a.shape}, want {tuple(want)}")
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
+    return carry(param_shapes(cfg), tree, "")

@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``dataflow_fire.cu``: the
 fire-block and fire-step kernels; ``schedule_fire.cu``: the static-
-schedule kernels; both include ``csrc/alu.cuh``) for Hopper
+schedule kernels, both including ``csrc/alu.cuh``; ``flash_attention.cu``
+and ``rmsnorm.cu``: the LM kernels) for Hopper
 (``sm_90a``), one compiler per source, all started together, and links
 the objects into one shared library with a plain C interface.  It is
 written under ``build/`` at the repository root (named by a hash over
@@ -58,6 +59,12 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
         fn.restype = ci
+    # the LM kernels: pointers and the stream c_void_p, shapes, dtype
+    # codes and flags int, eps float
+    lib.flash_attention_launch.argtypes = [vp] * 4 + [ci] * 10 + [vp]
+    lib.flash_attention_launch.restype = ci
+    lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 4 + [ctypes.c_float, vp]
+    lib.rmsnorm_launch.restype = ci
     lib.fire_block_smem_bytes.argtypes = [ci] * 5
     lib.fire_block_smem_bytes.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]

@@ -1,9 +1,12 @@
-"""Public wrappers over the fire-block and fire-step kernels.
+"""Public wrappers over the kernels: the fire block and fire step of the
+fabric, and the LM's flash attention and RMSNorm (the entry points of
+the JAX package's ``repro.kernels.ops``, same names and signatures).
 
-On CUDA tensors the steps launch the hand-written kernels; on CPU
-tensors (``device="cpu"``) they compute the plain PyTorch versions — the
-wrappers in :mod:`repro_torch.kernels.dataflow_fire` decide by the
-tensors' device alone.
+On CUDA tensors they launch the hand-written kernels; on CPU tensors
+(``device="cpu"``) they compute the plain PyTorch versions — the
+wrappers in :mod:`repro_torch.kernels.dataflow_fire`,
+:mod:`~repro_torch.kernels.flash_attention` and
+:mod:`~repro_torch.kernels.rmsnorm` decide by the tensors' device alone.
 """
 from __future__ import annotations
 
@@ -16,6 +19,27 @@ from repro_torch.kernels.dataflow_fire import (FireTables,
                                                fire_block_batched_cuda,
                                                fire_block_cuda,
                                                fire_step_cuda)
+from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+
+
+def flash_attention(q, k, v, *, causal=True, bq=128, bk=128):
+    """GQA attention of q [B, Sq, H, hd] over k, v [B, Skv, Hkv, hd], as
+    ``flash_attention_pallas`` computes it.  ``bq``/``bk`` (the Pallas
+    tiles) are accepted and unused: the CUDA kernel chooses its own tiles,
+    so results agree with the Pallas kernel within float tolerance, not
+    bit for bit."""
+    del bq, bk
+    return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                v.contiguous(), causal=causal)
+
+
+def rmsnorm(x, w, eps=1e-5, rows_blk=256):
+    """RMSNorm of x [..., d] with weight w [d] in f32, rounded once to x's
+    dtype, as ``rmsnorm_pallas`` computes it.  ``rows_blk`` is accepted
+    and unused (the CUDA kernel takes one warp per row)."""
+    del rows_blk
+    return rmsnorm_cuda(x.contiguous(), w, eps)
 
 
 def make_block_step(graph, n_cycles: int, batched: bool = False,

@@ -1,0 +1,212 @@
+"""Transformer building blocks of the dense family: RMSNorm, RoPE, GQA
+attention with a KV cache, the SwiGLU MLP.
+
+The port of the JAX package's ``repro/models/layers.py`` for what the
+dense RMSNorm/SwiGLU path needs.  Attention and RMSNorm run one
+hand-written CUDA kernel each on the card
+(:func:`~repro_torch.kernels.flash_attention.flash_attention_cuda`,
+:func:`~repro_torch.kernels.rmsnorm.rmsnorm_cuda` with the model's
+rounding) and their plain PyTorch versions on the CPU.  The matrix
+products stay ``torch.matmul``, as the JAX package leaves them to XLA.
+
+Numerics follow the JAX layers: every matrix product casts its weight to
+the activations' dtype (``x @ w.to(x.dtype)``; a weight already held in
+that dtype, see :func:`repro_torch.models.transformer.cast_params`, casts
+to itself), RoPE computes cos/sin in f32 and casts them to x's dtype, the
+KV cache is kept in the compute dtype.  Layer parameters are dicts of
+tensors with the JAX package's keys.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import rmsnorm as rn
+
+UNSUPPORTED = "ROADMAP Queue A 11b"   # the rest of the LM stack
+
+
+def unsupported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet ({UNSUPPORTED}); the port serves the "
+        "dense RMSNorm/SwiGLU family (internlm2-1.8b)")
+
+
+def dtype_of(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name ('float32', 'bfloat16')."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+def rmsnorm(x, w, eps=1e-5):
+    """``(x32 * rsqrt(mean(x32²) + eps)).astype(x.dtype) * w.astype(x.dtype)``
+    (the model's rounding), through the RMSNorm kernel on the card."""
+    return rn.rmsnorm_cuda(x.contiguous(), w, eps, model=True)
+
+
+def apply_norm(cfg, p, x):
+    if cfg.norm != "rmsnorm":
+        raise unsupported(f"norm={cfg.norm!r}")
+    return rmsnorm(x, p["w"])
+
+
+def init_norm(cfg, d, lead=(), device=None):
+    """Norm weights (ones); ``lead`` prepends stacking axes (layers)."""
+    if cfg.norm != "rmsnorm":
+        raise unsupported(f"norm={cfg.norm!r}")
+    return {"w": torch.ones((*lead, d), dtype=dtype_of(cfg.param_dtype),
+                            device=device)}
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope(x, pos, theta: float):
+    """x: [B, S, H, hd], pos: [B, S] int."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = pos[..., None].float() * freqs                  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[:, :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                    kv_len: int | None = None):
+    """Online-softmax GQA attention through the kernel.
+
+    q: [B, Sq, H, hd]; k, v: [B, Skv, Hkv, hd] with H % Hkv == 0.
+    q_offset: absolute position of q[0] (decode: cache length so far).
+    kv_len:   number of valid cache entries; None means all Skv.  A
+              ``kv_len`` past Skv (a wave decoding past its cache) sees
+              all Skv entries.
+    Returns [B, Sq, H, hd] in q.dtype; accumulation in f32.  The JAX
+    function's ``q_block``/``kv_block`` have no counterpart: the kernel
+    chooses its own tiles."""
+    return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), causal=causal,
+                                   q_offset=q_offset, kv_len=kv_len)
+
+
+def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):
+    """Reference (materializes full scores) — oracle for tests."""
+    return fa.attention(q, k, v, causal=causal, q_offset=q_offset,
+                        kv_len=kv_len)
+
+
+def init_attn(cfg, gen, lead=(), device=None):
+    """Attention weights drawn from ``gen`` (a torch.Generator on
+    ``device``) at the JAX package's scales; ``lead`` prepends stacking
+    axes (layers)."""
+    d = cfg.d_model
+    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    pdt = dtype_of(cfg.param_dtype)
+    if not cfg.fused_qkv:
+        raise unsupported("fused_qkv=False")
+    n_qkv = (H + 2 * Hkv) * hd
+    p = {"wqkv": _normal((*lead, d, n_qkv), d ** -0.5, pdt, gen, device)}
+    if cfg.qkv_bias:
+        p["bqkv"] = torch.zeros((*lead, n_qkv), dtype=pdt, device=device)
+    p["wo"] = _normal((*lead, H * hd, d), (H * hd) ** -0.5, pdt, gen, device)
+    if cfg.attn_out_bias:
+        p["bo"] = torch.zeros((*lead, d), dtype=pdt, device=device)
+    return p
+
+
+def _normal(shape, std, dtype, gen, device):
+    """Normal(0, std²) draws from ``gen``, made in f32 and cast (one
+    tensor of f32 at a time)."""
+    return torch.randn(shape, generator=gen, device=device,
+                       dtype=torch.float32).mul_(std).to(dtype)
+
+
+def qkv_proj(cfg, p, x):
+    B, S, _ = x.shape
+    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    qkv = x @ p["wqkv"].to(x.dtype)
+    if "bqkv" in p:
+        qkv = qkv + p["bqkv"].to(x.dtype)
+    q, k, v = torch.split(qkv, [H * hd, Hkv * hd, Hkv * hd], dim=-1)
+    return (q.reshape(B, S, H, hd), k.reshape(B, S, Hkv, hd),
+            v.reshape(B, S, Hkv, hd))
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's decode cache: k, v [B, S_max, Hkv, hd] in the compute
+    dtype and the number of valid entries (a host int: the cache is
+    wave-synchronous).  :func:`attn_block` writes the new entries into
+    ``k``/``v`` in place, where the JAX package returns new arrays."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+
+def write_index(length: int, S: int, max_len: int) -> int:
+    """Where S new entries go in a cache of max_len: at ``length``, as
+    ``lax.dynamic_update_slice`` places them — clamped to [0, max_len -
+    S], so a wave decoding past its cache overwrites its last entry."""
+    if S > max_len:
+        raise ValueError(f"{S} new entries do not fit a cache of {max_len}")
+    return min(max(length, 0), max_len - S)
+
+
+def attn_block(cfg, p, x, pos, *, causal=True, cache: KVCache | None = None):
+    """Self-attention with optional decode cache.
+
+    cache: decode mode — write k/v at cache.length (clamped as
+    :func:`write_index` says), attend over the whole cache with
+    q_offset = cache.length and kv_len = cache.length + S."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(cfg, p, x)
+    if cfg.rope:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
+    if cache is not None:
+        at = write_index(cache.length, S, cache.k.shape[1])
+        cache.k[:, at:at + S] = k.to(cache.k.dtype)
+        cache.v[:, at:at + S] = v.to(cache.v.dtype)
+        new_len = cache.length + S
+        o = flash_attention(q, cache.k, cache.v, causal=causal,
+                            q_offset=cache.length, kv_len=new_len)
+        new_cache = KVCache(cache.k, cache.v, new_len)
+    else:
+        o = flash_attention(q, k, v, causal=causal)
+        new_cache = None
+    o = o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    if "bo" in p:
+        o = o + p["bo"].to(x.dtype)
+    return o, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+def init_mlp(cfg, gen, lead=(), device=None):
+    """SwiGLU weights drawn from ``gen`` at the JAX package's scales;
+    ``lead`` prepends stacking axes (layers)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.act != "swiglu":
+        raise unsupported(f"act={cfg.act!r}")
+    pdt = dtype_of(cfg.param_dtype)
+    return {"w1": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
+            "w3": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
+            "w2": _normal((*lead, ff, d), ff ** -0.5, pdt, gen, device)}
+
+
+def mlp_block(cfg, p, x):
+    if cfg.act != "swiglu":
+        raise unsupported(f"act={cfg.act!r}")
+    h = F.silu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+    return h @ p["w2"].to(x.dtype)
+

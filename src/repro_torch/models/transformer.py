@@ -1,0 +1,196 @@
+"""The dense transformer LM and its serving steps: prefill and decode.
+
+The port of the dense branch of the JAX package's
+``repro/models/transformer.py``: pre-norm layers (RMSNorm, GQA attention
+with RoPE, SwiGLU MLP), an embedding, a final norm and an unembedding.
+Parameters are nested dicts of tensors with the JAX package's keys; the
+layers' weights are stacked along a leading ``[n_layers]`` axis, as the
+JAX package stacks them for ``lax.scan``, and walked in a Python loop
+(each layer a view, no copy).  The weights are held at the config's
+``param_dtype``.
+
+Only the dense RMSNorm/SwiGLU family runs here (internlm2-1.8b).  A
+config outside it (MoE, SSM, hybrid, encoder-decoder, frontends,
+layernorm, GELU) raises ``NotImplementedError`` naming the ROADMAP item;
+it never runs through a different path.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.engine import resolve_device
+from repro_torch.models.layers import (KVCache, apply_norm, attn_block,
+                                       dtype_of, init_attn, init_mlp,
+                                       init_norm, mlp_block, unsupported)
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config outside the dense
+    RMSNorm/SwiGLU family."""
+    for bad, what in ((cfg.n_experts, "MoE"), (cfg.rwkv, "the RWKV SSM"),
+                      (cfg.family == "hybrid", "the Mamba2 hybrid"),
+                      (cfg.enc_dec, "the encoder-decoder"),
+                      (cfg.frontend != "none", f"frontend={cfg.frontend!r}"),
+                      (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}"),
+                      (cfg.act != "swiglu", f"act={cfg.act!r}"),
+                      (not cfg.fused_qkv, "fused_qkv=False")):
+        if bad:
+            raise unsupported(f"{cfg.name}: {what}")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_params(cfg, seed: int = 0, device="cuda"):
+    """Random parameters at the JAX package's scales (``init_params``),
+    drawn on ``device`` from a ``torch.Generator`` seeded with ``seed``.
+    This is not JAX's random stream: the same seed gives other numbers
+    than ``repro.models.transformer.init_params``.  To hold the port
+    against the JAX package, carry the JAX parameters across with
+    :func:`repro_torch.convert.lm_params_from_numpy`."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pdt = dtype_of(cfg.param_dtype)
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    p = {"embed": torch.randn((V, d), generator=gen, device=dev)
+         .mul_(0.02).to(pdt)}
+    if not cfg.tie_embeddings:
+        p["head"] = torch.randn((d, V), generator=gen, device=dev) \
+            .mul_(d ** -0.5).to(pdt)
+    p["final_norm"] = init_norm(cfg, d, device=dev)
+    p["layers"] = {"ln1": init_norm(cfg, d, (L,), dev),
+                   "attn": init_attn(cfg, gen, (L,), dev),
+                   "ln2": init_norm(cfg, d, (L,), dev),
+                   "mlp": init_mlp(cfg, gen, (L,), dev)}
+    return p
+
+
+def param_shapes(cfg) -> dict:
+    """The parameter tree's structure: the shape of every tensor that
+    :func:`init_params` makes (and the JAX package's ``init_params``
+    makes for a dense config), by the same keys."""
+    check_supported(cfg)
+    L, d, V, ff = cfg.n_layers, cfg.d_model, cfg.vocab, cfg.d_ff
+    hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    attn = {"wqkv": (L, d, (H + 2 * Hkv) * hd), "wo": (L, H * hd, d)}
+    if cfg.qkv_bias:
+        attn["bqkv"] = (L, (H + 2 * Hkv) * hd)
+    if cfg.attn_out_bias:
+        attn["bo"] = (L, d)
+    p = {"embed": (V, d), "final_norm": {"w": (d,)},
+         "layers": {"ln1": {"w": (L, d)}, "attn": attn, "ln2": {"w": (L, d)},
+                    "mlp": {"w1": (L, d, ff), "w3": (L, d, ff),
+                            "w2": (L, ff, d)}}}
+    if not cfg.tie_embeddings:
+        p["head"] = (d, V)
+    return p
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def count_params(params) -> int:
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
+def cast_params(cfg, params):
+    """The parameters with every matrix in the compute dtype: one cast
+    copy per weight (the tensors themselves when they already have it).
+    Numerically the same as the JAX package's cast at every matrix
+    product (``x @ w.astype(x.dtype)``), paid once at load instead.  The
+    norm weights stay as they are: the RMSNorm kernel reads them in f32
+    and rounds them to the activations' dtype itself."""
+    cdt = dtype_of(cfg.compute_dtype)
+    out = _tree_map(lambda t: t.to(cdt), params)
+    out["final_norm"] = params["final_norm"]
+    for k in ("ln1", "ln2"):
+        out["layers"][k] = params["layers"][k]
+    return out
+
+
+def layer(params, i: int):
+    """Layer ``i``'s parameters: views into the stacked tensors."""
+    return _tree_map(lambda t: t[i], params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# embedding, layer body, unembedding
+# ---------------------------------------------------------------------------
+def embed_inputs(cfg, params, batch):
+    """``embed[tokens].astype(compute_dtype)``; batch["tokens"] [B, S]."""
+    if cfg.frontend != "none":
+        raise unsupported(f"frontend={cfg.frontend!r}")
+    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    return params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+
+
+def _dense_body(cfg, lp, x, pos, cache=None, causal=True):
+    a, new_cache = attn_block(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
+                              pos, causal=causal, cache=cache)
+    x = x + a
+    x = x + mlp_block(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    return x, new_cache
+
+
+def unembed(cfg, params, h):
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    return h @ w.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode
+# ---------------------------------------------------------------------------
+def init_cache(cfg, batch: int, max_len: int, device="cuda"):
+    """Decode state (preallocated, compute dtype): k, v [n_layers, B,
+    max_len, Hkv, hd] and the wave's valid length ``len`` (a host int)."""
+    cdt = dtype_of(cfg.compute_dtype)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cdt, device=device),
+            "v": torch.zeros(shape, dtype=cdt, device=device), "len": 0}
+
+
+def _layers(cfg, params, x, pos, cache):
+    """Every layer over x with its cache entries; returns x."""
+    ln = cache["len"]
+    for i in range(cfg.n_layers):
+        c = KVCache(cache["k"][i], cache["v"][i], ln)
+        x, _ = _dense_body(cfg, layer(params, i), x, pos, cache=c)
+    return x
+
+
+def _logits(cfg, params, x):
+    h = apply_norm(cfg, params["final_norm"], x)
+    return unembed(cfg, params, h)[:, 0].float()
+
+
+def prefill(cfg, params, batch, max_len: int):
+    """Process the prompt batch["tokens"] [B, S]; return (last-token
+    logits [B, V] f32, cache).  Positions are ``arange(S)`` for every
+    row; no padding mask (left padding is attended, as in the JAX
+    package)."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    cache = init_cache(cfg, B, max_len, x.device)
+    pos = torch.arange(S, device=x.device).expand(B, S)
+    x = _layers(cfg, params, x, pos, cache)
+    cache["len"] = S
+    return _logits(cfg, params, x[:, -1:]), cache
+
+
+def decode_step(cfg, params, tokens, cache):
+    """One decode step. tokens: [B, 1] -> (logits [B, V], cache).  The
+    cache is updated in place and returned."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, {"tokens": tokens})
+    B = x.shape[0]
+    pos = torch.full((B, 1), cache["len"], device=x.device)
+    x = _layers(cfg, params, x, pos, cache)
+    cache["len"] += 1
+    return _logits(cfg, params, x), cache

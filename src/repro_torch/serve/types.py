@@ -1,15 +1,24 @@
-"""Request/result vocabulary of the dataflow server.
+"""Shared request/result vocabulary for both serving paths.
 
-A request carries ``feeds`` (arc -> token-stream dict, the environment
-buses of a fabric run); the result carries the fabric's
-:class:`~repro_torch.core.engine.EngineResult` plus admission and
-residency metrics.  The JAX package's ``repro.serve.types`` without its
-LM-path fields (prompt, decode budget, generated tokens), so the
-dataflow results of the two servers compare field for field.
+* **LM waves** (:class:`repro_torch.serve.engine.ServeEngine`) — a
+  request carries a token ``prompt`` and decode budget; the result
+  carries the generated ``tokens``.
+* **Dataflow streams**
+  (:class:`repro_torch.serve.dataflow_server.DataflowServer`) — a request
+  carries ``feeds`` (arc -> token-stream dict, the environment buses of
+  a fabric run); the result carries the fabric's
+  :class:`~repro_torch.core.engine.EngineResult` plus admission and
+  residency metrics.
+
+The JAX package's ``repro.serve.types`` with the same fields, names,
+order and defaults, less the server's degradation fields (``degraded``,
+``retries``: the port's server has no fallback chain).
 """
 from __future__ import annotations
 
 import dataclasses
+
+import numpy as np
 
 from repro_torch.core.engine import EngineResult
 
@@ -23,8 +32,10 @@ class InvalidRequestError(ValueError):
 
 @dataclasses.dataclass
 class Request:
-    """One unit of admission-controlled work: ``feeds`` (arc -> [k]
-    token stream).
+    """One unit of admission-controlled work.
+
+    LM path fields: ``prompt`` / ``max_new_tokens`` / ``eos_id``.
+    Dataflow path field: ``feeds`` (arc -> [k] token stream).
 
     ``tenant`` is the fairness key bounded admission round-robins
     across; ``deadline_blocks`` expires the request — queued or
@@ -33,7 +44,10 @@ class Request:
     slot only (smaller *or* larger).
     """
     uid: int
-    feeds: dict | None = None           # arc -> stream
+    prompt: np.ndarray | None = None    # [S] int32 token ids (LM)
+    max_new_tokens: int = 16
+    eos_id: int | None = None
+    feeds: dict | None = None           # arc -> stream (dataflow)
     tenant: object = None               # admission fairness key
     deadline_blocks: int | None = None  # expire after N server blocks
     max_cycles: int | None = None       # per-slot engine-cap override
@@ -68,11 +82,16 @@ class RequestMetrics:
 
 @dataclasses.dataclass
 class Result:
-    """What the server hands back for one request: ``engine`` (the full
+    """What a serving engine hands back for one request.
+
+    LM path fields: ``tokens`` / ``prompt_len``.
+    Dataflow path fields: ``engine`` (the full
     :class:`~repro_torch.core.engine.EngineResult`, bit-identical to a
     solo run) and ``metrics``."""
     uid: int
-    engine: EngineResult | None = None  # fabric result
+    tokens: np.ndarray | None = None    # generated ids (LM)
+    prompt_len: int = 0
+    engine: EngineResult | None = None  # fabric result (dataflow)
     metrics: RequestMetrics | None = None
     error: Exception | None = None      # typed failure: the request was
     #                                     answered, not computed (queue

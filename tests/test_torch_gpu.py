@@ -377,3 +377,142 @@ def test_scheduled_server_matches_reference(cuda):
         assert_same_result(r.engine, solo.run(f), r.uid, profile=True)
         assert_same_result(r.engine, run_reference(bench.graph, f), r.uid,
                            dispatches=False)
+
+
+# ---------------------------------------------------------------------------
+# the LM kernels (flash attention, RMSNorm) and the LM serving engine
+# ---------------------------------------------------------------------------
+# kernel against plain version on the same card: f32 attention 1e-4 and
+# RMSNorm 1e-5 (sums in another order), bf16 3e-2 (the JAX kernel tests')
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _attn_inputs(cuda, B, Sq, Skv, Hkv, G, hd, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=cuda).to(dtype) for s in
+            ((B, Sq, Hkv * G, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd))]
+
+
+def _hold_attention(q, k, v, **kw):
+    from repro_torch.kernels import flash_attention as fa
+    n0 = fa.flash_attention_cuda.launches
+    got = fa.flash_attention_cuda(q, k, v, **kw)
+    assert fa.flash_attention_cuda.launches == n0 + 1
+    want = fa.attention(q, k, v, **kw)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=ATTN_TOL[q.dtype], atol=ATTN_TOL[q.dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 12])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, hd, G):
+    """Odd lengths; the Pallas case (causal and not), prefill into a
+    longer cache, a chunk at an offset, decode mid-cache and past it.  G
+    = 3 and 12 leave rows of a tile unused (64 = 3 * 21 + 1, 16 = 12 +
+    4)."""
+    q, k, v = _attn_inputs(cuda, 2, 33, 130, 2, G, hd, dtype, seed=hd + G)
+    _hold_attention(q, k[:, :33].contiguous(), v[:, :33].contiguous(),
+                    causal=True)
+    _hold_attention(q, k, v, causal=False)
+    _hold_attention(q, k, v, causal=True, q_offset=0, kv_len=33)
+    _hold_attention(q[:, :13].contiguous(), k, v, causal=True, q_offset=60,
+                    kv_len=73)
+    for off, kv_len in ((70, 71), (129, 130), (150, 151)):
+        _hold_attention(q[:, :1].contiguous(), k, v, causal=True,
+                        q_offset=off, kv_len=kv_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_full_width(cuda, dtype):
+    """internlm2-1.8b's attention (16 heads over 8, hd 128): a prefill of
+    1000 tokens into a 1100-entry cache, and decode steps of 4 rows over a
+    4160-entry cache."""
+    q, k, v = _attn_inputs(cuda, 2, 1000, 1100, 8, 2, 128, dtype)
+    _hold_attention(q, k, v, causal=True, q_offset=0, kv_len=1000)
+    q, k, v = _attn_inputs(cuda, 4, 1, 4160, 8, 2, 128, dtype, seed=1)
+    for off in (0, 2047, 4159, 4200):
+        _hold_attention(q, k, v, causal=True, q_offset=off, kv_len=off + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("model", [False, True])
+@pytest.mark.parametrize("rows,d", [(1, 32), (7, 130), (300, 512),
+                                    (4096, 2048)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, model, rows, d):
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(dtype)
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
+    n0 = rn.rmsnorm_cuda.launches
+    got = rn.rmsnorm_cuda(x, w, model=model)
+    assert rn.rmsnorm_cuda.launches == n0 + 1
+    want = rn.rmsnorm(x, w, model=model)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=NORM_TOL[dtype], atol=NORM_TOL[dtype])
+
+
+def test_lm_wrappers_reject_bad_arguments(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    q, k, v = _attn_inputs(cuda, 1, 4, 8, 2, 2, 32, torch.float32)
+    with pytest.raises(ValueError, match="on"):
+        fa.flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention_cuda(*_attn_inputs(cuda, 1, 4, 8, 2, 2, 48,
+                                              torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_cuda(q.transpose(1, 2).contiguous()
+                                .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention_cuda(q, k, v, q_offset=-1)
+    x = torch.randn((4, 64), device=cuda)
+    with pytest.raises(ValueError, match="on"):
+        rn.rmsnorm_cuda(x, torch.ones(64))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rn.rmsnorm_cuda(x.half(), torch.ones(64, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        rn.rmsnorm_cuda(x, torch.ones(63, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rmsnorm_cuda(x.T, torch.ones(4, device=cuda))
+
+
+def test_reduced_serve_engine_cuda_matches_cpu(cuda):
+    """internlm2-1.8b reduced (f32) served on the card through both
+    kernels answers as the plain versions on the CPU do: prefill logits
+    within 1e-3, the same greedy tokens."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("internlm2-1.8b").reduced()
+    cpu = tfm.init_params(cfg, seed=0, device="cpu")
+    card = tfm._tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (3, 11)).astype(np.int32))
+    lc, _ = tfm.prefill(cfg, cpu, {"tokens": toks}, max_len=24)
+    lg, _ = tfm.prefill(cfg, card, {"tokens": toks.to(cuda)}, max_len=24)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (n,))
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate([3, 9, 5, 12, 7, 20])]
+    n0 = (fa.flash_attention_cuda.launches, rn.rmsnorm_cuda.launches)
+    got = ServeEngine(cfg, card, batch_size=4, max_len=24,
+                      device=cuda).run(reqs)
+    assert fa.flash_attention_cuda.launches > n0[0]
+    assert rn.rmsnorm_cuda.launches > n0[1]
+    want = ServeEngine(cfg, cpu, batch_size=4, max_len=24,
+                       device="cpu").run(reqs)
+    for g, w in zip(got, want):
+        assert g.uid == w.uid
+        np.testing.assert_array_equal(g.tokens, w.tokens)

@@ -107,3 +107,50 @@ def test_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
     assert counts() == launches
     if not torch.cuda.is_available():
         assert not any(launches) and real_load.cache_info().currsize == 0
+
+
+def test_lm_entry_points_without_cuda_raise(monkeypatch):
+    """The LM serving path runs on the card unless asked for the CPU: the
+    engine, the launcher, the model's init and cache name device="cpu"
+    when there is no card."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import ServeEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = tfm.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tfm.init_params(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        launch_serve.main(["--arch", "internlm2-1.8b"])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        launch_serve.main(["--arch", "internlm2-1.8b", "--reduced"])
+    assert ServeEngine(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_lm_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    def no_build():
+        raise AssertionError("a CPU call must not build the kernels")
+    monkeypatch.setattr(_build, "load", no_build)
+    launches = (fa.flash_attention_cuda.launches, rn.rmsnorm_cuda.launches)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((2, 5, 4, 16), (2, 9, 2, 16), (2, 9, 2, 16)))
+    for dtype in (torch.float32, torch.bfloat16):
+        out = fa.flash_attention_cuda(q.to(dtype), k.to(dtype), v.to(dtype),
+                                      q_offset=4, kv_len=9)
+        assert out.device.type == "cpu" and out.dtype == dtype
+        for model in (False, True):
+            out = rn.rmsnorm_cuda(q.to(dtype), torch.ones(16), model=model)
+            assert out.device.type == "cpu" and out.dtype == dtype
+    out = ops.flash_attention(q, k, v, causal=False)
+    assert out.shape == q.shape
+    assert ops.rmsnorm(q, torch.ones(16)).shape == q.shape
+    assert (fa.flash_attention_cuda.launches,
+            rn.rmsnorm_cuda.launches) == launches
