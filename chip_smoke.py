@@ -52,10 +52,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 7. LM kernels — flash attention and RMSNorm against their plain versions
              on the card in f32 and bf16: attention at the long wave's
              prefill shape (internlm2-1.8b: 16 heads over 8, hd 128, a
-             4160-entry cache), at a decode shape (one query mid-cache)
-             and in the Pallas case (q_offset 0, every key valid, odd
-             lengths, causal and not); RMSNorm at [B*S, 2048] in both
-             roundings; their device times, bounds, and the times of
+             4160-entry cache), at its decode step (one query mid-cache),
+             in the Pallas case (q_offset 0, every key valid, odd
+             lengths, causal and not) and at the split decode's edge cases
+             (kv_len 1, below one split, past the cache, a split with
+             every key masked); each attention variant (bf16 tensor-core
+             prefill, f32 CUDA-core kernel, split decode and its combine
+             pass, the last two also each against its own plain version)
+             and the dispatch rule's choice; RMSNorm at [B*S, 2048] in
+             both roundings; their device times (profiler) and times per
+             call (CUDA events), bounds, and the times of
              ``F.scaled_dot_product_attention`` and ``F.rms_norm`` on the
              same inputs (timed only, never used by the port);
 8. LM serving — internlm2-1.8b at full width on the card: seeded
@@ -66,15 +72,18 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              new tokens, cache 4160): tokens/s, prefill and decode ms per
              step, both kernels' launches; then the long wave's logits at
              every step against the same engine on the plain versions,
-             teacher-forced with the kernel path's tokens, and a
-             ``torch.profiler`` trace of 4 of its decode steps;
+             teacher-forced with the kernel path's tokens, a
+             ``torch.profiler`` trace of 4 of its decode steps (naming
+             the split and combine kernels), and a prompt holding ids
+             outside the vocabulary;
 9. summary — the ``kernels`` JSON line, the card, and the result line.
 
 The launch counts in the summary come from the main paths alone: every
 count is set to 0 just before phase 4 and read after phase 5, before
 the sampled checks (the fabric's rows 1-8), and set to 0 again just
 before phase 8 and read after the long wave, before its plain replay
-(the LM's rows 9-10).  The script imports torch, numpy and the port;
+(the LM's rows 9-10, and row 9's launches per attention variant).  The
+script imports torch, numpy and the port;
 nothing of JAX.
 """
 from __future__ import annotations
@@ -130,13 +139,21 @@ LM_ROWS = {
                 "rmsnorm_pallas -> _kernel (:16)",
                 "src/repro_torch/kernels/csrc/rmsnorm.cu"),
 }
-# kernel against plain version on the card, held as allclose with rtol =
-# atol = tol (as the JAX package's kernel tests hold Pallas against ref):
-# f32 sums in another order; bf16 at those tests' own tolerance (a rounding
-# that differs gives one bf16 step, 2^-8 relative)
+# kernel against plain version on the card: f32 sums in another order;
+# bf16 at the JAX package's kernel tests' own tolerance (a rounding that
+# differs gives one bf16 step, 2^-8 relative).  RMSNorm is held as allclose
+# with rtol = atol = tol (as those tests hold Pallas against ref); attention
+# by flash_attention.error_ratio, rtol = tol with the absolute part scaled
+# to each row's RMS up to tol (a row over n keys has an RMS near n^-1/2, so
+# a fixed atol of 3e-2 would pass a decode that lost a split); the split
+# kernel's f32 partials at the f32 attention tolerance in either dtype
 LM_TOL = {"float32": {"flash_attention": 1e-4, "rmsnorm": 1e-5},
           "bfloat16": {"flash_attention": 3e-2, "rmsnorm": 3e-2}}
+ATTN_RULE = "rtol = {0}, atol = {0} x min(1, row RMS)"   # {0}: tolerance
 LM_ARCH = "internlm2-1.8b"
+# the attention kernels the bf16 main path runs (the f32 CUDA-core kernel
+# serves f32 calls only; phase 7 holds it against its plain version)
+MAIN_ATTENTION_VARIANTS = ("prefill_mma", "decode_split", "decode_combine")
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 
 
@@ -177,6 +194,7 @@ def launch_counts() -> dict:
             "sched_run": ksf.sched_run_cuda.launches,
             "sched_slot_step": ksf.sched_slot_step_cuda.launches,
             "flash_attention": fa.flash_attention_cuda.launches,
+            "flash_attention_by": dict(fa.flash_attention_cuda.launches_by),
             "rmsnorm": rn.rmsnorm_cuda.launches}
 
 
@@ -190,6 +208,7 @@ def reset_counts() -> None:
     df.fire_step_cuda.launches = 0
     ksf.sched_run_cuda.launches = ksf.sched_slot_step_cuda.launches = 0
     fa.flash_attention_cuda.launches = rn.rmsnorm_cuda.launches = 0
+    fa.flash_attention_cuda.launches_by = dict.fromkeys(fa.VARIANTS, 0)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1213,14 +1232,22 @@ def trace_serving(dev, bench, slots, reqs, untraced_wall, optimize,
 # ---------------------------------------------------------------------------
 def attention_cases(B, S, max_len) -> dict:
     """The attention calls of the main path (the long wave's prefill and a
-    decode step mid-cache) and the Pallas case (q_offset 0, every key
-    valid; odd lengths, causal and not)."""
+    decode step mid-cache), the Pallas case (q_offset 0, every key valid;
+    odd lengths, causal and not), and the split decode's edge cases: one
+    visible key, fewer keys than one split, kv_len past the cache, and 8
+    queries (16 rows) whose causal bounds leave the last split's keys all
+    masked for the first query's rows."""
+    dec = dict(B=B, Sq=1, Skv=max_len, causal=True)
     return {"prefill": dict(B=B, Sq=S, Skv=max_len, causal=True, q_offset=0,
                             kv_len=S),
-            "decode": dict(B=B, Sq=1, Skv=max_len, causal=True,
-                           q_offset=S + 15, kv_len=S + 16),
+            "decode": dict(dec, q_offset=S + 15, kv_len=S + 16),
             "pallas_causal": dict(B=2, Sq=1031, Skv=1031, causal=True),
-            "pallas_full": dict(B=2, Sq=333, Skv=1031, causal=False)}
+            "pallas_full": dict(B=2, Sq=333, Skv=1031, causal=False),
+            "decode_kv_len_1": dict(dec, q_offset=0, kv_len=1),
+            "decode_below_one_split": dict(dec, q_offset=39, kv_len=40),
+            "decode_past_cache": dict(dec, q_offset=max_len + 40,
+                                      kv_len=max_len + 41),
+            "decode_masked_split": dict(dec, Sq=8, q_offset=60, kv_len=68)}
 
 
 def visible_pairs(Sq, kv, causal, q_offset) -> int:
@@ -1235,8 +1262,8 @@ def attention_bound(q, k, c) -> dict:
     """Least time for one attention call on these inputs: q and the output
     once, the visible keys' K and V rows once, over HBM bandwidth; 4 * hd
     flops per visible (query, key) pair and head, over the card's dense
-    rate for the inputs' type (bf16: the tensor cores' rate, which the
-    simple kernel does not use; f32: outside the tensor cores)."""
+    rate for the inputs' type (bf16: the tensor cores' rate; f32: outside
+    the tensor cores)."""
     import torch
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
@@ -1300,11 +1327,109 @@ def time_lm(run_k, run_p, run_lib, reps, kernel, bound, shape) -> dict:
                 shape=shape)
 
 
+def split_bounds(q, c, ranges, R, Hkv) -> tuple[dict, dict]:
+    """Least times of the split kernel and of the combine pass alone: the
+    split reads q and the visible K/V rows once and writes its f32
+    partials (m, l, acc[hd] per row and split), with 4 * hd flops per
+    visible pair; the combine reads the partials and writes the output."""
+    B, hd = q.shape[0], q.shape[3]
+    whole = attention_bound(q, q.new_empty((B, 1, Hkv, hd)), c)
+    qo = q.element_size() * q.numel()
+    parts = 4 * B * Hkv * len(ranges) * R * (2 + hd)
+    out = []
+    for nbytes, flops in ((whole["bytes"] - qo + parts, whole["flops"]),
+                          (parts + qo, 0)):
+        rate = BF16_FLOPS_PER_S if q.element_size() == 2 \
+            else SCALAR_OPS_PER_S
+        t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+        out.append(dict(bound_ms=max(t_b, t_o) * 1e3,
+                        bound_by="bytes" if t_b >= t_o else "operations",
+                        bytes=nbytes, flops=flops))
+    return out[0], out[1]
+
+
+def graph_ms(fns, reps: int = 20) -> float:
+    """Device milliseconds per call of the callables ``fns``: CUDA events
+    around replays of one CUDA graph holding one call of each, so no host
+    work sits between the launches (a wrapper call's host time exceeds a
+    decode kernel's).  Callers pass calls on distinct inputs whose bytes
+    together exceed the 50 MB L2, so each call finds its inputs cold, as
+    a decode step does after the other layers' weights."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns:                # warm-up: builds, kernel attributes
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for f in fns:
+            f()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps / len(fns)
+
+
+def time_decode(q, k, v, c, kw, split, H, Hkv, shape, gen, copies=4) -> dict:
+    """The decode call's times: device ms of the wrapper (split and
+    combine), of each kernel alone and of SDPA from CUDA-graph replays
+    over ``copies`` distinct input sets (K/V of all sets well beyond the
+    L2, so every call reads cold K/V); ms per wrapper call from CUDA
+    events (host work included); the plain versions' ms per call."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    sets = [(q, k, v)] + [tuple(torch.randn(x.shape, generator=gen,
+                                            device=x.device).to(x.dtype)
+                                for x in (q, k, v))
+                          for _ in range(copies - 1)]
+    parts = [fa.attention_partials(*s, split, **kw) for s in sets]
+    outs = [torch.empty_like(q) for _ in sets]
+    R = c["Sq"] * (H // Hkv)
+    b_s, b_c = split_bounds(q, c, split, R, Hkv)
+    out = dict(ms=graph_ms([lambda s=s: fa.flash_attention_cuda(*s, **kw)
+                            for s in sets]),
+               ms_from=f"cuda graph replay, {copies} input sets (cold L2)",
+               call_ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, **kw),
+                               50),
+               plain_ms=cuda_ms(lambda: fa.attention(q, k, v, **kw), 3,
+                                warmup=1),
+               plain_device_ms=None,
+               library_ms=graph_ms([sdpa_call(*s, c) for s in sets]),
+               library_from=f"cuda graph replay, {copies} input sets",
+               **attention_bound(q, k, c), shape=shape, n_split=len(split),
+               split_ctas=len(split) * Hkv * c["B"])
+    for part, runs, plain, bnd in (
+            ("split", [lambda s=s: fa.decode_partials_cuda(*s, split, **kw)
+                       for s in sets],
+             lambda: fa.attention_partials(q, k, v, split, **kw), b_s),
+            ("combine", [lambda p=p, o=o: fa.combine_cuda(*p, o)
+                         for p, o in zip(parts, outs)],
+             lambda: fa.combine_partials(*parts[0]), b_c)):
+        out[part] = dict(ms=graph_ms(runs), ms_from=out["ms_from"]
+                         if part == "split" else "cuda graph replay",
+                         call_ms=cuda_ms(runs[0], 50),
+                         plain_ms=cuda_ms(plain, 3, warmup=1), **bnd)
+    return out
+
+
 def phase_lm_kernels(dev, cfg, B, S, max_len):
     """Both LM kernels against their plain versions on the card, in f32
-    and bf16, at the main path's shapes and the Pallas case; times of the
-    bf16 (main path) and f32 calls.  Returns the max |error| per dtype and
-    kernel, and the times."""
+    and bf16, at the main path's shapes, the Pallas case and the split
+    decode's edge cases; every attention variant on its own (the tensor-
+    core prefill, the f32 kernel, the split kernel's partials and the
+    combine pass each against their plain versions); times of the bf16
+    (main path) and f32 calls and of the split decode's two kernels.
+    Returns the max |error| per dtype and kernel or variant, and the
+    times."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -1312,24 +1437,76 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
     from repro_torch.kernels import rmsnorm as rn
     H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     gen = torch.Generator(device=dev).manual_seed(7)
-    errs = {dt: {k: dict(max_abs_err=0.0, tol_ratio=0.0) for k in LM_ROWS}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    names = (*LM_ROWS, *fa.VARIANTS)
+    errs = {dt: {k: dict(max_abs_err=0.0, tol_ratio=0.0) for k in names}
             for dt in LM_TOL}
     times = {}
 
-    def hold(dtn, name, got, want, what):
-        """got within rtol = atol = tol of want: the largest |got - want|
-        over tol * (1 + |want|) is at most 1."""
-        tol = LM_TOL[dtn][name]
+    def hold(dtn, name, got, want, what, keys=(), partial=False):
+        """got within the tolerance of want (recorded under name and
+        keys): attention outputs by ``fa.error_ratio``, the f32 partials
+        and RMSNorm as allclose (the largest |got - want| over tol * (1 +
+        |want|) at most 1)."""
+        tol = LM_TOL["float32" if partial else dtn][name]
         diff = (got.float() - want.float()).abs()
-        e = float(diff.max())
-        ratio = float((diff / (tol * (1 + want.float().abs()))).max())
-        rec = errs[dtn][name]
-        rec["max_abs_err"] = max(rec["max_abs_err"], e)
-        rec["tol_ratio"] = max(rec["tol_ratio"], ratio)
-        log(f"  {name:15s} {dtn:8s} {what}: max |kernel - plain| {e:.3g}, "
-            f"{ratio:.3f} of the tolerance (rtol = atol = {tol:g})")
-        check(ratio <= 1, f"{name} {dtn} {what}: kernel != plain ({ratio} of "
-              f"rtol = atol = {tol})")
+        e = float(diff.max()) if diff.numel() else 0.0
+        if name == "flash_attention" and not partial:
+            ratio = fa.error_ratio(got, want, tol)
+            rule = ATTN_RULE.format("tol")
+        else:
+            ratio = float((diff / (tol * (1 + want.float().abs()))).max()) \
+                if diff.numel() else 0.0
+            rule = "rtol = atol = tol"
+        for key in (name, *keys):
+            rec = errs[dtn][key]
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            rec["tol_ratio"] = max(rec["tol_ratio"], ratio)
+        log(f"  {'/'.join((name, *keys)):30s} {dtn:8s} {what}: max |kernel - "
+            f"plain| {e:.3g}, {ratio:.3f} of the tolerance ({rule}, tol = "
+            f"{tol:g})")
+        check(ratio <= 1, f"{name} {keys} {dtn} {what}: kernel != plain "
+              f"({ratio} of {rule}, tol = {tol})")
+
+    def hold_split(dtn, q, k, v, kw, what, whole, planted):
+        """The split kernel's partials and the combine pass, each against
+        its plain version; with ``planted``, the kernel's partials merged
+        without their last split must be refused against ``whole`` (the
+        plain version of the call): the check can see a lost split.
+        Returns the plan and the partials' -inf count."""
+        Sq = q.shape[1]
+        vis = fa.visible_keys(Sq, k.shape[1], **kw)
+        ranges = fa.decode_splits(vis, q.shape[0] * Hkv, sms)
+        m, l, acc = fa.decode_partials_cuda(q, k, v, ranges, **kw)
+        pm, pl, pacc = fa.attention_partials(q, k, v, ranges, **kw)
+        inf = torch.isinf(pm)
+        check(torch.equal(torch.isinf(m), inf), f"{what}: the split kernel's "
+              "masked partials (m = -inf) differ from the plain version's")
+        for got, want, part in ((m.masked_fill(inf, 0), pm.masked_fill(
+                inf, 0), "m"), (l, pl, "l"), (acc, pacc, "acc")):
+            hold(dtn, "flash_attention", got, want, f"{what} partial {part}",
+                 keys=("decode_split",), partial=True)
+        out = fa.combine_cuda(pm, pl, pacc, torch.empty_like(q))
+        want = fa.rows_to_heads(fa.combine_partials(pm, pl, pacc), Sq)
+        hold(dtn, "flash_attention", out, want.to(q.dtype),
+             f"{what} combine of the plain partials",
+             keys=("decode_combine",))
+        if planted:
+            cut = fa.rows_to_heads(fa.combine_partials(
+                m[:, :, :-1], l[:, :, :-1], acc[:, :, :-1]), Sq).to(q.dtype)
+            tol = LM_TOL[dtn]["flash_attention"]
+            r = fa.error_ratio(cut, whole, tol)
+            d = (cut.float() - whole.float()).abs()
+            r_flat = float((d / (tol * (1 + whole.float().abs()))).max())
+            log(f"  planted fault, {dtn} {what}: the last of {len(ranges)} "
+                f"splits dropped gives {r:.3f} of the tolerance ("
+                f"{ATTN_RULE.format('tol')}"
+                f", tol = {tol:g}; max |error| {float(d.max()):.3g}); an "
+                f"allclose with rtol = atol = {tol:g} would give "
+                f"{r_flat:.3f}")
+            check(r > 1, f"{what}: a decode without its last split passes "
+                  f"the check ({r} of the tolerance)")
+        return ranges, int(inf.sum())
 
     for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for case, c in attention_cases(B, S, max_len).items():
@@ -1338,6 +1515,8 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
             k, v = (torch.randn((c["B"], c["Skv"], Hkv, hd), generator=gen,
                                 device=dev).to(dt) for _ in range(2))
             kw = {x: c[x] for x in ("causal", "q_offset", "kv_len") if x in c}
+            kwf = dict(kw, q_offset=c.get("q_offset", 0))
+            variant = fa.variant_of(q, k)
             if case.startswith("pallas"):
                 run_k = lambda: ops.flash_attention(q, k, v,
                                                     causal=c["causal"])
@@ -1345,19 +1524,41 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
                 run_k = lambda: fa.flash_attention_cuda(q, k, v, **kw)
             run_p = lambda: fa.attention(q, k, v, **kw)
             want = run_p()
-            hold(dtn, "flash_attention", run_k(), want,
-                 f"{case} {dict(kw, B=c['B'], Sq=c['Sq'], Skv=c['Skv'])}")
+            n0 = dict(fa.flash_attention_cuda.launches_by)
+            what = f"{case} {dict(kw, B=c['B'], Sq=c['Sq'], Skv=c['Skv'])}"
+            hold(dtn, "flash_attention", run_k(), want, what,
+                 keys=(variant,) if variant != "decode_split" else
+                 ("decode_split", "decode_combine"))
+            ran = {x for x, n in fa.flash_attention_cuda.launches_by.items()
+                   if n > n0[x]}
+            check(ran == ({"decode_split", "decode_combine"} if variant ==
+                          "decode_split" else {variant}),
+                  f"{what}: ran {sorted(ran)}, the dispatch rule names "
+                  f"{variant}")
+            split = None
+            if variant == "decode_split":
+                split, n_inf = hold_split(dtn, q, k, v, kwf, what, want,
+                                          planted=case == "decode")
+                check(case != "decode_masked_split" or n_inf > 0,
+                      f"{what}: no split had every key masked for a row")
+                ctas = len(split) * Hkv * c["B"]
+                check(case != "decode" or ctas > 132, f"{what}: {ctas} "
+                      "split CTAs, not more than the card's 132 SMs")
             lib = sdpa_call(q, k, v, c)
             e_lib = float((lib().float() - want.float()).abs().max())
             if case in ("prefill", "decode"):
                 shape = (f"B={c['B']}, Sq={c['Sq']}, Skv={c['Skv']}, "
                          f"H={H}/{Hkv}, hd={hd}, q_offset={c['q_offset']}, "
                          f"kv_len={c['kv_len']}, {dtn}")
-                times[f"flash_attention {case} {dtn}"] = dict(
-                    **time_lm(run_k, run_p, lib, 5 if case == "prefill"
-                              else 50, "flash_attention_kernel",
-                              attention_bound(q, k, c), shape),
-                    library_vs_plain=e_lib)
+                if case == "prefill":
+                    t = dict(**time_lm(run_k, run_p, lib, 5, "flash_attention",
+                                       attention_bound(q, k, c), shape),
+                             library_vs_plain=e_lib, variant=variant)
+                else:
+                    t = dict(**time_decode(q, k, v, c, kwf, split, H, Hkv,
+                                           shape, gen),
+                             library_vs_plain=e_lib, variant=variant)
+                times[f"flash_attention {case} {dtn}"] = t
             del q, k, v, want
         x = (3 * torch.randn((B * S, d), generator=gen, device=dev)).to(dt)
         w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
@@ -1391,6 +1592,14 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
             f"|lib - plain| {v['library_vs_plain']:.3g})  bound "
             f"{v['bound_ms']:.5f} ms ({v['bound_by']}: {v['bytes']} B, "
             f"{v['flops']:.4g} flops)  [{v['shape']}]")
+        for part in ("split", "combine"):
+            if part in v:
+                t = v[part]
+                log(f"    {part:8s} kernel {t['ms']:.4f} ms ({t['ms_from']}; "
+                    f"{t['call_ms']:.4f} per call)  plain {t['plain_ms']:.3f}"
+                    f" ms  bound {t['bound_ms']:.5f} ms ({t['bound_by']}: "
+                    f"{t['bytes']} B)  [{v['n_split']} splits, "
+                    f"{v['split_ctas']} CTAs]")
     return errs, times
 
 
@@ -1400,13 +1609,15 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
 class StepRecorder:
     """Wraps the model's ``prefill`` and ``decode_step`` (the module the
     serving engine calls them in) while a wave is served: each call's
-    milliseconds (the card synchronised before and
-    after) and its logits, copied to the host."""
+    milliseconds (the card synchronised before and after), the part of
+    them the host spent enqueuing the call's work (until the call returned,
+    before the synchronisation), and its logits, copied to the host."""
 
     def __init__(self, tfm, dev):
         import torch
         self.tfm, self.real = tfm, (tfm.prefill, tfm.decode_step)
         self.ms = {"prefill": [], "decode": []}
+        self.host_ms = {"prefill": [], "decode": []}
         self.logits = []
 
         def wrap(kind, fn):
@@ -1414,6 +1625,7 @@ class StepRecorder:
                 torch.cuda.synchronize(dev)
                 t0 = time.perf_counter()
                 out = fn(*a, **kw)
+                self.host_ms[kind].append((time.perf_counter() - t0) * 1e3)
                 torch.cuda.synchronize(dev)
                 self.ms[kind].append((time.perf_counter() - t0) * 1e3)
                 self.logits.append(out[0].cpu())
@@ -1490,6 +1702,8 @@ def phase_lm_serving(dev, cfg, long_lens, max_len, new_tokens, main_argv):
         / rec.ms["prefill"][0] * 1e3,
         decode_steps=len(dec), decode_ms_mean=float(np.mean(dec)),
         decode_ms_p50=float(np.median(dec)), decode_ms_max=float(max(dec)),
+        decode_host_enqueue_ms_mean=float(np.mean(rec.host_ms["decode"])),
+        prefill_host_enqueue_ms=rec.host_ms["prefill"][0],
         peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
     log(f"  long wave: {json.dumps(stats['long_wave'])}")
     return stats, eng, reqs, results, rec
@@ -1547,10 +1761,39 @@ def trace_decode(dev, eng, reqs, steps=4) -> dict:
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
     out = dict(steps=steps, traced_ms_per_step=wall * 1e3 / steps,
                device_busy_ms_per_step=busy_us / 1e3 / steps,
+               attention_ms_per_step=sum(
+                   v for k, v in per.items() if "flash_attention" in k)
+               / 1e3 / steps,
                idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
                device_ms_per_step_by_name={k[:80]: v / 1e3 / steps
                                            for k, v in top})
     log(f"  decode trace: {json.dumps(out)}")
+    for kern in ("flash_attention_split_kernel",
+                 "flash_attention_combine_kernel"):
+        check(any(kern in name for name in per),
+              f"the decode trace shows no {kern}")
+    return out
+
+
+def serve_out_of_vocab(dev, eng) -> dict:
+    """A prompt holding ids outside [0, V) served on the card (ROADMAP
+    C7): no device assert, and the tokens of the same prompt with its ids
+    mapped as the JAX package's gather maps them (``vocab_rows``)."""
+    import torch
+    from repro_torch.models.transformer import vocab_rows
+    from repro_torch.serve.engine import Request
+    V = eng.cfg.vocab
+    raw = np.array([1, 2, V + 3, -5, -V - 7, 3 * V, 17], np.int32)
+    rows = vocab_rows(torch.from_numpy(raw), V).numpy().astype(np.int32)
+    res = [eng.run([Request(uid=0, prompt=p, max_new_tokens=4)])[0]
+           for p in (raw, rows)]
+    torch.cuda.synchronize(dev)
+    check_tokens(res, 4, V, "out-of-vocabulary prompt")
+    check(np.array_equal(res[0].tokens, res[1].tokens), "an out-of-"
+          "vocabulary prompt answers otherwise than its mapped ids")
+    out = dict(prompt=raw.tolist(), rows=rows.tolist(),
+               tokens=res[0].tokens.tolist())
+    log(f"  out-of-vocabulary prompt: {json.dumps(out)}")
     return out
 
 
@@ -1608,11 +1851,39 @@ def check_long_wave(dev, eng, reqs, results, rec) -> dict:
     return out
 
 
+def attention_variants(errs, times, launches) -> list:
+    """Row 9's variants: main-path launches (phase 8), largest errors
+    against the plain versions (phase 7, the variant's own dtype: bf16
+    for the main path's kernels, f32 for the CUDA-core kernel) and times
+    at the long wave's shapes."""
+    pre_b, pre_f = (times[f"flash_attention prefill {d}"]
+                    for d in ("bfloat16", "float32"))
+    dec = times["flash_attention decode bfloat16"]
+    rows = []
+    for name, dtn, t, lib in (
+            ("prefill_mma", "bfloat16", pre_b, pre_b["library_ms"]),
+            ("tiled_f32", "float32", pre_f, pre_f["library_ms"]),
+            ("decode_split", "bfloat16", dec["split"], None),
+            ("decode_combine", "bfloat16", dec["combine"], None)):
+        e = errs[dtn][name]
+        rows.append(dict(
+            name=name, dtype=dtn, launches=launches["flash_attention_by"][
+                name], max_abs_err=e["max_abs_err"], tol_ratio=e["tol_ratio"],
+            tolerance=LM_TOL[dtn]["flash_attention"],
+            tolerance_rule=ATTN_RULE.format("tolerance") + (
+                "; partials: allclose, rtol = atol = "
+                f"{LM_TOL['float32']['flash_attention']:g}"
+                if name == "decode_split" else ""), library_ms=lib,
+            **{f: t[f] for f in ("ms", "ms_from", "call_ms", "plain_ms",
+                                 "bound_ms", "bound_by")}))
+    return rows
+
+
 def lm_rows(errs, times, launches) -> list:
     """The ``kernels`` line's rows 9-10: launches from phase 8, errors
     from phase 7 (bf16, the main path's dtype, and f32), times at the
-    long wave's prefill (attention; its decode step beside) and at its
-    [B*S, 2048] RMSNorm, in bf16."""
+    long wave's prefill (attention; its decode step beside, and each
+    attention variant) and at its [B*S, 2048] RMSNorm, in bf16."""
     fields = ("ms", "ms_from", "call_ms", "plain_ms", "plain_device_ms",
               "bound_ms", "bound_by", "library_ms", "library_from", "shape")
     rows = []
@@ -1624,7 +1895,9 @@ def lm_rows(errs, times, launches) -> list:
                    pallas=pallas, launches=launches[k],
                    max_abs_err=b16["max_abs_err"],
                    tolerance=LM_TOL["bfloat16"][k],
-                   tolerance_rule="allclose, rtol = atol = tolerance",
+                   tolerance_rule=ATTN_RULE.format("tolerance")
+                   if k == "flash_attention" else
+                   "allclose, rtol = atol = tolerance",
                    tol_ratio=b16["tol_ratio"],
                    max_abs_err_f32=f32["max_abs_err"],
                    tolerance_f32=LM_TOL["float32"][k],
@@ -1633,6 +1906,7 @@ def lm_rows(errs, times, launches) -> list:
         if k == "flash_attention":
             dec = times["flash_attention decode bfloat16"]
             row.update({f"decode_{f}": dec[f] for f in fields})
+            row["variants"] = attention_variants(errs, times, launches)
         rows.append(row)
     return rows
 
@@ -1737,12 +2011,17 @@ def main() -> int:
     lm_stats, eng, lm_reqs, lm_res, rec = phase_lm_serving(
         dev, cfg, long_lens, 4160, 32, ["--arch", LM_ARCH, "--full"])
     lm_launches = launch_counts()
-    lm_stats["launches"] = {k: lm_launches[k] for k in LM_ROWS}
+    lm_stats["launches"] = {k: lm_launches[k]
+                            for k in (*LM_ROWS, "flash_attention_by")}
     log(f"  main-path launches (phase 8): {json.dumps(lm_stats['launches'])}")
     for k in LM_ROWS:
         check(lm_launches[k] > 0, f"{k} was never launched on the main path")
+    for k in MAIN_ATTENTION_VARIANTS:
+        check(lm_launches["flash_attention_by"][k] > 0,
+              f"attention variant {k} was never launched on the main path")
     lm_stats["vs_plain"] = check_long_wave(dev, eng, lm_reqs, lm_res, rec)
     lm_stats["decode_trace"] = trace_decode(dev, eng, lm_reqs)
+    lm_stats["out_of_vocab"] = serve_out_of_vocab(dev, eng)
     del eng, rec, lm_res
     torch.cuda.empty_cache()
     lm_stats["phases_s"] = time.perf_counter() - t_lm
@@ -1762,7 +2041,8 @@ def main() -> int:
     kernels += lm_rows(lm_errs, lm_times, lm_launches)
     for k in kernels:       # rows 1-8 bit for bit, rows 9-10 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
-            k["tol_ratio"] <= 1 and k["tol_ratio_f32"] <= 1
+            k["tol_ratio"] <= 1 and k["tol_ratio_f32"] <= 1 and all(
+                x["tol_ratio"] <= 1 for x in k.get("variants", ()))
         check(ok, f"{k['name']} disagrees with plain beyond its tolerance")
     log(json.dumps({"serving": serve}))
     log(json.dumps({"lm_serving": lm_stats}, default=str))

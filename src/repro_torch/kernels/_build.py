@@ -55,14 +55,16 @@ def _bind(lib: ctypes.CDLL) -> None:
     for name, n_ptr, n_int in (("fire_block_launch", 38, 9),
                                ("fire_step_launch", 13, 2),
                                ("sched_run_launch", 16, 7),
-                               ("sched_slot_step_launch", 25, 7)):
+                               ("sched_slot_step_launch", 25, 7),
+                               ("flash_attention_tiled_launch", 4, 10),
+                               ("flash_attention_wgmma_launch", 4, 10),
+                               ("flash_attention_split_launch", 6, 12),
+                               ("flash_attention_combine_launch", 4, 7)):
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
         fn.restype = ci
-    # the LM kernels: pointers and the stream c_void_p, shapes, dtype
-    # codes and flags int, eps float
-    lib.flash_attention_launch.argtypes = [vp] * 4 + [ci] * 10 + [vp]
-    lib.flash_attention_launch.restype = ci
+    # RMSNorm: pointers and the stream c_void_p, shapes, dtype code and
+    # flag int, eps float
     lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 4 + [ctypes.c_float, vp]
     lib.rmsnorm_launch.restype = ci
     lib.fire_block_smem_bytes.argtypes = [ci] * 5

@@ -1,5 +1,8 @@
-// GQA flash attention with an online softmax, hand-written for Hopper
-// (sm_90a).
+// GQA flash attention, hand-written for Hopper (sm_90a): three kernels
+// and a combine pass.  The wrapper (src/repro_torch/kernels/
+// flash_attention.py, `flash_attention_cuda`) picks one by dtype and shape
+// alone: G * Sq <= 16 (decode) -> split + combine, either dtype; else bf16
+// -> the tensor-core kernel; else f32 -> the CUDA-core kernel.
 //
 // Replaces the JAX package's Pallas kernel `flash_attention_pallas` ->
 // `_kernel` (src/repro/kernels/flash_attention.py:62, :25), generalised
@@ -12,29 +15,60 @@
 //   j <= q_offset + i; scores are (q * hd^-1/2) . k in f32, the softmax
 //   is online in f32, a row with no key at all gives 0.
 //
-// Bound on this card: at the prefill shapes, operations (4 * hd flops per
-// visible (query, key) pair; the bound is taken against the tensor cores'
-// bf16 rate although this simple kernel runs on the f32 CUDA cores and
-// uses no tensor core); in decode (one query per row), bytes (the K/V
-// cache is read once).
-//
-// Design (not the Pallas grid, which walks KV blocks in order on one
-// core): one CTA per (q tile, kv head, batch) and 128 threads as 16 row
-// groups x 8 column groups.  A CTA holds R = 16 * RM rows, each a (query,
-// head) pair of its kv head, so the G query heads of one kv head share
-// every K/V tile.  The CTA loops over 64-key tiles below min(kv_len, Skv)
-// and below the causal bound of its last query, and stages each K and V
-// tile in shared memory as f32 (row-major, rows padded by 4 floats so
-// that the 16-byte reads of 8 neighbouring rows fall in distinct banks).
-// A thread computes an RM x 8 block of scores (rows ty + 16 i, keys
-// tx + 8 c), reduces the row max and sum over its 8-lane group with warp
-// shuffles, keeps m, l and its RM x hd/8 slice of the output in
-// registers, and passes the probabilities to the P.V product through
-// shared memory.  Tiles that a CTA skips contribute exactly 0, as masked
-// keys do (p = exp(-inf) = 0); a row whose first tiles are fully masked
+// GQA reuse: in every kernel a CTA holds rows r = i * G + g of ONE kv head
+// (query i, head kvh * G + g), so the G query heads of a kv head share
+// every K/V tile the CTA loads.  A row whose keys so far are all masked
 // keeps m = -inf and uses 0 in its place, so exp(-inf - (-inf)) never
-// occurs.  RM = 4 (64 rows) serves prefill, RM = 1 (16 rows) the short
-// query counts of decode.
+// occurs; a row that sees no key gives 0.  Keys past a CTA's last
+// visible key are never read: their tile rows are zero-filled.
+//
+// 1. flash_attention_wgmma_kernel<HD> (bf16, G * Sq > 16; prefill).
+//    Bound by operations: 4 * hd flops per visible (query, key) pair at
+//    the tensor cores' bf16 rate.  FlashAttention-2 on Hopper's warpgroup
+//    products, wgmma.mma_async m64nNk16 (bf16 in, f32 accumulate): one
+//    warpgroup (4 warps) and 64 rows per CTA, 16 rows per warp.  The Q
+//    tile is loaded once (cp.async, rows padded by 16 bytes so ldmatrix
+//    is conflict-free) and held in registers as A fragments for the CTA's
+//    whole walk over the keys.  64-key K and V tiles come by 16-byte
+//    cp.async into a double buffer in shared memory, one barrier per
+//    tile, in the canonical swizzled layout (16-byte chunks XOR-ed with
+//    the key within 8-key atoms: conflict-free for the copies and for
+//    wgmma's reads); S = Q.K^T reads K as a K-major operand and O += P.V
+//    reads the same bytes of V as an N-major one, both by descriptor.  S
+//    is scaled by hd^-1/2 (times log2 e, for exp2) in f32; the online
+//    softmax runs on the accumulator fragments (the mma.sync C layout per
+//    warp), row max by quad shuffles, each thread keeping a partial row
+//    sum that its quad adds at the end.  P, rounded to bf16 in registers,
+//    is the A operand of the P.V product as it stands (two 8-key S tiles
+//    are one 16-key A step): it never goes through shared memory.  Each
+//    product is one asm block that fences, starts its wgmmas, commits and
+//    waits, so the compiler sees a synchronous statement.  Key tiles
+//    wholly above the CTA's causal bound or past min(kv_len, Skv) are
+//    skipped, and only tiles that a bound crosses are masked.  CTAs are
+//    scheduled heaviest (latest queries) first.  wgmma, not mma.sync: the
+//    same design on mma.sync.m16n8k16, with K and V fragments loaded by
+//    ldmatrix, measured slower at the long wave's prefill (PERF.md).  At
+//    hd 64 the P.V product runs as two n32 halves: when both products
+//    were m64n64k16, nvcc placed P's bf16 fragments in the registers
+//    that hold Q's, which the next key tile still reads (the SASS loads
+//    Q once and never again), so from the second tile on S was P.K^T.
+// 2. flash_attention_kernel<HD> (f32, G * Sq > 16): the CUDA-core kernel
+//    (TF32 would not hold the f32 tolerance), described below.
+// 3. flash_attention_split_kernel<T, HD, RB> + flash_attention_combine_
+//    kernel<T> (G * Sq <= 16; decode).  Bound by bytes: the visible K/V
+//    rows are read once.  The visible keys are cut into n_split equal
+//    ranges (the wrapper's `decode_splits`, about 4 CTAs per SM); grid
+//    (n_split, Hkv, B); a CTA (4 warps) takes the G * Sq rows of its kv
+//    head, sized to RB = 4 rows (16 only when G * Sq > 4), not a 16-row
+//    tile.  It streams its range in 32-key K/V tiles by 16-byte cp.async
+//    through a three-stage ring (each K/V byte read once), computes
+//    scores on the CUDA cores (lane = key, warp = a quarter of hd), an
+//    online softmax per row (one warp per row) and acc += P.V (thread =
+//    output dim), and writes f32 partials (m, l, acc[hd]) per row to a
+//    workspace.  The combine kernel (one warp per row) merges them:
+//    m* = max m_s, l* = sum l_s e^(m_s - m*), o = sum acc_s e^(m_s - m*) /
+//    l*, 0 where l* = 0; a split whose keys are all masked (m_s = -inf)
+//    adds exactly 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -42,42 +76,810 @@
 
 namespace {
 
-constexpr int kThreads = 128;      // 16 row groups x 8 column groups
-constexpr int kTY = 16, kTX = 8;
-constexpr int kBK = 64;            // keys per tile
-constexpr int kPad = 4;            // floats of padding per shared row
+using bf16 = __nv_bfloat16;
 
-template <typename T>
-struct Load8;                      // 8 consecutive elements -> 8 floats
+// ---------------------------------------------------------------------------
+// PTX helpers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without registers; zero-filled when !ok (no
+// byte of src is read then)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>   // wait until at most N of this thread's groups pend
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; thread i gives the address of row i % 8 of
+// matrix i / 8
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)) : "memory");
+}
+
+// two floats -> bf16x2 (round to nearest even), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+
+// ---------------------------------------------------------------------------
+// warpgroup matrix multiply (wgmma) helpers
+// ---------------------------------------------------------------------------
+// shared memory written by cp.async becomes visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// shared-memory matrix descriptor of a swizzled operand (layout 1, 2, 3:
+// rows of 128, 64, 32 bytes, their 16-byte chunks XOR-ed with the row
+// index within 8-row atoms); lbo, sbo: byte strides between atoms (see
+// the kernel)
+__device__ __forceinline__ unsigned long long smem_desc(unsigned addr,
+                                                        unsigned lbo,
+                                                        unsigned sbo,
+                                                        unsigned layout) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<unsigned long long>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<unsigned long long>(layout) << 62);
+}
+
+// S (64 x 64 keys, f32) = Q (64 x 16 KS dims: A fragments in registers,
+// per step the mma.sync A fragment of each warp's 16 rows) . K^T (K-major
+// B in shared memory, one descriptor per 16-dim step), KS steps in one
+// block that waits for its own result (the compiler sees a synchronous
+// statement: no register can be read or copied while a wgmma writes it)
+template <int KS>
+struct WgmmaQK;
 
 template <>
-struct Load8<float> {
-  static __device__ __forceinline__ void run(const float* p, float* o) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+struct WgmmaQK<1> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned (&a)[1][4],
+      const unsigned long long (&desc)[1]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %37, %37;\n"
+        "setp.eq.b32 pt, %37, %37;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, pf, 1, 1, 0;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "l"(desc[0]), "r"(0)
+        : "memory");
   }
 };
 
 template <>
-struct Load8<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(const __nv_bfloat16* p,
-                                             float* o) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f = __bfloat1622float2(h[e]);
-      o[2 * e] = f.x;
-      o[2 * e + 1] = f.y;
-    }
+struct WgmmaQK<2> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned (&a)[2][4],
+      const unsigned long long (&desc)[2]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %42, %42;\n"
+        "setp.eq.b32 pt, %42, %42;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %40, pf, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%36, %37, %38, %39}, %41, pt, 1, 1, 0;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "l"(desc[0]), "l"(desc[1]), "r"(0)
+        : "memory");
   }
+};
+
+template <>
+struct WgmmaQK<4> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned (&a)[4][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %52, %52;\n"
+        "setp.eq.b32 pt, %52, %52;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %48, pf, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%36, %37, %38, %39}, %49, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%40, %41, %42, %43}, %50, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%44, %45, %46, %47}, %51, pt, 1, 1, 0;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]),
+          "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]),
+          "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaQK<8> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned (&a)[8][4],
+      const unsigned long long (&desc)[8]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %72, %72;\n"
+        "setp.eq.b32 pt, %72, %72;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %64, pf, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%36, %37, %38, %39}, %65, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%40, %41, %42, %43}, %66, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%44, %45, %46, %47}, %67, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%48, %49, %50, %51}, %68, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%52, %53, %54, %55}, %69, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%56, %57, %58, %59}, %70, pt, 1, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%60, %61, %62, %63}, %71, pt, 1, 1, 0;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]),
+          "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]),
+          "r"(a[4][0]), "r"(a[4][1]), "r"(a[4][2]), "r"(a[4][3]),
+          "r"(a[5][0]), "r"(a[5][1]), "r"(a[5][2]), "r"(a[5][3]),
+          "r"(a[6][0]), "r"(a[6][1]), "r"(a[6][2]), "r"(a[6][3]),
+          "r"(a[7][0]), "r"(a[7][1]), "r"(a[7][2]), "r"(a[7][3]),
+          "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]),
+          "l"(desc[4]), "l"(desc[5]), "l"(desc[6]), "l"(desc[7]), "r"(0)
+        : "memory");
+  }
+};
+
+// O (64 x N dims, f32) += P (64 x 64 keys, bf16 A fragments in registers,
+// 4 steps of 16 keys) . V (N-major B in shared memory, one descriptor per
+// step), synchronous as above
+template <int N>
+struct WgmmaPV;
+
+template <>
+struct WgmmaPV<16> {
+  static __device__ __forceinline__ void run(
+      float (&d)[8], const unsigned (&a)[4][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %28, %28;\n"
+        "setp.eq.b32 pt, %28, %28;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %24, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%12, %13, %14, %15}, %25, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%16, %17, %18, %19}, %26, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%20, %21, %22, %23}, %27, pt, 1, 1, 1;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]),
+          "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]),
+          "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaPV<32> {
+  static __device__ __forceinline__ void run(
+      float (&d)[16], const unsigned (&a)[4][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %36, %36;\n"
+        "setp.eq.b32 pt, %36, %36;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %32, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%20, %21, %22, %23}, %33, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%24, %25, %26, %27}, %34, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%28, %29, %30, %31}, %35, pt, 1, 1, 1;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]),
+          "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]),
+          "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaPV<128> {
+  static __device__ __forceinline__ void run(
+      float (&d)[64], const unsigned (&a)[4][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        "{\n.reg .pred pf, pt;\n"
+        "setp.ne.b32 pf, %84, %84;\n"
+        "setp.eq.b32 pt, %84, %84;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %80, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%68, %69, %70, %71}, %81, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%72, %73, %74, %75}, %82, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%76, %77, %78, %79}, %83, pt, 1, 1, 1;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]),
+          "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]),
+          "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]), "r"(0)
+        : "memory");
+  }
+};
+
+// N = 64: two m64n32k16 per step, so that this product's shape differs
+// from Q.K^T's m64n64k16 (with both m64n64k16, nvcc reused Q's registers
+// for P: see the header), desc[2 t + h] for the half h of the dims
+template <>
+struct WgmmaPV<64> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned (&a)[4][4],
+      const unsigned long long (&desc)[8]) {
+    asm volatile(
+        "{\n.reg .pred pt;\n"
+        "setp.eq.b32 pt, %56, %56;\n"
+        "wgmma.fence.sync.aligned;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%32, %33, %34, %35}, %48, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %49, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%36, %37, %38, %39}, %50, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%36, %37, %38, %39}, %51, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%40, %41, %42, %43}, %52, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%40, %41, %42, %43}, %53, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%44, %45, %46, %47}, %54, pt, 1, 1, 1;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%44, %45, %46, %47}, %55, pt, 1, 1, 1;\n"
+        "wgmma.commit_group.sync.aligned;\n"
+        "wgmma.wait_group.sync.aligned 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]),
+          "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]),
+          "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]),
+          "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]),
+          "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]),
+          "l"(desc[4]), "l"(desc[5]), "l"(desc[6]), "l"(desc[7]), "r"(0)
+        : "memory");
+  }
+};
+
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(bf16 x) { return __bfloat162float(x); }
+
+// N consecutive elements of shared memory (8- or 16-byte aligned) -> floats
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* p, float* o) {
+  if constexpr (sizeof(T) == 4) {
+    static_assert(N % 4 == 0, "float4 reads");
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const float4 x = reinterpret_cast<const float4*>(p)[i];
+      o[4 * i] = x.x; o[4 * i + 1] = x.y; o[4 * i + 2] = x.z;
+      o[4 * i + 3] = x.w;
+    }
+  } else if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h[e]);
+        o[8 * i + 2 * e] = f.x;
+        o[8 * i + 2 * e + 1] = f.y;
+      }
+    }
+  } else {
+    static_assert(N == 4, "4 bf16 per 8-byte read");
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
+    o[0] = f0.x; o[1] = f0.y; o[2] = f1.x; o[3] = f1.y;
+  }
+}
+
+// one call's tensors, shapes and mask, as the prefill kernels take them
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  int Sq, Skv, H, Hkv, G, BQ;      // BQ query positions per CTA
+  int causal, q_offset, kv_valid;  // kv_valid = min(kv_len, Skv)
+  float scale;
 };
 
 __device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);        // round to nearest even
+}
+
+// ---------------------------------------------------------------------------
+// 1. the bf16 tensor-core kernel (prefill)
+// ---------------------------------------------------------------------------
+constexpr int kWgThreads = 128;             // one warpgroup
+constexpr int kWgRows = 64;                 // rows (query, head): 16 a warp
+constexpr int kWgKeys = 64;                 // keys per K/V tile
+constexpr int kQPad = 8;                    // bf16 of padding per Q row
+
+template <int HD>
+constexpr size_t wgmma_smem_bytes() {
+  // two stages, each a K tile and a V tile of 64 x HD bf16 (swizzled);
+  // the Q tile (row-major, padded) is staged in stage 1 first
+  return sizeof(bf16) * 2 * 2 * kWgKeys * HD;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_wgmma_kernel(const Args a) {
+  constexpr int KS = HD / 16;       // 16-dim steps of Q.K^T
+  constexpr int NO = HD / 8;        // 8-dim tiles of the output
+  constexpr int NS = kWgKeys / 8;   // 8-key tiles of S
+  constexpr int CPR = HD / 8;       // 16-byte chunks per row
+  constexpr int TILE = kWgKeys * HD;
+  constexpr int QLD = HD + kQPad;   // Q rows padded: ldmatrix conflict-free
+  // K and V tiles: [key][dim] in blocks of W bytes of dims (64 keys x W
+  // bytes each), 16-byte chunks swizzled within 8-key atoms; the same
+  // bytes serve as a K-major operand (K: the dims) and, for V, as an
+  // N-major one (N: the dims)
+  // (64 dims: blocks of 32, for the P.V product's two n32 halves)
+  constexpr int W = HD == 64 ? 64 : HD * 2 < 128 ? HD * 2 : 128;
+  constexpr int NP = HD == 64 ? 2 : 1;       // B descriptors per P.V step
+  constexpr unsigned kLayout = W == 128 ? 1 : W == 64 ? 2 : 3;
+  constexpr unsigned kSwz = W / 16 - 1;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* const sm = reinterpret_cast<bf16*>(wg_smem);
+  static_assert(kWgRows * QLD <= 2 * TILE, "Q fits stage 1");
+  bf16* const Qs = sm + 2 * TILE;
+  // byte offset of (key j, dims 8 c .. 8 c + 7) within a tile
+  auto tile_off = [](int j, int c) {
+    const unsigned off = (c * 16 / W) * (kWgKeys * W) + j * W + c * 16 % W;
+    return off ^ (((off >> 7) & kSwz) << 4);
+  };
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+  bf16* o = static_cast<bf16*>(a.o);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * a.BQ;   // heaviest first
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = a.G;
+  const int nq = min(a.BQ, a.Sq - q0);
+  const int rows = nq * G;
+  int kend = a.kv_valid;
+  if (a.causal) kend = min(kend, a.q_offset + q0 + nq);
+  const int n_tiles = kend > 0 ? (kend + kWgKeys - 1) / kWgKeys : 0;
+
+  for (int e = tid; e < kWgRows * CPR; e += kWgThreads) {
+    const int r = e / CPR, c = e % CPR;
+    const bool ok = r < rows;
+    const bf16* src =
+        ok ? q + ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H +
+                  kvh * G + r % G) * HD + c * 8
+           : q;
+    cp_async16(Qs + r * QLD + c * 8, src, ok);
+  }
+  cp_async_commit();
+  // key tile kt into stage kt & 1 (keys at or past kend zero-filled)
+  auto load_tile = [&](int kt) {
+    unsigned char* Ks = wg_smem + (kt & 1) * 4 * TILE;
+    unsigned char* Vs = Ks + 2 * TILE;
+    const int k0 = kt * kWgKeys;
+    for (int e = tid; e < kWgKeys * CPR; e += kWgThreads) {
+      const int j = e / CPR, c = e % CPR;
+      const bool ok = k0 + j < kend;
+      const size_t off =
+          ok ? ((static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv + kvh) *
+                   HD + c * 8
+             : 0;
+      cp_async16(Ks + tile_off(j, c), k + off, ok);
+      cp_async16(Vs + tile_off(j, c), v + off, ok);
+    }
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  unsigned qf[KS][4];
+  {
+    const bf16* p = Qs + (warp * 16 + (lane & 7) + (lane & 8)) * QLD +
+                    (lane >> 4) * 8;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) ldsm_x4(qf[kk], p + kk * 16);
+  }
+
+  const float sl2 = a.scale * 1.4426950408889634f;
+  const int r0 = warp * 16 + (lane >> 2);
+  const int qp0 = a.q_offset + q0 + r0 / G;
+  const int qp1 = a.q_offset + q0 + (r0 + 8) / G;
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  float acc[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < n_tiles) load_tile(kt + 1);
+    cp_async_commit();
+    const unsigned Ks = smem_addr(wg_smem) + (kt & 1) * 4 * TILE;
+    const unsigned Vs = Ks + 2 * TILE;
+
+    // S = Q . K^T: K-major B, 16 dims (32 bytes) per step within a W-byte
+    // block; atoms of 8 keys sbo = 8 W apart
+    float s[NS * 4];
+    unsigned long long dk[KS];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      dk[kk] = smem_desc(Ks + (kk * 32 / W) * (kWgKeys * W) + kk * 32 % W,
+                         16, 8 * W, kLayout);
+    }
+#pragma unroll
+    for (int i = 0; i < NS * 4; ++i) s[i] = 0.f;
+    WgmmaQK<KS>::run(s, qf, dk);
+
+    const int k0 = kt * kWgKeys;
+    if (k0 + kWgKeys > a.kv_valid ||
+        (a.causal && k0 + kWgKeys - 1 > a.q_offset + q0)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          if (key >= a.kv_valid || (a.causal && key > qp))
+            s[n * 4 + e] = -INFINITY;
+        }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n * 4], s[n * 4 + 1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n * 4 + 2], s[n * 4 + 3]));
+    }
+    float mu[2], corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i] * sl2);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;
+      corr[i] = exp2f(m_r[i] - mu[i]);
+      m_r[i] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < NS * 4; ++i) {
+      s[i] = exp2f(fmaf(s[i], sl2, -mu[(i >> 1) & 1]));
+      ps[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + ps[i];
+#pragma unroll
+    for (int i = 0; i < NO * 4; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    unsigned pa[NS / 2][4];
+#pragma unroll
+    for (int t = 0; t < NS / 2; ++t) {
+      pa[t][0] = pack_bf16(s[8 * t], s[8 * t + 1]);
+      pa[t][1] = pack_bf16(s[8 * t + 2], s[8 * t + 3]);
+      pa[t][2] = pack_bf16(s[8 * t + 4], s[8 * t + 5]);
+      pa[t][3] = pack_bf16(s[8 * t + 6], s[8 * t + 7]);
+    }
+    // O += P . V: N-major B, 16 keys (16 rows) per step; blocks of W
+    // bytes of dims lbo = 64 W apart, atoms of 8 keys sbo = 8 W apart
+    unsigned long long dv[NS / 2 * NP];
+#pragma unroll
+    for (int t = 0; t < NS / 2; ++t)
+#pragma unroll
+      for (int h = 0; h < NP; ++h)
+        dv[t * NP + h] = smem_desc(Vs + h * kWgKeys * W + t * 16 * W,
+                                   kWgKeys * W, 8 * W, kLayout);
+    WgmmaPV<HD>::run(acc, pa, dv);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= rows) continue;
+    const float inv = l_r[i] == 0.f ? 0.f : 1.f / l_r[i];
+    bf16* dst = o + ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H +
+                     kvh * G + r % G) * HD + (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(acc[n * 4 + 2 * i] * inv,
+                                acc[n * 4 + 2 * i + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch_wgmma(Args a, int B, cudaStream_t stream) {
+  constexpr size_t smem = wgmma_smem_bytes<HD>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_wgmma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  a.BQ = kWgRows / a.G;
+  const dim3 grid((a.Sq + a.BQ - 1) / a.BQ, a.Hkv, B);
+  flash_attention_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// 2. the f32 CUDA-core kernel
+// ---------------------------------------------------------------------------
+// One CTA per (q tile, kv head, batch) and 128 threads as 16 row groups x
+// 8 column groups; R = 16 * kRM = 64 rows per CTA.  The CTA loops over
+// 64-key tiles below min(kv_len, Skv) and below the causal bound of its
+// last query, and stages each K and V tile in shared memory as f32
+// (row-major, rows padded by 4 floats so that the 16-byte reads of 8
+// neighbouring rows fall in distinct banks).  A thread computes a kRM x
+// 8 block of scores (rows ty + 16 i, keys tx + 8 c), reduces the row max
+// and sum over its 8-lane group with warp shuffles, keeps m, l and its kRM
+// x hd/8 slice of the output in registers, and passes the probabilities
+// to the P.V product through shared memory.  Tiles that a CTA skips
+// contribute exactly 0, as masked keys do (p = exp(-inf) = 0).
+constexpr int kThreads = 128;      // 16 row groups x 8 column groups
+constexpr int kTY = 16, kTX = 8;
+constexpr int kRM = 4;             // rows per thread
+constexpr int kBK = 64;            // keys per tile
+constexpr int kPad = 4;            // floats of padding per shared row
+
+// 8 consecutive floats of global memory (16-byte aligned)
+__device__ __forceinline__ void load8(const float* p, float* o) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
 }
 
 // VD consecutive floats of shared memory (16, 8 or 4 bytes, aligned)
@@ -94,29 +896,19 @@ __device__ __forceinline__ void lds(const float* p, float* o) {
   }
 }
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int Sq, Skv, H, Hkv, G, BQ;      // BQ query positions per CTA
-  int causal, q_offset, kv_valid;  // kv_valid = min(kv_len, Skv)
-  float scale;
-};
-
-template <int HD, int RM>
+template <int HD>
 constexpr size_t smem_bytes() {
   // Qs [R][HD+pad], Ks and Vs [BK][HD+pad], Ps [BK][R+pad]
   return sizeof(float) *
-         (static_cast<size_t>(kTY * RM) * (HD + kPad) +
+         (static_cast<size_t>(kTY * kRM) * (HD + kPad) +
           2 * static_cast<size_t>(kBK) * (HD + kPad) +
-          static_cast<size_t>(kBK) * (kTY * RM + kPad));
+          static_cast<size_t>(kBK) * (kTY * kRM + kPad));
 }
 
-template <typename T, int HD, int RM>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const Args a) {
-  constexpr int R = kTY * RM;      // rows (query, head) per CTA
+  constexpr int R = kTY * kRM;      // rows (query, head) per CTA
   constexpr int QS = HD + kPad;    // shared row strides, in floats
   constexpr int PS = R + kPad;
   constexpr int DN = HD / kTX;     // output dims per thread
@@ -128,10 +920,10 @@ flash_attention_kernel(const Args a) {
   float* Vs = Ks + kBK * QS;
   float* Ps = Vs + kBK * QS;
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* o = static_cast<T*>(a.o);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  float* o = static_cast<float*>(a.o);
   const int tid = threadIdx.x;
   const int ty = tid / kTX, tx = tid % kTX;
   const int q0 = blockIdx.x * a.BQ;
@@ -147,8 +939,8 @@ flash_attention_kernel(const Args a) {
     float f[8] = {0, 0, 0, 0, 0, 0, 0, 0};
     if (r < rows) {
       const int qi = q0 + r / G, h = kvh * G + r % G;
-      Load8<T>::run(q + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + h) *
-                            HD + c * 8, f);
+      load8(q + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + h) * HD +
+                c * 8, f);
     }
 #pragma unroll
     for (int t = 0; t < 8; ++t) Qs[r * QS + c * 8 + t] = f[t] * a.scale;
@@ -160,9 +952,9 @@ flash_attention_kernel(const Args a) {
   if (a.causal) kend = min(kend, a.q_offset + q0 + nq);
   const int n_tiles = kend > 0 ? (kend + kBK - 1) / kBK : 0;
 
-  float m[RM], l[RM], acc[RM][DN];
+  float m[kRM], l[kRM], acc[kRM][DN];
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+  for (int i = 0; i < kRM; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
@@ -180,8 +972,8 @@ flash_attention_kernel(const Args a) {
         const size_t off =
             ((static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv + kvh) * HD +
             c * 8;
-        Load8<T>::run(k + off, fk);
-        Load8<T>::run(v + off, fv);
+        load8(k + off, fk);
+        load8(v + off, fv);
       }
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
@@ -192,31 +984,31 @@ flash_attention_kernel(const Args a) {
     __syncthreads();
 
     // scores s[i][c]: row ty + 16 i, key tx + 8 c
-    float s[RM][8];
+    float s[kRM][8];
 #pragma unroll
-    for (int i = 0; i < RM; ++i)
+    for (int i = 0; i < kRM; ++i)
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
-      float qv[RM][4];
+      float qv[kRM][4];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) lds<4>(&Qs[(ty + kTY * i) * QS + d], qv[i]);
+      for (int i = 0; i < kRM; ++i) lds<4>(&Qs[(ty + kTY * i) * QS + d], qv[i]);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         float kv[4];
         lds<4>(&Ks[(tx + kTX * c) * QS + d], kv);
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
+        for (int i = 0; i < kRM; ++i)
           s[i][c] += qv[i][0] * kv[0] + qv[i][1] * kv[1] +
                      qv[i][2] * kv[2] + qv[i][3] * kv[3];
       }
     }
 
     // mask, online softmax, probabilities to shared memory
-    float p[RM][8];
+    float p[kRM][8];
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
+    for (int i = 0; i < kRM; ++i) {
       const int r = ty + kTY * i;
       const bool row_ok = r < rows;
       const int qpos = a.q_offset + q0 + r / G;
@@ -249,17 +1041,11 @@ flash_attention_kernel(const Args a) {
 #pragma unroll
       for (int d = 0; d < DN; ++d) acc[i][d] *= corr;
     }
-    // Ps[key][ty * RM + i] holds row ty + 16 i
+    // Ps[key][ty * kRM + i] holds row ty + 16 i
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      float* dst = &Ps[(tx + kTX * c) * PS + ty * RM];
-      if constexpr (RM == 4) {
-        *reinterpret_cast<float4*>(dst) =
-            make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < RM; ++i) dst[i] = p[i][c];
-      }
+      *reinterpret_cast<float4*>(&Ps[(tx + kTX * c) * PS + ty * kRM]) =
+          make_float4(p[0][c], p[1][c], p[2][c], p[3][c]);
     }
     __syncthreads();
 
@@ -268,14 +1054,14 @@ flash_attention_kernel(const Args a) {
     const int jmax = min(kBK, kend - k0);
 #pragma unroll 2
     for (int j = 0; j < jmax; ++j) {
-      float pv[RM];
-      lds<RM == 4 ? 4 : 1>(&Ps[j * PS + ty * RM], pv);
+      float pv[kRM];
+      lds<kRM>(&Ps[j * PS + ty * kRM], pv);
 #pragma unroll
       for (int mm = 0; mm < DN / VD; ++mm) {
         float vv[VD];
         lds<VD>(&Vs[j * QS + kTX * VD * mm + tx * VD], vv);
 #pragma unroll
-        for (int i = 0; i < RM; ++i)
+        for (int i = 0; i < kRM; ++i)
 #pragma unroll
           for (int e = 0; e < VD; ++e) acc[i][mm * VD + e] += pv[i] * vv[e];
       }
@@ -284,55 +1070,359 @@ flash_attention_kernel(const Args a) {
 
   // out = acc / l (a row with no visible key: l = 0 -> 1, out = 0)
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
+  for (int i = 0; i < kRM; ++i) {
     const int r = ty + kTY * i;
     if (r >= rows) continue;
     const int qi = q0 + r / G, h = kvh * G + r % G;
     const float li = l[i] == 0.f ? 1.f : l[i];
-    T* dst = o + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + h) * HD;
+    float* dst = o + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + h) * HD;
 #pragma unroll
     for (int mm = 0; mm < DN / VD; ++mm)
 #pragma unroll
       for (int e = 0; e < VD; ++e)
-        store_out(dst + kTX * VD * mm + tx * VD + e, acc[i][mm * VD + e] / li);
+        dst[kTX * VD * mm + tx * VD + e] = acc[i][mm * VD + e] / li;
   }
 }
 
-template <typename T, int HD, int RM>
+template <int HD>
 int launch_tiled(Args a, int B, cudaStream_t stream) {
-  constexpr int R = kTY * RM;
-  constexpr size_t smem = smem_bytes<HD, RM>();
+  constexpr int R = kTY * kRM;
+  constexpr size_t smem = smem_bytes<HD>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_kernel<T, HD, RM>,
+        flash_attention_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   a.BQ = R / a.G;
   const dim3 grid((a.Sq + a.BQ - 1) / a.BQ, a.Hkv, B);
-  flash_attention_kernel<T, HD, RM><<<grid, kThreads, smem, stream>>>(a);
+  flash_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// 3. decode: the split over the keys and the combine pass
+// ---------------------------------------------------------------------------
+constexpr int kSplitThreads = 128;   // 4 warps
+constexpr int kSplitKeys = 32;       // keys per K/V tile: one per lane
+constexpr int kSplitStages = 3;      // K/V tiles in flight per CTA
+constexpr int kSplitRows = 16;       // G * Sq at most
+
+struct SplitArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  float* m;                          // [B, Hkv, n_split, R]
+  float* l;                          // [B, Hkv, n_split, R]
+  float* acc;                        // [B, Hkv, n_split, R, hd]
+  int Sq, Skv, H, Hkv, G, R;         // R = G * Sq rows per kv head
+  int causal, q_offset;
+  int visible, chunk, n_split;       // split s: keys [s * chunk, ...)
+  float scale;
+};
+
+template <typename T, int HD>
+__host__ __device__ constexpr int split_ld() {
+  return HD + 16 / static_cast<int>(sizeof(T));
+}
+
+template <typename T, int HD, int RB>
+constexpr size_t split_smem_bytes() {
+  // K and V tiles x kSplitStages (T), then f32: Q [RB][HD], score parts
+  // [4][RB][keys] (the final reduction [RB][HD] after the loop), P
+  // [RB][keys], the rows' rescale factors [RB]
+  return sizeof(T) * kSplitStages * 2 * kSplitKeys * split_ld<T, HD>() +
+         sizeof(float) * (RB * HD + 4 * RB * kSplitKeys + RB * kSplitKeys +
+                          RB);
+}
+
+// RB: rows the CTA's registers and buffers are sized for (R <= RB)
+template <typename T, int HD, int RB>
+__global__ void __launch_bounds__(kSplitThreads)
+flash_attention_split_kernel(const SplitArgs a) {
+  constexpr int LD = split_ld<T, HD>();
+  constexpr int EPC = 16 / static_cast<int>(sizeof(T));   // per chunk
+  constexpr int CPR = HD / EPC;                            // chunks per row
+  constexpr int DQ = HD / 4;                // dims per warp in the scores
+  constexpr int KG = kSplitThreads / HD;    // key groups of the P.V sum
+  constexpr int KPG = kSplitKeys / KG;      // keys per group
+  static_assert(RB * HD <= 4 * RB * kSplitKeys,
+                "the final reduction fits the score parts");
+  extern __shared__ float4 smem4[];
+  T* const kvs = reinterpret_cast<T*>(smem4);
+  float* const Qs =
+      reinterpret_cast<float*>(kvs + kSplitStages * 2 * kSplitKeys * LD);
+  float* const Sp = Qs + RB * HD;
+  float* const Ps = Sp + 4 * RB * kSplitKeys;
+  float* const Cs = Ps + RB * kSplitKeys;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int G = a.G, R = a.R;
+  const int start = split * a.chunk;
+  const int end = min(a.visible, start + a.chunk);
+  const int n_tiles = (end - start + kSplitKeys - 1) / kSplitKeys;
+
+  // key tile t of the range into stage t % kSplitStages (keys at or past
+  // end zero-filled, never read)
+  auto load_tile = [&](int t) {
+    T* Ks = kvs + (t % kSplitStages) * 2 * kSplitKeys * LD;
+    T* Vs = Ks + kSplitKeys * LD;
+    const int k0 = start + t * kSplitKeys;
+    for (int e = tid; e < kSplitKeys * CPR; e += kSplitThreads) {
+      const int j = e / CPR, c = e % CPR;
+      const bool ok = k0 + j < end;
+      const size_t off =
+          ok ? ((static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv + kvh) *
+                   HD + c * EPC
+             : 0;
+      cp_async16(Ks + j * LD + c * EPC, k + off, ok);
+      cp_async16(Vs + j * LD + c * EPC, v + off, ok);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kSplitStages - 1; ++t) {
+    if (t < n_tiles) load_tile(t);
+    cp_async_commit();
+  }
+  for (int e = tid; e < R * HD; e += kSplitThreads) {   // q * scale, f32
+    const int r = e / HD, d = e % HD;
+    Qs[e] = as_f32(q[((static_cast<size_t>(b) * a.Sq + r / G) * a.H +
+                      kvh * G + r % G) * HD + d]) * a.scale;
+  }
+  // rows R..RB-1 keep p = 0 and corr = 0: the P.V loop runs all RB rows
+  for (int e = R * kSplitKeys + tid; e < RB * kSplitKeys;
+       e += kSplitThreads)
+    Ps[e] = 0.f;
+  if (tid >= R && tid < RB) Cs[tid] = 0.f;
+
+  float m_r[(RB + 3) / 4], l_r[(RB + 3) / 4];   // rows warp + 4 i
+#pragma unroll
+  for (int i = 0; i < (RB + 3) / 4; ++i) {
+    m_r[i] = -INFINITY;
+    l_r[i] = 0.f;
+  }
+  const int dcol = tid % HD, kg = tid / HD;   // output dim, key group
+  float acc[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kSplitStages - 2>();   // key tile t has landed
+    // past this barrier every thread is done with tile t - 1: its stage
+    // takes tile t + kSplitStages - 1, P and the rescale factors are free
+    __syncthreads();
+    if (t + kSplitStages - 1 < n_tiles) load_tile(t + kSplitStages - 1);
+    cp_async_commit();
+    const T* Ks = kvs + (t % kSplitStages) * 2 * kSplitKeys * LD;
+    const T* Vs = Ks + kSplitKeys * LD;
+    const int k0 = start + t * kSplitKeys;
+
+    // score parts: lane = key, warp = dims [warp * DQ, (warp + 1) * DQ)
+    {
+      float kf[DQ];
+      load_f32<T, DQ>(Ks + lane * LD + warp * DQ, kf);
+      for (int r = 0; r < R; ++r) {
+        const float* qr = Qs + r * HD + warp * DQ;
+        float s = 0.f;
+#pragma unroll
+        for (int d = 0; d < DQ; d += 4) {
+          const float4 x = *reinterpret_cast<const float4*>(qr + d);
+          s += x.x * kf[d] + x.y * kf[d + 1] + x.z * kf[d + 2] +
+               x.w * kf[d + 3];
+        }
+        Sp[(warp * RB + r) * kSplitKeys + lane] = s;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: warp w owns rows w, w + 4, ...; lane = key
+#pragma unroll
+    for (int i = 0; i < (RB + 3) / 4; ++i) {
+      const int r = warp + 4 * i;
+      if (r >= R) break;
+      const int key = k0 + lane;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) s += Sp[(w * RB + r) * kSplitKeys + lane];
+      const bool ok = key < end && (!a.causal || key <= a.q_offset + r / G);
+      s = ok ? s : -INFINITY;
+      float tmax = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
+      const float m_new = fmaxf(m_r[i], tmax);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = expf(m_r[i] - mu);
+      const float p = expf(s - mu);
+      float psum = p;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, off);
+      l_r[i] = l_r[i] * corr + psum;
+      m_r[i] = m_new;
+      Ps[r * kSplitKeys + lane] = p;
+      if (lane == 0) Cs[r] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P . V over this thread's keys, at dim dcol
+#pragma unroll
+    for (int r = 0; r < RB; ++r) acc[r] *= Cs[r];
+#pragma unroll
+    for (int j4 = 0; j4 < KPG; j4 += 4) {
+      const int j = kg * KPG + j4;
+      float vj[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vj[e] = as_f32(Vs[(j + e) * LD + dcol]);
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float4 p =
+            *reinterpret_cast<const float4*>(Ps + r * kSplitKeys + j);
+        acc[r] += p.x * vj[0] + p.y * vj[1] + p.z * vj[2] + p.w * vj[3];
+      }
+    }
+  }
+
+  // the partials of this split
+  const size_t p0 = ((static_cast<size_t>(b) * a.Hkv + kvh) * a.n_split +
+                     split) * R;     // (b, kvh, split, row 0)
+#pragma unroll
+  for (int i = 0; i < (RB + 3) / 4; ++i) {
+    const int r = warp + 4 * i;
+    if (r < R && lane == 0) {
+      a.m[p0 + r] = m_r[i];
+      a.l[p0 + r] = l_r[i];
+    }
+  }
+  if constexpr (KG == 1) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      if (r < R) a.acc[(p0 + r) * HD + dcol] = acc[r];
+  } else {
+    // the score parts are free (last read before the last tile's second
+    // barrier): [RB][HD], key groups added in order
+    float* red = Sp;
+    for (int g = 0; g < KG; ++g) {
+      if (kg == g) {
+#pragma unroll
+        for (int r = 0; r < RB; ++r)
+          red[r * HD + dcol] = g ? red[r * HD + dcol] + acc[r] : acc[r];
+      }
+      __syncthreads();
+    }
+    for (int e = tid; e < R * HD; e += kSplitThreads)
+      a.acc[p0 * HD + e] = red[e];
+  }
+}
+
+template <typename T, int HD, int RB>
+int launch_split(const SplitArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t smem = split_smem_bytes<T, HD, RB>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_split_kernel<T, HD, RB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  const dim3 grid(a.n_split, a.Hkv, B);
+  flash_attention_split_kernel<T, HD, RB>
+      <<<grid, kSplitThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int HD>
-int launch_hd(Args a, int B, cudaStream_t stream) {
-  // 16 rows when the query heads of one kv head fit; 64 otherwise
-  if (a.Sq * a.G <= kTY && a.G <= kTY)
-    return launch_tiled<T, HD, 1>(a, B, stream);
-  return launch_tiled<T, HD, 4>(a, B, stream);
+int launch_split_rows(const SplitArgs& a, int B, cudaStream_t stream) {
+  return a.R <= 4 ? launch_split<T, HD, 4>(a, B, stream)
+                  : launch_split<T, HD, kSplitRows>(a, B, stream);
 }
 
 template <typename T>
-int launch_typed(Args a, int B, int hd, cudaStream_t stream) {
+int launch_split_hd(const SplitArgs& a, int B, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_hd<T, 16>(a, B, stream);
-    case 32: return launch_hd<T, 32>(a, B, stream);
-    case 64: return launch_hd<T, 64>(a, B, stream);
-    case 128: return launch_hd<T, 128>(a, B, stream);
+    case 16: return launch_split_rows<T, 16>(a, B, stream);
+    case 32: return launch_split_rows<T, 32>(a, B, stream);
+    case 64: return launch_split_rows<T, 64>(a, B, stream);
+    case 128: return launch_split_rows<T, 128>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+struct CombineArgs {
+  const float* m;
+  const float* l;
+  const float* acc;
+  void* o;
+  int Sq, H, Hkv, G, R, hd, n_split, n_rows;   // n_rows = B * Hkv * R
+};
+
+// one warp per row (b, kv head, r): lanes over the splits for m* and l*,
+// then over the head dims (at most 128: 4 per lane)
+template <typename T>
+__global__ void __launch_bounds__(128)
+flash_attention_combine_kernel(const CombineArgs a) {
+  const int row = blockIdx.x * 4 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= a.n_rows) return;
+  const int r = row % a.R, bh = row / a.R;
+  const int kvh = bh % a.Hkv, b = bh / a.Hkv;
+  const size_t p0 = static_cast<size_t>(bh) * a.n_split * a.R + r;
+  float mx = -INFINITY;
+  for (int s = lane; s < a.n_split; s += 32)
+    mx = fmaxf(mx, a.m[p0 + s * a.R]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  const float mu = mx == -INFINITY ? 0.f : mx;
+  float lsum = 0.f, o[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0; s0 < a.n_split; s0 += 32) {
+    const int s = s0 + lane;
+    const float w = s < a.n_split ? expf(a.m[p0 + s * a.R] - mu) : 0.f;
+    if (s < a.n_split) lsum += a.l[p0 + s * a.R] * w;
+    const int ns = min(32, a.n_split - s0);
+    for (int u = 0; u < ns; ++u) {
+      const float wu = __shfl_sync(0xffffffffu, w, u);
+      const float* src = a.acc + (p0 + (s0 + u) * a.R) * a.hd;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (lane + 32 * i < a.hd) o[i] += src[lane + 32 * i] * wu;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+  T* dst = static_cast<T*>(a.o) +
+           ((static_cast<size_t>(b) * a.Sq + r / a.G) * a.H + kvh * a.G +
+            r % a.G) * a.hd;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lane + 32 * i < a.hd)
+      store_out(dst + lane + 32 * i, lsum == 0.f ? 0.f : o[i] / lsum);
+}
+
+// the checks and fields every launch shares; false: invalid arguments
+bool fill_args(Args& a, const void* q, const void* k, const void* v,
+               void* o, int B, int Sq, int Skv, int H, int Hkv, int hd,
+               int causal, int q_offset, int kv_len) {
+  if (B < 0 || Sq < 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > 64 ||
+      Skv < 0 || q_offset < 0 ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128))
+    return false;
+  a = Args{};
+  a.q = q; a.k = k; a.v = v; a.o = o;
+  a.Sq = Sq; a.Skv = Skv; a.H = H; a.Hkv = Hkv; a.G = H / Hkv;
+  a.causal = causal != 0;
+  a.q_offset = q_offset;
+  a.kv_valid = kv_len < 0 ? 0 : (kv_len < Skv ? kv_len : Skv);
+  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  return true;
 }
 
 }  // namespace
@@ -340,29 +1430,104 @@ int launch_typed(Args a, int B, int hd, cudaStream_t stream) {
 extern "C" {
 
 // o = attention(q, k, v) on `stream` (shapes and mask above); q, k, v, o
-// contiguous of dtype code 0 (float32) or 1 (bfloat16), 16-byte aligned;
-// hd in {16, 32, 64, 128}; G = H / Hkv at most 64.  Returns
-// cudaGetLastError() (0 = ok); arguments the kernel does not take return
+// contiguous, 16-byte aligned; hd in {16, 32, 64, 128}; G = H / Hkv at
+// most 64; `dtype` 0 = float32, 1 = bfloat16.  Each returns
+// cudaGetLastError() (0 = ok); arguments a kernel does not take return
 // cudaErrorInvalidValue.
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, int B, int Sq, int Skv, int H, int Hkv,
-                           int hd, int dtype, int causal, int q_offset,
-                           int kv_len, void* stream) {
-  if (B <= 0 || Sq <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > 4 * kTY || Skv < 0 ||
-      q_offset < 0)
+
+// the f32 CUDA-core kernel (dtype 0 only)
+int flash_attention_tiled_launch(const void* q, const void* k, const void* v,
+                                 void* o, int B, int Sq, int Skv, int H,
+                                 int Hkv, int hd, int dtype, int causal,
+                                 int q_offset, int kv_len, void* stream) {
+  Args a;
+  if (!fill_args(a, q, k, v, o, B, Sq, Skv, H, Hkv, hd, causal, q_offset,
+                 kv_len) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{};
-  a.q = q; a.k = k; a.v = v; a.o = o;
-  a.Sq = Sq; a.Skv = Skv; a.H = H; a.Hkv = Hkv; a.G = H / Hkv;
-  a.causal = causal != 0;
-  a.q_offset = q_offset;
-  a.kv_valid = kv_len < 0 ? 0 : (kv_len < Skv ? kv_len : Skv);
-  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  if (B == 0 || Sq == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_typed<float>(a, B, hd, s);
-  if (dtype == 1) return launch_typed<__nv_bfloat16>(a, B, hd, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return launch_tiled<16>(a, B, s);
+    case 32: return launch_tiled<32>(a, B, s);
+    case 64: return launch_tiled<64>(a, B, s);
+    default: return launch_tiled<128>(a, B, s);
+  }
+}
+
+// the bf16 tensor-core (wgmma) kernel (dtype 1 only)
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 void* o, int B, int Sq, int Skv, int H,
+                                 int Hkv, int hd, int dtype, int causal,
+                                 int q_offset, int kv_len, void* stream) {
+  Args a;
+  if (!fill_args(a, q, k, v, o, B, Sq, Skv, H, Hkv, hd, causal, q_offset,
+                 kv_len) || dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Sq == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_wgmma<16>(a, B, s);
+    case 32: return launch_wgmma<32>(a, B, s);
+    case 64: return launch_wgmma<64>(a, B, s);
+    default: return launch_wgmma<128>(a, B, s);
+  }
+}
+
+// the split kernel: f32 partials m, l [B, Hkv, n_split, R] and acc [B,
+// Hkv, n_split, R, hd] (R = G * Sq <= 16) of the key ranges [s * chunk,
+// min((s + 1) * chunk, visible)), visible = min(kv_len, Skv) and, causal,
+// at most q_offset + Sq; n_split must be the number of such ranges
+int flash_attention_split_launch(const void* q, const void* k, const void* v,
+                                 float* m, float* l, float* acc, int B,
+                                 int Sq, int Skv, int H, int Hkv, int hd,
+                                 int dtype, int causal, int q_offset,
+                                 int kv_len, int n_split, int chunk,
+                                 void* stream) {
+  Args a;
+  if (!fill_args(a, q, k, v, nullptr, B, Sq, Skv, H, Hkv, hd, causal,
+                 q_offset, kv_len) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs sa{};
+  sa.q = q; sa.k = k; sa.v = v; sa.m = m; sa.l = l; sa.acc = acc;
+  sa.Sq = Sq; sa.Skv = Skv; sa.H = H; sa.Hkv = Hkv; sa.G = a.G;
+  sa.R = Sq * a.G;
+  sa.causal = a.causal;
+  sa.q_offset = q_offset;
+  sa.visible = a.kv_valid;
+  if (a.causal && q_offset + Sq < sa.visible) sa.visible = q_offset + Sq;
+  sa.chunk = chunk;
+  sa.n_split = n_split;
+  sa.scale = a.scale;
+  if (sa.R > kSplitRows || chunk <= 0 ||
+      n_split != (sa.visible + chunk - 1) / chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Sq == 0 || n_split == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_split_hd<float>(sa, B, hd, s)
+                    : launch_split_hd<bf16>(sa, B, hd, s);
+}
+
+// the combine pass: o [B, Sq, H, hd] of dtype `dtype` from the partials of
+// n_split splits (n_split = 0: zeros)
+int flash_attention_combine_launch(const float* m, const float* l,
+                                   const float* acc, void* o, int B, int Sq,
+                                   int H, int Hkv, int hd, int dtype,
+                                   int n_split, void* stream) {
+  if (B < 0 || Sq < 0 || Hkv <= 0 || H % Hkv != 0 || hd <= 0 ||
+      hd > 128 || n_split < 0 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CombineArgs c{};
+  c.m = m; c.l = l; c.acc = acc; c.o = o;
+  c.Sq = Sq; c.H = H; c.Hkv = Hkv; c.G = H / Hkv; c.R = Sq * c.G;
+  c.hd = hd; c.n_split = n_split; c.n_rows = B * Hkv * c.R;
+  if (c.n_rows == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int grid = (c.n_rows + 3) / 4;
+  if (dtype == 0)
+    flash_attention_combine_kernel<float><<<grid, 128, 0, s>>>(c);
+  else
+    flash_attention_combine_kernel<bf16><<<grid, 128, 0, s>>>(c);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

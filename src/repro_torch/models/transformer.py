@@ -122,12 +122,25 @@ def layer(params, i: int):
 # ---------------------------------------------------------------------------
 # embedding, layer body, unembedding
 # ---------------------------------------------------------------------------
+def vocab_rows(tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The embedding rows that jnp indexing reads for token ids: a
+    negative id is folded once (``t + V``), then every id is clamped to
+    ``[0, V - 1]`` (so ``-5`` reads row ``V - 5``, ``-V - 1`` row 0 and
+    ``V + 3`` row ``V - 1``), where torch indexing would raise."""
+    t = tokens.long()
+    return torch.where(t < 0, t + vocab, t).clamp_(0, vocab - 1)
+
+
 def embed_inputs(cfg, params, batch):
-    """``embed[tokens].astype(compute_dtype)``; batch["tokens"] [B, S]."""
+    """``embed[tokens].astype(compute_dtype)``; batch["tokens"] [B, S].
+    Ids outside ``[0, V)`` read the rows the JAX package's gather reads
+    (:func:`vocab_rows`)."""
     if cfg.frontend != "none":
         raise unsupported(f"frontend={cfg.frontend!r}")
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
-    return params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    embed = params["embed"]
+    tokens = torch.as_tensor(batch["tokens"], device=embed.device)
+    return embed[vocab_rows(tokens, embed.shape[0])].to(
+        dtype_of(cfg.compute_dtype))
 
 
 def _dense_body(cfg, lp, x, pos, cache=None, causal=True):

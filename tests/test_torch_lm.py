@@ -165,6 +165,53 @@ def test_serve_engine_greedy_tokens_equal_jax(batch_size, max_len, extra):
         np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
 
 
+def _out_of_vocab_ids(vocab, rng, n):
+    """n ids from each of: >= V, [-V, 0), < -V, and in range."""
+    return np.concatenate([rng.integers(vocab, 3 * vocab, n),
+                           rng.integers(-vocab, 0, n),
+                           rng.integers(-4 * vocab, -vocab, n),
+                           rng.integers(0, vocab, n),
+                           [vocab, vocab - 1, -1, -vocab, -vocab - 1]]
+                          ).astype(np.int32)
+
+
+def test_embed_inputs_out_of_vocab_rows_match_jax():
+    """Ids outside [0, V) read the rows JAX's gather reads (a negative id
+    folded once, then clamped), row for row."""
+    jcfg, cfg = _configs()
+    jp, tp = _params(jcfg, cfg, 0)
+    ids = _out_of_vocab_ids(cfg.vocab, np.random.default_rng(4), 6)
+    toks = ids.reshape(1, -1)
+    want = np.asarray(jtfm.embed_inputs(jcfg, jp, {"tokens": jnp.asarray(
+        toks)}))
+    got = tfm.embed_inputs(cfg, tp, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_array_equal(got.numpy(), want)
+    rows = tfm.vocab_rows(torch.from_numpy(ids), cfg.vocab).numpy()
+    V = cfg.vocab
+    np.testing.assert_array_equal(rows, np.clip(np.where(ids < 0, ids + V,
+                                                         ids), 0, V - 1))
+
+
+def test_serve_engine_out_of_vocab_prompts_equal_jax():
+    """Prompts holding ids >= V, in [-V, 0) and < -V are served as the
+    JAX engine serves them: the same greedy tokens."""
+    jcfg, cfg = _configs()
+    jp, tp = _params(jcfg, cfg, 0)
+    rng = np.random.default_rng(6)
+    ids = _out_of_vocab_ids(cfg.vocab, rng, 3)
+    reqs = [dict(uid=i, prompt=rng.permutation(ids)[:n],
+                 max_new_tokens=4) for i, n in enumerate([3, 9, 17])]
+    reqs.append(dict(uid=3, prompt=np.array([1, 2, cfg.vocab + 3], np.int32),
+                     max_new_tokens=4))
+    want = JServeEngine(jcfg, jp, batch_size=2, max_len=32).run(
+        [JRequest(**r) for r in reqs])
+    got = ServeEngine(cfg, tp, batch_size=2, max_len=32, device="cpu").run(
+        [Request(**r) for r in reqs])
+    assert [r.uid for r in got] == [r.uid for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.tokens, np.asarray(w.tokens))
+
+
 def test_serve_engine_sampling_is_seeded():
     cfg = get_arch(ARCH).reduced()
     p = tfm.init_params(cfg, seed=0, device="cpu")
