@@ -13,16 +13,23 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 3. kernel  — every instantiation against its plain PyTorch version on
              the card, bit for bit: the block kernel dense and
              specialized (``optimize``), unprofiled and profiled, batched
-             and single-stream, on 7 benches (B = 64 with parked slots,
-             K in {1, 16, 64}, random counters in) and 64 random graphs
-             (control operators included; the spec kernel also against
-             the dense one on the same permuted tables); the fire step on
-             random states; the serving states the main path gives the
-             kernels (dot_prod at B = 1024, L = 4096, dense and
+             and single-stream, in both variants (warp, the wrappers'
+             choice for these fabrics, and CTA), on 7 benches (B = 64 with
+             parked slots, K in {1, 16, 64, 65}: 65 is one past a staging
+             chunk, random counters in), 64 random graphs (control
+             operators included; the spec kernel also against the dense
+             one on the same permuted tables) and 4 random graphs of 150
+             nodes (the CTA variant by size); the fire step on random
+             states; the serving states the main path gives the kernels
+             (dot_prod at B = 1024, L = 4096, dense and
              optimized+profiled, bubble_sort(8) at B = 256, with the B = 1
-             slice of each); random graphs fed int32 edge operands
-             through the engine against the numpy oracle; device times
-             of every instantiation at the dot_prod serving state; the
+             slice of each; dot_prod's also against the two-phase replay
+             of the kernel's cycle order); random graphs fed int32 edge
+             operands through the engine against the numpy oracle;
+             device times and microseconds per cycle of every
+             instantiation, and of the CTA variant, at the dot_prod
+             serving state; the latency floor (one warp running the warp
+             variant's dependent chain alone, K = 16 and 64); the
              two schedule kernels against their plain versions on the 6
              schedulable benches (K in {1, 16, 64}, parked slots, random
              mid-plan positions, mixed feed lengths) and at full width
@@ -36,7 +43,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              schedulable benches (each run one launch of the run
              kernel); ``optimize_graph`` fabrics on the card; ``run_fabric`` (one fire-step launch per cycle)
              against ``run_reference``, with its microseconds per cycle
-             beside the fused engine's (the paper's Table-1 comparison);
+             beside the fused engine's at K = 16 and 64 (the paper's
+             Table-1 comparison);
 5. serving — ``DataflowServer(slots=1024, block_cycles=64)`` on the
              paper's dot-product fabric at n = 32, 2048 requests of
              256..4096 tokens: dense, then optimized and profiled, then
@@ -63,7 +71,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              both roundings; their device times (profiler) and times per
              call (CUDA events), bounds, and the times of
              ``F.scaled_dot_product_attention`` and ``F.rms_norm`` on the
-             same inputs (timed only, never used by the port);
+             same inputs (timed only, never used by the port); RMSNorm
+             and ``F.rms_norm`` also by CUDA events with a cold L2 (a
+             256 MB write before each call), the row's times;
 8. LM serving — internlm2-1.8b at full width on the card: seeded
              ``init_params`` (peak memory), ``python -m
              repro_torch.launch.serve --full`` with the JAX launcher's
@@ -186,7 +196,9 @@ def launch_counts() -> dict:
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import schedule_fire as ksf
     one, bat = df.fire_block_cuda, df.fire_block_batched_cuda
-    return {"fire_block": one.launches, "fire_block_prof": one.prof_launches,
+    return {"fire_block_by": {"fire_block": dict(one.launches_by),
+                              "fire_block_batched": dict(bat.launches_by)},
+            "fire_block": one.launches, "fire_block_prof": one.prof_launches,
             "fire_block_batched": bat.launches,
             "fire_block_batched_prof": bat.prof_launches,
             "fire_block_spec": one.spec_launches + bat.spec_launches,
@@ -205,6 +217,7 @@ def reset_counts() -> None:
     from repro_torch.kernels import schedule_fire as ksf
     for w in (df.fire_block_cuda, df.fire_block_batched_cuda):
         w.launches = w.prof_launches = w.spec_launches = 0
+        w.launches_by = dict.fromkeys(df.VARIANTS, 0)
     df.fire_step_cuda.launches = 0
     ksf.sched_run_cuda.launches = ksf.sched_slot_step_cuda.launches = 0
     fa.flash_attention_cuda.launches = rn.rmsnorm_cuda.launches = 0
@@ -225,6 +238,28 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def cold_ms(fn, reps: int, flush) -> float:
+    """Mean milliseconds of fn() on the card, from CUDA events around
+    each call, with a cold L2: ``flush`` (a buffer larger than the 50 MB
+    L2) is written before every repetition.  The write keeps the card
+    busy while the host issues the call, so the events time the call's
+    kernels alone."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        flush.zero_()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        marks.append((t0, t1))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
 
 
 def profiled_ms(fn, reps: int, kernel: str | None = None) -> float:
@@ -288,13 +323,24 @@ def serving_workload(name, bench, n_req, seed, max_len=4096):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def other_variants(tables) -> tuple:
+    """The block kernel's variants the wrapper does not pick for these
+    device tables but which can run them (the CTA variant beside the
+    warp one)."""
+    from repro_torch.kernels import dataflow_fire as df
+    return tuple(v for v in df.VARIANTS if v != tables.variant
+                 and (v == "cta" or tables.variant == "warp"))
+
+
 def hold_blocks(dev, tables, x, prof, Ks, err, tag) -> int:
     """Both block entries on numpy ``tables`` (dense or optimized):
     batched over every stream of the random inputs ``x`` (parked ones
     included), single on stream 0, each unprofiled and profiled with the
-    counters ``prof``, for each K, against the plain version; an
-    optimized plan's spec kernel also against the dense kernel on the
-    same permuted tables.  Returns the firings of the plain runs."""
+    counters ``prof``, for each K, against the plain version, through
+    the wrappers (the variant the fabric's size picks) and through the
+    other variant; an optimized plan's spec kernel also against the
+    dense kernel on the same permuted tables.  Returns the firings of
+    the plain runs."""
     import torch
     from repro_torch.kernels import dataflow_fire as df
     from repro_torch.testing import STATE_KEYS
@@ -317,9 +363,17 @@ def hold_blocks(dev, tables, x, prof, Ks, err, tag) -> int:
             fired += int(want[5].sum())
             pr1 = None if pr is None else tuple(p[0] for p in pr)
             got1 = df.fire_block_cuda(dt, *one, n_cycles=K, prof=pr1)
-            hold(err, block_rows(False, pr, spec), got1,
-                 df.fire_block(dt, *one, n_cycles=K, prof=pr1),
+            want1 = df.fire_block(dt, *one, n_cycles=K, prof=pr1)
+            hold(err, block_rows(False, pr, spec), got1, want1,
                  f"{tag} single K={K} prof={pr is not None}")
+            for v in other_variants(dt):
+                hold(err, block_rows(True, pr, spec),
+                     df.launch_variant(v, dt, *args, **kw), want,
+                     f"{tag} {v} batched K={K} prof={pr is not None}")
+                hold(err, block_rows(False, pr, spec),
+                     df.launch_variant(v, dt, *one, n_cycles=K, prof=pr1,
+                                       batched=False), want1,
+                     f"{tag} {v} single K={K} prof={pr is not None}")
             if spec:
                 hold(err, ["fire_block_spec"], got,
                      df.fire_block_batched_cuda(dense, *args, **kw),
@@ -362,13 +416,15 @@ def phase_kernel(dev) -> dict:
             rng = np.random.default_rng(len(name) + 100 * opt)
             x = random_block_inputs(tables, 64, 96, rng)
             fired = hold_blocks(dev, tables, x, random_prof(tables, 64, rng),
-                                (1, 16, 64), err, f"{name} opt={opt}")
+                                (1, 16, 64, df.STAGE_CYCLES + 1), err,
+                                f"{name} opt={opt}")
             check(fired > 0, f"nothing fired: {name} opt={opt}")
             if not opt:
                 hold_fire_step(dev, tables, x, err, name)
-        log(f"  {name:12s} dense and spec, unprofiled and profiled kernels "
-            f"== plain at B=64, K=1/16/64 ({int(x['active'].sum())} active);"
-            f" spec == dense; fire step == plain")
+        log(f"  {name:12s} dense and spec, unprofiled and profiled kernels, "
+            f"warp and CTA variants == plain at B=64, K=1/16/64/"
+            f"{df.STAGE_CYCLES + 1} ({int(x['active'].sum())} active); "
+            f"spec == dense; fire step == plain")
     for seed in range(64):
         g = random_graph(seed)
         rng = np.random.default_rng(seed)
@@ -380,8 +436,18 @@ def phase_kernel(dev) -> dict:
         hold_fire_step(dev, dense, random_block_inputs(dense, 4, 1, rng),
                        err, g.name)
     log("  64 random graphs (NDMERGE/DMERGE/BRANCH among them): spec kernel "
-        "== plain == dense kernel, unprofiled and profiled, K=8; fire step "
-        "== plain")
+        "== plain == dense kernel, unprofiled and profiled, warp and CTA "
+        "variants, K=8; fire step == plain")
+    for seed in range(4):
+        g = random_graph(seed, nodes=150)
+        rng = np.random.default_rng(seed)
+        tables = df.block_plan_arrays(g, optimize=seed % 2 == 1)
+        check(df.block_variant(tables) == "cta", f"{g.name}: not CTA-sized")
+        x = random_block_inputs(tables, 16, 96, rng)
+        hold_blocks(dev, tables, x, random_prof(tables, 16, rng),
+                    (8, df.STAGE_CYCLES + 1), err, f"{g.name} (150 nodes)")
+    log(f"  4 random graphs of 150 nodes (CTA variant by size): kernels == "
+        f"plain, unprofiled and profiled, K=8/{df.STAGE_CYCLES + 1}")
     n_cases = 0
     for seed in range(24):
         g = random_graph(seed)
@@ -476,31 +542,46 @@ def captured_state(dev, graph, reqs, slots, optimize=False, profile=False,
                 prof=st.prof)
 
 
-def kernel_vs_plain(st, tables=None, prof=None) -> dict:
+def kernel_vs_plain(st, tables=None, prof=None, replay=False) -> dict:
     """Both entries against their plain versions on a captured serving
-    state, bit for bit: the batched one at the full slot count, the
-    single one on the first active slot's row.  ``tables`` (default the
-    state's own) and ``prof`` (the state's counters, or None) pick the
-    instantiation.  Returns each Pallas row's max |error|."""
+    state, bit for bit, through the wrappers and through the other
+    variant: the batched one at the full slot count, the single one on
+    the first active slot's row.  ``tables`` (default the state's own)
+    and ``prof`` (the state's counters, or None) pick the instantiation;
+    ``replay`` also holds the batched kernel against the two-phase
+    replay of its own cycle order (windows staged from the tokens' real
+    alignment).  Returns each Pallas row's max |error|."""
     from repro_torch.kernels import dataflow_fire as df
     tables = st["tables"] if tables is None else tables
     K, act = st["K"], st["active"]
     spec = tables.class_slices is not None
     args = [st["fv"], st["fl"], *st["state"]]
     err = dict.fromkeys(ROWS, 0)
-    want = df.fire_block_batched(tables, *args, n_cycles=K, active=act,
-                                 prof=prof)
-    hold(err, block_rows(True, prof, spec),
-         df.fire_block_batched_cuda(tables, *args, n_cycles=K, active=act,
-                                    prof=prof), want, "serving state")
+    kw = dict(n_cycles=K, active=act, prof=prof)
+    want = df.fire_block_batched(tables, *args, **kw)
+    got = df.fire_block_batched_cuda(tables, *args, **kw)
+    hold(err, block_rows(True, prof, spec), got, want, "serving state")
     check(int(want[5].sum()) > 0, "nothing fired in the captured state")
+    if replay:
+        hold(err, block_rows(True, prof, spec), got,
+             df.fire_block_two_phase(
+                 tables, *args, misalign=st["fv"].data_ptr() // 4 % 4, **kw),
+             "serving state vs the two-phase replay")
     b = st["one"]
     one = [a[b].contiguous() for a in args]
     p1 = None if prof is None else tuple(p[b].contiguous() for p in prof)
+    want1 = df.fire_block(tables, *one, n_cycles=K, prof=p1)
     hold(err, block_rows(False, prof, spec),
-         df.fire_block_cuda(tables, *one, n_cycles=K, prof=p1),
-         df.fire_block(tables, *one, n_cycles=K, prof=p1),
+         df.fire_block_cuda(tables, *one, n_cycles=K, prof=p1), want1,
          "serving state, B=1")
+    for v in other_variants(tables):
+        hold(err, block_rows(True, prof, spec),
+             df.launch_variant(v, tables, *args, **kw), want,
+             f"serving state, {v} variant")
+        hold(err, block_rows(False, prof, spec),
+             df.launch_variant(v, tables, *one, n_cycles=K, prof=p1,
+                               batched=False), want1,
+             f"serving state, B=1, {v} variant")
     return err
 
 
@@ -544,15 +625,17 @@ def timed(run_k, run_p, reps, kernel, plain_reps=3, plain_profile=True):
                 else None)
 
 
-def time_block(st, tables, prof, batched):
+def time_block(st, tables, prof, batched, variant=None):
     """Times and bound of one block instantiation on a captured serving
-    state: all slots (batched) or the first active slot's row (B = 1)."""
+    state: all slots (batched) or the first active slot's row (B = 1),
+    through the wrapper or, with ``variant``, that variant."""
     from repro_torch.kernels import dataflow_fire as df
     K, act = st["K"], st["active"]
     args = [st["fv"], st["fl"], *st["state"]]
+    variant = variant or tables.variant
     if batched:
-        run_k = lambda: df.fire_block_batched_cuda(
-            tables, *args, n_cycles=K, active=act, prof=prof)
+        run_k = lambda: df.launch_variant(
+            variant, tables, *args, n_cycles=K, active=act, prof=prof)
         run_p = lambda: df.fire_block_batched(
             tables, *args, n_cycles=K, active=act, prof=prof)
         b = block_bound(tables, args, run_k(), int(act.sum()), K, prof)
@@ -563,15 +646,18 @@ def time_block(st, tables, prof, batched):
         i = st["one"]
         one = [a[i].contiguous() for a in args]
         p1 = None if prof is None else tuple(p[i].contiguous() for p in prof)
-        run_k = lambda: df.fire_block_cuda(tables, *one, n_cycles=K, prof=p1)
+        run_k = lambda: df.launch_variant(variant, tables, *one, n_cycles=K,
+                                          prof=p1, batched=False)
         run_p = lambda: df.fire_block(tables, *one, n_cycles=K, prof=p1)
         b = block_bound(tables, [a[i:i + 1] for a in args],
                         [x[None] for x in run_k()], 1, K, p1)
         shape = f"B=1, K={K}, L={one[0].shape[1]}"
         reps = 50
     N2, A2 = tables["opcode"].shape[0], tables["prod_node"].shape[0]
-    return dict(**timed(run_k, run_p, reps, "fire_block_kernel"), **b,
-                shape=f"{shape}, N2={N2}, A2={A2}")
+    t = timed(run_k, run_p, reps, f"fire_block_{variant}_kernel")
+    return dict(**t, **b, variant=variant, K=K,
+                us_per_cycle=t["ms"] * 1e3 / K,
+                shape=f"{shape}, N2={N2}, A2={A2}, {variant} variant")
 
 
 def time_fire_step(dev, graph):
@@ -598,11 +684,45 @@ def time_fire_step(dev, graph):
                 shape=f"{graph.name}: one CTA, N2={N2}, A2={A2}")
 
 
+def latency_floor(dev, Ks=(16, 64), long_cycles=1 << 16) -> dict:
+    """The warp variant's latency floor: the device time of one warp
+    running K cycles of its dependent chain with no table work
+    (``fire_floor_kernel``), at each K, and the microseconds per cycle of
+    a ``long_cycles`` run."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    out = torch.empty(32, dtype=torch.int32, device=dev)
+
+    def run(n):
+        err = lib.fire_floor_launch(
+            ctypes.c_void_p(out.data_ptr()), n,
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        check(err == 0, "the latency-floor kernel did not launch")
+
+    ms = {}
+    for K in Ks:
+        ms[K] = profiled_ms(lambda: run(K), 50, "fire_floor_kernel") \
+            or cuda_ms(lambda: run(K), 50)
+    long_ms = profiled_ms(lambda: run(long_cycles), 5, "fire_floor_kernel") \
+        or cuda_ms(lambda: run(long_cycles), 5)
+    floor = dict(ms=ms, us_per_cycle=long_ms * 1e3 / long_cycles,
+                 long_cycles=long_cycles)
+    log(f"  latency floor (one warp, the chain alone): "
+        + ", ".join(f"K={K} {v:.4f} ms" for K, v in ms.items())
+        + f"; {floor['us_per_cycle'] * 1e3:.2f} ns per cycle over "
+        f"{long_cycles} cycles")
+    return floor
+
+
 def log_times(times):
     for k, v in times.items():
         pd = v["plain_device_ms"]
         pd = "not measured" if pd is None else f"{pd:.3f} ms"
-        log(f"  {k:30s} kernel {v['ms']:.4f} ms ({v['ms_from']}; "
+        per = f", {v['us_per_cycle']:.3f} us/cycle" if "us_per_cycle" in v \
+            else ""
+        log(f"  {k:30s} kernel {v['ms']:.4f} ms ({v['ms_from']}{per}; "
             f"{v['call_ms']:.4f} ms per wrapper call)  plain "
             f"{v['plain_ms']:.3f} ms per call ({pd} on the device)"
             f"  bound {v['bound_ms']:.6f} ms "
@@ -626,7 +746,7 @@ def phase_serving_states(dev, dot, dot_reqs, bub, bub_reqs, errs):
     for name, bench, slots, reqs in (("dot_prod", dot, 1024, dot_reqs),
                                      ("bubble_sort", bub, 256, bub_reqs)):
         st = captured_state(dev, bench.graph, reqs, slots)
-        merge(kernel_vs_plain(st))
+        merge(kernel_vs_plain(st, replay=name == "dot_prod"))
         log(f"  {name:12s} dense kernel == plain on the serving state "
             f"(B={slots}, L={st['fv'].shape[2]}, K=64, "
             f"{int(st['active'].sum())} active; B=1 slot {st['one']})")
@@ -634,6 +754,10 @@ def phase_serving_states(dev, dot, dot_reqs, bub, bub_reqs, errs):
             times["fire_block_batched"] = time_block(st, st["tables"], None,
                                                      True)
             times["fire_block"] = time_block(st, st["tables"], None, False)
+            times["fire_block_batched cta"] = time_block(
+                st, st["tables"], None, True, "cta")
+            times["fire_block cta"] = time_block(st, st["tables"], None,
+                                                 False, "cta")
         del st
     # the optimized, profiled deployment's state: its tables are permuted,
     # so the dense instantiation runs on the same permuted tables without
@@ -646,8 +770,9 @@ def phase_serving_states(dev, dot, dot_reqs, bub, bub_reqs, errs):
                 "prof": (dense, st["prof"]), "spec+prof": (spec, st["prof"])}
     for v, (tables, prof) in variants.items():
         merge(kernel_vs_plain(st, tables, prof))
-    log(f"  dot_prod     dense, spec, prof and spec+prof kernels == plain on "
-        f"the optimized, profiled serving state (B=1024, L="
+    log(f"  dot_prod     dense, spec, prof and spec+prof kernels (warp and "
+        f"CTA variants) == plain on the optimized, profiled serving state "
+        f"(B=1024, L="
         f"{st['fv'].shape[2]}, {int(st['active'].sum())} active; B=1 slot "
         f"{st['one']})")
     by_variant = {v: time_block(st, t, p, True)
@@ -958,18 +1083,27 @@ def phase_run_fabric(dev) -> dict:
         eng = DataflowEngine(bench.graph, block_cycles=16, device=dev)
         fused = eng.run(feeds)
         assert_same_result(fused, want, (name, "fused"), dispatches=False)
+        eng64 = DataflowEngine(bench.graph, block_cycles=64, device=dev)
+        fused64 = eng64.run(feeds)
+        assert_same_result(fused64, want, (name, "fused K=64"),
+                           dispatches=False)
         per = wall_us(lambda: ops.run_fabric(bench.graph, feeds,
                                              compiled=compiled, device=dev))
         fus = wall_us(lambda: eng.run(feeds))
+        fus64 = wall_us(lambda: eng64.run(feeds))
         table[name] = dict(cycles=got.cycles,
                            percycle_us_per_cycle=per / got.cycles,
                            fused_k16_us_per_cycle=fus / fused.cycles,
                            fused_dispatches=fused.dispatches,
+                           fused_k64_us_per_cycle=fus64 / fused64.cycles,
+                           fused_k64_dispatches=fused64.dispatches,
                            ratio=per / fus)
         log(f"  {name:12s} run_fabric == run_reference ({got.cycles} cycles,"
             f" {got.dispatches} launches): {per / got.cycles:.1f} us/cycle;"
             f" fused K=16: {fus / fused.cycles:.2f} us/cycle "
-            f"({fused.dispatches} launches); ratio {per / fus:.1f}x")
+            f"({fused.dispatches} launches), K=64: "
+            f"{fus64 / fused64.cycles:.2f} us/cycle; ratio "
+            f"{per / fus:.1f}x")
     return table
 
 
@@ -1576,14 +1710,22 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
         nbytes = 2 * x.numel() * x.element_size() + 4 * d
         ops_n = 4 * x.numel()
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
-        times[f"rmsnorm {dtn}"] = dict(
-            **time_lm(run_k, run_p, lib, 20, "rmsnorm_kernel", dict(
-                bound_ms=max(t_b, t_o) * 1e3,
-                bound_by="bytes" if t_b >= t_o else "operations",
-                bytes=nbytes, flops=ops_n),
-                f"[{B * S}, {d}] model rounding, {dtn}"),
-            library_vs_plain=e_lib)
-        del x
+        t = time_lm(run_k, run_p, lib, 20, "rmsnorm_kernel", dict(
+            bound_ms=max(t_b, t_o) * 1e3,
+            bound_by="bytes" if t_b >= t_o else "operations",
+            bytes=nbytes, flops=ops_n),
+            f"[{B * S}, {d}] model rounding, {dtn}")
+        # the row's times: kernel and library by one method, cold L2
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        t.update(warm_ms=t["ms"], warm_ms_from=t["ms_from"],
+                 warm_library_ms=t["library_ms"],
+                 warm_library_from=t["library_from"],
+                 ms=cold_ms(run_k, 20, flush), library_ms=cold_ms(lib, 20,
+                                                                  flush))
+        t["ms_from"] = t["library_from"] = ("cuda events per call, L2 "
+                                            "flushed by a 256 MB write")
+        times[f"rmsnorm {dtn}"] = dict(**t, library_vs_plain=e_lib)
+        del x, flush
     torch.cuda.empty_cache()
     for k, v in times.items():
         log(f"  {k:34s} kernel {v['ms']:.4f} ms ({v['ms_from']}; "
@@ -1592,6 +1734,10 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
             f"|lib - plain| {v['library_vs_plain']:.3g})  bound "
             f"{v['bound_ms']:.5f} ms ({v['bound_by']}: {v['bytes']} B, "
             f"{v['flops']:.4g} flops)  [{v['shape']}]")
+        if "warm_ms" in v:
+            log(f"    warm L2: kernel {v['warm_ms']:.4f} ms "
+                f"({v['warm_ms_from']}), library {v['warm_library_ms']:.4f} "
+                f"ms ({v['warm_library_from']})")
         for part in ("split", "combine"):
             if part in v:
                 t = v[part]
@@ -1903,12 +2049,39 @@ def lm_rows(errs, times, launches) -> list:
                    tolerance_f32=LM_TOL["float32"][k],
                    tol_ratio_f32=f32["tol_ratio"],
                    **{f: main_t[f] for f in fields})
+        row.update({f: main_t[f] for f in (
+            "warm_ms", "warm_ms_from", "warm_library_ms",
+            "warm_library_from") if f in main_t})
         if k == "flash_attention":
             dec = times["flash_attention decode bfloat16"]
             row.update({f"decode_{f}": dec[f] for f in fields})
             row["variants"] = attention_variants(errs, times, launches)
         rows.append(row)
     return rows
+
+
+def fire_block_extras(row, times, floor, launches) -> dict:
+    """Rows 1-5's extra fields: main-path launches by variant of the
+    row's entry (row 5: both entries), the timed variant and its
+    microseconds per cycle, the latency floor at the row's K, and the
+    CTA variant's time on the same state (rows 1 and 3)."""
+    by = launches["fire_block_by"]
+    if row == "fire_block_spec":
+        launches_by = {v: sum(b[v] for b in by.values())
+                       for v in by["fire_block"]}
+    else:
+        launches_by = by["fire_block_batched" if "batched" in row
+                         else "fire_block"]
+    t = times[row]
+    out = dict(launches_by=launches_by, variant=t["variant"],
+               us_per_cycle=t["us_per_cycle"], K=t["K"],
+               floor_ms=floor["ms"][t["K"]],
+               floor_us_per_cycle=floor["us_per_cycle"])
+    cta = times.get(f"{row} cta")
+    if cta is not None:
+        out.update(cta_ms=cta["ms"], cta_call_ms=cta["call_ms"],
+                   cta_us_per_cycle=cta["us_per_cycle"])
+    return out
 
 
 def main() -> int:
@@ -1948,6 +2121,7 @@ def main() -> int:
     errs = phase_kernel(dev)
     times, by_variant = phase_serving_states(dev, dot, dot_reqs, bub,
                                              bub_reqs, errs)
+    floor = latency_floor(dev)
     sched_times, versus = phase_sched_states(dev, dot, dot_reqs, errs)
     times.update(sched_times)
     log(f"  phase 3 done at {time.perf_counter() - t_start:.1f} s")
@@ -1976,9 +2150,13 @@ def main() -> int:
                                                  reqs, lens, opt, prof, sch)
     launches = launch_counts()
     log(f"  main-path launches (phases 4-5): "
-        f"{json.dumps({k: launches[k] for k in ROWS})}")
+        f"{json.dumps({k: launches[k] for k in ROWS})}; fire block by "
+        f"variant {json.dumps(launches['fire_block_by'])}")
     for k in ROWS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    for k, by in launches["fire_block_by"].items():
+        check(by["warp"] > 0, f"{k}: the warp variant never ran on the "
+              "main path")
     same_as_dynamic(served["dot_prod_sched"][0],
                     served["dot_prod_opt_prof"][0], serve["dot_prod_sched"],
                     serve["dot_prod_opt_prof"])
@@ -2038,6 +2216,9 @@ def main() -> int:
                         "plain_device_ms", "bound_ms", "bound_by",
                         "shape")})
                for k in ROWS]
+    for k in kernels:
+        if k["name"].startswith("fire_block"):
+            k.update(fire_block_extras(k["name"], times, floor, launches))
     kernels += lm_rows(lm_errs, lm_times, lm_launches)
     for k in kernels:       # rows 1-8 bit for bit, rows 9-10 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
@@ -2049,6 +2230,7 @@ def main() -> int:
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"table1_us_per_cycle": table1}))
     log(json.dumps({"sched_vs_fire_block": versus}))
+    log(json.dumps({"latency_floor": floor}))
     log(json.dumps({"block_by_instantiation": {
         v: {f: t[f] for f in ("ms", "call_ms", "bound_ms", "shape")}
         for v, t in by_variant.items()}}))

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernel library at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``dataflow_fire.cu``: the
-fire-block and fire-step kernels; ``schedule_fire.cu``: the static-
-schedule kernels, both including ``csrc/alu.cuh``; ``flash_attention.cu``
-and ``rmsnorm.cu``: the LM kernels) for Hopper
-(``sm_90a``), one compiler per source, all started together, and links
+fire-block kernel's two variants, the fire step and a latency probe;
+``schedule_fire.cu``: the static-schedule kernels, both including
+``csrc/alu.cuh``; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
+kernels) for Hopper (``sm_90a``), one compiler per source, all started
+together, and links
 the objects into one shared library with a plain C interface.  It is
 written under ``build/`` at the repository root (named by a hash over
 every source and header) and loaded with :mod:`ctypes`.  The build
@@ -52,8 +53,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     # every pointer and the stream as c_void_p: without argtypes ctypes
     # would pass 32-bit ints and cut them
-    for name, n_ptr, n_int in (("fire_block_launch", 38, 9),
+    for name, n_ptr, n_int in (("fire_block_launch", 42, 14),
                                ("fire_step_launch", 13, 2),
+                               ("fire_floor_launch", 1, 1),
                                ("sched_run_launch", 16, 7),
                                ("sched_slot_step_launch", 25, 7),
                                ("flash_attention_tiled_launch", 4, 10),
@@ -67,7 +69,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     # flag int, eps float
     lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 4 + [ctypes.c_float, vp]
     lib.rmsnorm_launch.restype = ci
-    lib.fire_block_smem_bytes.argtypes = [ci] * 5
+    lib.fire_block_smem_bytes.argtypes = [ci] * 6
     lib.fire_block_smem_bytes.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci

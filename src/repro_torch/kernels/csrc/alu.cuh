@@ -57,3 +57,114 @@ __device__ __forceinline__ int alu_int(int op, int a, int b) {
     default: return a;                           // COPY, BRANCH, SINK
   }
 }
+
+// Opcode groups of alu_select (bit op of a mask stands for opcode op).
+constexpr unsigned kOpArith = 1u << OP_ADD | 1u << OP_SUB | 1u << OP_MUL;
+constexpr unsigned kOpLogic = 1u << OP_AND | 1u << OP_OR | 1u << OP_XOR;
+constexpr unsigned kOpMinMax = 1u << OP_MAX | 1u << OP_MIN;
+constexpr unsigned kOpShift = 1u << OP_SHL | 1u << OP_SHR;
+constexpr unsigned kOpCompare = 1u << OP_NOT | 1u << OP_IFGT |
+                                1u << OP_IFGE | 1u << OP_IFLT |
+                                1u << OP_IFLE | 1u << OP_IFEQ | 1u << OP_IFDF;
+constexpr unsigned kOpDiv = 1u << OP_DIV;
+constexpr unsigned kOpControl = 1u << OP_NDMERGE | 1u << OP_DMERGE |
+                                1u << OP_BRANCH;
+constexpr unsigned kOpAll = (1u << (OP_SINK + 1)) - 1;
+
+// alu_int's results for G nodes at once (a group of slots of one lane)
+// without a divergent branch, for loops where one warp evaluates nodes of
+// several opcodes: each opcode group's results are computed and each
+// node's selected, so the warp runs one instruction stream (a switch
+// compiles to a tree of divergent branches).  `ops`, the opcodes the warp
+// may meet, is uniform over it; a group none of whose opcodes is in `ops`
+// is skipped, once for all G nodes.
+template <int G>
+__device__ __forceinline__ void alu_select(const int (&op)[G],
+                                           const int (&a)[G],
+                                           const int (&b)[G], int (&z)[G],
+                                           unsigned ops) {
+#pragma unroll
+  for (int g = 0; g < G; ++g) z[g] = a[g];      // COPY, BRANCH, SINK
+  // one jump when a single group computes (the common fabrics)
+  const unsigned computed = ops & ~(1u << OP_COPY | 1u << OP_BRANCH |
+                                    1u << OP_SINK | kOpControl);
+  if ((computed & ~kOpArith) == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const unsigned ua = static_cast<unsigned>(a[g]);
+      const unsigned ub = static_cast<unsigned>(b[g]);
+      z[g] = op[g] == OP_ADD ? static_cast<int>(ua + ub) : z[g];
+      z[g] = op[g] == OP_SUB ? static_cast<int>(ua - ub) : z[g];
+      z[g] = op[g] == OP_MUL ? static_cast<int>(ua * ub) : z[g];
+    }
+    return;
+  }
+  if ((computed & ~kOpMinMax) == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      z[g] = op[g] == OP_MAX ? max(a[g], b[g]) : z[g];
+      z[g] = op[g] == OP_MIN ? min(a[g], b[g]) : z[g];
+    }
+    return;
+  }
+  if (ops & kOpArith) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const unsigned ua = static_cast<unsigned>(a[g]);
+      const unsigned ub = static_cast<unsigned>(b[g]);
+      z[g] = op[g] == OP_ADD ? static_cast<int>(ua + ub) : z[g];
+      z[g] = op[g] == OP_SUB ? static_cast<int>(ua - ub) : z[g];
+      z[g] = op[g] == OP_MUL ? static_cast<int>(ua * ub) : z[g];
+    }
+  }
+  if (ops & kOpLogic) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      z[g] = op[g] == OP_AND ? (a[g] & b[g]) : z[g];
+      z[g] = op[g] == OP_OR ? (a[g] | b[g]) : z[g];
+      z[g] = op[g] == OP_XOR ? (a[g] ^ b[g]) : z[g];
+    }
+  }
+  if (ops & kOpMinMax) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      z[g] = op[g] == OP_MAX ? max(a[g], b[g]) : z[g];
+      z[g] = op[g] == OP_MIN ? min(a[g], b[g]) : z[g];
+    }
+  }
+  if (ops & kOpShift) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int bs = min(max(b[g], 0), 31);
+      z[g] = op[g] == OP_SHL
+                 ? static_cast<int>(static_cast<unsigned>(a[g]) << bs)
+                 : z[g];
+      z[g] = op[g] == OP_SHR ? (a[g] >> bs) : z[g];   // arithmetic
+    }
+  }
+  if (ops & kOpCompare) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int x = a[g], y = b[g];
+      z[g] = op[g] == OP_NOT ? (x == 0) : z[g];
+      z[g] = op[g] == OP_IFGT ? (x > y) : z[g];
+      z[g] = op[g] == OP_IFGE ? (x >= y) : z[g];
+      z[g] = op[g] == OP_IFLT ? (x < y) : z[g];
+      z[g] = op[g] == OP_IFLE ? (x <= y) : z[g];
+      z[g] = op[g] == OP_IFEQ ? (x == y) : z[g];
+      z[g] = op[g] == OP_IFDF ? (x != y) : z[g];
+    }
+  }
+  if (ops & kOpDiv) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      // floor division; x // 0 == 0 and INT_MIN // -1 == INT_MIN
+      // (divided by 1 instead)
+      const int x = a[g], y = b[g];
+      const int d = (y == 0 || (x == INT_MIN && y == -1)) ? 1 : y;
+      int q = x / d;
+      q -= (x - q * d != 0) && ((x < 0) != (d < 0));
+      z[g] = op[g] == OP_DIV ? (y == 0 ? 0 : q) : z[g];
+    }
+  }
+}

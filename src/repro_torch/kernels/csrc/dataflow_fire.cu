@@ -1,6 +1,6 @@
 // Fire-block and fire-step kernels for Hopper (sm_90a): a static dataflow
-// fabric, K fused feed -> fire -> drain cycles per launch (one CTA per
-// stream), or one bare fire step (one CTA).
+// fabric, K fused feed -> fire -> drain cycles per launch, or one bare fire
+// step (one CTA).
 //
 // Replaces the TPU kernels of src/repro/kernels/dataflow_fire.py:
 //   fire_block_pallas              -> _block_kernel                (:390)
@@ -10,49 +10,70 @@
 //   _ready_and_z_spec (:117), traced into the four above when the tables
 //                                carry class_slices  -> kSpec instantiations
 //   fire_step_pallas               -> _kernel (:196)  -> fire_step_kernel
-// One template computes the four block kernels and the specialized rule:
-// grid = (B,); the single-stream entry launches it with B = 1 and every
-// stream active (active == nullptr); kProf adds the five counters; kSpec
-// takes each node's opcode from its bucket of an opcode-sorted plan, and
-// kControlFree (no NDMERGE/DMERGE/BRANCH bucket) compiles the control
-// cases out.  The plain PyTorch versions of the same functions are
-// fire_block / fire_block_batched / fire_step in ../dataflow_fire.py;
-// results are bit-identical.
+// Two kernels compute the four block kernels and the specialized rule, in
+// the same cycle order and bit for bit: fire_block_warp_kernel (one warp
+// per stream, for fabrics whose every table fits in kRows rows per lane)
+// and fire_block_cta_kernel (one CTA per stream, for larger fabrics).  The
+// wrapper picks one by the fabric's size (dataflow_fire.block_variant).
+// The single-stream entry launches them with B = 1 and every stream active
+// (active == nullptr); kProf adds the five counters; kSpec takes each
+// node's opcode from its bucket of an opcode-sorted plan, and kControlFree
+// (no NDMERGE/DMERGE/BRANCH bucket) compiles the control cases out.  The
+// plain PyTorch versions of the same functions are fire_block /
+// fire_block_batched / fire_step in ../dataflow_fire.py; results are
+// bit-identical.  fire_block_two_phase there replays this file's cycle
+// order (lanes, reverse maps, staged windows) on the CPU.
 //
 // What bounds them on this card.  Neither bytes nor operations: one block
-// launch moves a few KB per stream (state and counters in and out, tables,
-// the feed tokens it consumes) and evaluates each node once per cycle,
+// launch moves a few KB per stream and evaluates each node once per cycle,
 // microseconds of work for the whole card even at B = 1024.  What bounds a
 // block is latency: the K cycles are a serial chain (each cycle's node
-// phase reads what the previous cycle's arc phase wrote), and each cycle
-// is four phases separated by CTA barriers, so one stream costs about
-// K x (4 barriers + shared-memory round trips) however small its fabric.
-// The fire step is bound by the launch and the host's sync around it: one
-// launch per fabric cycle, a few microseconds of fixed cost each.
+// phase reads what the previous cycle's arc phase wrote), so a stream
+// costs K x (one cycle's chain) however small its fabric.  In the warp
+// variant that chain is one lane's work on all of its rows (dot_prod n =
+// 32: 2 node rows and 5 arc rows a lane), a few hundred dependent
+// instructions: the barriers cost little.  The fire step is bound by the
+// launch and the host's sync around it.
 //
-// What the design does about it:
-//   * everything a cycle touches stays on chip for the whole block: the
-//     arc registers full/val[A2], the feed pointers, the output
-//     accumulators and the counters live in shared memory, read once from
-//     device memory at the start of the block and written once at the end;
-//   * the counters add no barrier: a node's three counters are updated by
-//     the thread that evaluates it in the node phase, from an
-//     inputs-ready bit on the same post-feed snapshot as its fire rule; an
-//     arc's busy and high-water counters by the thread that writes its
-//     full bit in the arc phase, which is after the fire and before the
-//     drain (the sample point) by construction;
-//   * the specialized rule changes no phase: a node's opcode comes from
-//     its bucket (a register per thread, set once per launch), so in an
-//     opcode-sorted table a warp inside a bucket takes one branch, and a
-//     control-free fabric evaluates ready = all inputs full & all outputs
-//     empty with no switch; the same .so serves every fabric;
-//   * the tables are read through the read-only data cache (__ldg), where
-//     they stay for the block after the first cycle;
-//   * one CTA per stream, so B streams run side by side on the 132 SMs
-//     and hide each other's barrier latency (a small fabric's CTA is a few
-//     warps, and many fit on one SM);
-//   * the per-stream active gate copies a parked stream's state (and its
-//     counters) through with the whole CTA, so no barrier ever diverges.
+// What the design does about it (the warp variant):
+//   * one warp per stream: the cycle's two phases are separated by
+//     __syncwarp(), never by a CTA barrier, and several streams share a
+//     CTA, one warp each, without ever waiting for each other;
+//   * two phases per cycle.  The node phase evaluates the fire rule on the
+//     post-feed registers and stores each node's (z, cp) pair.  In the arc
+//     phase the lane that owns arc i computes its next (full, val) from its
+//     producer's and consumer's pairs, samples the counters (post-fire,
+//     pre-drain), drains it if an output row reads it, clears it under
+//     out_mask, and strobes it for the NEXT cycle from its feed row; that
+//     is _env_cycle's feed (src/repro/kernels/dataflow_fire.py:333-341)
+//     moved to the end of the previous cycle, where it sees the same
+//     post-drain registers.  Cycle 0's feed (and the first of each staged
+//     chunk) runs before the loop; the last cycle feeds nothing;
+//   * tables in registers: each lane owns rows lane + 32 j (j < kRows) of
+//     the node and arc tables and loads, once per launch, the shared-memory
+//     offsets of each node's five operands and of each arc's producer and
+//     consumer, the opcode and a word of the arc's flags; the reverse maps
+//     of device_tables (arc -> its feed row, arc -> its output rows) put
+//     the feed and the drain on the arc's lane; no table is read inside the
+//     cycle loop;
+//   * a lane's rows in groups of straight code (node rows in pairs, arc
+//     rows in fours), so their loads and arithmetic overlap; the ALU
+//     computes only the opcode groups some lane of the pair holds and
+//     selects (alu_select), so lanes with different opcodes run one
+//     instruction stream, and a group's drain and strobe run only where
+//     some lane's arcs need them;
+//   * no per-cycle reduction: each lane counts its own firings and the last
+//     cycle in which its feed, fire or drain made progress; one warp
+//     reduction at the end gives fired and last_prog;
+//   * the feed window on chip: a row's pointer advances at most once a
+//     cycle, so a chunk of C cycles reads at most fv[r, ptr : ptr + C]
+//     (clamped to L); each lane copies its rows' windows into shared
+//     memory with 16-byte cp.async at the start of every chunk, and the
+//     loop reads tokens from there.
+// The CTA variant keeps the same two phases, thread-local counts and staged
+// windows, with __syncthreads between the phases and its tables read
+// through the read-only cache.  Parked streams (active == 0) copy their
+// state and counters through.
 //
 // Integer semantics follow jnp/numpy int32 exactly (the shared ALU of
 // alu.cuh).
@@ -61,6 +82,7 @@
 // links them into one shared library; plain C interface for ctypes.
 
 #include <algorithm>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "alu.cuh"
@@ -71,6 +93,11 @@ namespace {
 // (dataflow_fire.MAX_CLASSES); device_tables() checks the class table.
 constexpr int kMaxClasses = 24;
 constexpr int kProfArrays = 5;   // nf, si, so [N2]; ab, ahw [A2]
+// The warp variant: rows per lane of every table (dataflow_fire.WARP_ROWS
+// = 32 * kRows) and streams per CTA at most.
+constexpr int kRows = 8;
+constexpr int kMaxStreams = 4;
+constexpr int kCtaThreads = 1024;
 
 struct Tables {
   const int* opcode;      // [N2]
@@ -86,6 +113,13 @@ struct Tables {
   const int* out_arc_idx; // [n_out]
   const int* out_mask;    // [A2]
   const int* class_table; // [n_classes, 3] (op, lo, hi) or nullptr
+  // reverse maps (CSR): the feed rows strobing arc a are
+  // feed_rows[feed_ptr[a] : feed_ptr[a + 1]], its output rows
+  // out_rows[out_ptr[a] : out_ptr[a + 1]]
+  const int* feed_ptr;    // [A2 + 1]
+  const int* feed_rows;   // [n_in]
+  const int* out_ptr;     // [A2 + 1]
+  const int* out_rows;    // [n_out]
 };
 
 struct State {
@@ -108,189 +142,544 @@ struct State {
   int* prof_o[kProfArrays];       // counters out (kProf only)
 };
 
-// The dense rule's ALU result z: the merges pick an input, every other
-// opcode is the shared ALU's.
-__device__ __forceinline__ int alu(int op, int a, int b, int c, bool in0) {
-  switch (op) {
-    case OP_NDMERGE: return in0 ? a : b;
-    case OP_DMERGE: return c != 0 ? a : b;
-    default: return alu_int(op, a, b);
-  }
-}
-
-// Shared memory, in ints: full[A2] val[A2] z[N2] cp[N2] ptr[n_in]
-// out_last[n_out] out_count[n_out], then with counters nf[N2] si[N2]
-// so[N2] ab[A2] ahw[A2].  cp packs a fired node's consume bits (0..2, one
-// per input slot) and produce bits (3..4, one per output slot); 0 if not
-// ready.  The fire step uses the first four arrays.
-size_t dynamic_smem_bytes(int N2, int A2, int n_in, int n_out, bool prof) {
-  size_t ints = 2 * static_cast<size_t>(A2) + 2 * static_cast<size_t>(N2) +
-                n_in + 2 * static_cast<size_t>(n_out);
-  if (prof) ints += 3 * static_cast<size_t>(N2) + 2 * static_cast<size_t>(A2);
-  return sizeof(int) * ints;
-}
-// the block kernel's static arrays: the cycle's firing count and the
-// class table
-constexpr size_t kStaticSmemBytes = sizeof(int) * (1 + 3 * kMaxClasses);
-
-struct NodeCounters {
-  int* nf;
-  int* si;
-  int* so;
+// Shapes of a block launch.  chunk: cycles per staged feed window; window:
+// ints per staged row (window_ints(chunk)); streams: warps per CTA (warp
+// variant).
+struct Dims {
+  int B, N2, A2, n_in, n_out, L, n_cycles, n_classes, chunk, window, streams;
+  unsigned ops;     // the opcodes of the fabric's nodes (alu_select)
 };
-
-// Node phase for row n with opcode op, on the post-feed registers: writes
-// z and cp, counts (kProf) fired / stalled on input / stalled on output,
-// and returns whether the node fires.
-template <bool kProf, bool kControlFree>
-__device__ __forceinline__ int fire_node(const Tables& t, int n, int op,
-                                         const int* s_full, const int* s_val,
-                                         int* s_z, int* s_cp,
-                                         NodeCounters nc) {
-  const int i0 = __ldg(t.in_idx + 3 * n);
-  const int i1 = __ldg(t.in_idx + 3 * n + 1);
-  const int i2 = __ldg(t.in_idx + 3 * n + 2);
-  const int o0 = __ldg(t.out_idx + 2 * n);
-  const int o1 = __ldg(t.out_idx + 2 * n + 1);
-  const bool in0 = s_full[i0] > 0, in1 = s_full[i1] > 0;
-  const bool in2 = s_full[i2] > 0;
-  const bool oe0 = s_full[o0] == 0, oe1 = s_full[o1] == 0;
-  const int a = s_val[i0], bv = s_val[i1], c = s_val[i2];
-  const bool all_out = oe0 && oe1;
-  bool ready, ir;                  // ir: the (selected) inputs are present
-  unsigned cons = 7u, prod = 3u;
-  if (kControlFree) {
-    ir = in0 && in1 && in2;
-    ready = ir && all_out;
-  } else {
-    switch (op) {
-      case OP_NDMERGE:
-        ir = in0 || in1;
-        ready = ir && all_out;
-        cons = in0 ? 1u : 2u;
-        break;
-      case OP_DMERGE:
-        ir = in2 && (c != 0 ? in0 : in1);
-        ready = ir && all_out;
-        cons = (c != 0 ? 1u : 2u) | 4u;
-        break;
-      case OP_BRANCH:
-        ir = in0 && in1 && in2;      // in2 is the always-full pad
-        ready = in0 && in1 && (bv != 0 ? oe0 : oe1);
-        prod = bv != 0 ? 1u : 2u;
-        break;
-      default:
-        ir = in0 && in1 && in2;
-        ready = ir && all_out;
-    }
-  }
-  s_z[n] = alu(op, a, bv, c, in0);
-  s_cp[n] = ready ? static_cast<int>(cons | (prod << 3)) : 0;
-  if (kProf) {
-    nc.nf[n] += ready;
-    nc.si[n] += !ir;
-    nc.so[n] += ir && !ready;
-  }
-  return ready;
-}
-
-// Next full bit of arc i (gather only: it pulls from its producer and
-// consumer); *from is the producer row when the arc was produced this
-// cycle, -1 otherwise.
-__device__ __forceinline__ bool arc_next(const Tables& t, int i,
-                                         const int* s_full, const int* s_cp,
-                                         int* from) {
-  const int pn = __ldg(t.prod_node + i), ps = __ldg(t.prod_slot + i);
-  const int cn = __ldg(t.cons_node + i), cs = __ldg(t.cons_slot + i);
-  const bool produced = (s_cp[pn] >> (3 + ps)) & 1;
-  const bool consumed = (s_cp[cn] >> cs) & 1;
-  *from = produced ? pn : -1;
-  return (s_full[i] > 0 && !consumed) || produced ||
-         __ldg(t.const_mask + i) > 0;
-}
-
-// The opcode of row n from the class table (rows are bucketed in order).
-__device__ __forceinline__ int bucket_op(const int* s_cls, int n_classes,
-                                         int n) {
-  for (int k = 0; k < n_classes; ++k)
-    if (n < s_cls[3 * k + 2]) return s_cls[3 * k];
-  return OP_SINK;
-}
 
 __device__ __forceinline__ int prof_len(int k, int N2, int A2) {
   return k < 3 ? N2 : A2;
 }
 
+// The fire rule of G nodes (a group of slots of one lane), each with its
+// opcode op[g], on the (full, val) pairs of its three input arcs x0..x2
+// and the full bits of its two output arcs, without a divergent branch
+// (selects; `ops`, the opcodes the warp may meet, is uniform over it:
+// alu_select).  Sets each node's cp word: consume bits 0..2 (one per input
+// slot) and produce bits 3..4 (one per output slot) if it fires, 0 if not;
+// z, its ALU result (the merges pick an input); and ir, whether its
+// (selected) inputs are present (the profile's stall attribution).
+template <bool kControlFree, int G>
+__device__ __forceinline__ void fire_rule(const int (&op)[G],
+                                          const int2 (&x0)[G],
+                                          const int2 (&x1)[G],
+                                          const int2 (&x2)[G],
+                                          const int (&full_o0)[G],
+                                          const int (&full_o1)[G],
+                                          unsigned ops, int (&z)[G],
+                                          int (&cp)[G], int (&ir)[G]) {
+  int a[G], bv[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    a[g] = x0[g].y;
+    bv[g] = x1[g].y;
+  }
+  alu_select(op, a, bv, z, ops);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const bool all_in = (x0[g].x > 0) & (x1[g].x > 0) & (x2[g].x > 0);
+    ir[g] = all_in;
+    cp[g] = all_in & (full_o0[g] == 0) & (full_o1[g] == 0) ? 31 : 0;
+  }                                      // 31: consume all, produce both
+  if (kControlFree || !(ops & kOpControl)) return;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const bool in0 = x0[g].x > 0, in1 = x1[g].x > 0, in2 = x2[g].x > 0;
+    const bool oe0 = full_o0[g] == 0, oe1 = full_o1[g] == 0;
+    const bool all_in = in0 & in1 & in2, all_out = oe0 & oe1;
+    const bool nd = op[g] == OP_NDMERGE, dm = op[g] == OP_DMERGE;
+    const bool br = op[g] == OP_BRANCH, c3 = x2[g].y != 0;
+    const bool c2 = bv[g] != 0;
+    // BRANCH takes all inputs (in2 is the always-full pad) and needs only
+    // its chosen output empty
+    const bool r_in = nd ? in0 | in1 : dm ? in2 & (c3 ? in0 : in1) : all_in;
+    const bool ready = br ? in0 & in1 & (c2 ? oe0 : oe1) : r_in & all_out;
+    const int cons = nd ? (in0 ? 1 : 2) : dm ? (c3 ? 5 : 6) : 7;
+    const int prod = br ? (c2 ? 1 : 2) : 3;
+    ir[g] = r_in;
+    z[g] = nd ? (in0 ? a[g] : bv[g]) : dm ? (c3 ? a[g] : bv[g]) : z[g];
+    cp[g] = ready ? cons | prod << 3 : 0;
+  }
+}
+
+// One node's fire rule (the CTA variant and the fire step): fire_rule
+// with G = 1; returns cp.
+template <bool kControlFree>
+__device__ __forceinline__ int fire_rule1(int op, int2 x0, int2 x1, int2 x2,
+                                          int full_o0, int full_o1,
+                                          unsigned ops, int* z, bool* ir) {
+  const int op_[1] = {op}, o0[1] = {full_o0}, o1[1] = {full_o1};
+  const int2 a[1] = {x0}, b[1] = {x1}, c[1] = {x2};
+  int z_[1], cp[1], ir_[1];
+  fire_rule<kControlFree, 1>(op_, a, b, c, o0, o1, ops, z_, cp, ir_);
+  *z = z_[0];
+  *ir = ir_[0];
+  return cp[0];
+}
+
+// An arc's (full, val) after the fire, from its producer's (z, cp) pair and
+// its consumer's cp word (gather only: the one-sender/one-receiver rule).
+__device__ __forceinline__ int2 arc_fire(int full, int val, int ps, int cs,
+                                         bool is_const, int2 pz, int ccp) {
+  const bool produced = (pz.y >> (3 + ps)) & 1;
+  const bool consumed = (ccp >> cs) & 1;
+  return make_int2((full > 0 && !consumed) || produced || is_const,
+                   produced ? pz.x : val);
+}
+
+// The opcode of row n from the class table (rows are bucketed in order).
+__device__ __forceinline__ int bucket_op(const int* cls, int n_classes,
+                                         int n) {
+  for (int k = 0; k < n_classes; ++k)
+    if (n < cls[3 * k + 2]) return cls[3 * k];
+  return OP_SINK;
+}
+
+__device__ __forceinline__ int clamp_index(long long p, int L) {
+  return static_cast<int>(p < 0 ? 0 : (p > L - 1 ? L - 1 : p));
+}
+
+__device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// Stages the tokens feed row r of stream b can read in the next chunk of
+// cycles: fv[r, clamp(p) .. clamp(min(p + chunk, fl) - 1)], copied in
+// 16-byte pieces aligned on the device address (fv_al is feed_vals rounded
+// down to 16 bytes, mis the ints it was rounded by; a 16-byte piece never
+// straddles a page, so the few ints read around a row are mapped) into
+// s_win[r * window ...].  Returns the offset that maps a clamped feed index
+// to its token's slot: token = s_win[offset + clamp(ptr)].
+__device__ __forceinline__ int stage_row(const int* fv_al, int mis, int b,
+                                         int r, int p, int fl, const Dims& d,
+                                         int* s_win) {
+  const long long hi = min(static_cast<long long>(p) + d.chunk,
+                           static_cast<long long>(fl));
+  if (hi <= p) return 0;                       // the row feeds nothing
+  const int a = clamp_index(p, d.L), e = clamp_index(hi - 1, d.L);
+  const long long row = mis + (static_cast<long long>(b) * d.n_in + r) * d.L;
+  const long long start = (row + a) & ~3LL;
+  const int pieces = static_cast<int>((row + e - start) >> 2) + 1;
+  int* dst = s_win + r * d.window;
+  for (int k = 0; k < pieces; ++k)
+    cp_async16(dst + 4 * k, fv_al + start + 4 * k);
+  return r * d.window + static_cast<int>(row + a - start) - a;
+}
+
+// A parked stream's state and counters pass through; fired = last_prog =
+// 0.  Threads t0, t0 + nt, ... of the stream's warp or CTA copy.
+template <bool kProf>
+__device__ void copy_parked(const State& s, const Dims& d, int b, int t0,
+                            int nt) {
+  const size_t ba = static_cast<size_t>(b) * d.A2;
+  for (int i = t0; i < d.A2; i += nt) {
+    s.full_o[ba + i] = s.full[ba + i];
+    s.val_o[ba + i] = s.val[ba + i];
+  }
+  const size_t bi = static_cast<size_t>(b) * d.n_in;
+  for (int i = t0; i < d.n_in; i += nt) s.ptr_o[bi + i] = s.ptr[bi + i];
+  const size_t bo = static_cast<size_t>(b) * d.n_out;
+  for (int i = t0; i < d.n_out; i += nt) {
+    s.out_last_o[bo + i] = s.out_last[bo + i];
+    s.out_count_o[bo + i] = s.out_count[bo + i];
+  }
+  if (kProf) {
+    for (int k = 0; k < kProfArrays; ++k) {
+      const int n = prof_len(k, d.N2, d.A2);
+      const size_t off = static_cast<size_t>(b) * n;
+      for (int i = t0; i < n; i += nt)
+        s.prof_o[k][off + i] = s.prof[k][off + i];
+    }
+  }
+  if (t0 == 0) {
+    s.fired_o[b] = 0;
+    s.last_prog_o[b] = 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The warp variant
+// ---------------------------------------------------------------------------
+// Per-stream shared memory: (full, val)[A2], (z, cp)[N2], then the staged
+// windows [n_in][window], 16-byte aligned.
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t warp_stream_bytes(int N2, int A2, int n_in,
+                                                    int window) {
+  return align16(8 * static_cast<size_t>(A2)) +
+         align16(8 * static_cast<size_t>(N2)) +
+         4 * static_cast<size_t>(n_in) * window;
+}
+
+// An arc slot's word: the cp bits that fill it (its producer's produce
+// bit, 3-4) and empty it (its consumer's consume bit, 0-2), then const,
+// out_mask, read by an output row, strobed by a feed row, which writes it,
+// and that row (bits 16-23).
+constexpr unsigned kConst = 1u << 5, kOutMask = 1u << 6, kDrained = 1u << 7,
+                   kFed = 1u << 8, kWriter = 1u << 9;
+
+// A count of slots as a type, for the phases of the warp kernel.
+template <int N>
+struct Slots {
+  static constexpr int value = N;
+};
+
+__device__ __forceinline__ int2 lds2(const unsigned char* smem, int off) {
+  return *reinterpret_cast<const int2*>(smem + off);
+}
+
 template <bool kProf, bool kSpec, bool kControlFree>
-__global__ void fire_block_kernel(Tables t, State s, int N2, int A2,
-                                  int n_in, int n_out, int L, int n_cycles,
-                                  int n_classes) {
-  extern __shared__ int smem[];
-  __shared__ int s_cycle_fired;
-  __shared__ int s_cls[3 * kMaxClasses];
-  int* s_full = smem;
-  int* s_val = s_full + A2;
-  int* s_z = s_val + A2;
-  int* s_cp = s_z + N2;
-  int* s_ptr = s_cp + N2;
-  int* s_out_last = s_ptr + n_in;
-  int* s_out_count = s_out_last + n_out;
-  int* s_prof[kProfArrays];       // nf si so ab ahw (kProf only)
-  s_prof[0] = s_out_count + n_out;
-  for (int k = 1; k < kProfArrays; ++k)
-    s_prof[k] = s_prof[k - 1] + prof_len(k - 1, N2, A2);
-  const NodeCounters nc{s_prof[0], s_prof[1], s_prof[2]};
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int lane = tid & 31;
-  const int* full = s.full + static_cast<size_t>(b) * A2;
-  const int* val = s.val + static_cast<size_t>(b) * A2;
-  const int* ptr = s.ptr + static_cast<size_t>(b) * n_in;
-  const int* out_last = s.out_last + static_cast<size_t>(b) * n_out;
-  const int* out_count = s.out_count + static_cast<size_t>(b) * n_out;
-  int* full_o = s.full_o + static_cast<size_t>(b) * A2;
-  int* val_o = s.val_o + static_cast<size_t>(b) * A2;
-  int* ptr_o = s.ptr_o + static_cast<size_t>(b) * n_in;
-  int* out_last_o = s.out_last_o + static_cast<size_t>(b) * n_out;
-  int* out_count_o = s.out_count_o + static_cast<size_t>(b) * n_out;
-
+__global__ void __launch_bounds__(32 * kMaxStreams)
+    fire_block_warp_kernel(Tables t, State s, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.x * d.streams + warp;
+  if (b >= d.B) return;                  // the last CTA may be part-filled
   if (s.active != nullptr && s.active[b] == 0) {
-    // parked stream: the whole CTA copies the state through
-    for (int i = tid; i < A2; i += nt) {
-      full_o[i] = full[i];
-      val_o[i] = val[i];
-    }
-    for (int i = tid; i < n_in; i += nt) ptr_o[i] = ptr[i];
-    for (int i = tid; i < n_out; i += nt) {
-      out_last_o[i] = out_last[i];
-      out_count_o[i] = out_count[i];
-    }
-    if (kProf) {
-      for (int k = 0; k < kProfArrays; ++k) {
-        const int n = prof_len(k, N2, A2);
-        const size_t off = static_cast<size_t>(b) * n;
-        for (int i = tid; i < n; i += nt) s.prof_o[k][off + i] = s.prof[k][off + i];
-      }
-    }
-    if (tid == 0) {
-      s.fired_o[b] = 0;
-      s.last_prog_o[b] = 0;
-    }
+    copy_parked<kProf>(s, d, b, lane, 32);
     return;
   }
+  // byte offsets in smem of this stream's (full, val) and (z, cp) pairs
+  const int fv0 =
+      warp * static_cast<int>(warp_stream_bytes(d.N2, d.A2, d.n_in, d.window));
+  const int zc0 = fv0 + static_cast<int>(align16(8 * d.A2));
+  int* s_win = reinterpret_cast<int*>(smem + zc0 +
+                                      static_cast<int>(align16(8 * d.N2)));
+  // slots j < rn (ra) hold node (arc) rows on some lane: conditions on the
+  // launch's arguments, so uniform branches; a lane past a table's end
+  // runs the slot on row 0's offsets and stores nothing
+  const int rn = (d.N2 + 31) >> 5, ra = (d.A2 + 31) >> 5;
+  const int mis = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(s.feed_vals) >> 2) & 3);
+  const int* fv_al = s.feed_vals - mis;
+  const size_t bn = static_cast<size_t>(b) * d.N2;
+  const size_t ba = static_cast<size_t>(b) * d.A2;
+  const size_t bi = static_cast<size_t>(b) * d.n_in;
 
-  const int* fv = s.feed_vals + static_cast<size_t>(b) * n_in * L;
-  const int* fl = s.feed_len + static_cast<size_t>(b) * n_in;
-  for (int i = tid; i < A2; i += nt) {
-    s_full[i] = full[i];
-    s_val[i] = val[i];
+  // Rows, once per launch.  Every slot's loads go first, in one block
+  // (rows past a table's end load its last row, unused), then what
+  // depends on them.  Node slot: the byte offsets of its five arcs'
+  // (full, val) pairs and its opcode (the opcode table's, which
+  // device_tables checked equals the bucket's under kSpec).  Arc slot: the
+  // offsets of its producer's and consumer's (z, cp) pairs, its word, its
+  // registers, and its feed row (at most one: the warp variant's
+  // condition), whose CSR position, row, pointer and length are three
+  // rounds of loads.
+  int nofs[kRows][5], nop[kRows];
+  int nf[kRows], si[kRows], so[kRows];
+  int apo[kRows], aco[kRows];
+  unsigned aw[kRows];
+  int full[kRows], val[kRows], ptr[kRows], fl[kRows], wofs[kRows];
+  int gots[kRows], last[kRows], ab[kRows], ahw[kRows], frow[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int n = min(lane + 32 * j, d.N2 - 1);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) nofs[j][k] = __ldg(t.in_idx + 3 * n + k);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) nofs[j][3 + k] = __ldg(t.out_idx + 2 * n + k);
+    nop[j] = __ldg(t.opcode + n);
+    nf[j] = kProf ? s.prof[0][bn + n] : 0;
+    si[j] = kProf ? s.prof[1][bn + n] : 0;
+    so[j] = kProf ? s.prof[2][bn + n] : 0;
+    const int i = min(lane + 32 * j, d.A2 - 1);
+    apo[j] = __ldg(t.prod_node + i);
+    aco[j] = __ldg(t.cons_node + i);
+    aw[j] = 8u << __ldg(t.prod_slot + i) | 1u << __ldg(t.cons_slot + i);
+    if (__ldg(t.const_mask + i) > 0) aw[j] |= kConst;
+    if (__ldg(t.out_mask + i) > 0) aw[j] |= kOutMask;
+    if (__ldg(t.out_ptr + i + 1) > __ldg(t.out_ptr + i)) aw[j] |= kDrained;
+    const int f0 = __ldg(t.feed_ptr + i), f1 = __ldg(t.feed_ptr + i + 1);
+    frow[j] = f1 > f0 ? f0 : -1;
+    full[j] = s.full[ba + i];
+    val[j] = s.val[ba + i];
+    ab[j] = kProf ? s.prof[3][ba + i] : 0;
+    ahw[j] = kProf ? s.prof[4][ba + i] : 0;
+    ptr[j] = fl[j] = wofs[j] = gots[j] = last[j] = 0;
   }
-  for (int i = tid; i < n_in; i += nt) s_ptr[i] = ptr[i];
-  for (int i = tid; i < n_out; i += nt) {
-    s_out_last[i] = out_last[i];
-    s_out_count[i] = out_count[i];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const bool av = lane + 32 * j < d.A2;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) nofs[j][k] = fv0 + 8 * nofs[j][k];
+    apo[j] = zc0 + 8 * apo[j];
+    aco[j] = zc0 + 8 * aco[j];
+    aw[j] = av ? aw[j] : 0u;
+    frow[j] = av ? frow[j] : -1;
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+    if (frow[j] >= 0) frow[j] = __ldg(t.feed_rows + frow[j]);
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (frow[j] >= 0) {
+      const int r = frow[j];
+      ptr[j] = s.ptr[bi + r];
+      fl[j] = s.feed_len[bi + r];
+      aw[j] |= kFed | static_cast<unsigned>(r) << 16;
+      if (__ldg(t.env_row + lane + 32 * j) == r) aw[j] |= kWriter;
+    }
+  }
+  const int win_last = d.n_in * d.window - 1;
+
+  // Each phase takes its slots in groups (node slots in pairs, arc slots
+  // in fours), each group one block of straight code so that its slots'
+  // loads and arithmetic overlap.  A group runs when its first slot holds
+  // rows on some lane (a condition on the launch's arguments, so a uniform
+  // branch); a slot past a table's end runs on its offsets and stores
+  // nothing.  A pair's opcode groups (nops), and a quad's drain and strobe
+  // (aflags), run only when some lane's rows there need them (uniform
+  // over the warp).
+  int fired = 0, last_prog = 0;          // this lane's
+  unsigned nops[kRows / 2], aflags[kRows / 4];
+#pragma unroll
+  for (int j = 0; j < kRows; j += 2) {
+    const bool v0 = lane + 32 * j < d.N2, v1 = lane + 32 * (j + 1) < d.N2;
+    nops[j / 2] = __reduce_or_sync(
+        0xffffffffu, (v0 ? 1u << nop[j] : 0u) | (v1 ? 1u << nop[j + 1] : 0u));
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; j += 4)
+    aflags[j / 4] = __reduce_or_sync(
+        0xffffffffu, aw[j] | aw[j + 1] | aw[j + 2] | aw[j + 3]);
+
+  // node phase, two slots at a time: the fire rule on the post-feed
+  // registers
+  auto node_pair = [&](auto first, int cyc) {
+    constexpr int j0 = decltype(first)::value;
+    int op[2], o0[2], o1[2], z[2], cp[2], ir[2];
+    int2 x0[2], x1[2], x2[2];
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int j = j0 + g;
+      op[g] = nop[j];
+      x0[g] = lds2(smem, nofs[j][0]);
+      x1[g] = lds2(smem, nofs[j][1]);
+      x2[g] = lds2(smem, nofs[j][2]);
+      o0[g] = lds2(smem, nofs[j][3]).x;
+      o1[g] = lds2(smem, nofs[j][4]).x;
+    }
+    fire_rule<kControlFree, 2>(op, x0, x1, x2, o0, o1, nops[j0 / 2], z, cp,
+                               ir);
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int j = j0 + g, n = lane + 32 * j;
+      const bool valid = n < d.N2, fires = valid & (cp[g] != 0);
+      if (valid)
+        *reinterpret_cast<int2*>(smem + zc0 + 8 * n) = make_int2(z[g], cp[g]);
+      fired += fires;
+      last_prog = fires ? cyc + 1 : last_prog;
+      if (kProf) {
+        nf[j] += fires;
+        si[j] += !ir[g];
+        so[j] += ir[g] & (cp[g] == 0);
+      }
+    }
+  };
+  // arc phase, four slots at a time: fire, sample, drain, clear, strobe
+  // for the next cycle (the chunk's last cycle leaves that to the next
+  // chunk's start)
+  auto arc_quad = [&](auto first, int cyc, bool feed_next) {
+    constexpr int j0 = decltype(first)::value;
+    const unsigned q = aflags[j0 / 4];
+    int2 pz[4];
+    int ccp[4], f[4], v[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      pz[g] = lds2(smem, apo[j0 + g]);
+      ccp[g] = lds2(smem, aco[j0 + g]).y;
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int j = j0 + g;
+      const bool produced = (pz[g].y & aw[j] & 0x18u) != 0;
+      const bool consumed = (ccp[g] & aw[j] & 0x07u) != 0;
+      f[g] = ((full[j] > 0) & !consumed) | produced | ((aw[j] & kConst) != 0);
+      v[g] = produced ? pz[g].x : val[j];
+      if (kProf) {
+        ab[j] += f[g];
+        ahw[j] = max(ahw[j], f[g]);
+      }
+    }
+    if (q & (kDrained | kOutMask)) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int j = j0 + g;
+        const bool got = ((aw[j] & kDrained) != 0) & (f[g] != 0);
+        gots[j] += got;
+        last[j] = got ? v[g] : last[j];
+        last_prog = got ? max(last_prog, cyc + 1) : last_prog;
+        f[g] = (aw[j] & kOutMask) != 0 ? 0 : f[g];
+      }
+    }
+    if (feed_next & ((q & kFed) != 0)) {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int j = j0 + g;
+        const bool feed =
+            ((aw[j] & kFed) != 0) & (f[g] == 0) & (ptr[j] < fl[j]);
+        // the token's slot, clamped into the windows (a lane that does
+        // not feed reads some token and drops it)
+        const int tok = s_win[min(
+            max(wofs[j] + clamp_index(ptr[j], d.L), 0), win_last)];
+        const bool wr = feed & ((aw[j] & kWriter) != 0);
+        v[g] = wr ? tok : v[g];
+        f[g] = wr ? 1 : f[g];
+        ptr[j] += feed;
+        last_prog = feed ? cyc + 2 : last_prog;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int j = j0 + g, i = lane + 32 * j;
+      full[j] = f[g];
+      val[j] = v[g];
+      if (i < d.A2)
+        *reinterpret_cast<int2*>(smem + fv0 + 8 * i) = make_int2(f[g], v[g]);
+    }
+  };
+
+  for (int c0 = 0; c0 < d.n_cycles; c0 += d.chunk) {
+    // the chunk's feed windows, staged from the pointers (each lane its
+    // own rows: only it reads them), then cycle c0's feed
+    const int c1 = min(c0 + d.chunk, d.n_cycles);
+#pragma unroll
+    for (int j = 0; j < kRows; ++j)
+      if (j < ra && (aw[j] & kWriter))
+        wofs[j] = stage_row(fv_al, mis, b, static_cast<int>(aw[j] >> 16),
+                            ptr[j], fl[j], d, s_win);
+    cp_async_wait_all();
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      if (j < ra) {
+        const bool feed = (aw[j] & kFed) && full[j] == 0 && ptr[j] < fl[j];
+        if (feed && (aw[j] & kWriter)) {
+          val[j] = s_win[wofs[j] + clamp_index(ptr[j], d.L)];
+          full[j] = 1;
+        }
+        ptr[j] += feed;
+        last_prog = feed ? c0 + 1 : last_prog;
+        if (lane + 32 * j < d.A2)
+          *reinterpret_cast<int2*>(smem + fv0 + 8 * (lane + 32 * j)) =
+              make_int2(full[j], val[j]);
+      }
+    }
+    __syncwarp();
+
+    for (int cyc = c0; cyc < c1; ++cyc) {
+      node_pair(Slots<0>{}, cyc);
+      if (rn > 2) node_pair(Slots<2>{}, cyc);
+      if (rn > 4) node_pair(Slots<4>{}, cyc);
+      if (rn > 6) node_pair(Slots<6>{}, cyc);
+      __syncwarp();
+      arc_quad(Slots<0>{}, cyc, cyc + 1 < c1);
+      if (ra > 4) arc_quad(Slots<4>{}, cyc, cyc + 1 < c1);
+      __syncwarp();
+    }
+  }
+
+  fired = __reduce_add_sync(0xffffffffu, fired);
+  last_prog = __reduce_max_sync(0xffffffffu, last_prog);
+  if (lane == 0) {
+    s.fired_o[b] = fired;
+    s.last_prog_o[b] = last_prog;
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    const int n = lane + 32 * j;
+    if (kProf && j < rn && n < d.N2) {
+      s.prof_o[0][bn + n] = nf[j];
+      s.prof_o[1][bn + n] = si[j];
+      s.prof_o[2][bn + n] = so[j];
+    }
+    const int i = lane + 32 * j;
+    if (j < ra && i < d.A2) {
+      s.full_o[ba + i] = full[j];
+      s.val_o[ba + i] = val[j];
+      if (kProf) {
+        s.prof_o[3][ba + i] = ab[j];
+        s.prof_o[4][ba + i] = ahw[j];
+      }
+      if (aw[j] & kFed) s.ptr_o[bi + (aw[j] >> 16)] = ptr[j];
+      if (aw[j] & kDrained) {
+        const size_t bo = static_cast<size_t>(b) * d.n_out;
+        for (int k = __ldg(t.out_ptr + i); k < __ldg(t.out_ptr + i + 1);
+             ++k) {
+          const int r = __ldg(t.out_rows + k);
+          s.out_count_o[bo + r] = s.out_count[bo + r] + gots[j];
+          s.out_last_o[bo + r] = gots[j] ? last[j] : s.out_last[bo + r];
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The CTA variant (fabrics above 32 * kRows rows in some table)
+// ---------------------------------------------------------------------------
+// Shared memory, in order: the staged windows [n_in][window] (16-byte
+// aligned), (full, val)[A2] and (z, cp)[N2] pairs, then ints gots[A2]
+// last[A2] ptr[n_in] fl[n_in] wofs[n_in], and with counters nf[N2] si[N2]
+// so[N2] ab[A2] ahw[A2].
+__host__ __device__ inline size_t cta_bytes(int N2, int A2, int n_in,
+                                            int window, bool prof) {
+  size_t ints = 2 * static_cast<size_t>(A2) + 3 * static_cast<size_t>(n_in);
+  if (prof) ints += 3 * static_cast<size_t>(N2) + 2 * static_cast<size_t>(A2);
+  return align16(4 * static_cast<size_t>(n_in) * window) +
+         8 * (static_cast<size_t>(A2) + N2) + 4 * ints;
+}
+// the CTA variant's static arrays: the class table and the end-of-launch
+// reduction
+constexpr size_t kStaticSmemBytes = sizeof(int) * (3 * kMaxClasses + 64);
+
+template <bool kProf, bool kSpec, bool kControlFree>
+__global__ void fire_block_cta_kernel(Tables t, State s, Dims d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_cls[3 * kMaxClasses];
+  __shared__ int s_red[64];
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  if (s.active != nullptr && s.active[b] == 0) {
+    copy_parked<kProf>(s, d, b, tid, nt);
+    return;
+  }
+  const int N2 = d.N2, A2 = d.A2, n_in = d.n_in;
+  int* s_win = reinterpret_cast<int*>(smem);
+  int2* s_fv = reinterpret_cast<int2*>(
+      smem + align16(4 * static_cast<size_t>(n_in) * d.window));
+  int2* s_zc = s_fv + A2;
+  int* s_gots = reinterpret_cast<int*>(s_zc + N2);
+  int* s_last = s_gots + A2;
+  int* s_ptr = s_last + A2;
+  int* s_fl = s_ptr + n_in;
+  int* s_wofs = s_fl + n_in;
+  int* s_prof[kProfArrays];
+  s_prof[0] = s_wofs + n_in;
+  for (int k = 1; k < kProfArrays; ++k)
+    s_prof[k] = s_prof[k - 1] + prof_len(k - 1, N2, A2);
+  const int mis = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(s.feed_vals) >> 2) & 3);
+  const int* fv_al = s.feed_vals - mis;
+
+  for (int i = tid; i < A2; i += nt) {
+    const size_t o = static_cast<size_t>(b) * A2 + i;
+    s_fv[i] = make_int2(s.full[o], s.val[o]);
+    s_gots[i] = s_last[i] = 0;
+  }
+  for (int r = tid; r < n_in; r += nt) {
+    s_ptr[r] = s.ptr[static_cast<size_t>(b) * n_in + r];
+    s_fl[r] = s.feed_len[static_cast<size_t>(b) * n_in + r];
   }
   if (kProf) {
     for (int k = 0; k < kProfArrays; ++k) {
@@ -300,84 +689,112 @@ __global__ void fire_block_kernel(Tables t, State s, int N2, int A2,
     }
   }
   if (kSpec)
-    for (int i = tid; i < 3 * n_classes; i += nt) s_cls[i] = t.class_table[i];
+    for (int i = tid; i < 3 * d.n_classes; i += nt)
+      s_cls[i] = t.class_table[i];
   __syncthreads();
-  // the specialized rule: this thread's first row takes its bucket's
-  // opcode once per launch (rows past the first — only when N2 exceeds the
-  // CTA — look theirs up per cycle)
-  const int my_op = kSpec ? bucket_op(s_cls, n_classes, tid) : 0;
 
-  int fired = 0;       // uniform across the CTA
-  int last_prog = 0;   // uniform across the CTA
-  for (int cyc = 0; cyc < n_cycles; ++cyc) {
+  // each thread strobes the feed rows of the arcs it owns, from windows
+  // it staged itself; every row of an arc sees the same post-drain bit
+  auto strobe = [&](int i, int& f, int& v) {
     bool prog = false;
-    // 1. feed: strobe each empty input arc from its stream
-    for (int r = tid; r < n_in; r += nt) {
-      const int arc = __ldg(t.in_arc_idx + r);
+    const int f0 = f;
+    for (int k = __ldg(t.feed_ptr + i); k < __ldg(t.feed_ptr + i + 1); ++k) {
+      const int r = __ldg(t.feed_rows + k);
       const int p = s_ptr[r];
-      if (s_full[arc] == 0 && p < fl[r]) {
-        if (__ldg(t.env_row + arc) == r) {   // pad rows write no arc
-          s_val[arc] = fv[static_cast<size_t>(r) * L + min(max(p, 0), L - 1)];
-          s_full[arc] = 1;
-        }
-        s_ptr[r] = p + 1;
-        prog = true;
+      if (f0 != 0 || p >= s_fl[r]) continue;
+      if (__ldg(t.env_row + i) == r) {
+        v = s_win[s_wofs[r] + clamp_index(p, d.L)];
+        f = 1;
       }
+      s_ptr[r] = p + 1;
+      prog = true;
     }
-    if (tid == 0) s_cycle_fired = 0;   // last read before the previous
-                                       // cycle's closing barrier
-    __syncthreads();
+    return prog;
+  };
 
-    // 2. node phase: the fire rule on the post-feed registers
-    int nfire = 0;
-    for (int n = tid; n < N2; n += nt) {
-      const int op = !kSpec ? __ldg(t.opcode + n)
-                   : n == tid ? my_op : bucket_op(s_cls, n_classes, n);
-      nfire += fire_node<kProf, kControlFree>(t, n, op, s_full, s_val, s_z,
-                                              s_cp, nc);
-    }
-    nfire = __reduce_add_sync(0xffffffffu, nfire);
-    if (lane == 0 && nfire) atomicAdd(&s_cycle_fired, nfire);
-    __syncthreads();
-
-    // 3. arc phase, gather only; the occupancy sample (post-fire,
-    //    pre-drain) is the full bit written here
+  int fired = 0, last_prog = 0;          // this thread's
+  for (int c0 = 0; c0 < d.n_cycles; c0 += d.chunk) {
+    const int c1 = min(c0 + d.chunk, d.n_cycles);
+    for (int i = tid; i < A2; i += nt)
+      for (int k = __ldg(t.feed_ptr + i); k < __ldg(t.feed_ptr + i + 1); ++k) {
+        const int r = __ldg(t.feed_rows + k);
+        if (__ldg(t.env_row + i) == r)
+          s_wofs[r] = stage_row(fv_al, mis, b, r, s_ptr[r], s_fl[r], d, s_win);
+      }
+    cp_async_wait_all();
     for (int i = tid; i < A2; i += nt) {
-      int from;
-      const bool f = arc_next(t, i, s_full, s_cp, &from);
-      if (from >= 0) s_val[i] = s_z[from];
-      s_full[i] = f;
-      if (kProf) {
-        s_prof[3][i] += f;
-        s_prof[4][i] = max(s_prof[4][i], static_cast<int>(f));
-      }
+      int2 x = s_fv[i];
+      if (strobe(i, x.x, x.y)) last_prog = c0 + 1;
+      s_fv[i] = x;
     }
     __syncthreads();
 
-    // 4. drain the output buses into the accumulators
-    for (int r = tid; r < n_out; r += nt) {
-      const int arc = __ldg(t.out_arc_idx + r);
-      if (s_full[arc] > 0) {
-        s_out_last[r] = s_val[arc];
-        s_out_count[r] += 1;
-        prog = true;
+    for (int cyc = c0; cyc < c1; ++cyc) {
+      for (int n = tid; n < N2; n += nt) {
+        const int op = kSpec ? bucket_op(s_cls, d.n_classes, n)
+                             : __ldg(t.opcode + n);
+        int z;
+        bool ir;
+        const int cp = fire_rule1<kControlFree>(
+            op, s_fv[__ldg(t.in_idx + 3 * n)],
+            s_fv[__ldg(t.in_idx + 3 * n + 1)],
+            s_fv[__ldg(t.in_idx + 3 * n + 2)],
+            s_fv[__ldg(t.out_idx + 2 * n)].x,
+            s_fv[__ldg(t.out_idx + 2 * n + 1)].x, d.ops, &z, &ir);
+        s_zc[n] = make_int2(z, cp);
+        fired += cp != 0;
+        last_prog = cp ? cyc + 1 : last_prog;
+        if (kProf) {
+          s_prof[0][n] += cp != 0;
+          s_prof[1][n] += !ir;
+          s_prof[2][n] += ir && !cp;
+        }
       }
-      if (__ldg(t.out_mask + arc) > 0) s_full[arc] = 0;
+      __syncthreads();
+      const bool feed_next = cyc + 1 < c1;
+      for (int i = tid; i < A2; i += nt) {
+        const int2 cur = s_fv[i];
+        const int2 nx = arc_fire(
+            cur.x, cur.y, __ldg(t.prod_slot + i), __ldg(t.cons_slot + i),
+            __ldg(t.const_mask + i) > 0, s_zc[__ldg(t.prod_node + i)],
+            s_zc[__ldg(t.cons_node + i)].y);
+        int f = nx.x, v = nx.y;
+        if (kProf) {
+          s_prof[3][i] += f;
+          s_prof[4][i] = max(s_prof[4][i], f);
+        }
+        if (f && __ldg(t.out_ptr + i + 1) > __ldg(t.out_ptr + i)) {
+          ++s_gots[i];
+          s_last[i] = v;
+          last_prog = cyc + 1;
+        }
+        if (__ldg(t.out_mask + i) > 0) f = 0;
+        if (feed_next && strobe(i, f, v)) last_prog = cyc + 2;
+        s_fv[i] = make_int2(f, v);
+      }
+      __syncthreads();
     }
-    const int cycle_fired = s_cycle_fired;   // read before the barrier
-    fired += cycle_fired;
-    if (__syncthreads_or(prog || cycle_fired > 0)) last_prog = cyc + 1;
   }
 
+  fired = __reduce_add_sync(0xffffffffu, fired);
+  last_prog = __reduce_max_sync(0xffffffffu, last_prog);
+  if ((tid & 31) == 0) {
+    s_red[tid >> 5] = fired;
+    s_red[32 + (tid >> 5)] = last_prog;
+  }
   for (int i = tid; i < A2; i += nt) {
-    full_o[i] = s_full[i];
-    val_o[i] = s_val[i];
+    const size_t o = static_cast<size_t>(b) * A2 + i;
+    s.full_o[o] = s_fv[i].x;
+    s.val_o[o] = s_fv[i].y;
+    const size_t bo = static_cast<size_t>(b) * d.n_out;
+    for (int k = __ldg(t.out_ptr + i); k < __ldg(t.out_ptr + i + 1); ++k) {
+      const int r = __ldg(t.out_rows + k);
+      s.out_count_o[bo + r] = s.out_count[bo + r] + s_gots[i];
+      s.out_last_o[bo + r] = s_gots[i] ? s_last[i] : s.out_last[bo + r];
+    }
   }
-  for (int i = tid; i < n_in; i += nt) ptr_o[i] = s_ptr[i];
-  for (int i = tid; i < n_out; i += nt) {
-    out_last_o[i] = s_out_last[i];
-    out_count_o[i] = s_out_count[i];
-  }
+  for (int r = tid; r < n_in; r += nt)
+    s.ptr_o[static_cast<size_t>(b) * n_in + r] = s_ptr[r];
   if (kProf) {
     for (int k = 0; k < kProfArrays; ++k) {
       const int n = prof_len(k, N2, A2);
@@ -385,106 +802,187 @@ __global__ void fire_block_kernel(Tables t, State s, int N2, int A2,
       for (int i = tid; i < n; i += nt) s.prof_o[k][off + i] = s_prof[k][i];
     }
   }
-  if (tid == 0) {
-    s.fired_o[b] = fired;
-    s.last_prog_o[b] = last_prog;
+  __syncthreads();
+  if (tid < 32) {
+    const int nw = (nt + 31) >> 5;
+    const int f = __reduce_add_sync(0xffffffffu, tid < nw ? s_red[tid] : 0);
+    const int lp =
+        __reduce_max_sync(0xffffffffu, tid < nw ? s_red[32 + tid] : 0);
+    if (tid == 0) {
+      s.fired_o[b] = f;
+      s.last_prog_o[b] = lp;
+    }
   }
 }
 
-// One fire step with no environment, one CTA: the block kernel's node and
-// arc phases once, dense rule.
+// ---------------------------------------------------------------------------
+// The fire step
+// ---------------------------------------------------------------------------
+// One fire step with no environment, one CTA, dense rule.  Shared memory:
+// (full, val)[A2] and (z, cp)[N2] pairs.
 __global__ void fire_step_kernel(Tables t, const int* full, const int* val,
                                  int* full_o, int* val_o, int* fired_o,
                                  int N2, int A2) {
-  extern __shared__ int smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_fired;
-  int* s_full = smem;
-  int* s_val = s_full + A2;
-  int* s_z = s_val + A2;
-  int* s_cp = s_z + N2;
+  int2* s_fv = reinterpret_cast<int2*>(smem);
+  int2* s_zc = s_fv + A2;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  for (int i = tid; i < A2; i += nt) {
-    s_full[i] = full[i];
-    s_val[i] = val[i];
-  }
+  for (int i = tid; i < A2; i += nt) s_fv[i] = make_int2(full[i], val[i]);
   if (tid == 0) s_fired = 0;
   __syncthreads();
   int nfire = 0;
-  for (int n = tid; n < N2; n += nt)
-    nfire += fire_node<false, false>(t, n, __ldg(t.opcode + n), s_full,
-                                     s_val, s_z, s_cp, NodeCounters{});
+  for (int n = tid; n < N2; n += nt) {
+    int z;
+    bool ir;
+    const int cp = fire_rule1<false>(
+        __ldg(t.opcode + n), s_fv[__ldg(t.in_idx + 3 * n)],
+        s_fv[__ldg(t.in_idx + 3 * n + 1)], s_fv[__ldg(t.in_idx + 3 * n + 2)],
+        s_fv[__ldg(t.out_idx + 2 * n)].x,
+        s_fv[__ldg(t.out_idx + 2 * n + 1)].x, kOpAll, &z, &ir);
+    s_zc[n] = make_int2(z, cp);
+    nfire += cp != 0;
+  }
   nfire = __reduce_add_sync(0xffffffffu, nfire);
   if ((tid & 31) == 0 && nfire) atomicAdd(&s_fired, nfire);
   __syncthreads();
   for (int i = tid; i < A2; i += nt) {
-    int from;
-    full_o[i] = arc_next(t, i, s_full, s_cp, &from);
-    val_o[i] = from >= 0 ? s_z[from] : s_val[i];
+    const int2 nx = arc_fire(
+        s_fv[i].x, s_fv[i].y, __ldg(t.prod_slot + i), __ldg(t.cons_slot + i),
+        __ldg(t.const_mask + i) > 0, s_zc[__ldg(t.prod_node + i)],
+        s_zc[__ldg(t.cons_node + i)].y);
+    full_o[i] = nx.x;
+    val_o[i] = nx.y;
   }
   if (tid == 0) fired_o[0] = s_fired;
 }
 
+// ---------------------------------------------------------------------------
+// The latency floor
+// ---------------------------------------------------------------------------
+// The warp variant's dependent chain with no table work, for timing: one
+// warp, n_cycles iterations of a node phase (five independent (full, val)
+// loads at addresses held in registers, the rule's arithmetic, one (z, cp)
+// store), __syncwarp, an arc phase (two independent (z, cp) loads, one
+// (full, val) store), __syncwarp.  One lane per node and arc: the least a
+// cycle of the warp variant can take.
+__global__ void fire_floor_kernel(int* out, int n_cycles) {
+  __shared__ int2 s_fv[64];
+  __shared__ int2 s_zc[32];
+  const int lane = threadIdx.x & 31;
+  const int i0 = (5 * lane + 1) & 63, i1 = (7 * lane + 2) & 63;
+  const int i2 = (11 * lane + 3) & 63, o0 = (13 * lane + 4) & 63;
+  const int o1 = (3 * lane + 5) & 63;
+  const int pn = (9 * lane + 7) & 31, cn = (17 * lane + 1) & 31;
+  int full = lane & 1, val = lane;
+  s_fv[lane] = make_int2(full, val);
+  s_fv[lane + 32] = make_int2(lane & 2, -lane);
+  __syncwarp();
+  for (int cyc = 0; cyc < n_cycles; ++cyc) {
+    const int2 a = s_fv[i0], bb = s_fv[i1], c = s_fv[i2];
+    const int e0 = s_fv[o0].x, e1 = s_fv[o1].x;
+    const bool ready = a.x > 0 && bb.x > 0 && c.x > 0 && e0 == 0 && e1 == 0;
+    s_zc[lane] = make_int2(a.y + bb.y, ready ? 31 : 0);
+    __syncwarp();
+    const int2 pz = s_zc[pn];
+    const int ccp = s_zc[cn].y;
+    const bool produced = (pz.y >> 3) & 1, consumed = ccp & 1;
+    full = (full > 0 && !consumed) || produced;
+    val = produced ? pz.x : val;
+    s_fv[lane] = make_int2(full, val);
+    __syncwarp();
+  }
+  out[lane] = full + val;
+}
+
 int cta_threads(int n) {
-  return std::min(1024, (std::max(n, 1) + 31) / 32 * 32);
+  return std::min(kCtaThreads, (std::max(n, 1) + 31) / 32 * 32);
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, int grid, int threads, size_t smem,
+           cudaStream_t stream, const Tables& t, const State& s,
+           const Dims& d) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, threads, smem, stream>>>(t, s, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kProf, bool kSpec, bool kControlFree>
-int launch_block(const Tables& t, const State& s, int B, int N2, int A2,
-                 int n_in, int n_out, int L, int n_cycles, int n_classes,
+int launch_block(const Tables& t, const State& s, const Dims& d, bool warp,
                  cudaStream_t stream) {
-  const size_t smem = dynamic_smem_bytes(N2, A2, n_in, n_out, kProf);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fire_block_kernel<kProf, kSpec, kControlFree>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (warp) {
+    const size_t smem =
+        d.streams * warp_stream_bytes(d.N2, d.A2, d.n_in, d.window);
+    return launch(fire_block_warp_kernel<kProf, kSpec, kControlFree>,
+                  (d.B + d.streams - 1) / d.streams, 32 * d.streams, smem,
+                  stream, t, s, d);
   }
-  const int threads = cta_threads(std::max(std::max(N2, A2),
-                                           std::max(n_in, n_out)));
-  fire_block_kernel<kProf, kSpec, kControlFree>
-      <<<B, threads, smem, stream>>>(t, s, N2, A2, n_in, n_out, L, n_cycles,
-                                     n_classes);
-  return static_cast<int>(cudaGetLastError());
+  const int threads = cta_threads(std::max(std::max(d.N2, d.A2),
+                                           std::max(d.n_in, d.n_out)));
+  return launch(fire_block_cta_kernel<kProf, kSpec, kControlFree>, d.B,
+                threads, cta_bytes(d.N2, d.A2, d.n_in, d.window, kProf),
+                stream, t, s, d);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the fire-block kernel on `stream`; returns cudaGetLastError()
-// (0 = ok).  class_table == nullptr selects the dense rule, prof == nullptr
-// (all five) the unprofiled instantiation; control_free must be 1 only when
-// no bucket of class_table holds NDMERGE, DMERGE or BRANCH.
+// Launches a fire-block kernel on `stream`; returns cudaGetLastError() (0 =
+// ok).  class_table == nullptr selects the dense rule, prof == nullptr (all
+// five) the unprofiled instantiation; control_free must be 1 only when no
+// bucket of class_table holds NDMERGE, DMERGE or BRANCH; bit k of ops is set
+// when some node has opcode k.  variant 0 is the
+// warp variant (every table at most 32 * kRows rows, at most one feed row
+// per arc, streams warps per CTA), 1 the CTA variant; chunk is the cycles
+// per staged feed window and window the ints per staged row.
 int fire_block_launch(
     const int* opcode, const int* in_idx, const int* out_idx,
     const int* prod_node, const int* prod_slot, const int* cons_node,
     const int* cons_slot, const int* const_mask, const int* env_row,
     const int* in_arc_idx, const int* out_arc_idx, const int* out_mask,
-    const int* class_table, const int* feed_vals, const int* feed_len,
-    const int* full, const int* val, const int* ptr, const int* out_last,
-    const int* out_count, const int* active, const int* nf, const int* si,
-    const int* so, const int* ab, const int* ahw, int* full_o, int* val_o,
-    int* ptr_o, int* out_last_o, int* out_count_o, int* fired_o,
-    int* last_prog_o, int* nf_o, int* si_o, int* so_o, int* ab_o,
-    int* ahw_o, int B, int N2, int A2, int n_in, int n_out, int L,
-    int n_cycles, int n_classes, int control_free, void* stream) {
+    const int* class_table, const int* feed_ptr, const int* feed_rows,
+    const int* out_ptr, const int* out_rows, const int* feed_vals,
+    const int* feed_len, const int* full, const int* val, const int* ptr,
+    const int* out_last, const int* out_count, const int* active,
+    const int* nf, const int* si, const int* so, const int* ab,
+    const int* ahw, int* full_o, int* val_o, int* ptr_o, int* out_last_o,
+    int* out_count_o, int* fired_o, int* last_prog_o, int* nf_o, int* si_o,
+    int* so_o, int* ab_o, int* ahw_o, int B, int N2, int A2, int n_in,
+    int n_out, int L, int n_cycles, int n_classes, int control_free,
+    int ops, int variant, int chunk, int window, int streams,
+    void* stream) {
   if (class_table != nullptr && (n_classes < 1 || n_classes > kMaxClasses))
     return static_cast<int>(cudaErrorInvalidValue);
-  Tables t{opcode, in_idx, out_idx, prod_node, prod_slot, cons_node,
-           cons_slot, const_mask, env_row, in_arc_idx, out_arc_idx,
-           out_mask, class_table};
+  const bool warp = variant == 0;
+  if (chunk < 1 || window < 4 * (((chunk + 2) >> 2) + 1) || window % 4 ||
+      (warp && (std::max(std::max(N2, A2), std::max(n_in, n_out)) >
+                    32 * kRows ||
+                streams < 1 || streams > kMaxStreams)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tables t{opcode,    in_idx,      out_idx,     prod_node,  prod_slot,
+           cons_node, cons_slot,   const_mask,  env_row,    in_arc_idx,
+           out_arc_idx, out_mask,  class_table, feed_ptr,   feed_rows,
+           out_ptr,   out_rows};
   State s{feed_vals, feed_len, full, val, ptr, out_last, out_count, active,
           {nf, si, so, ab, ahw}, full_o, val_o, ptr_o, out_last_o,
           out_count_o, fired_o, last_prog_o,
           {nf_o, si_o, so_o, ab_o, ahw_o}};
+  const Dims d{B,         N2,     A2,     n_in,    n_out,
+               L,         n_cycles, n_classes, chunk, window,
+               warp ? streams : 1, static_cast<unsigned>(ops)};
   const bool prof = nf != nullptr;
   const bool spec = class_table != nullptr;
   const bool cf = spec && control_free != 0;
   const auto st = static_cast<cudaStream_t>(stream);
-#define FIRE_BLOCK_LAUNCH(P, S, C) \
-  launch_block<P, S, C>(t, s, B, N2, A2, n_in, n_out, L, n_cycles, \
-                        n_classes, st)
+#define FIRE_BLOCK_LAUNCH(P, S, C) launch_block<P, S, C>(t, s, d, warp, st)
   if (prof) {
     if (!spec) return FIRE_BLOCK_LAUNCH(true, false, false);
     return cf ? FIRE_BLOCK_LAUNCH(true, true, true)
@@ -504,10 +1002,10 @@ int fire_step_launch(
     const int* cons_slot, const int* const_mask, const int* full,
     const int* val, int* full_o, int* val_o, int* fired_o, int N2, int A2,
     void* stream) {
-  Tables t{opcode, in_idx, out_idx, prod_node, prod_slot, cons_node,
-           cons_slot, const_mask, nullptr, nullptr, nullptr, nullptr,
-           nullptr};
-  const size_t smem = dynamic_smem_bytes(N2, A2, 0, 0, false);
+  Tables t{opcode,    in_idx,    out_idx,    prod_node, prod_slot, cons_node,
+           cons_slot, const_mask, nullptr,   nullptr,   nullptr,   nullptr,
+           nullptr,   nullptr,   nullptr,    nullptr,   nullptr};
+  const size_t smem = 8 * (static_cast<size_t>(A2) + N2);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         fire_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -520,12 +1018,25 @@ int fire_step_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory (dynamic + static) one CTA of the fire-block kernel needs
-// for a fabric, in bytes; the fire step needs at most the value for
-// n_in = n_out = 0 without counters.
-int fire_block_smem_bytes(int N2, int A2, int n_in, int n_out, int prof) {
-  return static_cast<int>(dynamic_smem_bytes(N2, A2, n_in, n_out, prof != 0) +
-                          kStaticSmemBytes);
+// Launches the latency-floor kernel (one warp) on `stream`.
+int fire_floor_launch(int* out, int n_cycles, void* stream) {
+  fire_floor_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, n_cycles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory one CTA of a fire-block kernel needs, in bytes: variant 0
+// (warp) per stream (a CTA of S streams needs S times it), variant 1 (CTA)
+// dynamic and static together; variant 2 the fire step.  window: ints per
+// staged feed row.
+int fire_block_smem_bytes(int N2, int A2, int n_in, int prof, int variant,
+                          int window) {
+  if (variant == 0)
+    return static_cast<int>(warp_stream_bytes(N2, A2, n_in, window));
+  if (variant == 1)
+    return static_cast<int>(cta_bytes(N2, A2, n_in, window, prof != 0) +
+                            kStaticSmemBytes);
+  return static_cast<int>(8 * (static_cast<size_t>(A2) + N2));
 }
 
 // Dynamic shared memory one block may opt in to on `device`, in bytes.

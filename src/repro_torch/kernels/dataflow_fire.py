@@ -32,12 +32,20 @@ This module holds, side by side:
 * the **plain PyTorch versions** :func:`fire_block`,
   :func:`fire_block_batched` (B streams as an explicit leading
   dimension, with the per-stream ``active`` gate) and :func:`fire_step`;
+* :func:`fire_block_two_phase`, the same block computed in the CUDA
+  kernel's own cycle order (two phases per cycle, feed and drain on the
+  arc's lane through :func:`reverse_maps`, lane-local counts, staged
+  feed windows); the tests and ``chip_smoke.py`` hold it against the
+  JAX package and the kernel, the main path never runs it;
 * the **kernel wrappers** :func:`fire_block_cuda`,
   :func:`fire_block_batched_cuda` and :func:`fire_step_cuda`.  On CUDA
   tensors they launch the hand-written kernels of
   ``csrc/dataflow_fire.cu`` (built at first use, see
   :mod:`repro_torch.kernels._build`) and count the launch; on CPU
-  tensors they compute the plain version and build nothing.
+  tensors they compute the plain version and build nothing.  The block
+  kernel comes in two variants, chosen by :func:`block_variant` from the
+  fabric's size: ``"warp"`` (one warp per stream, tables in registers)
+  and ``"cta"`` (one CTA per stream).
 
 Tables (int32; A2 = arcs + 2 pad slots, N2 = nodes + 1 dummy SINK row):
   opcode[N2], in_idx[N2,3], out_idx[N2,2]            node table
@@ -46,6 +54,9 @@ Tables (int32; A2 = arcs + 2 pad slots, N2 = nodes + 1 dummy SINK row):
   in_arc_idx[n_in], out_arc_idx[n_out]               feed / drain rows
   class_slices ((op, lo, hi), ...)                   opcode buckets
                                                      (optimized plans)
+  feed_ptr[A2+1], feed_rows[n_in]                    arc -> its feed rows
+  out_ptr[A2+1], out_rows[n_out]                     arc -> its output rows
+                                                     (device_tables, CSR)
 """
 from __future__ import annotations
 
@@ -62,11 +73,20 @@ TABLE_KEYS = ("opcode", "in_idx", "out_idx", "prod_node", "prod_slot",
               "cons_node", "cons_slot", "const_mask", "env_row",
               "in_arc_idx", "out_arc_idx", "out_mask")
 STEP_KEYS = TABLE_KEYS[:8]      # what one fire step reads
+REVERSE_KEYS = ("feed_ptr", "feed_rows", "out_ptr", "out_rows")
 
 _INT_MIN = -(2 ** 31)
 _CTRL_OPS = (int(Op.NDMERGE), int(Op.DMERGE), int(Op.BRANCH))
 # a plan has at most one bucket per opcode plus the trailing dummy row's
 MAX_CLASSES = len(Op) + 1
+# the block kernel's variants; the warp variant takes fabrics whose every
+# table has at most WARP_ROWS rows (8 per lane: csrc kRows), packing up to
+# MAX_STREAMS streams into a CTA
+VARIANTS = ("warp", "cta")
+WARP_ROWS = 32 * 8
+MAX_STREAMS = 4
+# cycles per staged feed window (fewer when shared memory is short)
+STAGE_CYCLES = 64
 
 
 # ---------------------------------------------------------------------------
@@ -141,15 +161,56 @@ def block_plan_arrays(graph, optimize: bool = False):
     return t
 
 
+def reverse_maps(in_arc_idx, out_arc_idx, A2: int) -> dict:
+    """The kernel's reverse maps, as CSR int32 arrays: the feed rows
+    whose ``in_arc_idx`` is arc a are ``feed_rows[feed_ptr[a]:
+    feed_ptr[a + 1]]`` (pad rows included), the output rows whose
+    ``out_arc_idx`` is a are ``out_rows[out_ptr[a]:out_ptr[a + 1]]``;
+    rows keep their order within an arc.  Every row appears once."""
+    out = {}
+    for tag, idx in (("feed", in_arc_idx), ("out", out_arc_idx)):
+        idx = np.asarray(idx, np.int64)
+        out[f"{tag}_ptr"] = np.concatenate(
+            [[0], np.cumsum(np.bincount(idx, minlength=A2))]).astype(np.int32)
+        out[f"{tag}_rows"] = np.argsort(idx, kind="stable").astype(np.int32)
+    return out
+
+
+def window_ints(chunk: int) -> int:
+    """Ints of shared memory per staged feed row for ``chunk`` cycles:
+    the chunk's tokens plus the slack of a start rounded down to 16
+    bytes, in whole 16-byte pieces."""
+    return 4 * (((chunk + 2) >> 2) + 1)
+
+
 class FireTables(dict):
     """Device copies of the :data:`TABLE_KEYS` tables, bounds-checked on
     the host by :func:`device_tables` — the only tables the kernels
-    take, since they index shared memory with their values.  An
-    optimized plan adds ``class_table`` (int32 [n_classes, 3] rows of
-    op, lo, hi), with ``class_slices`` (the same buckets as a tuple) and
-    ``control_free`` (no NDMERGE/DMERGE/BRANCH bucket) as attributes."""
+    take, since they index shared memory with their values — and the
+    :data:`REVERSE_KEYS` maps of :func:`reverse_maps`.  An optimized
+    plan adds ``class_table`` (int32 [n_classes, 3] rows of op, lo, hi),
+    with ``class_slices`` (the same buckets as a tuple) and
+    ``control_free`` (no NDMERGE/DMERGE/BRANCH bucket) as attributes.
+    ``variant`` is the block kernel's variant for the fabric
+    (:func:`block_variant`); bit k of ``ops`` is set when some node has
+    opcode k."""
     class_slices = None
     control_free = False
+    variant = "cta"
+    ops = (1 << len(Op)) - 1
+
+
+def block_variant(tables) -> str:
+    """The block kernel's variant for numpy or device tables: ``"warp"``
+    when the node, arc, feed and output tables each have at most
+    :data:`WARP_ROWS` rows and no arc is strobed by two feed rows (true
+    of every fabric's tables: only hand-made ones repeat an input arc),
+    ``"cta"`` otherwise."""
+    sizes = (len(tables["opcode"]), len(tables["prod_node"]),
+             len(tables["in_arc_idx"]), len(tables["out_arc_idx"]))
+    rows = np.bincount(np.asarray(tables["in_arc_idx"], np.int64).ravel(),
+                       minlength=1)
+    return "warp" if max(sizes) <= WARP_ROWS and rows.max() <= 1 else "cta"
 
 
 def _class_slices(tables):
@@ -196,8 +257,11 @@ def device_tables(tables, device) -> FireTables:
         if edge != N2:
             raise ValueError(f"buckets cover rows 0..{edge}, want 0..{N2}")
         t["class_table"] = np.asarray(cs, np.int32)
+    t.update(reverse_maps(t["in_arc_idx"], t["out_arc_idx"], A2))
     out = FireTables({k: torch.tensor(x, device=device)
                       for k, x in t.items()})
+    out.variant = block_variant(t)
+    out.ops = int(np.bitwise_or.reduce(1 << t["opcode"].astype(np.int64)))
     if cs is not None:
         out.class_slices = cs
         out.control_free = not any(op in _CTRL_OPS for op, _, _ in cs)
@@ -469,6 +533,158 @@ def fire_block(tables, feed_vals, feed_len, full, val, ptr, out_last,
             *(x[0] for x in res[7:]))
 
 
+# stands where the kernel's shared memory holds no token of the row
+_STALE = -1234567
+
+
+def _stage(fv_flat, mis, ptr, fl, rows, chunk, L, W):
+    """The windows the kernel stages at a chunk's start, as the device
+    copies them: for each feed row in ``rows`` [R] of each stream, the
+    16-byte pieces (from ``fv_flat``, the streams' tokens behind ``mis``
+    ints of a 16-byte boundary) holding fv[r, clamp(ptr) ..
+    clamp(min(ptr + chunk, fl) - 1)]; returns windows [B, R, W] (other
+    slots stale) and the offsets that map a clamped index to its slot."""
+    B, n_in = fl.shape
+    p = ptr[:, rows].long()
+    hi = torch.minimum(p + chunk, fl[:, rows].long())
+    a, e = p.clamp(0, L - 1), (hi - 1).clamp(0, L - 1)
+    row = mis + (torch.arange(B, device=p.device)[:, None] * n_in
+                 + rows[None]) * L
+    start = (row + a) & ~3
+    pieces = ((row + e - start) >> 2) + 1
+    k = torch.arange(W, device=p.device)
+    idx = start[..., None] + k
+    held = (k < 4 * pieces[..., None]) & (hi > p)[..., None]
+    win = torch.where(held, fv_flat[idx.clamp(0, fv_flat.numel() - 1)],
+                      torch.full_like(idx, _STALE, dtype=fv_flat.dtype))
+    return win, row + a - start - a
+
+
+def fire_block_two_phase(tables, feed_vals, feed_len, full, val, ptr,
+                         out_last, out_count, *, n_cycles: int, active=None,
+                         prof=None, chunk: int = STAGE_CYCLES,
+                         misalign: int = 0):
+    """The batched block in the CUDA kernel's own order (plain PyTorch,
+    for the tests and ``chip_smoke.py``; the main path runs
+    :func:`fire_block_batched`).  Same arguments and results as
+    :func:`fire_block_batched`; the results must be equal.  The order:
+
+    * cycle 0's feed is a prologue; each cycle is a node phase (the fire
+      rule, counted per lane) and an arc phase in which each arc, on its
+      own lane, takes its next state, samples the counters, drains into
+      its output rows and is cleared under ``out_mask``, then is strobed
+      for the next cycle from its feed rows (the last cycle feeds
+      nothing): arcs reach their rows through :func:`reverse_maps`;
+    * ``fired`` and ``last_prog`` are kept per lane (row % 32) and
+      reduced once at the end;
+    * feed tokens are read from windows staged every ``chunk`` cycles
+      as the kernel stages them (``misalign``: ints between the tokens'
+      start and a 16-byte boundary); a token read outside its window
+      would come back as a stale value."""
+    dev = full.device
+    tab = _long_tables(tables, dev)
+    rev = {k: torch.as_tensor(np.asarray(v), device=dev).long() for k, v in
+           reverse_maps(tab["in_arc_idx"].cpu().numpy(),
+                        tab["out_arc_idx"].cpu().numpy(),
+                        full.shape[1]).items()}
+    B, A2 = full.shape
+    n_in, L = feed_vals.shape[1], feed_vals.shape[2]
+    N2 = tab["opcode"].shape[0]
+    W = window_ints(chunk)
+    lanes = 32
+    arc_lane = torch.arange(A2, device=dev) % lanes
+    node_lane = torch.arange(N2, device=dev) % lanes
+    # the reverse maps: each feed row's arc, and whether it writes it
+    row_arc = torch.repeat_interleave(
+        torch.arange(A2, device=dev), rev["feed_ptr"].diff())
+    rows = rev["feed_rows"]
+    row_arc = torch.empty_like(rows).scatter_(0, rows, row_arc)
+    writer = tab["env_row"][row_arc] == torch.arange(n_in, device=dev)
+    wrows = torch.nonzero(writer).flatten()
+    drained = rev["out_ptr"].diff() > 0
+    out_arc = torch.repeat_interleave(
+        torch.arange(A2, device=dev), rev["out_ptr"].diff())
+    row_of_out = torch.empty_like(rev["out_rows"]).scatter_(
+        0, rev["out_rows"], out_arc)
+
+    old = (full, val, ptr, out_last, out_count, *(prof or ()))
+    fv_flat = torch.cat([
+        torch.full((misalign,), _STALE, dtype=feed_vals.dtype, device=dev),
+        feed_vals.reshape(-1),
+        torch.full((W + 8,), _STALE, dtype=feed_vals.dtype, device=dev)])
+    cls = _class_slices(tables)
+    fl = feed_len
+    fired_l = torch.zeros((B, lanes), dtype=torch.int32, device=dev)
+    lp_l = torch.zeros_like(fired_l)
+    gots = torch.zeros_like(full)
+    last = torch.zeros_like(val)
+
+    def mark(lp, hit, lane_of, cyc):
+        """last_prog = cyc on the lanes of the rows where ``hit``
+        [B, rows] holds."""
+        on = torch.zeros_like(lp).index_add(1, lane_of, hit.to(lp.dtype))
+        return torch.where(on > 0, torch.full_like(lp, cyc), lp)
+
+    def strobe(full, val, ptr, lp, win, wofs, cyc):
+        """Every feed row strobes its arc from its window."""
+        can = (full[:, row_arc] == 0) & (ptr < fl)
+        hit = can[:, wrows]
+        slot = wofs + ptr[:, wrows].long().clamp(0, L - 1)
+        inside = (slot >= 0) & (slot < W)
+        tok = torch.gather(win, 2, slot.clamp(0, W - 1)[..., None])[..., 0]
+        tok = torch.where(inside, tok, torch.full_like(tok, _STALE))
+        arcs = row_arc[wrows]
+        val, full = val.clone(), full.clone()
+        val[:, arcs] = torch.where(hit, tok, val[:, arcs])
+        full[:, arcs] = torch.where(hit, torch.ones_like(tok),
+                                    full[:, arcs])
+        return (full, val, ptr + can.to(ptr.dtype),
+                mark(lp, can, arc_lane[row_arc], cyc))
+
+    if n_cycles > 0:
+        win, wofs = _stage(fv_flat, misalign, ptr, fl, wrows, chunk, L, W)
+        full, val, ptr, lp_l = strobe(full, val, ptr, lp_l, win, wofs, 1)
+    for cyc in range(n_cycles):
+        if cyc % chunk == chunk - 1 and cyc + 1 < n_cycles:
+            win, wofs = _stage(fv_flat, misalign, ptr, fl, wrows, chunk, L,
+                               W)
+        # node phase
+        if prof is not None:
+            ir = _node_inputs_ready(tab["opcode"], tab["in_idx"], full, val)
+        full_f, val_f, ready = _fire_parts(tab, full, val, cls)
+        fired_l = fired_l.index_add(1, node_lane, ready.to(torch.int32))
+        lp_l = mark(lp_l, ready, node_lane, cyc + 1)
+        # arc phase: sample, drain, clear, strobe the next cycle
+        full, val = full_f, val_f
+        if prof is not None:
+            nf, si, so, ab, ahw = prof
+            occ = (full > 0).to(torch.int32)
+            prof = (nf + ready.to(torch.int32), si + (~ir).to(torch.int32),
+                    so + (ir & ~ready).to(torch.int32), ab + occ,
+                    torch.maximum(ahw, occ))
+        got = (full > 0) & drained
+        gots = gots + got.to(gots.dtype)
+        last = torch.where(got, val, last)
+        lp_l = mark(lp_l, got, arc_lane, cyc + 1)
+        full = torch.where(tab["out_mask"] > 0, torch.zeros_like(full), full)
+        if cyc + 1 < n_cycles:
+            full, val, ptr, lp_l = strobe(full, val, ptr, lp_l, win, wofs,
+                                          cyc + 2)
+    got_r = gots[:, row_of_out]
+    out_count = out_count + got_r
+    out_last = torch.where(got_r > 0, last[:, row_of_out], out_last)
+    fired = fired_l.sum(1, dtype=torch.int32)
+    lp = lp_l.amax(1)
+    state = (full, val, ptr, out_last, out_count, *(prof or ()))
+    if active is not None:
+        keep = active != 0
+        state = tuple(torch.where(keep[:, None], n, o)
+                      for n, o in zip(state, old))
+        fired = torch.where(keep, fired, torch.zeros_like(fired))
+        lp = torch.where(keep, lp, torch.zeros_like(lp))
+    return (*state[:5], fired[:, None], lp[:, None], *state[5:])
+
+
 def fire_step(tables, full, val):
     """Plain PyTorch fire step, no environment: registers full/val[A2]
     -> (full', val', fired[1]).  Always the dense rule (as
@@ -509,17 +725,50 @@ def _check_smem(index, nbytes, what):
                          f"CTA; the card gives {_smem_limit(index)}")
 
 
+def launch_plan(variant, N2, A2, n_in, B, n_cycles, prof, smem_bytes,
+                smem_limit):
+    """How a block launch runs: (chunk, window ints per staged row,
+    streams per CTA).  The chunk is
+    :data:`STAGE_CYCLES` cycles (at most the block's), halved until the
+    CTA's shared memory fits the card's ``smem_limit``; the warp variant
+    packs up to :data:`MAX_STREAMS` streams into a CTA while two such
+    CTAs fit an SM.  ``smem_bytes`` is the library's
+    ``fire_block_smem_bytes``."""
+    code = VARIANTS.index(variant)
+    chunk = max(1, min(STAGE_CYCLES, n_cycles))
+    while True:
+        window = window_ints(chunk)
+        per = smem_bytes(N2, A2, n_in, int(prof), code, window)
+        if per <= smem_limit or chunk == 1:
+            break
+        chunk = (chunk + 1) // 2
+    if per > smem_limit:
+        raise ValueError(f"the fabric needs {per} B of shared memory per "
+                         f"CTA; the card gives {smem_limit}")
+    streams = 1
+    if variant == "warp":
+        streams = max(1, min(MAX_STREAMS, B, smem_limit // 2 // per))
+    return chunk, window, streams
+
+
 def _launch(tables, feed_vals, feed_len, state, active, prof, n_cycles,
-            batched):
-    """Check the arguments and launch the fire-block kernel (grid = B):
-    the profiled instantiation when ``prof`` is given, the specialized
-    one when the tables carry opcode buckets.  Returns the freshly
-    allocated outputs."""
+            batched, variant=None, chunk=None):
+    """Check the arguments and launch the fire-block kernel: the
+    variant ``variant`` (default the tables' own, from the fabric's
+    size), the profiled instantiation when ``prof`` is given, the
+    specialized one when the tables carry opcode buckets; feed windows
+    staged every ``chunk`` cycles (default :func:`launch_plan`'s).
+    Returns the freshly allocated outputs."""
     from repro_torch.kernels import _build
     if not isinstance(tables, FireTables):
         raise TypeError("the kernel takes tables from device_tables() only")
     if n_cycles < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
+    variant = tables.variant if variant is None else variant
+    if variant not in VARIANTS or (variant == "warp"
+                                   and tables.variant != "warp"):
+        raise ValueError(f"variant {variant!r} cannot run this fabric "
+                         f"(its tables take {tables.variant!r})")
     full = state[0]
     dev = full.device
     B = full.shape[0] if batched else 1
@@ -553,8 +802,14 @@ def _launch(tables, feed_vals, feed_len, state, active, prof, n_cycles,
     lib = _build.load()
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    _check_smem(index, lib.fire_block_smem_bytes(
-        N2, A2, n_in, n_out, int(prof is not None)), "the fabric")
+    plan_chunk, window, streams = launch_plan(
+        variant, N2, A2, n_in, B, n_cycles, prof is not None,
+        lib.fire_block_smem_bytes, _smem_limit(index))
+    if chunk is not None:
+        if not 1 <= chunk <= plan_chunk:
+            raise ValueError(f"chunk must be in [1, {plan_chunk}], got "
+                             f"{chunk}")
+        window = window_ints(chunk)
     cls = tables.get("class_table")
     with torch.cuda.device(index):
         outs = [torch.empty_like(x) for x in state]
@@ -564,17 +819,34 @@ def _launch(tables, feed_vals, feed_len, state, active, prof, n_cycles,
         none5 = [None] * 5
         err = lib.fire_block_launch(
             *(_vp(tables[k]) for k in TABLE_KEYS), _vp(cls),
+            *(_vp(tables[k]) for k in REVERSE_KEYS),
             _vp(feed_vals), _vp(feed_len), *(_vp(x) for x in state),
             _vp(active), *(_vp(x) for x in prof or none5),
             *(_vp(x) for x in outs), _vp(fired), _vp(last_prog),
             *(_vp(x) for x in prof_out or none5),
             B, N2, A2, n_in, n_out, L, int(n_cycles),
             0 if cls is None else cls.shape[0], int(tables.control_free),
+            tables.ops, VARIANTS.index(variant),
+            chunk or plan_chunk, window, streams,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
         raise RuntimeError("fire_block kernel launch failed: "
                            + lib.fire_block_error_string(err).decode())
     return (*outs, fired, last_prog, *prof_out)
+
+
+def launch_variant(variant, tables, feed_vals, feed_len, full, val, ptr,
+                   out_last, out_count, *, n_cycles: int, active=None,
+                   prof=None, chunk=None, batched=True):
+    """One launch of the block kernel's ``variant`` (``"warp"`` only for
+    tables that take it) with feed windows staged every ``chunk`` cycles,
+    on CUDA tensors, counted nowhere: the tests and ``chip_smoke.py``
+    hold each variant against the plain versions and the other variant
+    with it.  Arguments and results as :func:`fire_block_batched_cuda`
+    (``batched=False``: :func:`fire_block_cuda`'s)."""
+    return _launch(tables, feed_vals, feed_len,
+                   (full, val, ptr, out_last, out_count), active, prof,
+                   n_cycles, batched, variant, chunk)
 
 
 def _on_cpu(*xs) -> bool:
@@ -589,13 +861,15 @@ def _on_cpu(*xs) -> bool:
 def _count(wrapper, tables, prof):
     """One launch on ``wrapper``'s counts: ``prof_launches`` for the
     profiled instantiation, else ``launches``; ``spec_launches`` also
-    counts those of the specialized rule."""
+    counts those of the specialized rule, and ``launches_by`` each
+    launch under its variant."""
     if prof is None:
         wrapper.launches += 1
     else:
         wrapper.prof_launches += 1
     if tables.class_slices is not None:
         wrapper.spec_launches += 1
+    wrapper.launches_by[tables.variant] += 1
 
 
 def fire_block_cuda(tables, feed_vals, feed_len, full, val, ptr, out_last,
@@ -619,8 +893,8 @@ def fire_block_batched_cuda(tables, feed_vals, feed_len, full, val, ptr,
                             active=None, prof=None):
     """Batched block step (the counterpart of
     ``fire_block_batched_pallas``, with ``prof`` of its profiled form):
-    one CTA per stream, parked streams (active == 0) pass their state
-    and counters through.  CUDA tensors launch the kernel and count the
+    one warp (or, for a large fabric, one CTA) per stream, parked
+    streams (active == 0) pass their state and counters through.  CUDA tensors launch the kernel and count the
     launch (see :func:`_count`); CPU tensors take
     :func:`fire_block_batched`."""
     state = (full, val, ptr, out_last, out_count)
@@ -655,7 +929,7 @@ def fire_step_cuda(tables, full, val):
     lib = _build.load()
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    _check_smem(index, lib.fire_block_smem_bytes(N2, A2, 0, 0, 0),
+    _check_smem(index, lib.fire_block_smem_bytes(N2, A2, 0, 0, 2, 0),
                 "the fabric")
     with torch.cuda.device(index):
         full_o, val_o = torch.empty_like(full), torch.empty_like(val)
@@ -673,4 +947,5 @@ def fire_step_cuda(tables, full, val):
 
 for _w in (fire_block_cuda, fire_block_batched_cuda):
     _w.launches = _w.prof_launches = _w.spec_launches = 0
+    _w.launches_by = dict.fromkeys(VARIANTS, 0)
 fire_step_cuda.launches = 0

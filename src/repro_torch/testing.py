@@ -60,10 +60,11 @@ def random_prof(tables, B: int, rng) -> tuple:
             rng.integers(0, 2, (B, A2)).astype(np.int32))
 
 
-def random_graph(seed: int):
+def random_graph(seed: int, nodes: int | None = None):
     """A random well-formed acyclic fabric over the whole opcode set
     (control operators included), reading environment streams, open
-    producer outputs and const buses holding int32 edge values."""
+    producer outputs and const buses holding int32 edge values; 6-13
+    nodes, or ``nodes``."""
     from repro_torch.core.graph import ARITY, Graph, Op
     rng = np.random.default_rng(5000 + seed)
     g = Graph(name=f"random{seed}")
@@ -85,7 +86,8 @@ def random_graph(seed: int):
         return fresh("x")
 
     ops = list(Op)
-    for i in range(int(rng.integers(6, 14))):
+    for i in range(nodes if nodes is not None
+                   else int(rng.integers(6, 14))):
         op = ops[seed % len(ops)] if i == 0 else ops[rng.integers(len(ops))]
         n_in, n_out = ARITY[op]
         ins = [src(i == 0 and k == 0) for k in range(n_in)]

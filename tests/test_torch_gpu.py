@@ -1,5 +1,6 @@
 """The CUDA kernels on the card: every instantiation of the fire block
-(dense or specialized rule, unprofiled or profiled), the fire step and
+(dense or specialized rule, unprofiled or profiled, in its warp and CTA
+variants), the fire step and
 the two static-schedule kernels against their plain PyTorch versions,
 and the engine (dynamic and scheduled), ``run_fabric`` and the server
 against the numpy oracle.
@@ -197,6 +198,88 @@ def test_spec_kernel_on_random_graphs(cuda, seed):
         got = df.fire_block_batched_cuda(dt, *args, **kw)
         _assert_equal(got, df.fire_block_batched(dt, *args, **kw))
         _assert_equal(got, df.fire_block_batched_cuda(dense, *args, **kw))
+
+
+def _variant_inputs(cuda, tables, B, L, seed):
+    rng = np.random.default_rng(seed)
+    x = {k: torch.tensor(v, device=cuda)
+         for k, v in random_block_inputs(tables, B, L, rng).items()}
+    x["active"][1] = 0
+    prof = tuple(torch.tensor(p, device=cuda)
+                 for p in random_prof(tables, B, rng))
+    return x, prof, [x["feed_vals"], x["feed_len"],
+                     *(x[k] for k in STATE_KEYS)]
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("name", ["dot_prod", "bubble_sort", "fibonacci"])
+def test_both_variants_match_plain_and_each_other(cuda, name, optimize):
+    """The warp and CTA variants on the same inputs: B = 11 streams (the
+    warp variant's last CTA part-filled) with parked ones, K past one
+    staging chunk and a small chunk restaged many times, unprofiled and
+    profiled, against the plain version, the two-phase replay and each
+    other; single-stream launches too."""
+    tables = df.block_plan_arrays(_bench(name).graph, optimize=optimize)
+    dt = df.device_tables(tables, cuda)
+    assert dt.variant == "warp"
+    x, prof, args = _variant_inputs(cuda, tables, 11, df.STAGE_CYCLES + 40,
+                                    5)
+    mis = x["feed_vals"].data_ptr() // 4 % 4
+    for K, chunk in ((16, None), (df.STAGE_CYCLES + 1, None), (9, 4)):
+        for pr in (None, prof):
+            kw = dict(n_cycles=K, active=x["active"], prof=pr)
+            want = df.fire_block_batched(dt, *args, **kw)
+            warp = df.launch_variant("warp", dt, *args, chunk=chunk, **kw)
+            cta = df.launch_variant("cta", dt, *args, chunk=chunk, **kw)
+            _assert_equal(warp, want)
+            _assert_equal(cta, warp)
+            _assert_equal(df.fire_block_two_phase(
+                dt, *args, chunk=chunk or df.STAGE_CYCLES, misalign=mis,
+                **kw), warp)
+            p1 = None if pr is None else tuple(p[0] for p in pr)
+            one = [a[0] for a in args]
+            want1 = df.fire_block(dt, *one, n_cycles=K, prof=p1)
+            for v in df.VARIANTS:
+                _assert_equal(df.launch_variant(
+                    v, dt, *one, n_cycles=K, prof=p1, chunk=chunk,
+                    batched=False), want1)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_cta_variant_on_a_fabric_above_the_warp_size(cuda, seed):
+    """A seeded random fabric with more than WARP_ROWS rows takes the
+    CTA-wide kernel (counted under "cta"); the warp variant refuses it."""
+    tables = df.block_plan_arrays(random_graph(seed, nodes=150),
+                                  optimize=seed % 2 == 1)
+    dt = df.device_tables(tables, cuda)
+    assert dt.variant == "cta"
+    x, prof, args = _variant_inputs(cuda, tables, 6, df.STAGE_CYCLES + 10,
+                                    seed)
+    w = df.fire_block_batched_cuda
+    for K in (8, df.STAGE_CYCLES + 1):
+        for pr in (None, prof):
+            kw = dict(n_cycles=K, active=x["active"], prof=pr)
+            before = dict(w.launches_by)
+            got = w(dt, *args, **kw)
+            assert w.launches_by == dict(before, cta=before["cta"] + 1)
+            _assert_equal(got, df.fire_block_batched(dt, *args, **kw))
+    with pytest.raises(ValueError, match="variant"):
+        df.launch_variant("warp", dt, *args, n_cycles=4)
+
+
+def test_launches_by_counts_the_variant_that_ran(cuda):
+    tables = df.block_plan_arrays(_bench("dot_prod").graph)
+    dt = df.device_tables(tables, cuda)
+    x, _, args = _variant_inputs(cuda, tables, 5, 16, 0)
+    for w, a, kw in ((df.fire_block_batched_cuda, args,
+                      dict(active=x["active"])),
+                     (df.fire_block_cuda, [v[0] for v in args], {})):
+        before = dict(w.launches_by)
+        w(dt, *a, n_cycles=4, **kw)
+        assert w.launches_by == dict(before, warp=before["warp"] + 1)
+    n = dict(df.fire_block_batched_cuda.launches_by)
+    df.launch_variant("cta", dt, *args, n_cycles=4)    # counted nowhere
+    assert df.fire_block_batched_cuda.launches_by == n
 
 
 @pytest.mark.parametrize("name", sorted(library.BENCHES))
