@@ -36,7 +36,19 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              (the run over 1024 equal 4096-token dot_prod streams, the
              slot step at the scheduled serving state, B = 1024, K = 64),
              each also against the fire block over the same cycles, with
-             their times;
+             their times; the run kernel's two variants (warp: one warp a
+             stream, program, tables and feed windows on chip; CTA) bit
+             for bit against the plain run on the 6 schedulable benches at
+             B = 1, 8 and 1024 and stream lengths 1, W - 1, W, W + 1, 97
+             and 4096 (W the planned window, and W = 4), with clamped
+             feeds, misaligned tokens and rows fed every cycle; both
+             variants' times at full width and at phase 4's shape
+             (dot_prod, B = 8, 9 tokens) and the variant's latency floor
+             (its own loop over the program on one stream of one warp,
+             the feed windows staged once); both RMSNorm variants
+             (split, generic) against the plain version at
+             1-14812 rows by d = 32, 130, 2048 and 4096 in f32 and bf16,
+             both roundings, with the wrapper's choice checked;
 4. engine  — ``DataflowEngine(optimize=, profile=)`` ``run`` /
              ``run_batch`` against ``run_reference`` (7 benches, both
              flags, K in {1, 16, 64}); ``schedule=True`` on the 6
@@ -73,7 +85,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              ``F.scaled_dot_product_attention`` and ``F.rms_norm`` on the
              same inputs (timed only, never used by the port); RMSNorm
              and ``F.rms_norm`` also by CUDA events with a cold L2 (a
-             256 MB write before each call), the row's times;
+             256 MB write before each call, the two and every RMSNorm
+             variant timed in turns), the row's times, and at the decode
+             step's [4, 1, 2048]
+             by CUDA-graph replays over 4 input sets and cold per call;
 8. LM serving — internlm2-1.8b at full width on the card: seeded
              ``init_params`` (peak memory), ``python -m
              repro_torch.launch.serve --full`` with the JAX launcher's
@@ -92,7 +107,8 @@ The launch counts in the summary come from the main paths alone: every
 count is set to 0 just before phase 4 and read after phase 5, before
 the sampled checks (the fabric's rows 1-8), and set to 0 again just
 before phase 8 and read after the long wave, before its plain replay
-(the LM's rows 9-10, and row 9's launches per attention variant).  The
+(the LM's rows 9-10, and rows 9's and 10's launches per variant;
+rows 1-5's and 7's per variant come from phases 4-5).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
@@ -204,10 +220,12 @@ def launch_counts() -> dict:
             "fire_block_spec": one.spec_launches + bat.spec_launches,
             "fire_step": df.fire_step_cuda.launches,
             "sched_run": ksf.sched_run_cuda.launches,
+            "sched_run_by": dict(ksf.sched_run_cuda.launches_by),
             "sched_slot_step": ksf.sched_slot_step_cuda.launches,
             "flash_attention": fa.flash_attention_cuda.launches,
             "flash_attention_by": dict(fa.flash_attention_cuda.launches_by),
-            "rmsnorm": rn.rmsnorm_cuda.launches}
+            "rmsnorm": rn.rmsnorm_cuda.launches,
+            "rmsnorm_by": dict(rn.rmsnorm_cuda.launches_by)}
 
 
 def reset_counts() -> None:
@@ -220,7 +238,9 @@ def reset_counts() -> None:
         w.launches_by = dict.fromkeys(df.VARIANTS, 0)
     df.fire_step_cuda.launches = 0
     ksf.sched_run_cuda.launches = ksf.sched_slot_step_cuda.launches = 0
+    ksf.sched_run_cuda.launches_by = dict.fromkeys(ksf.SCHED_VARIANTS, 0)
     fa.flash_attention_cuda.launches = rn.rmsnorm_cuda.launches = 0
+    rn.rmsnorm_cuda.launches_by = dict.fromkeys(rn.VARIANTS, 0)
     fa.flash_attention_cuda.launches_by = dict.fromkeys(fa.VARIANTS, 0)
 
 
@@ -240,26 +260,31 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def cold_ms(fn, reps: int, flush) -> float:
-    """Mean milliseconds of fn() on the card, from CUDA events around
-    each call, with a cold L2: ``flush`` (a buffer larger than the 50 MB
-    L2) is written before every repetition.  The write keeps the card
-    busy while the host issues the call, so the events time the call's
-    kernels alone."""
+def cold_turns_ms(fns: dict, reps: int, flush) -> dict:
+    """Median milliseconds of each of ``fns`` (name -> fn) on the card,
+    by CUDA events around each call with a cold L2 (``flush`` written
+    before every call), the functions timed in turns — each repetition
+    calls every one, starting one further along each time — so no place
+    in the process favours one of them."""
     import torch
-    fn()
+    names = list(fns)
+    for f in fns.values():
+        f()
     torch.cuda.synchronize()
-    marks = []
-    for _ in range(reps):
-        flush.zero_()
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        marks.append((t0, t1))
+    marks = {k: [] for k in names}
+    for r in range(reps):
+        for i in range(len(names)):
+            k = names[(r + i) % len(names)]
+            flush.zero_()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            fns[k]()
+            t1.record()
+            marks[k].append((t0, t1))
     torch.cuda.synchronize()
-    return sum(a.elapsed_time(b) for a, b in marks) / reps
+    return {k: float(np.median([a.elapsed_time(b) for a, b in v]))
+            for k, v in marks.items()}
 
 
 def profiled_ms(fn, reps: int, kernel: str | None = None) -> float:
@@ -585,6 +610,143 @@ def kernel_vs_plain(st, tables=None, prof=None, replay=False) -> dict:
     return err
 
 
+def misaligned(x, ints):
+    """A contiguous copy of x whose data starts ``ints`` elements past a
+    16-byte boundary."""
+    import torch
+    buf = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    out = buf[ints:ints + x.numel()].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def hold_sched_variants(dev, err, Bs=(1, 8, 1024), long=4096) -> dict:
+    """Both variants of the run kernel bit for bit against the plain run
+    on the 6 schedulable benches: B = 1, 8 and 1024 at stream lengths 1,
+    W - 1, W, W + 1, 97 and 4096 (W the warp variant's window from the
+    launch plan; W = 4 too), half the rows fed two tokens past their end
+    (the clamp); the tokens off a 16-byte boundary by one int at B = 8;
+    rows that take a token every cycle.  Returns the cases held per
+    variant."""
+    import torch
+    from repro_torch.core.engine import DataflowEngine
+    from repro_torch.kernels import schedule_fire as ksf
+    from repro_torch.testing import edge_ints, every_cycle_sched
+    rng = np.random.default_rng(19)
+    cases = dict.fromkeys(ksf.SCHED_VARIANTS, 0)
+
+    def run_all(tabs, program, fv, want, what):
+        runs = [("cta", None, None), ("warp", 4, None)] + [
+            ("warp", None, g) for g in sorted(tabs.warp["bits"])]
+        for variant, window, warps in runs:
+            got = ksf.launch_sched_variant(variant, tabs, program, fv,
+                                           window=window, warps=warps)
+            hold(err, ["sched_run"], got, want,
+                 f"{what} {variant} variant (window {window or 'planned'}, "
+                 f"{warps or 'planned'} warps a stream)")
+            cases[variant] += 1
+
+    for name, build in sched_benches().items():
+        ctx = DataflowEngine(build().graph, device=dev,
+                             schedule=True)._sched_ctx()
+        n_in = ctx.in_arc.size
+        plan = ctx.plan_for((long,) * n_in)
+        plan.ensure(1 << 20)
+        W = ksf.warp_plan(ksf.device_sched_tables(ctx, dev),
+                          ksf.flat_program(*plan.trace_struct(plan.total)),
+                          8, device_index(dev))["window"]
+        lens = {1, W - 1, W, W + 1, 97, long}
+        for L in sorted(lens):
+            flen = tuple(L + 2 if r % 2 == 0 else L for r in range(n_in))
+            plan = ctx.plan_for(flen)
+            plan.ensure(1 << 20)
+            tabs = ksf.device_sched_tables(ctx, dev)
+            program = ksf.flat_program(*plan.trace_struct(plan.total))
+            for B in Bs:
+                fv = torch.tensor(edge_ints(rng, (B, ctx.ia_pad.size, L)),
+                                  device=dev)
+                want = ksf.sched_run(tabs, program, fv)
+                what = f"{name} B={B} L={L} ({plan.total} cycles)"
+                run_all(tabs, program, fv, want, what)
+                if B == 8:
+                    run_all(tabs, program, misaligned(fv, 1), want,
+                            what + ", tokens 4 B off 16 B")
+        log(f"  {name:12s} sched run, warp (W={W} and 4, 1 and 2 warps a "
+            f"stream where the tables take them) and CTA variants "
+            f"== plain at L={sorted(lens)}, B={'/'.join(map(str, Bs))}, "
+            "clamped feeds, misaligned tokens")
+    for L in (1, 3, 4, 5, 31, 32, 33, 97):
+        host, program = every_cycle_sched(5, L, L + 9)
+        tabs = ksf.upload_sched_tables(host, dev, 4)
+        fv = torch.tensor(edge_ints(rng, (8, 5, L)), device=dev)
+        run_all(tabs, program, fv, ksf.sched_run(tabs, program, fv),
+                f"a token every cycle, L={L}")
+    log("  rows fed every cycle (L=1..97): sched run, both variants == "
+        "plain")
+    return cases
+
+
+def device_index(dev) -> int:
+    """The CUDA device index of ``dev``."""
+    import torch
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def phase_norm_variants(dev, rows_list=(1, 4, 8, 131, 132, 133, 4096,
+                                        14812),
+                        ds=(32, 130, 2048, 4096)) -> list:
+    """Every RMSNorm variant that takes the shape against the plain
+    version: rows 1, 4, 8, 131-133, 4096 and 14812 by d 32, 130 (the
+    generic variant only), 2048 and 4096, f32 and bf16, both roundings;
+    the wrapper's choice checked against ``norm_variant``.  Returns the
+    largest error per variant and dtype (tolerances of ``LM_TOL``)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=dev).manual_seed(11)
+    recs = {(v, dtn): dict(variant=v, dtype=dtn, max_abs_err=0.0,
+                           tol_ratio=0.0, cases=0)
+            for v in rn.VARIANTS for dtn in LM_TOL}
+    for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tol = LM_TOL[dtn]["rmsnorm"]
+        for rows in rows_list:
+            for d in ds:
+                x = (3 * torch.randn((rows, d), generator=gen,
+                                     device=dev)).to(dt)
+                w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
+                vectors = d // (16 // x.element_size())
+                chosen = rn.norm_variant(d, x.element_size())
+                for model in (False, True):
+                    want = rn.rmsnorm(x, w, model=model).float()
+                    n0 = dict(rn.rmsnorm_cuda.launches_by)
+                    rn.rmsnorm_cuda(x, w, model=model)
+                    ran = [v for v, n in rn.rmsnorm_cuda.launches_by.items()
+                           if n > n0[v]]
+                    check(ran == [chosen], f"[{rows}, {d}] {dtn}: the "
+                          f"wrapper ran {ran}, the rule names {chosen}")
+                    for v in rn.VARIANTS:
+                        if d % (16 // x.element_size()) and v != "generic":
+                            continue
+                        if v == "split" and vectors > 2 * rn.SPLIT_THREADS:
+                            continue
+                        got = rn.launch_norm_variant(v, x, w, model=model)
+                        diff = (got.float() - want).abs()
+                        ratio = float((diff / (tol * (1 + want.abs())))
+                                      .max())
+                        rec = recs[(v, dtn)]
+                        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                                 float(diff.max()))
+                        rec["tol_ratio"] = max(rec["tol_ratio"], ratio)
+                        rec["cases"] += 1
+                        check(ratio <= 1, f"rmsnorm {v} [{rows}, {d}] {dtn} "
+                              f"model={model}: {ratio} of the tolerance")
+                del x, w
+    for rec in recs.values():
+        log(f"  rmsnorm {rec['variant']:8s} {rec['dtype']:8s} == plain in "
+            f"{rec['cases']} cases: max |err| {rec['max_abs_err']:.3g}, "
+            f"{rec['tol_ratio']:.3f} of the tolerance")
+    return list(recs.values())
+
+
 def block_bound(tables, args, out, active_rows, K, prof):
     """The least time the card could take for one block launch: the
     bytes it must move (tables, every state and counter array read and
@@ -829,6 +991,71 @@ def fire_block_cycles(tables, fv, fl, state, active, cycles, K=64):
     return state
 
 
+def sched_floor(tabs, program, fv, cycles, reps=10) -> dict:
+    """The run kernel's latency floor: device time of the warp variant's
+    own loop over ``program`` on one stream of one warp, the feed windows
+    staged once (``schedule_fire.sched_floor_cuda``), and its microseconds
+    per cycle."""
+    from repro_torch.kernels import schedule_fire as ksf
+    run = lambda: ksf.sched_floor_cuda(tabs, program, fv)
+    ms = profiled_ms(run, reps, "sched_run_warp") or cuda_ms(run, reps)
+    check(ksf.sched_run_cuda.last_plan["warps"] == 1
+          and ksf.sched_run_cuda.last_plan["streams"] == 1,
+          "the latency floor did not run one stream of one warp")
+    log(f"  sched run latency floor (one warp, its own loop over the "
+        f"program, windows staged once): {ms:.4f} ms over {cycles} cycles, "
+        f"{ms * 1e6 / cycles:.2f} ns per cycle")
+    return dict(ms=ms, cycles=cycles, us_per_cycle=ms * 1e3 / cycles)
+
+
+def time_variants(tabs, program, fv, reps, errs, want, what) -> dict:
+    """Device ms of the run kernel through the wrapper and in each
+    variant (the warp one on 1 and 2 warps a stream), each held against
+    ``want`` first."""
+    from repro_torch.kernels import schedule_fire as ksf
+    runs = {"wrapper": lambda: ksf.sched_run_cuda(tabs, program, fv),
+            "cta": lambda: ksf.launch_sched_variant("cta", tabs, program,
+                                                    fv)}
+    for g in sorted(tabs.warp["bits"]):
+        runs[f"warp{g}"] = lambda g=g: ksf.launch_sched_variant(
+            "warp", tabs, program, fv, warps=g)
+    out = {}
+    for k, run in runs.items():
+        hold(errs, ["sched_run"], run(), want, f"{what}, {k}")
+        out[f"{k}_ms"] = profiled_ms(run, reps, "sched_run") or \
+            cuda_ms(run, reps)
+        out[f"{k}_call_ms"] = cuda_ms(run, reps)
+    return out
+
+
+def time_sched_phase4(dev, ctx, n_in, errs, B=8, L=9) -> dict:
+    """The run kernel at phase 4's shape (dot_prod, B = 8 streams of 9
+    tokens): every variant against the plain run, and their times."""
+    import torch
+    from repro_torch.kernels import schedule_fire as ksf
+    plan = ctx.plan_for((L,) * n_in)
+    plan.ensure(1 << 20)
+    program = ksf.flat_program(*plan.trace_struct(plan.total))
+    tabs = ksf.device_sched_tables(ctx, dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    fv = torch.randint(0, 9, (B, n_in, L), generator=gen, device=dev,
+                       dtype=torch.int32)
+    want = ksf.sched_run(tabs, program, fv)
+    ksf.sched_run_cuda(tabs, program, fv)
+    ran = dict(ksf.sched_run_cuda.last_plan)
+    out = dict(B=B, L=L, cycles=plan.total, **ran,
+               **time_variants(tabs, program, fv, 50, errs, want,
+                               f"dot_prod B={B} L={L}"),
+               floor=sched_floor(tabs, program, fv, plan.total, 50))
+    log(f"  sched run at phase 4's shape (dot_prod B={B}, L={L}, "
+        f"{plan.total} cycles), device ms: " + ", ".join(
+            f"{k[:-3]} {v:.4f}" for k, v in out.items()
+            if k.endswith("_ms") and "call" not in k)
+        + f" (the wrapper runs the {out['variant']} variant, "
+        f"{out['warps']} warps a stream)")
+    return out
+
+
 def phase_sched_states(dev, dot, dot_reqs, errs, B=1024, L=4096,
                        slots=1024):
     """The schedule kernels at full width against their plain versions
@@ -857,6 +1084,7 @@ def phase_sched_states(dev, dot, dot_reqs, errs, B=1024, L=4096,
     run_k = lambda: ksf.sched_run_cuda(tabs, program, fv)
     run_p = lambda: ksf.sched_run(tabs, program, fv)
     got = run_k()
+    ran = dict(ksf.sched_run_cuda.last_plan)
     hold(errs, ["sched_run"], got, run_p(), "dot_prod full-width run")
     fire_t = df.device_tables(df.block_plan_arrays(dot.graph), dev)
     fl = torch.full((B, n_in), L, dtype=torch.int32, device=dev)
@@ -869,12 +1097,21 @@ def phase_sched_states(dev, dot, dot_reqs, errs, B=1024, L=4096,
     nbytes = 4 * (B * tokens + 2 * B * got[0].shape[1]
                   + sum(x.size for x in program.values()))
     times["sched_run"] = dict(
-        **timed(run_k, run_p, 10, "sched_run_kernel", plain_reps=1,
+        **timed(run_k, run_p, 10, "sched_run", plain_reps=1,
                 plain_profile=False),
         **sched_bound(tabs, nbytes, B * ops), tokens=B * tokens,
         shape=f"dot_prod n=32: B={B} streams of {L} tokens, "
               f"{plan.total} cycles ({len(program['seg_len'])} segments, "
               f"{len(ctx.registry)} patterns)")
+    by = time_variants(tabs, program, fv, 5, errs, got,
+                       "dot_prod full-width run")
+    times["sched_run"].update(
+        **ran, us_per_cycle=times["sched_run"]["ms"] * 1e3 / plan.total,
+        by_variant=by, floor=sched_floor(tabs, program, fv, plan.total),
+        phase4=time_sched_phase4(dev, ctx, n_in, errs))
+    log("  sched run at full width, device ms: " + ", ".join(
+        f"{k[:-3]} {v:.4f}" for k, v in by.items()
+        if k.endswith("_ms") and "call" not in k))
     fire_ms = cuda_ms(dyn, 2, warmup=1)
     versus["run"] = dict(
         cycles=plan.total, sched_ms=times["sched_run"]["ms"],
@@ -1555,6 +1792,45 @@ def time_decode(q, k, v, c, kw, split, H, Hkv, shape, gen, copies=4) -> dict:
     return out
 
 
+def time_norm_decode(dev, B, d, dt, gen, flush, copies=4) -> dict:
+    """RMSNorm at a decode step's shape [B, 1, d] (model rounding), held
+    against the plain version and timed beside ``F.rms_norm`` by the same
+    two methods: CUDA events over replays of a CUDA graph holding one
+    call on each of ``copies`` input sets, and CUDA events per call with
+    a cold L2 (``flush`` written before each; kernel and library in
+    turns, medians)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    sets = [((3 * torch.randn((B, 1, d), generator=gen, device=dev)).to(dt),
+             1 + 0.3 * torch.randn((d,), generator=gen, device=dev))
+            for _ in range(copies)]
+    tol = LM_TOL["bfloat16" if dt == torch.bfloat16 else "float32"][
+        "rmsnorm"]
+    for x, w in sets:
+        torch.testing.assert_close(
+            rn.rmsnorm_cuda(x, w, model=True).float(),
+            rn.rmsnorm(x, w, model=True).float(), rtol=tol, atol=tol)
+    kern = [lambda s=s: rn.rmsnorm_cuda(s[0], s[1], model=True)
+            for s in sets]
+    libs = [lambda s=s, c=s[1].to(dt): F.rms_norm(s[0], (d,), c, eps=1e-5)
+            for s in sets]
+    nbytes = 2 * B * d * sets[0][0].element_size() + 4 * d
+    ops_n = 4 * B * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
+    cold = cold_turns_ms(dict(kernel=kern[0], library=libs[0]), 50, flush)
+    return dict(ms=graph_ms(kern, 50),
+                ms_from=f"cuda graph replay, {copies} input sets",
+                cold_ms=cold["kernel"],
+                library_ms=graph_ms(libs, 50),
+                library_cold_ms=cold["library"],
+                call_ms=cuda_ms(kern[0], 50),
+                variant=rn.norm_variant(d, sets[0][0].element_size()),
+                bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, shape=f"[{B}, 1, {d}] model rounding")
+
+
 def phase_lm_kernels(dev, cfg, B, S, max_len):
     """Both LM kernels against their plain versions on the card, in f32
     and bf16, at the main path's shapes, the Pallas case and the split
@@ -1710,20 +1986,28 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
         nbytes = 2 * x.numel() * x.element_size() + 4 * d
         ops_n = 4 * x.numel()
         t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
-        t = time_lm(run_k, run_p, lib, 20, "rmsnorm_kernel", dict(
+        t = time_lm(run_k, run_p, lib, 20, "rmsnorm", dict(
             bound_ms=max(t_b, t_o) * 1e3,
             bound_by="bytes" if t_b >= t_o else "operations",
             bytes=nbytes, flops=ops_n),
             f"[{B * S}, {d}] model rounding, {dtn}")
-        # the row's times: kernel and library by one method, cold L2
+        # the row's times: kernel, library and every variant (the wrapper
+        # runs t["variant"]) by one method, cold L2, in turns
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        cold = cold_turns_ms(dict(
+            kernel=run_k, library=lib,
+            **{v: (lambda v=v: rn.launch_norm_variant(v, x, w, model=True))
+               for v in rn.VARIANTS}), 20, flush)
         t.update(warm_ms=t["ms"], warm_ms_from=t["ms_from"],
                  warm_library_ms=t["library_ms"],
                  warm_library_from=t["library_from"],
-                 ms=cold_ms(run_k, 20, flush), library_ms=cold_ms(lib, 20,
-                                                                  flush))
-        t["ms_from"] = t["library_from"] = ("cuda events per call, L2 "
-                                            "flushed by a 256 MB write")
+                 ms=cold.pop("kernel"), library_ms=cold.pop("library"),
+                 variants_cold_ms=cold)
+        t["ms_from"] = t["library_from"] = (
+            "cuda events per call, L2 flushed by a 256 MB write, kernel, "
+            "library and variants in turns, median")
+        t["variant"] = rn.norm_variant(d, x.element_size())
+        t["decode"] = time_norm_decode(dev, B, d, dt, gen, flush)
         times[f"rmsnorm {dtn}"] = dict(**t, library_vs_plain=e_lib)
         del x, flush
     torch.cuda.empty_cache()
@@ -1734,6 +2018,17 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
             f"|lib - plain| {v['library_vs_plain']:.3g})  bound "
             f"{v['bound_ms']:.5f} ms ({v['bound_by']}: {v['bytes']} B, "
             f"{v['flops']:.4g} flops)  [{v['shape']}]")
+        if "variants_cold_ms" in v:
+            log(f"    every variant, cold: " + ", ".join(
+                f"{x} {y:.4f} ms" for x, y in v["variants_cold_ms"].items())
+                + f" (the wrapper runs {v['variant']})")
+        if "decode" in v:
+            t = v["decode"]
+            log(f"    decode [{B}, 1, {d}] ({t['variant']} variant): kernel "
+                f"{t['ms']:.4f} ms ({t['ms_from']}), cold {t['cold_ms']:.4f}"
+                f" ms; library {t['library_ms']:.4f} ms, cold "
+                f"{t['library_cold_ms']:.4f} ms; bound {t['bound_ms']:.6f} "
+                f"ms ({t['bound_by']})")
         if "warm_ms" in v:
             log(f"    warm L2: kernel {v['warm_ms']:.4f} ms "
                 f"({v['warm_ms_from']}), library {v['warm_library_ms']:.4f} "
@@ -2025,11 +2320,13 @@ def attention_variants(errs, times, launches) -> list:
     return rows
 
 
-def lm_rows(errs, times, launches) -> list:
+def lm_rows(errs, times, launches, norm_variants) -> list:
     """The ``kernels`` line's rows 9-10: launches from phase 8, errors
     from phase 7 (bf16, the main path's dtype, and f32), times at the
     long wave's prefill (attention; its decode step beside, and each
-    attention variant) and at its [B*S, 2048] RMSNorm, in bf16."""
+    attention variant) and at its [B*S, 2048] RMSNorm (its decode step's
+    [4, 2048] beside, and each RMSNorm variant's errors from phase 3), in
+    bf16."""
     fields = ("ms", "ms_from", "call_ms", "plain_ms", "plain_device_ms",
               "bound_ms", "bound_by", "library_ms", "library_from", "shape")
     rows = []
@@ -2056,8 +2353,39 @@ def lm_rows(errs, times, launches) -> list:
             dec = times["flash_attention decode bfloat16"]
             row.update({f"decode_{f}": dec[f] for f in fields})
             row["variants"] = attention_variants(errs, times, launches)
+        else:
+            row.update({f"decode_{f}": v for f, v in
+                        main_t["decode"].items()})
+            row.update(launches_by=launches["rmsnorm_by"],
+                       variant=main_t["variant"], variants=norm_variants,
+                       variants_cold_ms=main_t["variants_cold_ms"])
         rows.append(row)
     return rows
+
+
+def sched_run_extras(t, launches, cases) -> dict:
+    """Row 7's extra fields: main-path launches by variant, the variant,
+    warps a stream and window at full width, microseconds per cycle, each
+    variant's time on the same inputs, the latency floor, the phase-4
+    shape's times, and the cases phase 3 held per variant."""
+    p4 = t["phase4"]
+    return dict(launches_by=launches["sched_run_by"], variant=t["variant"],
+                warps=t["warps"], window=t["window"], streams=t["streams"],
+                us_per_cycle=t["us_per_cycle"], by_variant=t["by_variant"],
+                cta_ms=t["by_variant"]["cta_ms"],
+                floor_ms=t["floor"]["ms"],
+                floor_us_per_cycle=t["floor"]["us_per_cycle"],
+                phase4_shape=f"dot_prod B={p4['B']}, L={p4['L']}, "
+                             f"{p4['cycles']} cycles",
+                phase4_variant=p4["variant"], phase4_warps=p4["warps"],
+                phase4_window=p4["window"],
+                phase4_floor_ms=p4["floor"]["ms"],
+                phase4_ms=p4["wrapper_ms"],
+                phase4_call_ms=p4["wrapper_call_ms"],
+                phase4_cta_ms=p4["cta_ms"],
+                phase4_by_variant={k: v for k, v in p4.items()
+                                   if k.endswith("_ms")},
+                cases_held=cases)
 
 
 def fire_block_extras(row, times, floor, launches) -> dict:
@@ -2119,6 +2447,8 @@ def main() -> int:
 
     log("== phase 3: kernels vs plain on the card")
     errs = phase_kernel(dev)
+    sched_cases = hold_sched_variants(dev, errs)
+    norm_variants = phase_norm_variants(dev)
     times, by_variant = phase_serving_states(dev, dot, dot_reqs, bub,
                                              bub_reqs, errs)
     floor = latency_floor(dev)
@@ -2154,6 +2484,8 @@ def main() -> int:
         f"variant {json.dumps(launches['fire_block_by'])}")
     for k in ROWS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    check(launches["sched_run_by"]["warp"] > 0, "sched_run: the warp "
+          "variant never ran on the main path")
     for k, by in launches["fire_block_by"].items():
         check(by["warp"] > 0, f"{k}: the warp variant never ran on the "
               "main path")
@@ -2190,10 +2522,13 @@ def main() -> int:
         dev, cfg, long_lens, 4160, 32, ["--arch", LM_ARCH, "--full"])
     lm_launches = launch_counts()
     lm_stats["launches"] = {k: lm_launches[k]
-                            for k in (*LM_ROWS, "flash_attention_by")}
+                            for k in (*LM_ROWS, "flash_attention_by",
+                                      "rmsnorm_by")}
     log(f"  main-path launches (phase 8): {json.dumps(lm_stats['launches'])}")
     for k in LM_ROWS:
         check(lm_launches[k] > 0, f"{k} was never launched on the main path")
+    check(lm_launches["rmsnorm_by"]["split"] > 0, "rmsnorm: the split "
+          "variant (decode steps and 4 KB rows) never ran on the main path")
     for k in MAIN_ATTENTION_VARIANTS:
         check(lm_launches["flash_attention_by"][k] > 0,
               f"attention variant {k} was never launched on the main path")
@@ -2219,7 +2554,10 @@ def main() -> int:
     for k in kernels:
         if k["name"].startswith("fire_block"):
             k.update(fire_block_extras(k["name"], times, floor, launches))
-    kernels += lm_rows(lm_errs, lm_times, lm_launches)
+        if k["name"] == "sched_run":
+            k.update(sched_run_extras(times["sched_run"], launches,
+                                      sched_cases))
+    kernels += lm_rows(lm_errs, lm_times, lm_launches, norm_variants)
     for k in kernels:       # rows 1-8 bit for bit, rows 9-10 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
             k["tol_ratio"] <= 1 and k["tol_ratio_f32"] <= 1 and all(

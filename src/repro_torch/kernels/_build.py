@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``dataflow_fire.cu``: the
 fire-block kernel's two variants, the fire step and a latency probe;
-``schedule_fire.cu``: the static-schedule kernels, both including
+``schedule_fire.cu``: the static-schedule kernels (the run kernel's two
+variants and the slot step), both including
 ``csrc/alu.cuh``; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
 kernels) for Hopper (``sm_90a``), one compiler per source, all started
 together, and links
@@ -57,6 +58,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ("fire_step_launch", 13, 2),
                                ("fire_floor_launch", 1, 1),
                                ("sched_run_launch", 16, 7),
+                               ("sched_run_warp_launch", 9, 15),
                                ("sched_slot_step_launch", 25, 7),
                                ("flash_attention_tiled_launch", 4, 10),
                                ("flash_attention_wgmma_launch", 4, 10),
@@ -65,12 +67,14 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
         fn.restype = ci
-    # RMSNorm: pointers and the stream c_void_p, shapes, dtype code and
-    # flag int, eps float
-    lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 4 + [ctypes.c_float, vp]
+    # RMSNorm: pointers and the stream c_void_p, shapes, dtype code, flag
+    # and variant int, eps float
+    lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 5 + [ctypes.c_float, vp]
     lib.rmsnorm_launch.restype = ci
     lib.fire_block_smem_bytes.argtypes = [ci] * 6
     lib.fire_block_smem_bytes.restype = ci
+    lib.sched_warp_plan.argtypes = [ci] * 10 + [vp]
+    lib.sched_warp_plan.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci
     lib.fire_block_error_string.argtypes = [ci]

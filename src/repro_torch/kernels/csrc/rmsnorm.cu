@@ -5,26 +5,41 @@
 //
 //   out = x * rsqrt(mean(x^2) + eps) * w        (f32 inside, rows of d)
 //
-// Bound on this card: bytes.  Each element is read from device memory
-// once and written once (the second read of a row comes from L1), with
-// a handful of operations per element, far below the card's ratio of
-// operations to bytes.  Design: one warp per row, 16-byte vector loads
-// and stores where the row length allows them, the sum of squares in
-// f32 reduced with warp shuffles; no shared memory, no block barrier.
+// Bound on this card: bytes.  Each element must be read from device memory
+// once and written once, with a handful of operations per element, far
+// below the card's ratio of operations to bytes.  The LM path launches it
+// at two shapes: many rows (a long prefill, [14812, 2048]) and a few
+// (a decode step, [4, 2048]; a short prefill of <= 128 rows).  Two
+// variants, chosen by the wrapper (rmsnorm.norm_variant) from d and the
+// pointers' alignment:
 //
-// Two instantiations of one template, because the Pallas kernel and the
-// model's jnp RMSNorm (src/repro/models/layers.py:24) round differently
-// in bf16:
+//   split   — a row over a whole CTA, one or two 16-byte vectors per
+//             thread, held in registers from load to store (the row is
+//             read once); warp shuffles, then one shared-memory step under
+//             one barrier.  Every row of whole 16-byte vectors, up to 2048
+//             of them.  On the H100 it beat a grid of the card's resident
+//             warps, each holding its columns of w in registers and a row
+//             at a time (the next one prefetched), at both shapes the LM
+//             path launches: one CTA per row keeps more rows in flight.
+//   generic — any d, any alignment: one warp per row, two passes over the
+//             row (the second from L1), scalar or 16-byte loads.
+//
+// Two roundings, because the Pallas kernel and the model's jnp RMSNorm
+// (src/repro/models/layers.py:24) round differently in bf16:
 //   kModel = false ("pallas"): (y * w) in f32, rounded once to x's type;
 //   kModel = true  ("model"):  y rounded to x's type, times w rounded to
 //                              x's type, the product rounded again.
-// In f32 both are the same function.
+// In f32 both are the same function.  Sums of squares are f32 in both
+// variants: per-thread partials in element order, then an xor-shuffle tree
+// (and, in the split variant, the warps' sums added in warp order); the
+// plain replay of the split order is rmsnorm.rmsnorm_split_order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;             // 8 rows (warps) per CTA
+constexpr int kGenericThreads = 256;      // 8 rows (warps) per CTA
+constexpr int kMaxSplitThreads = 1024;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -56,11 +71,109 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// The VEC weights of 16-byte vector i, in f32 (rounded to T for the
+// model's rounding): VEC / 4 16-byte loads.
+template <typename T, bool kModel>
+__device__ __forceinline__ void load_w(const float* __restrict__ w, int i,
+                                       float (&wf)[16 / sizeof(T)]) {
+  constexpr int VEC = 16 / sizeof(T);
+  const float4* w4 = reinterpret_cast<const float4*>(w) + i * (VEC / 4);
+#pragma unroll
+  for (int q = 0; q < VEC / 4; ++q) {
+    const float4 f = __ldg(w4 + q);
+    wf[4 * q] = f.x;
+    wf[4 * q + 1] = f.y;
+    wf[4 * q + 2] = f.z;
+    wf[4 * q + 3] = f.w;
+  }
+  if (kModel) {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) wf[e] = round_to<T>(wf[e]);
+  }
+}
+
+// One output vector from x's vector, the row's factor r and the weights.
+template <typename T, bool kModel>
+__device__ __forceinline__ Vec<T, 16 / sizeof(T)> scale(
+    const Vec<T, 16 / sizeof(T)>& a, float r, const float (&wf)[16 / sizeof(T)]) {
+  Vec<T, 16 / sizeof(T)> b;
+#pragma unroll
+  for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) {
+    float y = to_f32<T>(a.v[e]) * r;
+    if (kModel) y = round_to<T>(y);
+    b.v[e] = from_f32<T>(y * wf[e]);
+  }
+  return b;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ float sum_sq(const Vec<T, VEC>& a, float ss) {
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    const float f = to_f32<T>(a.v[e]);
+    ss += f * f;
+  }
+  return ss;
+}
+
+// ---------------------------------------------------------------------------
+// split: one row per CTA, VPT 16-byte vectors per thread
+// ---------------------------------------------------------------------------
+template <typename T, int VPT, bool kModel>
+__global__ void __launch_bounds__(kMaxSplitThreads)
+rmsnorm_split_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                     T* __restrict__ out, int d, float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  using V = Vec<T, VEC>;
+  __shared__ float s_part[kMaxSplitThreads / 32];
+  const int nv = d / VEC;
+  const V* xr = reinterpret_cast<const V*>(
+      x + static_cast<size_t>(blockIdx.x) * d);
+  V a[VPT];
+  bool has[VPT];
+  float ss = 0.f;
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    const int i = threadIdx.x + blockDim.x * k;
+    has[k] = i < nv;
+    if (has[k]) a[k] = xr[i];
+  }
+#pragma unroll
+  for (int k = 0; k < VPT; ++k)
+    if (has[k]) ss = sum_sq(a[k], ss);
+  ss = warp_sum(ss);
+  if ((threadIdx.x & 31) == 0) s_part[threadIdx.x / 32] = ss;
+  __syncthreads();
+  float total = 0.f;
+  for (int j = 0; j < static_cast<int>(blockDim.x / 32); ++j)
+    total += s_part[j];
+  const float r = rsqrtf(total / static_cast<float>(d) + eps);
+  V* orow = reinterpret_cast<V*>(out + static_cast<size_t>(blockIdx.x) * d);
+#pragma unroll
+  for (int k = 0; k < VPT; ++k) {
+    if (has[k]) {
+      const int i = threadIdx.x + blockDim.x * k;
+      float wf[VEC];
+      load_w<T, kModel>(w, i, wf);
+      orow[i] = scale<T, kModel>(a[k], r, wf);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// generic: one warp per row, two passes
+// ---------------------------------------------------------------------------
 template <typename T, int VEC, bool kModel>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGenericThreads)
 rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
                T* __restrict__ out, int rows, int d, float eps) {
-  const int row = blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int row = blockIdx.x * (kGenericThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
   using V = Vec<T, VEC>;
@@ -68,17 +181,8 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
   V* orow = reinterpret_cast<V*>(out + static_cast<size_t>(row) * d);
   const int nv = d / VEC;
   float ss = 0.f;
-  for (int i = lane; i < nv; i += 32) {
-    const V a = xr[i];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float f = to_f32<T>(a.v[e]);
-      ss += f * f;
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  for (int i = lane; i < nv; i += 32) ss = sum_sq(xr[i], ss);
+  const float r = rsqrtf(warp_sum(ss) / static_cast<float>(d) + eps);
   for (int i = lane; i < nv; i += 32) {
     const V a = xr[i];
     V b;
@@ -97,19 +201,39 @@ rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
 }
 
 template <typename T, bool kModel>
-int launch_typed(const void* x, const float* w, void* out, int rows, int d,
-                 float eps, cudaStream_t stream) {
+int launch_typed(const void* xv, const float* w, void* outv, int rows, int d,
+                 int variant, float eps, cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(T);
-  const int grid = (rows + kThreads / 32 - 1) / (kThreads / 32);
+  const T* x = static_cast<const T*>(xv);
+  T* out = static_cast<T*>(outv);
   const bool aligned = d % kVec == 0 &&
                        reinterpret_cast<size_t>(x) % 16 == 0 &&
-                       reinterpret_cast<size_t>(out) % 16 == 0;
-  if (aligned)
-    rmsnorm_kernel<T, kVec, kModel><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), w, static_cast<T*>(out), rows, d, eps);
+                       reinterpret_cast<size_t>(out) % 16 == 0 &&
+                       reinterpret_cast<size_t>(w) % 16 == 0;
+  const int nv = d / kVec;
+  if (variant == 0) {                     // split
+    if (!aligned || nv > 2 * kMaxSplitThreads)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int vpt = nv <= 256 ? 1 : 2;
+    const int threads = ((nv + vpt - 1) / vpt + 31) / 32 * 32;
+    if (vpt == 1)
+      rmsnorm_split_kernel<T, 1, kModel><<<rows, threads, 0, stream>>>(
+          x, w, out, d, eps);
+    else
+      rmsnorm_split_kernel<T, 2, kModel><<<rows, threads, 0, stream>>>(
+          x, w, out, d, eps);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (variant != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int grid = (rows + kGenericThreads / 32 - 1) / (kGenericThreads / 32);
+  const bool vec = d % kVec == 0 && reinterpret_cast<size_t>(x) % 16 == 0 &&
+                   reinterpret_cast<size_t>(out) % 16 == 0;
+  if (vec)
+    rmsnorm_kernel<T, kVec, kModel><<<grid, kGenericThreads, 0, stream>>>(
+        x, w, out, rows, d, eps);
   else
-    rmsnorm_kernel<T, 1, kModel><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(x), w, static_cast<T*>(out), rows, d, eps);
+    rmsnorm_kernel<T, 1, kModel><<<grid, kGenericThreads, 0, stream>>>(
+        x, w, out, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -119,21 +243,27 @@ extern "C" {
 
 // out[rows, d] = RMSNorm(x[rows, d]) * w[d] on `stream`; x and out are
 // contiguous of dtype code 0 (float32) or 1 (bfloat16), w is float32.
-// model != 0 selects the model's rounding.  Returns cudaGetLastError()
-// (0 = ok); an unknown dtype code returns cudaErrorInvalidValue.
+// model != 0 selects the model's rounding; variant 0 is the split variant
+// (one CTA per row), 1 the generic one.  Returns
+// cudaGetLastError() (0 = ok); an unknown dtype code or variant, or a
+// variant that cannot take the shape or the pointers' alignment, returns
+// cudaErrorInvalidValue.
 int rmsnorm_launch(const void* x, const void* w, void* out, int rows, int d,
-                   int dtype, int model, float eps, void* stream) {
+                   int dtype, int model, int variant, float eps,
+                   void* stream) {
   if (rows <= 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* wf = static_cast<const float*>(w);
   if (dtype == 0)
-    return model ? launch_typed<float, true>(x, wf, out, rows, d, eps, s)
-                 : launch_typed<float, false>(x, wf, out, rows, d, eps, s);
+    return model ? launch_typed<float, true>(x, wf, out, rows, d, variant,
+                                             eps, s)
+                 : launch_typed<float, false>(x, wf, out, rows, d, variant,
+                                              eps, s);
   if (dtype == 1)
-    return model
-               ? launch_typed<__nv_bfloat16, true>(x, wf, out, rows, d, eps, s)
-               : launch_typed<__nv_bfloat16, false>(x, wf, out, rows, d, eps,
-                                                    s);
+    return model ? launch_typed<__nv_bfloat16, true>(x, wf, out, rows, d,
+                                                     variant, eps, s)
+                 : launch_typed<__nv_bfloat16, false>(x, wf, out, rows, d,
+                                                      variant, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,28 +1,35 @@
 // Static-schedule kernels for Hopper (sm_90a): a control-free fabric's
 // precomputed firing schedule, table-driven, with no ready rule at run
-// time — a whole run per launch (one CTA per stream), or K cycles per slot
-// of the resumable slot API (one CTA per slot).
+// time — a whole run per launch, or K cycles per slot of the resumable
+// slot API (one CTA per slot).
 //
 // Replaces the TPU kernels of src/repro/kernels/schedule_fire.py:
-//   make_sched_run (:69; pallas_call :97 solo, :116 batched) -> sched_run_kernel
-//   make_sched_slot_step (:134; pallas_call :174)             -> sched_slot_step_kernel
+//   make_sched_run (:69; pallas_call :97 solo, :116 batched)
+//       -> sched_run_warp_kernel (one warp per stream, the warp variant)
+//          and sched_run_kernel (one CTA per stream, the CTA variant)
+//   make_sched_slot_step (:134; pallas_call :174) -> sched_slot_step_kernel
 // The Pallas versions trace a straight-line program per schedule structure
-// and bake per-pattern index vectors into it.  Here both kernels read the
-// same per-pattern tables (ScheduleContext.slot_tables() plus each
-// pattern's fire count), so nothing is generated or compiled per fabric or
-// per schedule: the run kernel walks a program of segments (offsets into a
-// pid list, lengths, repetitions) — the plan's clipped RLE, any structure
-// and any max_cycles clip — and the slot kernel walks a host-computed pid
-// window per slot.  The plain PyTorch versions are sched_run /
-// sched_slot_step in ../schedule_fire.py; results are bit-identical.
+// and bake per-pattern index vectors into it.  Here the kernels read
+// per-pattern tables (ScheduleContext.slot_tables() plus each pattern's
+// fire count; packed for the warp variant), so nothing is generated or
+// compiled per fabric or per schedule: the run kernels walk a program of
+// segments (offsets into a pid list, lengths, repetitions) — the plan's
+// clipped RLE, any structure and any max_cycles clip — and the slot
+// kernel walks a host-computed pid window per slot.  The wrapper picks the
+// run kernel's variant by the tables' widths and the shared memory the
+// program needs (schedule_fire.sched_variant).  The plain PyTorch versions
+// are sched_run / sched_slot_step in ../schedule_fire.py; results are
+// bit-identical; sched_run_staged there replays the warp variant's staged
+// feed windows on the CPU.
 //
-// One scheduled cycle of pattern pid, per CTA:
+// One scheduled cycle of pattern pid, per stream:
 //   1. feed  — feed row r with feed[pid, r] loads fv[r, clip(ptr_r, 0, L-1)]
 //              into arc ia[r], ptr_r += 1;
 //   2. fire  — fire row k < nfire[pid] computes z = ALU(op, val[i0],
 //              val[i1]) and writes val[o0], val[o1] (A2, the drop
-//              sentinel, is skipped, never written: val[EMPTY_PAD] stays
-//              as it was);
+//              sentinel, lies past the registers: the CTA variant skips
+//              it, the warp variant writes a spare slot that is never
+//              read);
 //   3. drain — output row r with drain[pid, r] records val[oa[r]] and
 //              counts a token.
 // A barrier separates feed from fire and fire from drain.  The fire phase
@@ -35,27 +42,36 @@
 // cycles (8,197 of them for the dot-product fabric at n = 32 and 4096
 // tokens per stream), each a feed, a fire and a drain that read what the
 // previous one wrote, two barriers apart.  Bytes are small (the stream's
-// tokens once, a few KB of tables that stay in L1/L2), and a cycle is a
-// few dozen integer operations per stream.
+// tokens once, a few KB of tables), and a cycle is a few dozen integer
+// operations per stream.
 //
-// What the design does about it:
-//   * the arc registers val[A2] live in shared memory for the whole launch;
-//     every other piece of state lives in the registers of the thread that
-//     owns it — thread r holds feed row r's pointer and its next token and
-//     drain row r's last value and count (one thread per feed, fire and
-//     drain row: the wrapper refuses patterns wider than the CTA);
-//   * the next token of each feed row is loaded as soon as its pointer
-//     moves, so the feed phase writes a register into shared memory and
-//     the stream's global-memory latency overlaps the rest of the cycle;
-//   * a thread loads its table entries for the cycle's pattern (feed flag,
-//     fire row, drain flag) before the first barrier, all independent
-//     loads through the read-only cache, where the few patterns of a
-//     steady-state period stay;
+// What the warp variant does about it:
+//   * one warp per stream, up to four streams a CTA: the barriers are
+//     __syncwarp, and a lane owns feed, fire and drain rows lane + 32 k
+//     (dot_prod n = 32: 2 feed rows and up to 2 fire rows a lane).  Below
+//     4 streams an SM a stream of 64 rows or more takes two warps instead
+//     (a named barrier of 64 threads, one row of each table a thread):
+//     then nothing else would hide the stream's latency;
+//   * the program and the tables on chip: at launch the CTA stages the
+//     segments, the pid list and, for each pattern the program uses, one
+//     8-byte word per fire row (op, i0, i1, o0, o1) and one word of feed
+//     and drain bits per thread, into shared memory for its streams; a
+//     thread reads the pid two cycles ahead and the next cycle's entries
+//     while the current cycle runs, so a cycle's chain touches shared
+//     memory and registers only, and every fire load precedes its stores;
+//   * feed windows staged ahead: each row's tokens in windows of W,
+//     double-buffered in shared memory, copied with 16-byte cp.async
+//     aligned on the device address a whole chunk of W / 2 cycles before
+//     the row can reach them; the next token of each row sits in a
+//     register from one feed to the next;
 //   * no run-time rule: no ready reduction, no empty-output checks, no arc
 //     phase, no per-cycle firing count — the host knows them from the
-//     plan;
-//   * one CTA per stream or slot, so B streams run side by side on the 132
-//     SMs and hide each other's barrier latency.
+//     plan.
+// The CTA variant (one thread per row, __syncthreads between the phases,
+// tables read through the read-only cache, the next token loaded from
+// device memory when the pointer moves) takes patterns wider than the
+// warp variant and programs whose tables do not fit its shared memory;
+// the slot kernel shares its cycle (sched_cycle).
 //
 // Build: ../_build.py compiles every .cu of this directory for sm_90a and
 // links them into one shared library; plain C interface for ctypes.
@@ -219,6 +235,368 @@ __global__ void sched_slot_step_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp variant of the scheduled run
+// ---------------------------------------------------------------------------
+// Streams per CTA at most; streams an SM needs before a stream of 64 rows
+// or more drops from two warps to one (below it nothing else would hide a
+// stream's latency); the feed-window lengths a launch may take, longest
+// first.
+constexpr int kMaxRunStreams = 4;
+constexpr int kFullStreamsPerSm = 4;
+constexpr int kWindows[] = {64, 32, 16, 8, 4};
+
+// Shapes of a warp-variant launch.  U: patterns staged (the program's own,
+// renumbered 0..U-1 by the wrapper); Fp: fire rows per staged pattern (the
+// rows a stream's threads own); W: tokens per feed window (a power of two,
+// at least 4), log_w its log2; cycles: the program's length; restage: 0
+// only for the latency floor (windows staged once, never again).
+struct WarpDims {
+  int B, A2, n_in, n_out, L, U, Fp, S, M, W, log_w, streams, warps, cycles,
+      restage;
+  unsigned ops;
+};
+
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+// Ints between two feed rows' windows: two windows of W + 4, and 4 more
+// when that is an even number of 16-byte pieces, so the rows of a warp's
+// lanes start on 8 of the 32 banks, not 4.
+__host__ __device__ inline int warp_row_ints(int W) {
+  const int n = 2 * (W + 4);
+  return (n / 4) % 2 == 0 ? n + 4 : n;
+}
+
+// Shared memory in ints, all offsets 16-byte aligned: the CTA's tables
+// (fire words [U][Fp] as int2, thread bits [U][32 warps], the program [3S
+// + M]), then per stream its registers [A2 + 1] (the last the drop
+// sentinel's slot, written and never read) and its feed rows' windows.
+__host__ __device__ inline int warp_table_ints(const WarpDims& d) {
+  return align4(2 * d.U * d.Fp + 32 * d.warps * d.U + 3 * d.S + d.M);
+}
+__host__ __device__ inline int warp_stream_ints(const WarpDims& d) {
+  return align4(d.A2 + 1) + d.n_in * warp_row_ints(d.W);
+}
+
+__device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Stages window w of a feed row — tokens [w W, (w + 1) W) clamped to L - 1,
+// w W <= L - 1 — into buf, in 16-byte pieces aligned on the device address
+// (fv_al is the tokens rounded down to 16 bytes, row the row's first token
+// from there; a piece never straddles a page, so the few ints read around
+// a row are mapped).  Token q of the window then sits at buf[(row & 3) +
+// (q & (W - 1))], since W is a multiple of 4.
+__device__ __forceinline__ void stage_window(const int* fv_al, long long row,
+                                             int w, const WarpDims& d,
+                                             int* buf) {
+  const long long a = static_cast<long long>(w) << d.log_w;
+  const long long e = min(a + d.W - 1, static_cast<long long>(d.L - 1));
+  const long long start = (row + a) & ~3LL;
+  const int pieces = static_cast<int>((row + e - start) >> 2) + 1;
+  for (int k = 0; k < pieces; ++k)
+    cp_async16(buf + 4 * k, fv_al + start + 4 * k);
+}
+
+// The barrier between a cycle's phases: the stream's warp, or its kG
+// warps (named barrier 1 + the stream's index in the CTA).
+template <int kG>
+__device__ __forceinline__ void stream_sync(int id) {
+  if constexpr (kG == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(32 * kG) : "memory");
+  }
+}
+
+// A whole scheduled run, kG warps per stream, kR rows of each table a
+// thread, `streams` streams per CTA.  prog: seg_off[S] seg_len[S]
+// seg_reps[S], the pid list [M] renumbered to the staged patterns, then
+// used[U] (the global pid of each).  fire[P][Fp] int2 words (x: i0 | i1 <<
+// 13 | op << 26, y: o0 | o1 << 16; pad rows COPY of arc 0 into the sentinel
+// A2) and bits[P][32 kG] (thread t, bit k: feed row t + 32 kG k is fed; 8
+// + k: drain row t + 32 kG k drains; 16 + k, 20 + k, 24 + k: some feed,
+// drain, real fire row of rows 32 kG k .. 32 kG (k + 1) - 1, so the stream
+// skips the group otherwise) are schedule_fire.warp_tables.
+//
+// A cycle is feed, barrier, fire, barrier, drain, ordered as in
+// sched_cycle.  Thread t of a stream owns feed, fire and drain rows t +
+// 32 kG k (k < kR) and holds, from one cycle to the next, each feed row's
+// pointer and next token and the next cycle's pattern entries (read from
+// shared memory while the current cycle runs); a group of rows that the
+// pattern leaves idle is skipped by the whole stream.  Feed windows: the
+// tokens of a row are cut into windows of W by position, two buffers a
+// row; the cycles into chunks of C = W / 2.  At each chunk's start a thread
+// waits for its copies (issued a chunk earlier) and, for a row in window
+// w whose window w + 1 is not yet issued, issues it.  A row enters window
+// w + 1 at least C + 1 feeds after that issue, so past the next chunk's
+// wait; each row's windows are copied and read by its own thread.
+template <int kR, int kG>
+__global__ void __launch_bounds__(32 * kMaxRunStreams * kG)
+sched_run_warp_kernel(const int2* __restrict__ fire,
+                      const int* __restrict__ bits,
+                      const int* __restrict__ ia, const int* __restrict__ oa,
+                      const int* __restrict__ val0,
+                      const int* __restrict__ prog, const int* fv_al,
+                      int mis, int* ol_o, int* oc_o, WarpDims d) {
+  constexpr int TS = 32 * kG;                  // threads of a stream
+  extern __shared__ __align__(16) int smem[];
+  const int local = threadIdx.x / TS, t = threadIdx.x % TS;
+  const int b = blockIdx.x * d.streams + local;
+  int2* s_fire = reinterpret_cast<int2*>(smem);
+  int* s_bits = smem + 2 * d.U * d.Fp;
+  int* s_prog = s_bits + TS * d.U;
+  int* s_val = smem + warp_table_ints(d) + local * warp_stream_ints(d);
+  int* s_win = s_val + align4(d.A2 + 1);
+  // the CTA's tables, gathered from the program's patterns
+  const int* used = prog + 3 * d.S + d.M;
+  for (int i = threadIdx.x; i < d.U * d.Fp; i += blockDim.x)
+    s_fire[i] = fire[static_cast<size_t>(__ldg(used + i / d.Fp)) * d.Fp +
+                     i % d.Fp];
+  for (int i = threadIdx.x; i < TS * d.U; i += blockDim.x)
+    s_bits[i] = __ldg(bits + static_cast<size_t>(__ldg(used + i / TS)) * TS +
+                      i % TS);
+  for (int i = threadIdx.x; i < 3 * d.S + d.M; i += blockDim.x)
+    s_prog[i] = __ldg(prog + i);
+  const bool live = b < d.B;
+  if (live)
+    for (int i = t; i <= d.A2; i += TS)
+      s_val[i] = i < d.A2 ? __ldg(val0 + i) : 0;
+  __syncthreads();
+  if (!live) return;
+  const int bar_id = 1 + local;
+
+  // feed rows: pointer, next token, arc, window buffers, last window issued
+  int ptr[kR], tok[kR], in_arc[kR], issued[kR];
+  long long row0[kR];
+  int* wbuf[kR];
+  const int ws = d.W + 4;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = t + TS * k;
+    ptr[k] = 0;
+    tok[k] = 0;
+    issued[k] = -1;
+    in_arc[k] = r < d.n_in ? __ldg(ia + r) : 0;
+    row0[k] = mis + (static_cast<long long>(b) * d.n_in + r) * d.L;
+    wbuf[k] = s_win + r * warp_row_ints(d.W);
+    if (r < d.n_in) {
+      stage_window(fv_al, row0[k], 0, d, wbuf[k]);
+      issued[k] = 0;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  const int last_win = (d.L - 1) >> d.log_w;
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    if (t + TS * k < d.n_in) {
+      tok[k] = wbuf[k][(row0[k] & 3)];           // token 0
+      if (last_win >= 1) {
+        stage_window(fv_al, row0[k], 1, d, wbuf[k] + ws);
+        issued[k] = 1;
+      }
+    }
+  }
+  cp_async_commit();
+  // drain rows
+  int out_arc[kR], ol[kR], oc[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = t + TS * k;
+    out_arc[k] = r < d.n_out ? __ldg(oa + r) : 0;
+    ol[k] = oc[k] = 0;
+  }
+
+  // the program's cursor: segment s, repetition rep, index j
+  const int* seg_off = s_prog;
+  const int* seg_len = s_prog + d.S;
+  const int* seg_reps = s_prog + 2 * d.S;
+  const int* pids = s_prog + 3 * d.S;
+  int s = 0, rep = 0, j = 0;
+  while (s < d.S && (seg_len[s] == 0 || seg_reps[s] == 0)) ++s;
+  int off = s < d.S ? seg_off[s] : 0;
+  int len = s < d.S ? seg_len[s] : 1;
+  int reps = s < d.S ? seg_reps[s] : 1;
+  // the entries of a pattern this thread reads: its fire words and its
+  // word of bits
+  int2 fw[kR];
+  int lb;
+  auto entries = [&](int pid, int2 (&w)[kR], int& bb) {
+#pragma unroll
+    for (int k = 0; k < kR; ++k) w[k] = s_fire[pid * d.Fp + t + TS * k];
+    bb = s_bits[pid * TS + t];
+  };
+  // the cursor's next cycle, and its pid (0 past the program's end)
+  auto advance = [&]() {
+    if (++j == len) {
+      j = 0;
+      if (++rep == reps) {
+        rep = 0;
+        do {
+          ++s;
+        } while (s < d.S && (seg_len[s] == 0 || seg_reps[s] == 0));
+        if (s < d.S) {
+          off = seg_off[s];
+          len = seg_len[s];
+          reps = seg_reps[s];
+        }
+      }
+    }
+    return s < d.S ? pids[off + j] : 0;
+  };
+  entries(s < d.S ? pids[off] : 0, fw, lb);
+  int npid = advance();                         // cycle 1's pattern
+  const int chunk_mask = (d.W >> 1) - 1;        // C = W / 2, a power of two
+
+  for (int c = 0; c < d.cycles; ++c) {
+    // the next cycle's entries and the pid of the one after, off this
+    // cycle's chain (the pid two cycles ahead, so no load waits on one)
+    int2 nfw[kR];
+    int nlb;
+    entries(npid, nfw, nlb);
+    const int nnpid = advance();
+    // 1. feed: the token held since the last feed; the next one read
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if ((lb >> (16 + k)) & 1) {
+        if ((lb >> k) & 1) {
+          s_val[in_arc[k]] = tok[k];
+          ptr[k] += 1;
+          const int q = min(max(ptr[k], 0), d.L - 1);
+          tok[k] = wbuf[k][((q >> d.log_w) & 1) * ws + (row0[k] & 3) +
+                           (q & (d.W - 1))];
+        }
+      }
+    }
+    stream_sync<kG>(bar_id);
+    // 2. fire: every read before any write (they touch disjoint arcs, so
+    //    the loads of all rows overlap); the sentinel's slot takes the
+    //    dropped writes
+    int op[kR], a[kR], bv[kR], z[kR];
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      op[k] = fw[k].x >> 26;
+      a[k] = bv[k] = 0;
+      if ((lb >> (24 + k)) & 1) {
+        a[k] = s_val[fw[k].x & 0x1fff];
+        bv[k] = s_val[(fw[k].x >> 13) & 0x1fff];
+      }
+    }
+    alu_select<kR>(op, a, bv, z, d.ops);
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if ((lb >> (24 + k)) & 1) {
+        s_val[fw[k].y & 0xffff] = z[k];
+        s_val[fw[k].y >> 16] = z[k];
+      }
+    }
+    stream_sync<kG>(bar_id);
+    // 3. drain
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if (((lb >> (20 + k)) & 1) && ((lb >> (8 + k)) & 1)) {
+        ol[k] = s_val[out_arc[k]];
+        oc[k] += 1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kR; ++k) fw[k] = nfw[k];
+    lb = nlb;
+    npid = nnpid;
+    // the next chunk's start: wait for the windows issued a chunk ago,
+    // issue the next window of every row that has entered its last one
+    // (never in the latency floor, whose results are not the run's)
+    if (d.restage && ((c + 1) & chunk_mask) == 0) {
+      cp_async_wait_all();
+#pragma unroll
+      for (int k = 0; k < kR; ++k) {
+        const int w = min(max(ptr[k], 0), d.L - 1) >> d.log_w;
+        if (t + TS * k < d.n_in && issued[k] == w && w < last_win) {
+          stage_window(fv_al, row0[k], w + 1, d,
+                       wbuf[k] + ((w + 1) & 1) * ws);
+          issued[k] = w + 1;
+        }
+      }
+      cp_async_commit();
+    }
+  }
+  cp_async_wait_all();
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = t + TS * k;
+    if (r < d.n_out) {
+      ol_o[static_cast<size_t>(b) * d.n_out + r] = ol[k];
+      oc_o[static_cast<size_t>(b) * d.n_out + r] = oc[k];
+    }
+  }
+}
+
+// Shared memory of one warp-variant CTA, in bytes.
+size_t warp_smem_bytes(const WarpDims& d) {
+  return 4 * static_cast<size_t>(warp_table_ints(d) +
+                                 d.streams * warp_stream_ints(d));
+}
+
+// Completes d (W, log_w, streams, warps) for a launch on `device`: the
+// window `window` (0: the longest of kWindows) and then the most streams,
+// up to kMaxRunStreams and B, with which two CTAs fit an SM, or one stream
+// in one CTA; `warps` warps a stream (0: two for tables of 64 rows or more
+// while fewer than kFullStreamsPerSm streams share each SM, else one).
+// Returns false when the shapes are not the variant's or nothing fits.
+bool warp_plan(WarpDims& d, int window, int warps, int device) {
+  int sms = 0, optin = 0, per_sm = 0, reserved = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                             device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm,
+                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                             device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved,
+                             cudaDevAttrReservedSharedMemoryPerBlock,
+                             device) != cudaSuccess)
+    return false;
+  if (warps == 0)
+    warps = d.Fp >= 64 && d.B < kFullStreamsPerSm * sms ? 2 : 1;
+  const int kr = warps >= 1 ? d.Fp / (32 * warps) : 0;
+  if ((warps != 1 && warps != 2) || d.Fp % (32 * warps) ||
+      (kr != 1 && kr != 2 && kr != 4) || std::max(d.n_in, d.n_out) > d.Fp ||
+      d.A2 >= (1 << 13) || d.B < 1 || d.L < 1 || d.cycles < 0 ||
+      (window != 0 && (window < 4 || (window & (window - 1)))))
+    return false;
+  d.warps = warps;
+  auto set_window = [&](int W) {
+    d.W = W;
+    d.log_w = 0;
+    while ((1 << d.log_w) < W) ++d.log_w;
+  };
+  for (d.streams = std::min(kMaxRunStreams, d.B); d.streams >= 1;
+       d.streams /= 2) {
+    for (const int W : kWindows) {
+      set_window(window ? window : W);
+      const size_t per = warp_smem_bytes(d);
+      if (per <= static_cast<size_t>(optin) &&
+          2 * (per + reserved) <= static_cast<size_t>(per_sm))
+        return true;
+      if (window) break;
+    }
+  }
+  d.streams = 1;
+  set_window(window ? window : kWindows[4]);
+  return warp_smem_bytes(d) <= static_cast<size_t>(optin);
+}
+
 int cta_threads(const Dims& d) {
   return (std::max(std::max(d.n_in, d.n_out), std::max(d.F, 1)) + 31) / 32 *
          32;
@@ -281,6 +659,69 @@ int sched_slot_step_launch(
       t, d, K, fv, pids, fsel, full, val, ptr, out_last, out_count, full_o,
       val_o, ptr_o, out_last_o, out_count_o);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plans a launch of the warp variant on `device` (see warp_plan: window
+// and warps 0 are the plan's choice) and writes {W, streams, warps} into
+// plan; returns 0, or cudaErrorInvalidValue when the variant cannot take
+// the shapes or its shared memory does not fit.
+int sched_warp_plan(int A2, int n_in, int U, int Fp, int S, int M, int B,
+                    int window, int warps, int device, int* plan) {
+  WarpDims d{B, A2, n_in, 1, 1, U, Fp, S, M, 0, 0, 0, 0, 0, 1, 0u};
+  if (!warp_plan(d, window, warps, device))
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = d.W;
+  plan[1] = d.streams;
+  plan[2] = d.warps;
+  return 0;
+}
+
+// Launches the warp variant of the scheduled run on `stream`, planned as
+// sched_warp_plan plans it on the current device; returns
+// cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for shapes the
+// variant does not take.  fv_al is the tokens rounded down to 16 bytes and
+// mis the ints it was rounded by; prog holds 3 * S + M + U ints and bits
+// the thread bits of `warps` warps a stream (see sched_run_warp_kernel).
+// restage = 0 runs the latency floor: the same loop with the windows
+// staged once.
+int sched_run_warp_launch(const int* fire, const int* bits, const int* ia,
+                          const int* oa, const int* val0, const int* prog,
+                          const int* fv_al, int* out_last_o,
+                          int* out_count_o, int mis, int S, int M, int U,
+                          int B, int A2, int n_in, int n_out, int L, int Fp,
+                          int cycles, int window, int warps, int restage,
+                          int ops, void* stream) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || mis < 0 || mis > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WarpDims d{B,  A2, n_in, n_out, L,      U,      Fp,  S,
+             M,  0,  0,    0,     0,      cycles, restage != 0,
+             static_cast<unsigned>(ops)};
+  if (!warp_plan(d, window, warps, device))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = warp_smem_bytes(d);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int grid = (B + d.streams - 1) / d.streams;
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, 32 * d.warps * d.streams, smem, st>>>(
+        reinterpret_cast<const int2*>(fire), bits, ia, oa, val0, prog,
+        fv_al, mis, out_last_o, out_count_o, d);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const int kr = Fp / (32 * d.warps);
+  if (d.warps == 1) {
+    if (kr == 1) return run(sched_run_warp_kernel<1, 1>);
+    if (kr == 2) return run(sched_run_warp_kernel<2, 1>);
+    return run(sched_run_warp_kernel<4, 1>);
+  }
+  if (kr == 1) return run(sched_run_warp_kernel<1, 2>);
+  return run(sched_run_warp_kernel<2, 2>);
 }
 
 }  // extern "C"

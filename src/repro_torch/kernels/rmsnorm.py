@@ -11,9 +11,13 @@ The counterpart of the JAX package's ``rmsnorm_pallas``
 
 In f32 the two are the same function.  :func:`rmsnorm` is the plain
 version; :func:`rmsnorm_cuda` launches ``csrc/rmsnorm.cu`` on CUDA
-tensors (one warp per row; built at first use, see
-:mod:`repro_torch.kernels._build`) and counts the launch in
-``rmsnorm_cuda.launches``, and computes the plain version on CPU tensors.
+tensors (built at first use, see :mod:`repro_torch.kernels._build`) in
+the variant :func:`norm_variant` picks — ``"split"`` (one CTA per row)
+for rows of whole 16-byte vectors, ``"generic"`` (one warp per row) for
+a ``d`` or an alignment the split variant does not take — and counts the
+launch in ``rmsnorm_cuda.launches`` and ``launches_by``; on CPU tensors
+it computes the plain version.  :func:`rmsnorm_split_order` replays the
+split variant's order of summation on the CPU.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import ctypes
 import torch
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("split", "generic")
+SPLIT_THREADS = 1024    # threads of a split CTA at most (two vectors each)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
@@ -29,21 +35,72 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
     """The plain PyTorch version over the last axis of ``x`` [..., d]."""
     x32 = x.float()
     y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return _scaled(x, y, w, model)
+
+
+def _scaled(x, y, w, model):
     if model:
         return y.to(x.dtype) * w.to(x.dtype)
     return (y * w.float()).to(x.dtype)
 
 
-def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
-                 model: bool = False) -> torch.Tensor:
-    """RMSNorm of ``x`` [..., d] (float32 or bfloat16, contiguous) with
-    weight ``w`` [d] (float32 or bfloat16).  CUDA tensors launch the
-    kernel; CPU tensors take :func:`rmsnorm`.  Mixed devices, other
-    dtypes, a non-contiguous ``x`` or a weight of the wrong length
-    raise."""
-    devs = {x.device.type, w.device.type}
-    if devs == {"cpu"}:
-        return rmsnorm(x, w, eps, model)
+def norm_variant(d: int, itemsize: int, aligned: bool = True) -> str:
+    """The kernel's variant for rows of ``d`` elements of ``itemsize``
+    bytes: ``"split"`` (a row over a CTA, at any row count) for rows of
+    whole 16-byte vectors, at most two a thread; ``"generic"`` when the
+    row is not whole 16-byte vectors, the pointers are not 16-byte
+    ``aligned``, or the row is too long for a split CTA."""
+    vec = 16 // itemsize
+    if aligned and d % vec == 0 and d // vec <= 2 * SPLIT_THREADS:
+        return "split"
+    return "generic"
+
+
+def split_threads(d: int, itemsize: int) -> tuple[int, int]:
+    """(threads, vectors per thread) of a split CTA: one 16-byte vector a
+    thread up to 256 vectors a row, two above."""
+    nv = d // (16 // itemsize)
+    per = 1 if nv <= 256 else 2
+    return -(-(-(-nv // per)) // 32) * 32, per
+
+
+def rmsnorm_split_order(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+                        model: bool = False) -> torch.Tensor:
+    """RMSNorm with the sum of squares taken in the split variant's order
+    (plain PyTorch, for the tests): each thread's partial over its 16-byte
+    vectors in element order (vector i of thread t: i = t + threads k), an
+    xor-shuffle tree over each warp's 32 partials, and the warps' sums
+    added in warp order.  A product added to a partial is rounded once, as
+    the card's fused multiply-add rounds it.  Same results as
+    :func:`rmsnorm` within float tolerance."""
+    d = x.shape[-1]
+    if d % (16 // x.element_size()):
+        raise ValueError(f"no split order at d={d}")
+    threads, per = split_threads(d, x.element_size())
+    vec = 16 // x.element_size()
+    x32 = x.reshape(-1, d).float()
+    R = x32.shape[0]
+    v = torch.zeros((R, per * threads * vec), dtype=torch.float64)
+    v[:, :d] = x32.double()
+    v = v.reshape(R, per, threads, vec)
+    part = torch.zeros((R, threads), dtype=torch.float32)
+    for k in range(per):
+        for e in range(vec):
+            f = v[:, k, :, e]
+            part = (part.double() + f * f).float()
+    part = part.reshape(R, threads // 32, 32)
+    lane = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[..., lane ^ o]
+    total = torch.zeros((R,), dtype=torch.float32)
+    for j in range(threads // 32):
+        total = total + part[:, j, 0]
+    r = torch.rsqrt(total / d + eps)
+    y = x32 * r[:, None]
+    return _scaled(x, y, w, model).reshape(x.shape)
+
+
+def _check(x, w):
     if x.device != w.device:
         raise ValueError(f"x is on {x.device}, w on {w.device}")
     if x.dtype not in DTYPE_CODES or w.dtype not in DTYPE_CODES:
@@ -54,6 +111,11 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
                          f"({x.shape[-1] if x.dim() else '?'},)")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+
+
+def _launch(variant, x, w, eps, model):
+    """Launch ``variant`` on CUDA tensors (checked); None picks it by
+    :func:`norm_variant`.  Returns (out, the variant that ran)."""
     from repro_torch.kernels import _build
     lib = _build.load()
     d = x.shape[-1]
@@ -61,16 +123,50 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
     with torch.cuda.device(x.device):
         w32 = w.float().contiguous()
         out = torch.empty_like(x)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w32, out))
+        if variant is None:
+            variant = norm_variant(d, x.element_size(), aligned)
+        if variant not in VARIANTS:
+            raise ValueError(f"unknown variant {variant!r}")
         err = lib.rmsnorm_launch(
             ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w32.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), rows, d, DTYPE_CODES[x.dtype],
-            int(model), float(eps),
+            int(model), VARIANTS.index(variant), float(eps),
             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     if err:
-        raise RuntimeError("rmsnorm kernel launch failed: "
+        raise RuntimeError(f"rmsnorm kernel launch failed ({variant} "
+                           "variant): "
                            + lib.fire_block_error_string(err).decode())
+    return out, variant
+
+
+def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+                 model: bool = False) -> torch.Tensor:
+    """RMSNorm of ``x`` [..., d] (float32 or bfloat16, contiguous) with
+    weight ``w`` [d] (float32 or bfloat16).  CUDA tensors launch the
+    kernel in the variant :func:`norm_variant` picks; CPU tensors take
+    :func:`rmsnorm`.  Mixed devices, other dtypes, a non-contiguous ``x``
+    or a weight of the wrong length raise."""
+    devs = {x.device.type, w.device.type}
+    if devs == {"cpu"}:
+        return rmsnorm(x, w, eps, model)
+    _check(x, w)
+    out, variant = _launch(None, x, w, eps, model)
     rmsnorm_cuda.launches += 1
+    rmsnorm_cuda.launches_by[variant] += 1
     return out
 
 
+def launch_norm_variant(variant: str, x: torch.Tensor, w: torch.Tensor,
+                        eps: float = 1e-5,
+                        model: bool = False) -> torch.Tensor:
+    """One launch of the kernel's ``variant`` on CUDA tensors, counted
+    nowhere: the tests and ``chip_smoke.py`` hold each variant against the
+    plain version with it.  A variant that cannot take the shape or the
+    alignment raises."""
+    _check(x, w)
+    return _launch(variant, x, w, eps, model)[0]
+
+
 rmsnorm_cuda.launches = 0
+rmsnorm_cuda.launches_by = dict.fromkeys(VARIANTS, 0)

@@ -32,11 +32,22 @@ This module holds, side by side:
   uploaded again whenever the pattern registry has grown since;
 * the **plain PyTorch versions** :func:`sched_run` and
   :func:`sched_slot_step`;
+* :func:`sched_run_staged`, the plain replay of the run kernel's warp
+  variant: its feed windows, their restaging cycle, the clamp and the
+  alignment of each window's start (the tests hold it against the JAX
+  package);
 * the **kernel wrappers** :func:`sched_run_cuda` and
   :func:`sched_slot_step_cuda`: on CUDA tensors they launch the
   hand-written kernels of ``csrc/schedule_fire.cu`` (built at first use,
   see :mod:`repro_torch.kernels._build`) and count the launch; on CPU
-  tensors they compute the plain version and build nothing.
+  tensors they compute the plain version and build nothing.  The run
+  kernel comes in two variants, chosen by :func:`sched_variant`: ``"warp"``
+  (one or two warps per stream, up to four streams a CTA, the program and
+  the tables staged in shared memory, feed windows staged ahead) for
+  tables of at most :data:`WARP_ROWS` rows whose program fits the CTA's
+  shared memory (:func:`warp_plan`), ``"cta"`` (one CTA per stream)
+  otherwise; ``sched_run_cuda.launches_by`` counts each and
+  ``sched_run_cuda.last_plan`` holds the plan of the last launch.
 
 The program and the pid windows are host data (numpy): the wrappers
 check them on the host, on either device — every pid below the number of
@@ -59,6 +70,12 @@ TABLE_KEYS = ("op", "i0", "i1", "o0", "o1", "feed", "drain", "full",
               "nfire", "ia", "oa", "val0")
 PROGRAM_KEYS = ("seg_off", "seg_len", "seg_reps", "pids")
 MAX_THREADS = 1024      # one thread per feed row, fire row and drain row
+SCHED_VARIANTS = ("warp", "cta")
+# the warp variant: the 32-row groups of each table a stream may take, and
+# the largest A2 its packed fire words hold (13-bit operand indices)
+WARP_ROW_GROUPS = (1, 2, 4)
+WARP_ROWS = 32 * WARP_ROW_GROUPS[-1]
+MAX_WARP_A2 = (1 << 13) - 1
 
 
 class SchedTables(dict):
@@ -73,9 +90,12 @@ class SchedTables(dict):
       val0 [A2]                   registers of a fresh run (const values)
 
     ``n_patterns`` is the registry length the upload covers (pids at or
-    past it are stale), ``ops`` the opcodes of the real fire rows."""
+    past it are stale), ``ops`` the opcodes of the real fire rows and
+    ``warp`` the warp variant's packed tables (:func:`warp_tables`; None
+    when the tables are too wide for it)."""
     n_patterns = 0
     ops: tuple = ()
+    warp = None
 
 
 def host_sched_tables(ctx) -> dict:
@@ -113,6 +133,59 @@ def check_sched_tables(t: dict) -> tuple:
     return ops
 
 
+def warp_groups(n_in: int, F: int, n_out: int):
+    """Groups of 32 rows a stream of the warp variant takes for tables of
+    these widths (1, 2 or 4: its fire words per pattern are 32 times as
+    many), or None when one is wider than :data:`WARP_ROWS`."""
+    need = -(-max(n_in, F, n_out, 1) // 32)
+    return next((g for g in WARP_ROW_GROUPS if g >= need), None)
+
+
+def warp_tables(t: dict):
+    """The warp variant's packed tables from the host tables ``t``
+    (:func:`host_sched_tables`), or None when it cannot take them:
+
+      fire [P, Fp, 2] int32   one word pair per fire row: x = i0 | i1 << 13
+                              | op << 26, y = o0 | o1 << 16 (Fp = 32 x the
+                              row groups; rows past F: COPY of arc 0 into
+                              the sentinel A2)
+      bits {G: [P, 32 G]}     for streams of G warps (G = 1, and 2 when Fp
+                              >= 64): thread t, bit k if feed row t + 32 G k
+                              is fed, 8 + k if drain row t + 32 G k drains,
+                              16 + k, 20 + k, 24 + k if some feed, drain or
+                              real fire row of rows 32 G k .. 32 G (k + 1) -
+                              1 is (the stream skips the group otherwise)"""
+    P, F = t["op"].shape
+    A2 = t["val0"].shape[0]
+    n_in, n_out = t["ia"].shape[0], t["oa"].shape[0]
+    g = warp_groups(n_in, F, n_out)
+    if g is None or A2 > MAX_WARP_A2:
+        return None
+    Fp = 32 * g
+    pad = lambda x, v: np.pad(x, ((0, 0), (0, Fp - x.shape[1])),
+                              constant_values=v)
+    op, i0, i1 = pad(t["op"], 0), pad(t["i0"], 0), pad(t["i1"], 0)
+    o0, o1 = pad(t["o0"], A2), pad(t["o1"], A2)
+    fire = np.stack([i0 | i1 << 13 | op << 26, o0 | o1 << 16], -1)
+    feed = pad(t["feed"], 0).astype(np.int64)
+    drain = pad(t["drain"], 0).astype(np.int64)
+    real = (np.arange(Fp)[None, :] < t["nfire"][:, None]).astype(np.int64)
+    bits = {}
+    for G in (1, 2):
+        TS = 32 * G
+        if Fp % TS:
+            continue
+        word = np.zeros((P, TS), np.int64)
+        for k in range(Fp // TS):
+            rows = slice(TS * k, TS * (k + 1))
+            word |= feed[:, rows] << k | drain[:, rows] << (8 + k)
+            for tab, shift in ((feed, 16), (drain, 20), (real, 24)):
+                word |= tab[:, rows].any(1, keepdims=True).astype(
+                    np.int64) << (shift + k)
+        bits[G] = word.astype(np.int32)
+    return dict(fire=fire.astype(np.int32), bits=bits, Fp=Fp)
+
+
 def device_sched_tables(ctx, device) -> SchedTables:
     """The tables of schedule context ``ctx`` on ``device``, cached on the
     context and uploaded again when its registry has grown since (new
@@ -121,13 +194,27 @@ def device_sched_tables(ctx, device) -> SchedTables:
     key = str(dev)
     tabs = ctx.device_tables.get(key)
     if tabs is None or tabs.n_patterns < len(ctx.registry):
-        host = host_sched_tables(ctx)
-        ops = check_sched_tables(host)
-        tabs = SchedTables({k: torch.tensor(host[k], device=dev)
-                            for k in TABLE_KEYS})
-        tabs.n_patterns = len(ctx.registry)
-        tabs.ops = ops
+        tabs = upload_sched_tables(host_sched_tables(ctx), dev,
+                                   len(ctx.registry))
         ctx.device_tables[key] = tabs
+    return tabs
+
+
+def upload_sched_tables(host: dict, device, n_patterns: int) -> SchedTables:
+    """Host tables (:func:`host_sched_tables`), checked, on ``device``
+    with the warp variant's packed copies; pids from ``n_patterns`` on
+    are stale."""
+    ops = check_sched_tables(host)
+    tabs = SchedTables({k: torch.tensor(host[k], device=device)
+                        for k in TABLE_KEYS})
+    tabs.n_patterns = n_patterns
+    tabs.ops = ops
+    warp = warp_tables(host)
+    if warp is not None:
+        tabs.warp = dict(
+            fire=torch.tensor(warp["fire"], device=device),
+            bits={G: torch.tensor(b, device=device)
+                  for G, b in warp["bits"].items()}, Fp=warp["Fp"])
     return tabs
 
 
@@ -151,14 +238,16 @@ def flat_program(struct, reps) -> dict:
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the CPU path, and the yardstick on the card)
 # ---------------------------------------------------------------------------
-def _cycle(tab, ops, fv, val, ptr, ol, oc, pid):
+def _cycle(tab, ops, fv, val, ptr, ol, oc, pid, tok=None):
     """One table-driven scheduled cycle over B rows (every array has a
-    leading B axis; ``pid`` is a long tensor [B])."""
+    leading B axis; ``pid`` is a long tensor [B]).  Feed rows load
+    ``fv[r, clip(ptr, 0, L-1)]``, or ``tok`` [B, n_in] where given."""
     B, _, L = fv.shape
     A2 = val.shape[1]
     drop = torch.zeros((B, 1), dtype=val.dtype, device=val.device)
     fm = tab["feed"][pid]                                   # [B, n_in]
-    nxt = torch.gather(fv, 2, ptr.clamp(0, L - 1).long()[:, :, None])[..., 0]
+    nxt = tok if tok is not None else torch.gather(
+        fv, 2, ptr.clamp(0, L - 1).long()[:, :, None])[..., 0]
     tgt = torch.where(fm > 0, tab["ia"].long()[None], A2)
     vx = torch.cat([val, drop], 1).scatter_(1, tgt, nxt)
     ptr = ptr + fm
@@ -203,6 +292,119 @@ def sched_run(tables, program, fv):
             for p in seg:
                 val, ptr, ol, oc = _cycle(tables, tables.ops, fv, val, ptr,
                                           ol, oc, pid_rows[p])
+    return ol, oc
+
+
+# stands where the warp variant's shared memory holds no token of the row
+_STALE = -1234567
+
+
+def program_cycles(program) -> int:
+    """Cycles a program runs: the sum of its segments' lengths times
+    repetitions."""
+    return int(np.dot(np.asarray(program["seg_len"], np.int64),
+                      np.asarray(program["seg_reps"], np.int64)))
+
+
+def _program_pids(program):
+    """The pids of the program's cycles in order (host numpy)."""
+    out = []
+    for off, n, reps in zip(program["seg_off"].tolist(),
+                            program["seg_len"].tolist(),
+                            program["seg_reps"].tolist()):
+        out += [int(p) for p in program["pids"][off:off + n]] * reps
+    return out
+
+
+def sched_run_staged(tables, program, fv, *, window: int,
+                     misalign: int = 0):
+    """The scheduled run in the warp variant's order (plain PyTorch, for
+    the tests and ``chip_smoke.py``; the main path runs
+    :func:`sched_run`).  Same arguments and results as :func:`sched_run`;
+    the results must be equal.  Feed tokens come from windows as the
+    kernel stages them: each row's tokens cut into windows of ``window``
+    (W, a power of two, at least 4) by position, two buffers a row;
+    window 0 is copied and waited for before the first cycle and window
+    1 issued; at the start of every chunk of W / 2 cycles the copies
+    issued a chunk earlier land and each row in window w whose window
+    w + 1 is not yet issued issues it.  A copy is 16-byte pieces aligned
+    on the device address (``misalign``: ints between a 16-byte boundary
+    and the tokens' start) holding tokens [w W, (w + 1) W) clamped to L -
+    1.  Each row's next token is read from its buffer right after the row
+    feeds (token 0 after the prologue); a read of a window that has not
+    landed, or of a slot the copy did not fill, comes back stale."""
+    W = int(window)
+    if W < 4 or W & (W - 1):
+        raise ValueError(f"window must be a power of two >= 4, got {W}")
+    B, n_in, L = fv.shape
+    dev = fv.device
+    ws, C, last_win = W + 4, W // 2, (L - 1) // W
+    stale = lambda *shape: torch.full(shape, _STALE, dtype=fv.dtype,
+                                      device=dev)
+    flat = torch.cat([stale(misalign), fv.reshape(-1), stale(ws + 8)])
+    row = misalign + (torch.arange(B, device=dev)[:, None] * n_in
+                      + torch.arange(n_in, device=dev)[None]) * L
+    held, pend = stale(B, n_in, 2, ws), stale(B, n_in, 2, ws)
+    held_w = torch.full((B, n_in, 2), -1, dtype=torch.long, device=dev)
+    pend_w = held_w.clone()
+    k = torch.arange(ws, device=dev)
+
+    def issue(w, sel):
+        """Copies window w [B, n_in] of the rows where ``sel``."""
+        a = w * W
+        e = torch.clamp(a + W - 1, max=L - 1)
+        start = (row + a) & ~3
+        pieces = ((row + e - start) >> 2) + 1
+        idx = (start[..., None] + k).clamp(0, flat.numel() - 1)
+        vals = torch.where(k < 4 * pieces[..., None], flat[idx],
+                           torch.full_like(idx, _STALE, dtype=fv.dtype))
+        for par in (0, 1):
+            m = sel & ((w & 1) == par)
+            pend[:, :, par][m] = vals[m]
+            pend_w[:, :, par][m] = w[m]
+
+    def land():
+        m = pend_w >= 0
+        held[m] = pend[m]
+        held_w[m] = pend_w[m]
+        pend_w.fill_(-1)
+
+    def read(ptr):
+        q = ptr.long().clamp(0, L - 1)
+        w = q // W
+        slot = (row & 3) + q % W
+        buf = torch.gather(held, 2, (w & 1)[..., None, None].expand(
+            B, n_in, 1, ws))[:, :, 0]
+        v = torch.gather(buf, 2, slot[..., None])[..., 0]
+        ok = torch.gather(held_w, 2, (w & 1)[..., None])[..., 0] == w
+        return torch.where(ok, v, torch.full_like(v, _STALE))
+
+    val = tables["val0"][None].repeat(B, 1)
+    ptr = torch.zeros((B, n_in), dtype=torch.int32, device=dev)
+    ol = torch.zeros((B, tables["oa"].shape[0]), dtype=torch.int32,
+                     device=dev)
+    oc = torch.zeros_like(ol)
+    every = torch.ones((B, n_in), dtype=torch.bool, device=dev)
+    zero = torch.zeros((B, n_in), dtype=torch.long, device=dev)
+    issue(zero, every)
+    land()
+    tok = read(ptr)
+    issued = zero.clone()
+    if last_win >= 1:
+        issue(zero + 1, every)
+        issued += 1
+    for c, p in enumerate(_program_pids(program)):
+        pid = torch.full((B,), p, dtype=torch.long, device=dev)
+        fed = tables["feed"][pid] > 0
+        val, ptr, ol, oc = _cycle(tables, tables.ops, fv, val, ptr, ol, oc,
+                                  pid, tok=tok)
+        tok = torch.where(fed, read(ptr), tok)
+        if (c + 1) % C == 0:
+            land()
+            w = ptr.long().clamp(0, L - 1) // W
+            sel = (issued == w) & (w < last_win)
+            issue(w + 1, sel)
+            issued = torch.where(sel, w + 1, issued)
     return ol, oc
 
 
@@ -283,13 +485,54 @@ def _raise_on(err, lib, what):
                            + lib.fire_block_error_string(err).decode())
 
 
-def sched_run_cuda(tables, program, fv):
-    """A whole scheduled run in one launch (the counterpart of
-    ``make_sched_run``, solo and batched): one CTA per stream of
-    ``fv[B, n_in, L]``.  CUDA tensors launch the kernel and count it in
-    ``sched_run_cuda.launches``; CPU tensors take :func:`sched_run`.
-    Returns (out_last, out_count) [B, n_out]."""
-    _check_tables(tables)
+def warp_program(prog) -> dict:
+    """The warp variant's program: ``prog`` (host int32, checked) with its
+    pids renumbered to the patterns it uses, ``used`` (the global pid of
+    each, at least one) and the cycles it runs."""
+    used = np.unique(prog["pids"]) if prog["pids"].size else \
+        np.zeros(1, np.int32)
+    local = np.searchsorted(used, prog["pids"]).astype(np.int32)
+    return dict(prog, pids=local, used=used.astype(np.int32),
+                cycles=program_cycles(prog))
+
+
+def warp_plan(tables, program, B, device_index, window=None, warps=None):
+    """How the warp variant would run a checked host ``program`` over
+    ``tables`` (:func:`device_sched_tables`) and B streams on card
+    ``device_index``: dict(window, streams, warps), or None when it
+    cannot.  The kernel's launcher plans (``csrc`` ``warp_plan``, which
+    owns the shared-memory layout): the longest feed window, then the most
+    streams a CTA (up to 4) with which two CTAs fit an SM, or one stream;
+    two warps a stream for tables of 64 rows or more while fewer than 4
+    streams share each SM, else one.  ``window`` and ``warps`` fix
+    those."""
+    if tables.warp is None:
+        return None
+    from repro_torch.kernels import _build
+    wp = warp_program(program)
+    out = (ctypes.c_int * 3)()
+    err = _build.load().sched_warp_plan(
+        tables["val0"].shape[0], tables["ia"].shape[0], wp["used"].size,
+        tables.warp["Fp"], wp["seg_off"].size, wp["pids"].size, B,
+        window or 0, warps or 0, device_index, out)
+    return None if err else dict(window=out[0], streams=out[1],
+                                 warps=out[2])
+
+
+def sched_variant(tables, program, B, device_index) -> str:
+    """The run kernel's variant for ``tables`` (:func:`device_sched_tables`)
+    and a checked host ``program`` over B streams on card
+    ``device_index``: ``"warp"`` when the tables are at most
+    :data:`WARP_ROWS` rows wide (:attr:`SchedTables.warp` is set) and the
+    program's patterns and windows fit the CTA's shared memory
+    (:func:`warp_plan`), ``"cta"`` otherwise."""
+    if tables.warp is None or warp_plan(tables, program, B,
+                                        device_index) is None:
+        return "cta"
+    return "warp"
+
+
+def _check_program(tables, program):
     prog = {k: _host_i32(program[k], k) for k in PROGRAM_KEYS}
     S, M = prog["seg_off"].size, prog["pids"].size
     if not prog["seg_len"].size == prog["seg_reps"].size == S:
@@ -299,9 +542,22 @@ def sched_run_cuda(tables, program, fv):
               or (prog["seg_off"] + prog["seg_len"]).max() > M):
         raise ValueError("a program segment lies outside its pid list")
     _check_pids(tables, prog["pids"], "program")
-    if _on_cpu(fv, tables["val0"]):
-        return sched_run(tables, prog, fv)
+    if program_cycles(prog) >= 1 << 31:
+        raise ValueError("the program runs 2^31 cycles or more")
+    return prog
+
+
+def _launch_run(variant, tables, prog, fv, window=None, warps=None,
+                restage=True):
+    """Check the arguments and launch the run kernel's ``variant``; feed
+    windows of ``window`` tokens and ``warps`` warps a stream (warp
+    variant; default the launcher's plan, :func:`warp_plan`);
+    ``restage=False`` is the latency floor.  Records the launch's plan in
+    ``sched_run_cuda.last_plan``.  Returns (out_last, out_count)."""
     from repro_torch.kernels import _build
+    if variant not in SCHED_VARIANTS or (variant == "warp"
+                                         and tables.warp is None):
+        raise ValueError(f"variant {variant!r} cannot run these tables")
     dev = fv.device
     A2, n_in, n_out, F, index = _prepare(tables, (("fv", fv),), dev)
     if fv.dim() != 3 or fv.shape[1] != n_in or fv.shape[0] < 1 \
@@ -310,19 +566,89 @@ def sched_run_cuda(tables, program, fv):
                          f"{n_in}, L >= 1)")
     B, L = fv.shape[0], fv.shape[2]
     lib = _build.load()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    plan = dict(variant=variant, window=None, streams=1, warps=None)
     with torch.cuda.device(index):
-        flat = torch.as_tensor(np.concatenate(
-            [prog[k] for k in PROGRAM_KEYS] + [np.zeros(1, np.int32)]),
-            device=dev)
         ol = torch.empty((B, n_out), dtype=torch.int32, device=dev)
         oc = torch.empty_like(ol)
-        err = lib.sched_run_launch(
-            *_table_ptrs(tables), _vp(flat), _vp(fv), _vp(ol), _vp(oc),
-            S, B, A2, n_in, n_out, L, F,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "sched_run")
-    sched_run_cuda.launches += 1
+        if variant == "cta":
+            flat = torch.as_tensor(np.concatenate(
+                [prog[k] for k in PROGRAM_KEYS] + [np.zeros(1, np.int32)]),
+                device=dev)
+            err = lib.sched_run_launch(
+                *_table_ptrs(tables), _vp(flat), _vp(fv), _vp(ol), _vp(oc),
+                prog["seg_off"].size, B, A2, n_in, n_out, L, F, stream)
+        else:
+            run = warp_plan(tables, prog, B, index, window, warps)
+            if run is None:
+                raise ValueError(
+                    f"the warp variant cannot run this program (window "
+                    f"{window or 'planned'}, {warps or 'planned'} warps a "
+                    "stream): shapes or shared memory")
+            plan.update(run)
+            wp = warp_program(prog)
+            flat = torch.as_tensor(np.concatenate(
+                [wp[k] for k in (*PROGRAM_KEYS, "used")]), device=dev)
+            ptr = fv.data_ptr()
+            err = lib.sched_run_warp_launch(
+                _vp(tables.warp["fire"]), _vp(tables.warp["bits"][run["warps"]]),
+                _vp(tables["ia"]), _vp(tables["oa"]), _vp(tables["val0"]),
+                _vp(flat), ctypes.c_void_p(ptr & ~15), _vp(ol), _vp(oc),
+                (ptr & 15) // 4, wp["seg_off"].size, wp["pids"].size,
+                wp["used"].size, B, A2, n_in, n_out, L, tables.warp["Fp"],
+                wp["cycles"], run["window"], run["warps"], int(restage),
+                sum(1 << o for o in tables.ops) | 1 << int(Op.COPY), stream)
+    _raise_on(err, lib, f"sched_run ({variant} variant)")
+    sched_run_cuda.last_plan = plan
     return ol, oc
+
+
+def sched_run_cuda(tables, program, fv):
+    """A whole scheduled run in one launch (the counterpart of
+    ``make_sched_run``, solo and batched) over the streams of ``fv[B,
+    n_in, L]``: the variant :func:`sched_variant` picks (one warp per
+    stream, or one CTA).  CUDA tensors launch the kernel and count it in
+    ``sched_run_cuda.launches`` and ``launches_by``; CPU tensors take
+    :func:`sched_run`.  Returns (out_last, out_count) [B, n_out]."""
+    _check_tables(tables)
+    prog = _check_program(tables, program)
+    if _on_cpu(fv, tables["val0"]):
+        return sched_run(tables, prog, fv)
+    dev = fv.device
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    variant = sched_variant(tables, prog, fv.shape[0] if fv.dim() else 1,
+                            index)
+    out = _launch_run(variant, tables, prog, fv)
+    sched_run_cuda.launches += 1
+    sched_run_cuda.launches_by[variant] += 1
+    return out
+
+
+def launch_sched_variant(variant, tables, program, fv, window=None,
+                         warps=None):
+    """One launch of the run kernel's ``variant`` (``"warp"`` only for
+    tables that take it) with feed windows of ``window`` tokens and
+    ``warps`` warps a stream, on CUDA tensors, counted nowhere: the tests
+    and ``chip_smoke.py`` hold each variant against the plain versions
+    and the other variant with it.  Arguments and results as
+    :func:`sched_run_cuda`."""
+    _check_tables(tables)
+    return _launch_run(variant, tables, _check_program(tables, program),
+                       fv, window, warps)
+
+
+def sched_floor_cuda(tables, program, fv):
+    """The warp variant's latency floor, for timing: its own loop over the
+    program — the next cycle's pid and entries read from shared memory,
+    the cursor's advance, each feed's token read from its window, the bit
+    tests, the fire and the drain — on one stream of one warp (``fv[:1]``,
+    CUDA), with the feed windows staged once and never again (no copy from
+    device memory inside the loop), counted nowhere.  The results are not
+    the run's."""
+    _check_tables(tables)
+    return _launch_run("warp", tables, _check_program(tables, program),
+                       fv[:1], warps=1, restage=False)
 
 
 def sched_slot_step_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
@@ -375,4 +701,6 @@ def sched_slot_step_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
 
 
 sched_run_cuda.launches = 0
+sched_run_cuda.launches_by = dict.fromkeys(SCHED_VARIANTS, 0)
+sched_run_cuda.last_plan = None
 sched_slot_step_cuda.launches = 0

@@ -180,3 +180,41 @@ def random_sched_run_inputs(ctx, B: int, L: int, rng, cap: int = 1 << 20):
                               rng.integers(1, L + 1, ctx.in_arc.size)))
     plan.ensure(cap)
     return edge_ints(rng, (B, ctx.ia_pad.size, L)), plan
+
+
+def every_cycle_sched(n_in: int, L: int, cycles: int) -> tuple:
+    """Host schedule tables and a program in which feed rows advance as
+    fast as a schedule allows, one token a cycle (a fabric's handshake
+    gives at most one every two), and every token fed shows in the
+    result: row r feeds arc r, an ADD adds it into arc n_in + r, and the
+    drain row reads that sum.  Pattern 1 runs every row, pattern 2 the
+    even rows only; the program runs pattern 1 for L - 1 cycles, then 2
+    and 1 in turn up to ``cycles`` (past L: the clamp is read).  Returns
+    (host tables, program) for ``schedule_fire.upload_sched_tables`` and
+    the run kernels: out_last is each row's sum of its tokens (int32,
+    wrapping), out_count the tokens it took."""
+    from repro_torch.core.graph import Op
+    A2 = 2 * n_in + 2
+    P, F = 4, n_in
+    z = lambda *shape: np.zeros(shape, np.int32)
+    host = dict(op=z(P, F), i0=z(P, F), i1=z(P, F),
+                o0=np.full((P, F), A2, np.int32),
+                o1=np.full((P, F), A2, np.int32), feed=z(P, n_in),
+                drain=z(P, n_in), full=z(P, A2), nfire=z(P),
+                ia=np.arange(n_in, dtype=np.int32),
+                oa=np.arange(n_in, 2 * n_in, dtype=np.int32), val0=z(A2))
+    for pid, rows in ((1, np.arange(n_in)), (2, np.arange(0, n_in, 2))):
+        k = rows.size
+        host["feed"][pid, rows] = host["drain"][pid, rows] = 1
+        host["nfire"][pid] = k
+        host["op"][pid, :k] = int(Op.ADD)
+        host["i0"][pid, :k] = n_in + rows
+        host["i1"][pid, :k] = rows
+        host["o0"][pid, :k] = n_in + rows
+    head = max(L - 1, 0)
+    tail = max(cycles - head, 0)
+    program = dict(seg_off=np.array([0, 1], np.int32),
+                   seg_len=np.array([1, 2], np.int32),
+                   seg_reps=np.array([head, tail // 2], np.int32),
+                   pids=np.array([1, 2, 1], np.int32))
+    return host, program

@@ -23,7 +23,7 @@ from repro_torch.kernels import schedule_fire as ksf  # noqa: E402
 from repro_torch.serve.dataflow_server import DataflowServer  # noqa: E402
 from repro_torch.core.schedule import schedulable  # noqa: E402
 from repro_torch.testing import (STATE_KEYS,  # noqa: E402
-                                 assert_same_result,
+                                 assert_same_result, edge_ints,
                                  random_block_inputs, random_graph,
                                  random_prof, random_sched_run_inputs,
                                  random_sched_slot_inputs)
@@ -423,6 +423,140 @@ def test_sched_kernels_reject_bad_arguments(cuda):
         ksf.sched_run_cuda(dict(fresh), program, fv)
 
 
+def _misaligned(fv, ints):
+    """fv's tokens at ``ints`` ints past a 16-byte boundary."""
+    buf = torch.empty(fv.numel() + 4, dtype=fv.dtype, device=fv.device)
+    out = buf[ints:ints + fv.numel()].view(fv.shape)
+    out.copy_(fv)
+    return out
+
+
+def _warp_window(tabs, program, B):
+    """The feed window the launcher plans for ``program`` at B streams."""
+    prog = {k: np.asarray(program[k], np.int32) for k in ksf.PROGRAM_KEYS}
+    plan = ksf.warp_plan(tabs, prog, B, torch.cuda.current_device())
+    assert plan is not None
+    return plan["window"]
+
+
+@pytest.mark.parametrize("name", SCHED_BENCHES)
+def test_sched_run_variants_at_window_edges(cuda, name):
+    """Both run variants bit for bit against the plain run at stream
+    lengths 1, W - 1, W, W + 1 and an odd one past two windows (the
+    launch plan's W, and W = 4; streams of one and of two warps), B = 1
+    and 8, half the rows fed two tokens past their end (the clamp),
+    tokens off a 16-byte boundary."""
+    ctx = _sched_ctx(cuda, name)
+    rng = np.random.default_rng(29)
+    n_in = ctx.in_arc.size
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    plan = ctx.plan_for((64,) * n_in)
+    plan.ensure(1 << 20)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    W = _warp_window(tabs, ksf.flat_program(*plan.trace_struct(plan.total)),
+                     8)
+    for L in sorted({1, W - 1, W, W + 1, 2 * W + 3, 3, 4, 5, 11}):
+        flen = tuple(L + 2 if r % 2 == 0 else L for r in range(n_in))
+        plan = ctx.plan_for(flen)
+        plan.ensure(1 << 20)
+        tabs = ksf.device_sched_tables(ctx, cuda)
+        program = ksf.flat_program(*plan.trace_struct(plan.total))
+        for B in (1, 8):
+            fv = torch.tensor(edge_ints(rng, (B, ctx.ia_pad.size, L)),
+                              device=cuda)
+            want = ksf.sched_run(tabs, program, fv)
+            for f in (fv, _misaligned(fv, 1), _misaligned(fv, 3)):
+                _assert_equal(ksf.launch_sched_variant("cta", tabs, program,
+                                                       f), want)
+                for window in (None, 4):
+                    for warps in sorted(tabs.warp["bits"]):
+                        _assert_equal(ksf.launch_sched_variant(
+                            "warp", tabs, program, f, window=window,
+                            warps=warps), want)
+
+
+@pytest.mark.parametrize("L", [1, 3, 4, 5, 11, 31, 32, 33, 97])
+def test_sched_run_warp_variant_feeding_every_cycle(cuda, L):
+    """Rows that take a token every cycle: the windows land in time at
+    W = 4, 8 and the plan's; against the plain run."""
+    from repro_torch.testing import every_cycle_sched
+    host, program = every_cycle_sched(5, L, L + 9)
+    tabs = ksf.upload_sched_tables(host, cuda, 4)
+    fv = torch.tensor(edge_ints(np.random.default_rng(L), (8, 5, L)),
+                      device=cuda)
+    want = ksf.sched_run(tabs, program, fv)
+    for f in (fv, _misaligned(fv, 2)):
+        for window in (None, 4, 8):
+            _assert_equal(ksf.launch_sched_variant("warp", tabs, program, f,
+                                                   window=window), want)
+        _assert_equal(ksf.launch_sched_variant("cta", tabs, program, f),
+                      want)
+
+
+def test_sched_run_launches_by_counts_the_variant_that_ran(cuda):
+    """dot_prod n = 32 runs the warp variant; a fabric of 160 feed rows
+    the CTA one; each launch counted under its variant."""
+    for graph, want in ((library.dot_product_graph(32).graph, "warp"),
+                        (library.dot_product_graph(80).graph, "cta")):
+        ctx = DataflowEngine(graph, device=cuda,
+                             schedule=True)._sched_ctx()
+        plan = ctx.plan_for((12,) * ctx.in_arc.size)
+        plan.ensure(1 << 20)
+        tabs = ksf.device_sched_tables(ctx, cuda)
+        program = ksf.flat_program(*plan.trace_struct(plan.total))
+        fv = torch.tensor(edge_ints(np.random.default_rng(0),
+                                    (4, ctx.ia_pad.size, 12)), device=cuda)
+        n0 = dict(ksf.sched_run_cuda.launches_by)
+        got = ksf.sched_run_cuda(tabs, program, fv)
+        _assert_equal(got, ksf.sched_run(tabs, program, fv))
+        assert ksf.sched_run_cuda.launches_by[want] == n0[want] + 1
+        assert sum(ksf.sched_run_cuda.launches_by.values()) == \
+            sum(n0.values()) + 1
+    with pytest.raises(ValueError, match="cannot run"):
+        ksf.launch_sched_variant("warp", tabs, program, fv)
+
+
+def test_warp_plan_fits_two_ctas_an_sm(cuda):
+    """The launcher's plan for dot_prod n = 32 over 4096 tokens (64 feed
+    rows, 13 patterns of 64 fire rows): 4 streams a CTA with W = 32 and
+    one warp a stream at B = 1024; two warps below 4 streams an SM; B
+    bounds the streams; a fixed window keeps the streams; windows that are
+    not powers of two from 4, and warps the tables cannot take, are
+    refused.  A launch records the plan it ran."""
+    ctx = DataflowEngine(library.dot_product_graph(32).graph, device=cuda,
+                         schedule=True)._sched_ctx()
+    plan = ctx.plan_for((4096,) * ctx.in_arc.size)
+    plan.ensure(1 << 20)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    prog = {k: np.asarray(v, np.int32) for k, v in
+            ksf.flat_program(*plan.trace_struct(plan.total)).items()}
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    wp = lambda B, **kw: ksf.warp_plan(tabs, prog, B, index, **kw)
+    assert wp(1024) == dict(window=32, streams=4, warps=1)
+    assert wp(4 * sms) == dict(window=32, streams=4, warps=1)
+    assert wp(4 * sms - 1)["warps"] == 2
+    assert wp(8)["warps"] == 2
+    assert wp(2)["streams"] == 2 and wp(1)["streams"] == 1
+    assert wp(1024, window=8) == dict(window=8, streams=4, warps=1)
+    assert wp(1024, warps=2)["warps"] == 2
+    for bad in (dict(window=6), dict(window=2), dict(warps=3)):
+        assert wp(1024, **bad) is None
+    fv = torch.tensor(edge_ints(np.random.default_rng(1),
+                                (8, ctx.ia_pad.size, 64)), device=cuda)
+    short = ctx.plan_for((64,) * ctx.in_arc.size)
+    short.ensure(1 << 20)
+    program = ksf.flat_program(*short.trace_struct(short.total))
+    _assert_equal(ksf.sched_run_cuda(tabs, program, fv),
+                  ksf.sched_run(tabs, program, fv))
+    run = ksf.warp_plan(tabs, {k: np.asarray(v, np.int32)
+                               for k, v in program.items()}, 8, index)
+    assert ksf.sched_run_cuda.last_plan == dict(variant="warp", **run)
+    ksf.sched_floor_cuda(tabs, program, fv)
+    assert ksf.sched_run_cuda.last_plan["warps"] == 1
+    assert ksf.sched_run_cuda.last_plan["streams"] == 1
+
+
 @pytest.mark.parametrize("name", SCHED_BENCHES)
 def test_scheduled_engine_matches_reference(cuda, name):
     """Scheduled run and run_batch go through the run kernel (one launch
@@ -678,19 +812,55 @@ def test_split_wrappers_reject_bad_arguments(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("model", [False, True])
 @pytest.mark.parametrize("rows,d", [(1, 32), (7, 130), (300, 512),
-                                    (4096, 2048)])
+                                    (4096, 2048), (4, 2048), (8, 2048),
+                                    (133, 2048), (4096, 256)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, model, rows, d):
+    """The wrapper launches the variant norm_variant picks (rows of whole
+    16-byte vectors split over a CTA at any row count, d = 130 generic)
+    and matches the plain version."""
     from repro_torch.kernels import rmsnorm as rn
     gen = torch.Generator(device=cuda).manual_seed(rows + d)
     x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(dtype)
     w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
-    n0 = rn.rmsnorm_cuda.launches
+    variant = rn.norm_variant(d, x.element_size())
+    assert variant == ("generic" if d == 130 else "split")
+    n0, by0 = rn.rmsnorm_cuda.launches, rn.rmsnorm_cuda.launches_by[variant]
     got = rn.rmsnorm_cuda(x, w, model=model)
     assert rn.rmsnorm_cuda.launches == n0 + 1
+    assert rn.rmsnorm_cuda.launches_by[variant] == by0 + 1
     want = rn.rmsnorm(x, w, model=model)
     assert got.dtype == dtype and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(),
                                rtol=NORM_TOL[dtype], atol=NORM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(1, 32), (4, 2048), (133, 96),
+                                    (131, 4096), (1000, 2048)])
+def test_rmsnorm_variants_match_plain(cuda, dtype, rows, d):
+    """Both variants, launched uncounted, in both roundings; a misaligned
+    x runs the generic variant and the split variant refuses it."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(dtype)
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
+    n0 = dict(rn.rmsnorm_cuda.launches_by)
+    for model in (False, True):
+        want = rn.rmsnorm(x, w, model=model).float()
+        for variant in rn.VARIANTS:
+            got = rn.launch_norm_variant(variant, x, w, model=model)
+            torch.testing.assert_close(got.float(), want,
+                                       rtol=NORM_TOL[dtype],
+                                       atol=NORM_TOL[dtype])
+    buf = torch.empty(rows * d + 1, dtype=dtype, device=cuda)
+    off = buf[1:].view(rows, d)
+    off.copy_(x)
+    torch.testing.assert_close(rn.rmsnorm_cuda(off, w).float(),
+                               rn.rmsnorm(x, w).float(),
+                               rtol=NORM_TOL[dtype], atol=NORM_TOL[dtype])
+    assert rn.rmsnorm_cuda.launches_by["generic"] == n0["generic"] + 1
+    with pytest.raises(RuntimeError, match="split variant"):
+        rn.launch_norm_variant("split", off, w)
 
 
 def test_lm_wrappers_reject_bad_arguments(cuda):
