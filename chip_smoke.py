@@ -19,9 +19,12 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              chunk, random counters in), 64 random graphs (control
              operators included; the spec kernel also against the dense
              one on the same permuted tables) and 4 random graphs of 150
-             nodes (the CTA variant by size); the fire step on random
-             states; the serving states the main path gives the kernels
-             (dot_prod at B = 1024, L = 4096, dense and
+             nodes (the CTA variant by size); the fire step's two variants
+             (one warp; one CTA, which alone takes the 150-node graphs)
+             and its warp order's replay on random states of the 7
+             benches and the 64 and 4 random graphs; the serving
+             states the main path gives the kernels (dot_prod at B =
+             1024, L = 4096, dense and
              optimized+profiled, bubble_sort(8) at B = 256, with the B = 1
              slice of each; dot_prod's also against the two-phase replay
              of the kernel's cycle order); random graphs fed int32 edge
@@ -45,7 +48,18 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              variants' times at full width and at phase 4's shape
              (dot_prod, B = 8, 9 tokens) and the variant's latency floor
              (its own loop over the program on one stream of one warp,
-             the feed windows staged once); both RMSNorm variants
+             the feed windows staged once); the slot step's two variants
+             (warp, one warp a slot; CTA) bit for bit against
+             the plain slot step on the 6 schedulable benches at B = 1, 8
+             and 1024, K = 1, 16, 64 and 65 (at B = 1024 64 and 65; 8
+             plans of mixed feed lengths,
+             random positions, parked slots, pointers at and past the
+             stream's end, tokens 1-3 ints off 16 bytes, the warp order's
+             replay at B = 8), and at the scheduled serving state against
+             the fire block, with each variant's time and the floor (the
+             first active slot alone on one warp); the fire step's
+             variants' times and its floor (an empty one-warp kernel);
+             both RMSNorm variants
              (split, generic) against the plain version at
              1-14812 rows by d = 32, 130, 2048 and 4096 in f32 and bf16,
              both roundings, with the wrapper's choice checked;
@@ -53,15 +67,17 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              ``run_batch`` against ``run_reference`` (7 benches, both
              flags, K in {1, 16, 64}); ``schedule=True`` on the 6
              schedulable benches (each run one launch of the run
-             kernel); ``optimize_graph`` fabrics on the card; ``run_fabric`` (one fire-step launch per cycle)
-             against ``run_reference``, with its microseconds per cycle
-             beside the fused engine's at K = 16 and 64 (the paper's
-             Table-1 comparison);
+             kernel); ``optimize_graph`` fabrics on the card;
+             ``run_fabric`` (one fire-step launch per cycle, the warp
+             variant on every bench) against ``run_reference``, with its
+             microseconds per cycle beside the fused engine's at K = 16
+             and 64 (the paper's Table-1 comparison);
 5. serving — ``DataflowServer(slots=1024, block_cycles=64)`` on the
              paper's dot-product fabric at n = 32, 2048 requests of
              256..4096 tokens: dense, then optimized and profiled, then
              optimized, profiled and scheduled (every result equal to the
-             dynamic deployment's in every field); then bubble_sort(8) at
+             dynamic deployment's in every field, every slot step the warp
+             variant); then bubble_sort(8) at
              256 slots.  The launch counts are read here; 16 sampled
              results per deployment are then checked against
              ``run_reference``, a solo ``run`` and (profiled) a solo
@@ -108,7 +124,7 @@ count is set to 0 just before phase 4 and read after phase 5, before
 the sampled checks (the fabric's rows 1-8), and set to 0 again just
 before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
-rows 1-5's and 7's per variant come from phases 4-5).  The
+rows 1-8's per variant come from phases 4-5).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
@@ -219,9 +235,11 @@ def launch_counts() -> dict:
             "fire_block_batched_prof": bat.prof_launches,
             "fire_block_spec": one.spec_launches + bat.spec_launches,
             "fire_step": df.fire_step_cuda.launches,
+            "fire_step_by": dict(df.fire_step_cuda.launches_by),
             "sched_run": ksf.sched_run_cuda.launches,
             "sched_run_by": dict(ksf.sched_run_cuda.launches_by),
             "sched_slot_step": ksf.sched_slot_step_cuda.launches,
+            "sched_slot_step_by": dict(ksf.sched_slot_step_cuda.launches_by),
             "flash_attention": fa.flash_attention_cuda.launches,
             "flash_attention_by": dict(fa.flash_attention_cuda.launches_by),
             "rmsnorm": rn.rmsnorm_cuda.launches,
@@ -237,8 +255,11 @@ def reset_counts() -> None:
         w.launches = w.prof_launches = w.spec_launches = 0
         w.launches_by = dict.fromkeys(df.VARIANTS, 0)
     df.fire_step_cuda.launches = 0
+    df.fire_step_cuda.launches_by = dict.fromkeys(df.STEP_VARIANTS, 0)
     ksf.sched_run_cuda.launches = ksf.sched_slot_step_cuda.launches = 0
     ksf.sched_run_cuda.launches_by = dict.fromkeys(ksf.SCHED_VARIANTS, 0)
+    ksf.sched_slot_step_cuda.launches_by = dict.fromkeys(ksf.SLOT_VARIANTS,
+                                                         0)
     fa.flash_attention_cuda.launches = rn.rmsnorm_cuda.launches = 0
     rn.rmsnorm_cuda.launches_by = dict.fromkeys(rn.VARIANTS, 0)
     fa.flash_attention_cuda.launches_by = dict.fromkeys(fa.VARIANTS, 0)
@@ -287,23 +308,62 @@ def cold_turns_ms(fns: dict, reps: int, flush) -> dict:
             for k, v in marks.items()}
 
 
-def profiled_ms(fn, reps: int, kernel: str | None = None) -> float:
-    """Mean device milliseconds per fn() from torch.profiler: the time of
-    the kernels whose name holds ``kernel`` (all kernels if None); 0.0
-    when the profiler records no device time."""
+def profile_kernels(fn, reps: int, kernel: str | None = None,
+                    tries: int = 3) -> tuple:
+    """Mean device milliseconds per fn() from torch.profiler, and the
+    launches it recorded, of the kernels whose name holds ``kernel`` (all
+    kernels if None); (0.0, 0) when the profiler records no device time.
+    The profiler loses records now and then, at times a whole window: a
+    window that recorded fewer launches than half the calls is profiled
+    again, up to ``tries`` windows, and the one with the most launches
+    counts."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for e in prof.key_averages():
-        if kernel is None or kernel in e.key:
-            us += getattr(e, "device_time_total", None) or 0.0
-    return us / reps / 1e3
+    best = (0.0, 0)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e in prof.key_averages():
+            if kernel is None or kernel in e.key:
+                us += getattr(e, "device_time_total", None) or 0.0
+                n += e.count
+        if n > best[1]:
+            best = (us / reps / 1e3, n)
+        if 2 * n >= reps:
+            break
+        log(f"  (the profiler recorded {n} launches of {kernel} in {reps} "
+            "calls: profiled again)")
+    return best
+
+
+def profiled_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """Mean device milliseconds per fn() of the kernels whose name holds
+    ``kernel`` (:func:`profile_kernels`); 0.0 when the profiler records
+    no device time.  Fewer launches recorded than calls can only be
+    records the profiler lost: then the mean of the launches it recorded
+    stands for a call, which is exact where a call launches one matching
+    kernel (every row but the split decode's two kernels)."""
+    ms, n = profile_kernels(fn, reps, kernel)
+    if 0 < n < reps:
+        log(f"  (the profiler recorded {n} launches of {kernel} in {reps} "
+            "calls: the mean of those)")
+        return ms * reps / n
+    return ms
+
+
+def device_ms(fn, reps: int, kernel: str | None = None) -> float:
+    """:func:`profiled_ms`, failing when the profiler records no device
+    time for ``kernel`` (a name filter that misses must not read as a
+    time from another clock)."""
+    ms = profiled_ms(fn, reps, kernel)
+    check(ms > 0, f"the profiler recorded no device time for "
+                  f"{kernel or 'any kernel'}")
+    return ms
 
 
 def max_abs_err(got, want) -> int:
@@ -409,17 +469,28 @@ def hold_blocks(dev, tables, x, prof, Ks, err, tag) -> int:
     return fired
 
 
-def hold_fire_step(dev, tables, x, err, tag) -> None:
+def hold_fire_step(dev, tables, x, err, tag) -> str:
     """The fire-step kernel against its plain version on every stream's
-    registers of the random inputs ``x``."""
+    registers of the random inputs ``x``: through the wrapper and in
+    each variant that can run the fabric (the warp one up to 256 rows a
+    table); the plain warp-order replay too.  Returns the wrapper's
+    variant."""
     import torch
     from repro_torch.kernels import dataflow_fire as df
     dt = df.device_tables(tables, dev)
+    variants = df.STEP_VARIANTS if dt.step_variant == "warp" else ("cta",)
     for b in range(x["full"].shape[0]):
         full = torch.tensor(x["full"][b], device=dev)
         val = torch.tensor(x["val"][b], device=dev)
-        hold(err, ["fire_step"], df.fire_step_cuda(dt, full, val),
-             df.fire_step(dt, full, val), f"{tag} fire step")
+        want = df.fire_step(dt, full, val)
+        hold(err, ["fire_step"], df.fire_step_cuda(dt, full, val), want,
+             f"{tag} fire step")
+        for v in variants:
+            hold(err, ["fire_step"], df.launch_step_variant(v, dt, full, val),
+                 want, f"{tag} fire step, {v} variant")
+        hold(err, ["fire_step"], df.fire_step_warp_order(dt, full, val),
+             want, f"{tag} fire step, the warp order's replay")
+    return dt.step_variant
 
 
 def phase_kernel(dev) -> dict:
@@ -445,11 +516,12 @@ def phase_kernel(dev) -> dict:
                                 f"{name} opt={opt}")
             check(fired > 0, f"nothing fired: {name} opt={opt}")
             if not opt:
-                hold_fire_step(dev, tables, x, err, name)
+                check(hold_fire_step(dev, tables, x, err, name) == "warp",
+                      f"{name}: the fire step is not warp-sized")
         log(f"  {name:12s} dense and spec, unprofiled and profiled kernels, "
             f"warp and CTA variants == plain at B=64, K=1/16/64/"
             f"{df.STAGE_CYCLES + 1} ({int(x['active'].sum())} active); "
-            f"spec == dense; fire step == plain")
+            f"spec == dense; fire step, warp and CTA variants == plain")
     for seed in range(64):
         g = random_graph(seed)
         rng = np.random.default_rng(seed)
@@ -462,7 +534,7 @@ def phase_kernel(dev) -> dict:
                        err, g.name)
     log("  64 random graphs (NDMERGE/DMERGE/BRANCH among them): spec kernel "
         "== plain == dense kernel, unprofiled and profiled, warp and CTA "
-        "variants, K=8; fire step == plain")
+        "variants, K=8; fire step, warp and CTA variants == plain")
     for seed in range(4):
         g = random_graph(seed, nodes=150)
         rng = np.random.default_rng(seed)
@@ -471,8 +543,13 @@ def phase_kernel(dev) -> dict:
         x = random_block_inputs(tables, 16, 96, rng)
         hold_blocks(dev, tables, x, random_prof(tables, 16, rng),
                     (8, df.STAGE_CYCLES + 1), err, f"{g.name} (150 nodes)")
-    log(f"  4 random graphs of 150 nodes (CTA variant by size): kernels == "
-        f"plain, unprofiled and profiled, K=8/{df.STAGE_CYCLES + 1}")
+        dense = df.block_plan_arrays(g)
+        check(hold_fire_step(dev, dense, random_block_inputs(dense, 4, 1, rng),
+                             err, f"{g.name} (150 nodes)") == "cta",
+              f"{g.name}: the fire step is not CTA-sized")
+    log(f"  4 random graphs of 150 nodes (CTA variants by size): kernels == "
+        f"plain, unprofiled and profiled, K=8/{df.STAGE_CYCLES + 1}; fire "
+        "step == plain")
     n_cases = 0
     for seed in range(24):
         g = random_graph(seed)
@@ -686,6 +763,71 @@ def hold_sched_variants(dev, err, Bs=(1, 8, 1024), long=4096) -> dict:
     return cases
 
 
+SLOT_KERNELS = {"warp": "sched_slot_warp_kernel",
+                "cta": "sched_slot_step_kernel"}
+
+
+def hold_slot_variants(dev, err, Bs=(1, 8, 1024), Ks=(1, 16, 64, 65),
+                       L=96) -> dict:
+    """Both variants of the slot kernel bit for bit against the plain slot
+    step on the 6 schedulable benches: B = 1, 8 and 1024 slots, K = 1,
+    16, 64 and 65 cycles (at B = 1024 only the two longer: the run's time
+    stays where it was); slots ride 8 plans of mixed feed lengths
+    at random positions (past their end too), a quarter parked, pointers
+    at L - 1, at L and past it (the clamp); at B = 8 also the tokens 1-3
+    ints off a 16-byte boundary, and the plain replay of the warp
+    variant's order.  Returns the cases held per variant."""
+    import torch
+    from repro_torch.core.engine import DataflowEngine
+    from repro_torch.kernels import schedule_fire as ksf
+    from repro_torch.testing import (STATE_KEYS, random_slot_window_inputs,
+                                     slot_plans)
+    rng = np.random.default_rng(20)
+    cases = dict.fromkeys(ksf.SLOT_VARIANTS, 0)
+    for name, build in sched_benches().items():
+        ctx = DataflowEngine(build().graph, device=dev,
+                             schedule=True)._sched_ctx()
+        plans = slot_plans(ctx, L, rng)
+        for B in Bs:
+            for K in Ks if B < 1024 else Ks[2:]:
+                x = random_slot_window_inputs(ctx, plans, B, K, L, rng)
+                tabs = ksf.device_sched_tables(ctx, dev)
+                t = {k: torch.tensor(x[k], device=dev)
+                     for k in ("fv", *STATE_KEYS)}
+                state = [t[k] for k in STATE_KEYS]
+                ctl = (x["pids"], x["fsel"])
+                want = ksf.sched_slot_step(tabs, t["fv"], *ctl, *state)
+                what = f"{name} slot step B={B} K={K}"
+                hold(err, ["sched_slot_step"],
+                     ksf.sched_slot_step_cuda(tabs, t["fv"], *ctl, *state),
+                     want, what)
+                fvs = [t["fv"]]
+                if B == 8:
+                    fvs += [misaligned(t["fv"], m) for m in (1, 2, 3)]
+                for fv in fvs:
+                    mis = fv.data_ptr() // 4 % 4
+                    for v in ksf.SLOT_VARIANTS:
+                        hold(err, ["sched_slot_step"],
+                             ksf.launch_slot_variant(v, tabs, fv, *ctl,
+                                                     *state),
+                             want, f"{what} {v} variant, tokens {mis} ints "
+                             "off 16 B")
+                        cases[v] += 1
+                    if B == 8:
+                        hold(err, ["sched_slot_step"],
+                             ksf.sched_slot_step_staged(
+                                 tabs, fv, *ctl, *state, misalign=mis),
+                             want, f"{what}, the warp order's replay, "
+                             f"tokens {mis} ints off 16 B")
+        log(f"  {name:12s} sched slot step, warp and CTA variants == plain at "
+            f"B={'/'.join(map(str, Bs))}, K={'/'.join(map(str, Ks))} "
+            f"(B=1024: K={'/'.join(map(str, Ks[2:]))}) "
+            f"(8 plans of mixed feed lengths, random positions, parked "
+            f"slots, clamped pointers, misaligned tokens; "
+            f"{len(ctx.registry)} patterns)")
+    return cases
+
+
 def device_index(dev) -> int:
     """The CUDA device index of ``dev``."""
     import torch
@@ -822,9 +964,29 @@ def time_block(st, tables, prof, batched, variant=None):
                 shape=f"{shape}, N2={N2}, A2={A2}, {variant} variant")
 
 
+STEP_KERNELS = {"warp": "fire_step_warp_kernel", "cta": "fire_step_kernel"}
+
+
+def empty_launch(dev):
+    """A launcher of the empty one-warp kernel (the fire step's floor)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.load()
+
+    def run():
+        err = lib.fire_empty_launch(ctypes.c_void_p(
+            torch.cuda.current_stream(dev).cuda_stream))
+        check(err == 0, "the empty kernel did not launch")
+    return run
+
+
 def time_fire_step(dev, graph):
     """Times and bound of the fire step on a random state of ``graph``'s
-    tables (what ``run_fabric`` launches once per cycle)."""
+    tables (what ``run_fabric`` launches once per cycle): the wrapper's
+    variant (device time and time per wrapper call), the other variant,
+    and the floor — an empty one-warp kernel launched and timed the same
+    way."""
     import torch
     from repro_torch.kernels import dataflow_fire as df
     from repro_torch.testing import random_block_inputs
@@ -836,14 +998,33 @@ def time_fire_step(dev, graph):
     run_k = lambda: df.fire_step_cuda(dt, full, val)
     run_p = lambda: df.fire_step(dt, full, val)
     N2, A2 = dt["opcode"].shape[0], dt["prod_node"].shape[0]
-    nbytes = sum(dt[k].numel() * 4 for k in df.STEP_KEYS) + 4 * (4 * A2 + 1)
+    # the tables the wrapper's variant reads (the warp one only the packed
+    # words), full/val read and written, and fired
+    tables_read = ([dt.step_words[k] for k in ("node", "arc")]
+                   if dt.step_variant == "warp"
+                   else [dt[k] for k in df.STEP_KEYS])
+    nbytes = sum(x.numel() * 4 for x in tables_read) + 4 * (4 * A2 + 1)
     ops = N2 + A2
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
-    return dict(**timed(run_k, run_p, 200, "fire_step_kernel"),
-                bound_ms=max(t_b, t_o) * 1e3,
+    out = dict(**timed(run_k, run_p, 200, STEP_KERNELS[dt.step_variant]),
+               variant=dt.step_variant)
+    for v in df.STEP_VARIANTS:
+        run_v = lambda v=v: df.launch_step_variant(v, dt, full, val)
+        out[f"{v}_ms"] = device_ms(run_v, 200, STEP_KERNELS[v])
+        out[f"{v}_call_ms"] = cuda_ms(run_v, 200)
+    empty = empty_launch(dev)
+    out.update(floor_ms=device_ms(empty, 200, "fire_empty_kernel"),
+               floor_call_ms=cuda_ms(empty, 200))
+    log(f"  fire step ({graph.name}): warp {out['warp_ms']:.5f} ms, CTA "
+        f"{out['cta_ms']:.5f} ms, floor (empty one-warp kernel) "
+        f"{out['floor_ms']:.5f} ms; per call: wrapper {out['call_ms']:.5f}, "
+        f"warp {out['warp_call_ms']:.5f}, CTA {out['cta_call_ms']:.5f}, "
+        f"empty launch {out['floor_call_ms']:.5f} ms")
+    return dict(**out, bound_ms=max(t_b, t_o) * 1e3,
                 bound_by="bytes" if t_b >= t_o else "operations",
                 bytes=nbytes, tokens=0,
-                shape=f"{graph.name}: one CTA, N2={N2}, A2={A2}")
+                shape=f"{graph.name}: N2={N2}, A2={A2}, "
+                      f"{dt.step_variant} variant")
 
 
 def latency_floor(dev, Ks=(16, 64), long_cycles=1 << 16) -> dict:
@@ -865,10 +1046,8 @@ def latency_floor(dev, Ks=(16, 64), long_cycles=1 << 16) -> dict:
 
     ms = {}
     for K in Ks:
-        ms[K] = profiled_ms(lambda: run(K), 50, "fire_floor_kernel") \
-            or cuda_ms(lambda: run(K), 50)
-    long_ms = profiled_ms(lambda: run(long_cycles), 5, "fire_floor_kernel") \
-        or cuda_ms(lambda: run(long_cycles), 5)
+        ms[K] = device_ms(lambda: run(K), 50, "fire_floor_kernel")
+    long_ms = device_ms(lambda: run(long_cycles), 5, "fire_floor_kernel")
     floor = dict(ms=ms, us_per_cycle=long_ms * 1e3 / long_cycles,
                  long_cycles=long_cycles)
     log(f"  latency floor (one warp, the chain alone): "
@@ -998,7 +1177,7 @@ def sched_floor(tabs, program, fv, cycles, reps=10) -> dict:
     per cycle."""
     from repro_torch.kernels import schedule_fire as ksf
     run = lambda: ksf.sched_floor_cuda(tabs, program, fv)
-    ms = profiled_ms(run, reps, "sched_run_warp") or cuda_ms(run, reps)
+    ms = device_ms(run, reps, "sched_run_warp")
     check(ksf.sched_run_cuda.last_plan["warps"] == 1
           and ksf.sched_run_cuda.last_plan["streams"] == 1,
           "the latency floor did not run one stream of one warp")
@@ -1022,8 +1201,7 @@ def time_variants(tabs, program, fv, reps, errs, want, what) -> dict:
     out = {}
     for k, run in runs.items():
         hold(errs, ["sched_run"], run(), want, f"{what}, {k}")
-        out[f"{k}_ms"] = profiled_ms(run, reps, "sched_run") or \
-            cuda_ms(run, reps)
+        out[f"{k}_ms"] = device_ms(run, reps, "sched_run")
         out[f"{k}_call_ms"] = cuda_ms(run, reps)
     return out
 
@@ -1150,6 +1328,7 @@ def phase_sched_states(dev, dot, dot_reqs, errs, B=1024, L=4096,
     run_k = lambda: ksf.sched_slot_step_cuda(tabs, st.fv, pids, fsel, *state)
     run_p = lambda: ksf.sched_slot_step(tabs, st.fv, pids, fsel, *state)
     got = run_k()
+    ran = dict(ksf.sched_slot_step_cuda.last_plan)
     hold(errs, ["sched_slot_step"], got, run_p(), "scheduled serving state")
     fire_t = df.device_tables(df.block_plan_arrays(dot.graph, optimize=True),
                               dev)
@@ -1157,16 +1336,47 @@ def phase_sched_states(dev, dot, dot_reqs, errs, B=1024, L=4096,
         fire_t, st.fv, st.fl, *state, n_cycles=K, active=st.active_dev)
     hold(errs, ["sched_slot_step"], got, dyn()[:5],
          "scheduled serving state vs the fire block")
+    by = {}
+    for v in ksf.SLOT_VARIANTS:
+        run_v = lambda v=v: ksf.launch_slot_variant(v, tabs, st.fv, pids,
+                                                    fsel, *state)
+        hold(errs, ["sched_slot_step"], run_v(), got,
+             f"scheduled serving state, {v} variant")
+        hold(errs, ["sched_slot_step"], run_v(), dyn()[:5],
+             f"scheduled serving state vs the fire block, {v} variant")
+        by[f"{v}_ms"] = device_ms(run_v, 20, SLOT_KERNELS[v])
+        by[f"{v}_call_ms"] = cuda_ms(run_v, 20)
+    # the floor: the warp variant on one warp over the first active slot
+    b0 = int(np.nonzero(st.active)[0][0])
+    one = [x[b0:b0 + 1] for x in (st.fv, *state)]
+    run_f = lambda: ksf.sched_slot_floor_cuda(tabs, one[0], pids[b0:b0 + 1],
+                                              fsel[b0:b0 + 1], *one[1:])
+    hold(errs, ["sched_slot_step"], run_f(), [x[b0:b0 + 1] for x in got],
+         f"scheduled serving state, slot {b0} alone on one warp")
+    floor_ms = device_ms(run_f, 20, SLOT_KERNELS["warp"])
+    live = int(sum(ctx.registry[p].fed.size + ctx.registry[p].n_fires
+                   + ctx.registry[p].n_drains > 0 for p in pids[b0]))
     per_row = 2 * (2 * ctx.A2 + 2 * ctx.oa_pad.size + ctx.ia_pad.size)
     nbytes = 4 * (st.slots * (per_row + K + 1) + tokens)
     active = int(st.active.sum())
     times["sched_slot_step"] = dict(
-        **timed(run_k, run_p, 20, "sched_slot_step_kernel"),
-        **sched_bound(tabs, nbytes, ops), tokens=tokens,
+        **timed(run_k, run_p, 20, SLOT_KERNELS[ran["variant"]]),
+        **sched_bound(tabs, nbytes, ops), tokens=tokens, **ran, K=K,
+        by_variant=by, floor_ms=floor_ms, floor_slot=b0,
+        floor_cycles_run=live, patterns=len(ctx.registry),
         shape=f"B={st.slots} slots ({active} active), K={K}, "
               f"L={st.fv.shape[2]}, A2={ctx.A2}, {len(ctx.registry)} "
               "patterns")
-    fire_ms = profiled_ms(dyn, 20, "fire_block_kernel") or cuda_ms(dyn, 20)
+    log(f"  sched slot step at the scheduled serving state "
+        f"({len(ctx.registry)} patterns in the registry; the wrapper runs "
+        f"the {ran['variant']} "
+        f"variant, {ran['streams']} slots a CTA, one warp a slot), device "
+        f"ms: " + ", ".join(
+            f"{k[:-3]} {v:.4f}" for k, v in by.items()
+            if not k.endswith("call_ms"))
+        + f"; floor (slot {b0} alone on one warp, {live} of {K} cycles "
+        f"doing work) {floor_ms:.4f}")
+    fire_ms = device_ms(dyn, 20, "fire_block_")
     versus["slot_step"] = dict(
         cycles=K, sched_ms=times["sched_slot_step"]["ms"],
         fire_block_ms=fire_ms, active=active,
@@ -1295,6 +1505,7 @@ def phase_run_fabric(dev) -> dict:
     otherwise, B = 1)."""
     from repro_torch.core import library
     from repro_torch.core.engine import DataflowEngine, run_reference
+    from repro_torch.kernels import dataflow_fire as df
     from repro_torch.kernels import ops
     from repro_torch.testing import assert_same_result
 
@@ -1313,10 +1524,16 @@ def phase_run_fabric(dev) -> dict:
         feeds = library.random_feeds(name, bench, k, np.random.default_rng(0))
         want = run_reference(bench.graph, feeds)
         compiled = ops.make_fire_step(bench.graph, dev)
+        by0 = dict(df.fire_step_cuda.launches_by)
         got = ops.run_fabric(bench.graph, feeds, compiled=compiled,
                              device=dev)
         assert_same_result(got, want, (name, "run_fabric"), dispatches=False)
         check(got.dispatches == got.cycles, f"{name}: one launch per cycle")
+        by = df.fire_step_cuda.launches_by
+        check(by["warp"] - by0["warp"] == got.cycles
+              and by["cta"] == by0["cta"],
+              f"{name}: run_fabric did not launch the warp fire step every "
+              "cycle")
         eng = DataflowEngine(bench.graph, block_cycles=16, device=dev)
         fused = eng.run(feeds)
         assert_same_result(fused, want, (name, "fused"), dispatches=False)
@@ -1414,6 +1631,11 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
     row = "sched_slot_step" if schedule else \
         "fire_block_batched" + ("_prof" if profile else "")
     launches = launch_counts()[row] - batched0[row]
+    if schedule:
+        warp = launch_counts()["sched_slot_step_by"]["warp"] - \
+            batched0["sched_slot_step_by"]["warp"]
+        check(warp == launches, f"{warp} of {launches} scheduled slot steps "
+              "ran the warp variant")
     check(len(results) == len(reqs), "a request got no result")
     check(len(blocks) == srv.block, "a heartbeat went unrecorded")
     results.sort(key=lambda r: r.uid)
@@ -2388,6 +2610,34 @@ def sched_run_extras(t, launches, cases) -> dict:
                 cases_held=cases)
 
 
+def slot_step_extras(t, launches, cases) -> dict:
+    """Row 8's extra fields: main-path launches by variant, the variant
+    and plan at the scheduled serving state, microseconds per cycle, each
+    variant's time and time per call on the same state, the floor (the
+    first active slot alone on one warp), the patterns in the registry,
+    and the cases phase 3 held per variant."""
+    return dict(launches_by=launches["sched_slot_step_by"],
+                variant=t["variant"], streams=t["streams"],
+                us_per_cycle=t["ms"] * 1e3 / t["K"],
+                by_variant=t["by_variant"], cta_ms=t["by_variant"]["cta_ms"],
+                cta_call_ms=t["by_variant"]["cta_call_ms"],
+                floor_ms=t["floor_ms"], floor_slot=t["floor_slot"],
+                floor_cycles_run=t["floor_cycles_run"],
+                patterns=t["patterns"], cases_held=cases)
+
+
+def fire_step_extras(t, launches) -> dict:
+    """Row 6's extra fields: main-path launches by variant (phase 4's
+    ``run_fabric``), the variant, each variant's time and time per call,
+    and the floor: an empty one-warp kernel launched and timed the same
+    way."""
+    return dict(launches_by=launches["fire_step_by"], variant=t["variant"],
+                warp_ms=t["warp_ms"], warp_call_ms=t["warp_call_ms"],
+                cta_ms=t["cta_ms"], cta_call_ms=t["cta_call_ms"],
+                floor_ms=t["floor_ms"], floor_call_ms=t["floor_call_ms"],
+                floor_of="an empty one-warp kernel")
+
+
 def fire_block_extras(row, times, floor, launches) -> dict:
     """Rows 1-5's extra fields: main-path launches by variant of the
     row's entry (row 5: both entries), the timed variant and its
@@ -2448,6 +2698,7 @@ def main() -> int:
     log("== phase 3: kernels vs plain on the card")
     errs = phase_kernel(dev)
     sched_cases = hold_sched_variants(dev, errs)
+    slot_cases = hold_slot_variants(dev, errs)
     norm_variants = phase_norm_variants(dev)
     times, by_variant = phase_serving_states(dev, dot, dot_reqs, bub,
                                              bub_reqs, errs)
@@ -2485,6 +2736,10 @@ def main() -> int:
     for k in ROWS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
     check(launches["sched_run_by"]["warp"] > 0, "sched_run: the warp "
+          "variant never ran on the main path")
+    check(launches["sched_slot_step_by"]["warp"] > 0, "sched_slot_step: the "
+          "warp variant never ran on the main path")
+    check(launches["fire_step_by"]["warp"] > 0, "fire_step: the warp "
           "variant never ran on the main path")
     for k, by in launches["fire_block_by"].items():
         check(by["warp"] > 0, f"{k}: the warp variant never ran on the "
@@ -2557,6 +2812,11 @@ def main() -> int:
         if k["name"] == "sched_run":
             k.update(sched_run_extras(times["sched_run"], launches,
                                       sched_cases))
+        if k["name"] == "sched_slot_step":
+            k.update(slot_step_extras(times["sched_slot_step"], launches,
+                                      slot_cases))
+        if k["name"] == "fire_step":
+            k.update(fire_step_extras(times["fire_step"], launches))
     kernels += lm_rows(lm_errs, lm_times, lm_launches, norm_variants)
     for k in kernels:       # rows 1-8 bit for bit, rows 9-10 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \

@@ -8,7 +8,7 @@ A copy of ``csrc/schedule_fire.cu`` with ``clock64()`` stamps around the
 phases of the warp variant's cycle (stream 0's first thread: the next
 cycle's entries and pid, the feed and its barrier, the fire and its
 barrier, the drain and the register moves, the chunk's restaging) is
-built into ``build/probe/`` with ``csrc/dataflow_fire.cu`` and run on
+built into ``build/probe/`` with the other sources and run on
 dot_prod n = 32 (B = 1024, 8 and 1 streams of 4096 tokens, and phase 4's
 B = 8 streams of 9 tokens of ``chip_smoke.py``), on one and two warps a
 stream, through the port's own wrapper.  Prints the device time, the
@@ -60,26 +60,33 @@ STAMPS = (
 )
 
 
-def build() -> ctypes.CDLL:
-    """The stamped library: the stamped schedule_fire.cu beside
-    dataflow_fire.cu (the wrapper's shared-memory query)."""
+def build(stamps=STAMPS, n=6, after=None, tag="sched") -> ctypes.CDLL:
+    """A stamped library: the kernel library with schedule_fire.cu
+    replaced by a copy with ``stamps`` applied (only past the text
+    ``after``, when given) and ``n`` stamp slots readable by
+    ``sched_stamps``; the port's wrappers launch it in place of the
+    library."""
     src = (CSRC / "schedule_fire.cu").read_text()
-    src = src.replace('#include "alu.cuh"',
-                      '#include "alu.cuh"\n__device__ long long g_stamps[6];')
-    for anchor, text in STAMPS:
-        if anchor not in src:
+    src = src.replace(
+        '#include "alu.cuh"',
+        f'#include "alu.cuh"\n__device__ long long g_stamps[{n}];')
+    head, tail = ("", src) if after is None else src.split(after, 1)
+    for anchor, text in stamps:
+        if anchor not in tail:
             raise RuntimeError(f"schedule_fire.cu changed: {anchor[:40]!r}")
-        src = src.replace(anchor, text, 1)
+        tail = tail.replace(anchor, text, 1)
+    src = head + ("" if after is None else after) + tail
     src += ('\nextern "C" int sched_stamps(long long* out) {\n'
             '  return static_cast<int>(cudaMemcpyFromSymbol(\n'
-            '      out, g_stamps, 6 * sizeof(long long)));\n}\n')
+            f'      out, g_stamps, {n} * sizeof(long long)));\n}}\n')
     OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "schedule_fire_stamped.cu").write_text(src)
+    (OUT / f"schedule_fire_{tag}.cu").write_text(src)
     from repro_torch.kernels import _build
     nvcc = _build._nvcc()
     flags = [*_build.NVCC_FLAGS, "-I", str(CSRC)]
     objs, procs = [], []
-    for s in (OUT / "schedule_fire_stamped.cu", CSRC / "dataflow_fire.cu"):
+    for s in (OUT / f"schedule_fire_{tag}.cu",
+              *(f for f in _build.SOURCES if f.name != "schedule_fire.cu")):
         obj = OUT / f"{s.stem}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
@@ -89,23 +96,12 @@ def build() -> ctypes.CDLL:
         log = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(log)
-    so = OUT / "sched_stamped.so"
+    so = OUT / f"{tag}_stamped.so"
     subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
                    check=True)
     lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name, n_ptr, n_int in (("sched_run_warp_launch", 9, 15),
-                               ("sched_run_launch", 16, 7)):
-        fn = getattr(lib, name)
-        fn.argtypes = [vp] * n_ptr + [ci] * n_int + [vp]
-        fn.restype = ci
-    lib.fire_block_smem_limit.argtypes = [ci]
-    lib.fire_block_smem_limit.restype = ci
-    lib.sched_warp_plan.argtypes = [ci] * 10 + [vp]
-    lib.sched_warp_plan.restype = ci
-    lib.fire_block_error_string.argtypes = [ci]
-    lib.fire_block_error_string.restype = ctypes.c_char_p
-    lib.sched_stamps.argtypes = [vp]
+    _build._bind(lib)
+    lib.sched_stamps.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -114,7 +110,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("sched_run_probe: no CUDA device", file=sys.stderr)
         return 1
-    from chip_smoke import card_line, profiled_ms
+    from chip_smoke import card_line, device_ms
     from repro_torch.core import library
     from repro_torch.core.engine import DataflowEngine
     from repro_torch.kernels import _build
@@ -137,7 +133,7 @@ def main() -> int:
         for warps in sorted(tabs.warp["bits"]):
             run = lambda: ksf.launch_sched_variant("warp", tabs, program, fv,
                                                    warps=warps)
-            ms = profiled_ms(run, 3, "sched_run")
+            ms = device_ms(run, 3, "sched_run")
             st = (ctypes.c_longlong * 6)()
             lib.sched_stamps(st)
             n = max(st[5], 1)

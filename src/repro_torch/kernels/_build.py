@@ -1,9 +1,9 @@
 """Build and load the CUDA kernel library at first use.
 
 ``nvcc`` compiles every ``csrc/*.cu`` (``dataflow_fire.cu``: the
-fire-block kernel's two variants, the fire step and a latency probe;
-``schedule_fire.cu``: the static-schedule kernels (the run kernel's two
-variants and the slot step), both including
+fire-block kernel's two variants, the fire step's two and two latency
+probes; ``schedule_fire.cu``: the static-schedule kernels (the run
+kernel's two variants and the slot step's two), both including
 ``csrc/alu.cuh``; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
 kernels) for Hopper (``sm_90a``), one compiler per source, all started
 together, and links
@@ -56,10 +56,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     # would pass 32-bit ints and cut them
     for name, n_ptr, n_int in (("fire_block_launch", 42, 14),
                                ("fire_step_launch", 13, 2),
+                               ("fire_step_warp_launch", 7, 3),
+                               ("fire_empty_launch", 0, 0),
                                ("fire_floor_launch", 1, 1),
                                ("sched_run_launch", 16, 7),
                                ("sched_run_warp_launch", 9, 15),
                                ("sched_slot_step_launch", 25, 7),
+                               ("sched_slot_warp_launch", 18, 9),
                                ("flash_attention_tiled_launch", 4, 10),
                                ("flash_attention_wgmma_launch", 4, 10),
                                ("flash_attention_split_launch", 6, 12),
@@ -75,6 +78,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.fire_block_smem_bytes.restype = ci
     lib.sched_warp_plan.argtypes = [ci] * 10 + [vp]
     lib.sched_warp_plan.restype = ci
+    lib.sched_slot_plan.argtypes = [ci] * 7 + [vp]
+    lib.sched_slot_plan.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci
     lib.fire_block_error_string.argtypes = [ci]

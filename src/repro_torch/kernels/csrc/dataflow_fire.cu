@@ -1,6 +1,6 @@
 // Fire-block and fire-step kernels for Hopper (sm_90a): a static dataflow
 // fabric, K fused feed -> fire -> drain cycles per launch, or one bare fire
-// step (one CTA).
+// step (one warp, or one CTA for large fabrics).
 //
 // Replaces the TPU kernels of src/repro/kernels/dataflow_fire.py:
 //   fire_block_pallas              -> _block_kernel                (:390)
@@ -9,7 +9,8 @@
 //   fire_block_batched_pallas(prof=) -> _batched_block_kernel_prof (:448)
 //   _ready_and_z_spec (:117), traced into the four above when the tables
 //                                carry class_slices  -> kSpec instantiations
-//   fire_step_pallas               -> _kernel (:196)  -> fire_step_kernel
+//   fire_step_pallas               -> _kernel (:196)  -> fire_step_warp_kernel
+//                                     (one warp) and fire_step_kernel (one CTA)
 // Two kernels compute the four block kernels and the specialized rule, in
 // the same cycle order and bit for bit: fire_block_warp_kernel (one warp
 // per stream, for fabrics whose every table fits in kRows rows per lane)
@@ -32,8 +33,14 @@
 // costs K x (one cycle's chain) however small its fabric.  In the warp
 // variant that chain is one lane's work on all of its rows (dot_prod n =
 // 32: 2 node rows and 5 arc rows a lane), a few hundred dependent
-// instructions: the barriers cost little.  The fire step is bound by the
-// launch and the host's sync around it.
+// instructions: the barriers cost little.  The fire step is bound by its
+// launch: its floor is an empty one-warp kernel (fire_empty_kernel), timed
+// the same way.  Its warp variant (fire_step_warp_kernel, chosen by
+// dataflow_fire.step_variant with block_variant's size rule) issues every
+// load at entry, since none depends on the state, and so makes one round
+// trip to device memory; the CTA variant (fire_step_kernel) makes three
+// (the registers, then the node rows, then the arc rows), but spreads the
+// rows over more warps.
 //
 // What the design does about it (the warp variant):
 //   * one warp per stream: the cycle's two phases are separated by
@@ -86,6 +93,7 @@
 #include <cuda_runtime.h>
 
 #include "alu.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -240,18 +248,6 @@ __device__ __forceinline__ int bucket_op(const int* cls, int n_classes,
 
 __device__ __forceinline__ int clamp_index(long long p, int L) {
   return static_cast<int>(p < 0 ? 0 : (p > L - 1 ? L - 1 : p));
-}
-
-__device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 // Stages the tokens feed row r of stream b can read in the next chunk of
@@ -858,6 +854,111 @@ __global__ void fire_step_kernel(Tables t, const int* full, const int* val,
   if (tid == 0) fired_o[0] = s_fired;
 }
 
+// One fire step on one warp, for fabrics whose node and arc tables have at
+// most 32 * kRows rows (dataflow_fire.step_variant): lane l owns node and
+// arc rows l + 32 j.  Nothing the step reads depends on the state, so
+// every load is issued at entry, at once: each lane's arcs' registers and,
+// from the packed tables (dataflow_fire.step_words: one 16-byte word a
+// node row, operand offsets and opcode; one 8-byte word an arc row,
+// producer, consumer and const flag), its rows.  Packing matters: a single
+// warp can keep only so many loads in flight, and the eight tables would
+// take over twice the load instructions.  Then one round to shared memory:
+// the registers are stored, one __syncwarp, the node phase (fire_rule:
+// each node's (z, cp) pair), a second __syncwarp, and the arc phase
+// (arc_fire on the lane's own registers) stores the outputs; fired is one
+// warp reduction.  One trip to device memory in the chain, where the CTA
+// variant makes three.  A lane's rows run in groups of straight code (node
+// rows in pairs, arc rows in fours, as in the fire block's warp variant),
+// so the serial work of its rows overlaps.
+__global__ void __launch_bounds__(32)
+    fire_step_warp_kernel(const int4* __restrict__ node,
+                          const int2* __restrict__ arc, const int* full,
+                          const int* val, int* full_o, int* val_o,
+                          int* fired_o, int N2, int A2, unsigned ops) {
+  __shared__ int2 s_fv[32 * kRows];
+  __shared__ int2 s_zc[32 * kRows];
+  const int lane = threadIdx.x;
+  // slots j < rn (ra) hold node (arc) rows on some lane, rounded up to the
+  // groups; a lane past a table's end loads its last row and stores nothing
+  const int rn = ((N2 + 63) >> 6) << 1, ra = ((A2 + 127) >> 7) << 2;
+  int4 nw[kRows];
+  int2 aw[kRows];
+  int f[kRows], v[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (j < rn) nw[j] = __ldg(node + min(lane + 32 * j, N2 - 1));
+    if (j < ra) {
+      const int i = min(lane + 32 * j, A2 - 1);
+      f[j] = full[i];
+      v[j] = val[i];
+      aw[j] = __ldg(arc + i);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRows; ++j)
+    if (j < ra && lane + 32 * j < A2) s_fv[lane + 32 * j] = make_int2(f[j], v[j]);
+  __syncwarp();
+  int fired = 0;
+  auto node_pair = [&](auto first) {
+    constexpr int j0 = decltype(first)::value;
+    int op[2], o0[2], o1[2], z[2], cp[2], ir[2];
+    int2 x0[2], x1[2], x2[2];
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int4 w = nw[j0 + g];
+      op[g] = w.z >> 16;
+      x0[g] = s_fv[w.x & 0xffff];
+      x1[g] = s_fv[w.x >> 16];
+      x2[g] = s_fv[w.y & 0xffff];
+      o0[g] = s_fv[w.y >> 16].x;
+      o1[g] = s_fv[w.z & 0xffff].x;
+    }
+    fire_rule<false, 2>(op, x0, x1, x2, o0, o1, ops, z, cp, ir);
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      const int n = lane + 32 * (j0 + g);
+      if (n < N2) {
+        s_zc[n] = make_int2(z[g], cp[g]);
+        fired += cp[g] != 0;
+      }
+    }
+  };
+  auto arc_quad = [&](auto first) {
+    constexpr int j0 = decltype(first)::value;
+    int2 pz[4];
+    int ccp[4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      pz[g] = s_zc[aw[j0 + g].x & 0xffff];
+      ccp[g] = s_zc[aw[j0 + g].y & 0xffff].y;
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int j = j0 + g, i = lane + 32 * j;
+      const int2 nx = arc_fire(f[j], v[j], aw[j].x >> 16,
+                               (aw[j].y >> 16) & 0xff, (aw[j].y >> 24) & 1,
+                               pz[g], ccp[g]);
+      if (i < A2) {
+        full_o[i] = nx.x;
+        val_o[i] = nx.y;
+      }
+    }
+  };
+  node_pair(Slots<0>{});
+  if (rn > 2) node_pair(Slots<2>{});
+  if (rn > 4) node_pair(Slots<4>{});
+  if (rn > 6) node_pair(Slots<6>{});
+  __syncwarp();
+  arc_quad(Slots<0>{});
+  if (ra > 4) arc_quad(Slots<4>{});
+  fired = __reduce_add_sync(0xffffffffu, fired);
+  if (lane == 0) fired_o[0] = fired;
+}
+
+// An empty kernel of one warp: the fire step's floor, a launch that does
+// nothing, timed as the fire step is.
+__global__ void fire_empty_kernel() {}
+
 // ---------------------------------------------------------------------------
 // The latency floor
 // ---------------------------------------------------------------------------
@@ -1015,6 +1116,28 @@ int fire_step_launch(
   fire_step_kernel<<<1, cta_threads(std::max(N2, A2)), smem,
                      static_cast<cudaStream_t>(stream)>>>(
       t, full, val, full_o, val_o, fired_o, N2, A2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the fire step's warp variant (one warp) on `stream` over the
+// packed tables (node [N2] int4, arc [A2] int2: dataflow_fire.step_words);
+// returns cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for a table
+// past 32 * kRows rows.  Bit k of ops is set when some node has opcode k.
+int fire_step_warp_launch(const int* node, const int* arc, const int* full,
+                          const int* val, int* full_o, int* val_o,
+                          int* fired_o, int N2, int A2, int ops,
+                          void* stream) {
+  if (N2 < 1 || A2 < 1 || std::max(N2, A2) > 32 * kRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fire_step_warp_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const int4*>(node), reinterpret_cast<const int2*>(arc),
+      full, val, full_o, val_o, fired_o, N2, A2, static_cast<unsigned>(ops));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the empty one-warp kernel (the fire step's floor) on `stream`.
+int fire_empty_launch(void* stream) {
+  fire_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

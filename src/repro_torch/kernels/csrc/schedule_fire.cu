@@ -1,13 +1,15 @@
 // Static-schedule kernels for Hopper (sm_90a): a control-free fabric's
 // precomputed firing schedule, table-driven, with no ready rule at run
 // time — a whole run per launch, or K cycles per slot of the resumable
-// slot API (one CTA per slot).
+// slot API.
 //
 // Replaces the TPU kernels of src/repro/kernels/schedule_fire.py:
 //   make_sched_run (:69; pallas_call :97 solo, :116 batched)
 //       -> sched_run_warp_kernel (one warp per stream, the warp variant)
 //          and sched_run_kernel (one CTA per stream, the CTA variant)
-//   make_sched_slot_step (:134; pallas_call :174) -> sched_slot_step_kernel
+//   make_sched_slot_step (:134; pallas_call :174)
+//       -> sched_slot_warp_kernel (one warp per slot, the warp variant)
+//          and sched_slot_step_kernel (one CTA per slot, the CTA variant)
 // The Pallas versions trace a straight-line program per schedule structure
 // and bake per-pattern index vectors into it.  Here the kernels read
 // per-pattern tables (ScheduleContext.slot_tables() plus each pattern's
@@ -15,12 +17,13 @@
 // compiled per fabric or per schedule: the run kernels walk a program of
 // segments (offsets into a pid list, lengths, repetitions) — the plan's
 // clipped RLE, any structure and any max_cycles clip — and the slot
-// kernel walks a host-computed pid window per slot.  The wrapper picks the
-// run kernel's variant by the tables' widths and the shared memory the
-// program needs (schedule_fire.sched_variant).  The plain PyTorch versions
-// are sched_run / sched_slot_step in ../schedule_fire.py; results are
-// bit-identical; sched_run_staged there replays the warp variant's staged
-// feed windows on the CPU.
+// kernels walk a host-computed pid window per slot.  The wrappers pick
+// each kernel's variant by the tables' widths and the shared memory the
+// program or the window needs (schedule_fire.sched_variant, slot_variant).
+// The plain PyTorch versions are sched_run / sched_slot_step in
+// ../schedule_fire.py; results are bit-identical; sched_run_staged and
+// sched_slot_step_staged there replay the warp variants' staged feed
+// windows on the CPU.
 //
 // One scheduled cycle of pattern pid, per stream:
 //   1. feed  — feed row r with feed[pid, r] loads fv[r, clip(ptr_r, 0, L-1)]
@@ -67,11 +70,16 @@
 //   * no run-time rule: no ready reduction, no empty-output checks, no arc
 //     phase, no per-cycle firing count — the host knows them from the
 //     plan.
-// The CTA variant (one thread per row, __syncthreads between the phases,
+// The slot step's warp variant (sched_slot_warp_kernel) runs the same
+// cycle, one warp a slot: a slot's K cycles are its own pid window, so it
+// stages that window's work once — each feed row's tokens for the K cycles
+// and the list of cycles that do work — and reads each cycle's entries
+// from the packed tables through the read-only cache one cycle ahead.
+// The CTA variants (one thread per row, __syncthreads between the phases,
 // tables read through the read-only cache, the next token loaded from
-// device memory when the pointer moves) takes patterns wider than the
-// warp variant and programs whose tables do not fit its shared memory;
-// the slot kernel shares its cycle (sched_cycle).
+// device memory when the pointer moves) take patterns wider than the warp
+// variants, and programs or windows that do not fit their shared memory;
+// both share one cycle (sched_cycle).
 //
 // Build: ../_build.py compiles every .cu of this directory for sm_90a and
 // links them into one shared library; plain C interface for ctypes.
@@ -80,6 +88,7 @@
 #include <cuda_runtime.h>
 
 #include "alu.cuh"
+#include "cp_async.cuh"
 
 namespace {
 
@@ -278,34 +287,29 @@ __host__ __device__ inline int warp_stream_ints(const WarpDims& d) {
   return align4(d.A2 + 1) + d.n_in * warp_row_ints(d.W);
 }
 
-__device__ __forceinline__ void cp_async16(int* smem, const int* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Stages window w of a feed row — tokens [w W, (w + 1) W) clamped to L - 1,
-// w W <= L - 1 — into buf, in 16-byte pieces aligned on the device address
-// (fv_al is the tokens rounded down to 16 bytes, row the row's first token
-// from there; a piece never straddles a page, so the few ints read around
-// a row are mapped).  Token q of the window then sits at buf[(row & 3) +
-// (q & (W - 1))], since W is a multiple of 4.
-__device__ __forceinline__ void stage_window(const int* fv_al, long long row,
-                                             int w, const WarpDims& d,
-                                             int* buf) {
-  const long long a = static_cast<long long>(w) << d.log_w;
-  const long long e = min(a + d.W - 1, static_cast<long long>(d.L - 1));
+// Stages tokens [a, e] of a feed row (0 <= a <= e <= L - 1) into buf, in
+// 16-byte pieces aligned on the device address (fv_al is the tokens rounded
+// down to 16 bytes, row the row's first token from there; a piece never
+// straddles a page, so the few ints read around a row are mapped).  Token
+// p then sits at buf[row + p - ((row + a) & ~3)].
+__device__ __forceinline__ void stage_range(const int* fv_al, long long row,
+                                            long long a, long long e,
+                                            int* buf) {
   const long long start = (row + a) & ~3LL;
   const int pieces = static_cast<int>((row + e - start) >> 2) + 1;
   for (int k = 0; k < pieces; ++k)
     cp_async16(buf + 4 * k, fv_al + start + 4 * k);
+}
+
+// Stages window w of a feed row — tokens [w W, (w + 1) W) clamped to L - 1,
+// w W <= L - 1 — into buf.  Token q of the window then sits at buf[(row &
+// 3) + (q & (W - 1))], since W is a multiple of 4.
+__device__ __forceinline__ void stage_window(const int* fv_al, long long row,
+                                             int w, const WarpDims& d,
+                                             int* buf) {
+  const long long a = static_cast<long long>(w) << d.log_w;
+  stage_range(fv_al, row, a,
+              min(a + d.W - 1, static_cast<long long>(d.L - 1)), buf);
 }
 
 // The barrier between a cycle's phases: the stream's warp, or its kG
@@ -542,40 +546,286 @@ sched_run_warp_kernel(const int2* __restrict__ fire,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp variant of the scheduled slot step
+// ---------------------------------------------------------------------------
+// Shapes of a slot-step launch of the warp variant: K cycles a slot, Fp
+// fire rows per pattern (the packed tables'), `streams` slots a CTA (the
+// plan's), ops the opcodes of the fire rows.
+struct SlotDims {
+  int B, A2, n_in, n_out, L, Fp, K, streams;
+  unsigned ops;
+};
+
+// Ints of one feed row's window: the at most K tokens a slot's row takes
+// in K cycles, the slack of a start rounded down to 16 bytes, and one
+// token past them (read and dropped after the row's last feed), in an odd
+// number of 16-byte pieces so the rows of a warp's lanes start on 8 of the
+// 32 banks, not 4.
+__host__ __device__ inline int slot_row_ints(int K) {
+  return 4 * ((((K + 2) >> 2) + 1) | 1);
+}
+
+// Shared memory in ints, per slot, all offsets 16-byte aligned: the pid
+// window [K], the working cycles' pids [K], the registers [A2 + 1] (the
+// last the drop sentinel's slot) and the feed rows' windows
+// [n_in][slot_row_ints].
+__host__ __device__ inline int slot_stream_ints(const SlotDims& d) {
+  return 2 * align4(d.K) + align4(d.A2 + 1) + d.n_in * slot_row_ints(d.K);
+}
+
+// K scheduled cycles of each slot from its state, one warp a slot, kR
+// rows of each table a lane, `streams` slots a CTA; then its full bits
+// from the last pattern (fsel >= 0) or passed through (fsel == -1).  fire
+// and bits are the packed tables of sched_run_warp_kernel (bits for one
+// warp a stream), pids [B, K], t_full [P, A2].  (Two warps a slot, as the
+// run kernel takes below 4 streams an SM, were no faster here.)
+//
+// At launch a slot's threads copy its pid window and registers into
+// shared memory (cp.async, one round trip to memory) and walk the window
+// once, loading their words of bits 16 cycles at a time: each thread
+// counts its feed rows' tokens, and the cycles that feed, fire or drain
+// are listed (the bits' group flags are the same on every thread of the
+// slot; pid 0, the no-op pattern, and the all-quiet patterns past a plan's
+// end do no work and are skipped).  Each feed row's window — tokens
+// clamp(ptr) .. clamp(ptr + n - 1), the n it will take — is then copied by
+// its own thread with 16-byte cp.async, once.  A slot with no working
+// cycle copies its state through and runs none.  The cycle is
+// sched_run_warp_kernel's (feed, barrier, fire, barrier, drain); its
+// entries come through the read-only cache one working cycle ahead, so
+// the chain touches shared memory and registers only.
+template <int kR>
+__global__ void __launch_bounds__(32 * kMaxRunStreams)
+sched_slot_warp_kernel(const int2* __restrict__ fire,
+                       const int* __restrict__ bits,
+                       const int* __restrict__ ia, const int* __restrict__ oa,
+                       const int* __restrict__ t_full, const int* fv_al,
+                       int mis, const int* __restrict__ pids,
+                       const int* __restrict__ fsel, const int* full,
+                       const int* val, const int* ptr_in,
+                       const int* out_last, const int* out_count,
+                       int* full_o, int* val_o, int* ptr_o, int* out_last_o,
+                       int* out_count_o, SlotDims d) {
+  constexpr int TS = 32;                       // threads of a slot
+  extern __shared__ __align__(16) int smem[];
+  const int local = threadIdx.x / TS, t = threadIdx.x % TS;
+  const int b = blockIdx.x * d.streams + local;
+  if (b >= d.B) return;                  // the last CTA may be part-filled
+  int* s_pid = smem + local * slot_stream_ints(d);
+  int* s_live = s_pid + align4(d.K);
+  int* s_val = s_live + align4(d.K);
+  int* s_win = s_val + align4(d.A2 + 1);
+  const int ri = slot_row_ints(d.K);
+  const size_t arcs = static_cast<size_t>(b) * d.A2;
+  const size_t ins = static_cast<size_t>(b) * d.n_in;
+  const size_t outs = static_cast<size_t>(b) * d.n_out;
+  stage_ints(s_pid, pids + static_cast<size_t>(b) * d.K, d.K, t, TS);
+  stage_ints(s_val, val + arcs, d.A2, t, TS);
+  // feed rows: pointer, arc, tokens to take, window; drain rows
+  int ptr[kR], in_arc[kR], nfed[kR], wofs[kR], tok[kR];
+  int out_arc[kR], ol[kR], oc[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = t + TS * k;
+    ptr[k] = r < d.n_in ? ptr_in[ins + r] : 0;
+    in_arc[k] = r < d.n_in ? __ldg(ia + r) : 0;
+    out_arc[k] = r < d.n_out ? __ldg(oa + r) : 0;
+    ol[k] = r < d.n_out ? out_last[outs + r] : 0;
+    oc[k] = r < d.n_out ? out_count[outs + r] : 0;
+    nfed[k] = wofs[k] = tok[k] = 0;
+  }
+  const int fs = fsel[b];
+  cp_async_wait_all();
+  __syncwarp();               // the pids and registers landed
+  // the pid window, once: tokens per feed row, and the cycles that work,
+  // 16 cycles at a time (their words of bits all loaded before any is
+  // used; pid 0 stands past the window's end) into a mask, then listed
+  int live = 0;
+  for (int j0 = 0; j0 < d.K; j0 += 16) {
+    int w[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q)
+      w[q] = __ldg(bits + static_cast<size_t>(j0 + q < d.K ? s_pid[j0 + q]
+                                                           : 0) * TS + t);
+    unsigned work = 0;
+#pragma unroll
+    for (int q = 0; q < 16; ++q) {
+      const int wq = j0 + q < d.K ? w[q] : 0;
+#pragma unroll
+      for (int k = 0; k < kR; ++k) nfed[k] += (wq >> k) & 1;
+      work |= static_cast<unsigned>(((wq >> 16) & 0xfff) != 0) << q;
+    }
+    if (t == 0)
+      for (unsigned q = work, c = live; q; q &= q - 1)
+        s_live[c++] = s_pid[j0 + __ffs(q) - 1];
+    live += __popc(work);
+  }
+  // each feed row's window, by its own thread
+  const int last = d.L - 1;
+  auto clampL = [&](int q) { return min(max(q, 0), last); };
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = t + TS * k;
+    if (r < d.n_in && nfed[k] > 0) {
+      const long long row = mis + static_cast<long long>(ins + r) * d.L;
+      const long long p = ptr[k];
+      const long long a = min(max(p, 0LL), static_cast<long long>(last));
+      stage_range(fv_al, row, a,
+                  min(max(p + nfed[k] - 1, 0LL), static_cast<long long>(last)),
+                  s_win + r * ri);
+      wofs[k] = r * ri + static_cast<int>(row - ((row + a) & ~3LL));
+    }
+  }
+  cp_async_wait_all();
+  __syncwarp();               // s_live written
+  // a token's slot in the windows, for the row's clamped pointer (past the
+  // row's last feed: some slot of its window, read and dropped)
+  auto slot = [&](int k) {
+    return min(wofs[k] + clampL(ptr[k]), (t + TS * k) * ri + ri - 1);
+  };
+#pragma unroll
+  for (int k = 0; k < kR; ++k)
+    if (nfed[k] > 0) tok[k] = s_win[slot(k)];
+
+  // working cycle c's entries: its fire words and word of bits (c clamped
+  // to the last)
+  auto entries = [&](int c, int2 (&w)[kR], int& bb) {
+    const int pid = s_live[min(c, live - 1)];
+#pragma unroll
+    for (int k = 0; k < kR; ++k)
+      w[k] = __ldg(fire + static_cast<size_t>(pid) * d.Fp + t + TS * k);
+    bb = __ldg(bits + static_cast<size_t>(pid) * TS + t);
+  };
+  int2 fw[kR];
+  int lb = 0;
+  if (live > 0) entries(0, fw, lb);
+  for (int c = 0; c < live; ++c) {
+    // the next working cycle's entries, off the chain
+    int2 nfw[kR];
+    int nlb;
+    entries(c + 1, nfw, nlb);
+    // 1. feed
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if (((lb >> (16 + k)) & 1) && ((lb >> k) & 1)) {
+        s_val[in_arc[k]] = tok[k];
+        ptr[k] += 1;
+        tok[k] = s_win[slot(k)];
+      }
+    }
+    __syncwarp();
+    // 2. fire: every read before any write; the sentinel's slot takes the
+    //    dropped writes
+    int op[kR], a[kR], bv[kR], z[kR];
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      op[k] = fw[k].x >> 26;
+      a[k] = bv[k] = 0;
+      if ((lb >> (24 + k)) & 1) {
+        a[k] = s_val[fw[k].x & 0x1fff];
+        bv[k] = s_val[(fw[k].x >> 13) & 0x1fff];
+      }
+    }
+    alu_select<kR>(op, a, bv, z, d.ops);
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if ((lb >> (24 + k)) & 1) {
+        s_val[fw[k].y & 0xffff] = z[k];
+        s_val[fw[k].y >> 16] = z[k];
+      }
+    }
+    __syncwarp();
+    // 3. drain
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if (((lb >> (20 + k)) & 1) && ((lb >> (8 + k)) & 1)) {
+        ol[k] = s_val[out_arc[k]];
+        oc[k] += 1;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kR; ++k) fw[k] = nfw[k];
+    lb = nlb;
+  }
+  // the last cycle's writes to s_val precede its post-fire barrier
+  for (int i = t; i < d.A2; i += TS) {
+    full_o[arcs + i] = fs >= 0 ? __ldg(t_full + static_cast<size_t>(fs) *
+                                                    d.A2 + i)
+                               : full[arcs + i];
+    val_o[arcs + i] = s_val[i];
+  }
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    const int r = t + TS * k;
+    if (r < d.n_in) ptr_o[ins + r] = ptr[k];
+    if (r < d.n_out) {
+      out_last_o[outs + r] = ol[k];
+      out_count_o[outs + r] = oc[k];
+    }
+  }
+}
+
 // Shared memory of one warp-variant CTA, in bytes.
 size_t warp_smem_bytes(const WarpDims& d) {
   return 4 * static_cast<size_t>(warp_table_ints(d) +
                                  d.streams * warp_stream_ints(d));
 }
+size_t slot_smem_bytes(const SlotDims& d) {
+  return 4 * static_cast<size_t>(d.streams) * slot_stream_ints(d);
+}
+
+// What the plans read of the card: SMs, and the shared memory a block may
+// opt in to, an SM holds and the runtime reserves per block.
+struct Card {
+  int sms, optin, per_sm, reserved;
+  // a CTA of `bytes` fits, two of them on an SM
+  bool two_fit(size_t bytes) const {
+    return bytes <= static_cast<size_t>(optin) &&
+           2 * (bytes + reserved) <= static_cast<size_t>(per_sm);
+  }
+};
+
+bool card_of(int device, Card* c) {
+  return cudaDeviceGetAttribute(&c->sms, cudaDevAttrMultiProcessorCount,
+                                device) == cudaSuccess &&
+         cudaDeviceGetAttribute(&c->optin,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device) == cudaSuccess &&
+         cudaDeviceGetAttribute(&c->per_sm,
+                                cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                                device) == cudaSuccess &&
+         cudaDeviceGetAttribute(&c->reserved,
+                                cudaDevAttrReservedSharedMemoryPerBlock,
+                                device) == cudaSuccess;
+}
+
+// Warps a stream of the warp variants over tables Fp rows wide and B
+// streams: `warps`, or with 0 two for tables of 64 rows or more while
+// fewer than kFullStreamsPerSm streams share each SM, else one; 0 when the
+// shapes are not the variants' (the slot step asks for one warp).
+int stream_warps(int warps, int Fp, int A2, int n_in, int n_out, int B,
+                 const Card& c) {
+  if (warps == 0) warps = Fp >= 64 && B < kFullStreamsPerSm * c.sms ? 2 : 1;
+  const int kr = warps >= 1 ? Fp / (32 * warps) : 0;
+  if ((warps != 1 && warps != 2) || Fp % (32 * warps) ||
+      (kr != 1 && kr != 2 && kr != 4) || std::max(n_in, n_out) > Fp ||
+      A2 >= (1 << 13) || B < 1)
+    return 0;
+  return warps;
+}
 
 // Completes d (W, log_w, streams, warps) for a launch on `device`: the
 // window `window` (0: the longest of kWindows) and then the most streams,
 // up to kMaxRunStreams and B, with which two CTAs fit an SM, or one stream
-// in one CTA; `warps` warps a stream (0: two for tables of 64 rows or more
-// while fewer than kFullStreamsPerSm streams share each SM, else one).
-// Returns false when the shapes are not the variant's or nothing fits.
+// in one CTA; `warps` warps a stream (stream_warps).  Returns false when
+// the shapes are not the variant's or nothing fits.
 bool warp_plan(WarpDims& d, int window, int warps, int device) {
-  int sms = 0, optin = 0, per_sm = 0, reserved = 0;
-  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                             device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&per_sm,
-                             cudaDevAttrMaxSharedMemoryPerMultiprocessor,
-                             device) != cudaSuccess ||
-      cudaDeviceGetAttribute(&reserved,
-                             cudaDevAttrReservedSharedMemoryPerBlock,
-                             device) != cudaSuccess)
-    return false;
-  if (warps == 0)
-    warps = d.Fp >= 64 && d.B < kFullStreamsPerSm * sms ? 2 : 1;
-  const int kr = warps >= 1 ? d.Fp / (32 * warps) : 0;
-  if ((warps != 1 && warps != 2) || d.Fp % (32 * warps) ||
-      (kr != 1 && kr != 2 && kr != 4) || std::max(d.n_in, d.n_out) > d.Fp ||
-      d.A2 >= (1 << 13) || d.B < 1 || d.L < 1 || d.cycles < 0 ||
+  Card c;
+  if (!card_of(device, &c) || d.L < 1 || d.cycles < 0 ||
       (window != 0 && (window < 4 || (window & (window - 1)))))
     return false;
-  d.warps = warps;
+  d.warps = stream_warps(warps, d.Fp, d.A2, d.n_in, d.n_out, d.B, c);
+  if (d.warps == 0) return false;
   auto set_window = [&](int W) {
     d.W = W;
     d.log_w = 0;
@@ -585,16 +835,30 @@ bool warp_plan(WarpDims& d, int window, int warps, int device) {
        d.streams /= 2) {
     for (const int W : kWindows) {
       set_window(window ? window : W);
-      const size_t per = warp_smem_bytes(d);
-      if (per <= static_cast<size_t>(optin) &&
-          2 * (per + reserved) <= static_cast<size_t>(per_sm))
-        return true;
+      if (c.two_fit(warp_smem_bytes(d))) return true;
       if (window) break;
     }
   }
   d.streams = 1;
   set_window(window ? window : kWindows[4]);
-  return warp_smem_bytes(d) <= static_cast<size_t>(optin);
+  return warp_smem_bytes(d) <= static_cast<size_t>(c.optin);
+}
+
+// Completes d (streams) for a slot-step launch of the warp variant on
+// `device`: the most slots, up to kMaxRunStreams and B, with which two
+// CTAs fit an SM, or one slot in one CTA.  Returns false when the shapes
+// are not the variant's on one warp (stream_warps) or one slot's windows
+// do not fit a CTA (K too long: the CTA variant takes it).
+bool slot_plan(SlotDims& d, int device) {
+  Card c;
+  if (!card_of(device, &c) || d.L < 1 || d.K < 1 ||
+      stream_warps(1, d.Fp, d.A2, d.n_in, d.n_out, d.B, c) == 0)
+    return false;
+  for (d.streams = std::min(kMaxRunStreams, d.B); d.streams >= 1;
+       d.streams /= 2)
+    if (c.two_fit(slot_smem_bytes(d))) return true;
+  d.streams = 1;
+  return slot_smem_bytes(d) <= static_cast<size_t>(c.optin);
 }
 
 int cta_threads(const Dims& d) {
@@ -722,6 +986,59 @@ int sched_run_warp_launch(const int* fire, const int* bits, const int* ia,
   }
   if (kr == 1) return run(sched_run_warp_kernel<1, 2>);
   return run(sched_run_warp_kernel<2, 2>);
+}
+
+// Plans a slot-step launch of the warp variant on `device` (see
+// slot_plan) and writes its slots a CTA into plan[0]; returns 0, or
+// cudaErrorInvalidValue when the variant cannot take the shapes or one
+// slot's windows do not fit a CTA.
+int sched_slot_plan(int A2, int n_in, int n_out, int Fp, int K, int B,
+                    int device, int* plan) {
+  SlotDims d{B, A2, n_in, n_out, 1, Fp, K, 0, 0u};
+  if (!slot_plan(d, device)) return static_cast<int>(cudaErrorInvalidValue);
+  plan[0] = d.streams;
+  return 0;
+}
+
+// Launches the warp variant of the scheduled slot step on `stream`,
+// planned as sched_slot_plan plans it on the current device; returns
+// cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for shapes the
+// variant does not take.  fv_al is the tokens rounded down to 16 bytes and
+// mis the ints it was rounded by; fire and bits are the packed tables
+// (bits of one warp a stream, see sched_slot_warp_kernel).
+int sched_slot_warp_launch(
+    const int* fire, const int* bits, const int* ia, const int* oa,
+    const int* full_t, const int* fv_al, const int* pids, const int* fsel,
+    const int* full, const int* val, const int* ptr, const int* out_last,
+    const int* out_count, int* full_o, int* val_o, int* ptr_o,
+    int* out_last_o, int* out_count_o, int mis, int B, int K, int A2,
+    int n_in, int n_out, int L, int Fp, int ops, void* stream) {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || mis < 0 || mis > 3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SlotDims d{B, A2, n_in, n_out, L, Fp, K, 0, static_cast<unsigned>(ops)};
+  if (!slot_plan(d, device))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = slot_smem_bytes(d);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int grid = (B + d.streams - 1) / d.streams;
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    kernel<<<grid, 32 * d.streams, smem, st>>>(
+        reinterpret_cast<const int2*>(fire), bits, ia, oa, full_t, fv_al,
+        mis, pids, fsel, full, val, ptr, out_last, out_count, full_o, val_o,
+        ptr_o, out_last_o, out_count_o, d);
+    return static_cast<int>(cudaGetLastError());
+  };
+  const int kr = Fp / 32;
+  if (kr == 1) return run(sched_slot_warp_kernel<1>);
+  if (kr == 2) return run(sched_slot_warp_kernel<2>);
+  return run(sched_slot_warp_kernel<4>);
 }
 
 }  // extern "C"

@@ -35,8 +35,10 @@ This module holds, side by side:
 * :func:`fire_block_two_phase`, the same block computed in the CUDA
   kernel's own cycle order (two phases per cycle, feed and drain on the
   arc's lane through :func:`reverse_maps`, lane-local counts, staged
-  feed windows); the tests and ``chip_smoke.py`` hold it against the
-  JAX package and the kernel, the main path never runs it;
+  feed windows), and :func:`fire_step_warp_order`, the fire step in its
+  warp variant's order; the tests and ``chip_smoke.py`` hold them
+  against the JAX package and the kernels, the main path never runs
+  them;
 * the **kernel wrappers** :func:`fire_block_cuda`,
   :func:`fire_block_batched_cuda` and :func:`fire_step_cuda`.  On CUDA
   tensors they launch the hand-written kernels of
@@ -45,7 +47,8 @@ This module holds, side by side:
   tensors they compute the plain version and build nothing.  The block
   kernel comes in two variants, chosen by :func:`block_variant` from the
   fabric's size: ``"warp"`` (one warp per stream, tables in registers)
-  and ``"cta"`` (one CTA per stream).
+  and ``"cta"`` (one CTA per stream); so does the fire step
+  (:func:`step_variant`: one warp, every load at entry, or one CTA).
 
 Tables (int32; A2 = arcs + 2 pad slots, N2 = nodes + 1 dummy SINK row):
   opcode[N2], in_idx[N2,3], out_idx[N2,2]            node table
@@ -60,6 +63,7 @@ Tables (int32; A2 = arcs + 2 pad slots, N2 = nodes + 1 dummy SINK row):
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -84,6 +88,9 @@ MAX_CLASSES = len(Op) + 1
 # MAX_STREAMS streams into a CTA
 VARIANTS = ("warp", "cta")
 WARP_ROWS = 32 * 8
+# the fire step's variants: one warp (node and arc tables of at most
+# WARP_ROWS rows) or one CTA
+STEP_VARIANTS = ("warp", "cta")
 MAX_STREAMS = 4
 # cycles per staged feed window (fewer when shared memory is short)
 STAGE_CYCLES = 64
@@ -192,12 +199,19 @@ class FireTables(dict):
     with ``class_slices`` (the same buckets as a tuple) and
     ``control_free`` (no NDMERGE/DMERGE/BRANCH bucket) as attributes.
     ``variant`` is the block kernel's variant for the fabric
-    (:func:`block_variant`); bit k of ``ops`` is set when some node has
-    opcode k."""
+    (:func:`block_variant`) and ``step_variant`` the fire step's
+    (:func:`step_variant`); bit k of ``ops`` is set when some node has
+    opcode k.  ``step_words`` holds the fire step's warp variant's packed
+    tables (:func:`step_words`; None for a fabric too large for it), and
+    ``step_args`` what every fire-step launch on a card passes for the
+    tables, per variant, set once by :func:`check_step_tables`."""
     class_slices = None
     control_free = False
     variant = "cta"
+    step_variant = "cta"
     ops = (1 << len(Op)) - 1
+    step_words = None
+    step_args = None
 
 
 def block_variant(tables) -> str:
@@ -211,6 +225,35 @@ def block_variant(tables) -> str:
     rows = np.bincount(np.asarray(tables["in_arc_idx"], np.int64).ravel(),
                        minlength=1)
     return "warp" if max(sizes) <= WARP_ROWS and rows.max() <= 1 else "cta"
+
+
+def step_words(tables) -> dict:
+    """The fire step's warp variant's packed tables, from numpy step
+    tables of at most :data:`WARP_ROWS` rows (indices below 2^16): one
+    16-byte word per node row and one 8-byte word per arc row, so a lane
+    loads a row in one instruction:
+
+      node [N2, 4]   x = in0 | in1 << 16, y = in2 | out0 << 16,
+                     z = out1 | opcode << 16, w = 0
+      arc [A2, 2]    x = prod_node | prod_slot << 16,
+                     y = cons_node | cons_slot << 16 | const << 24"""
+    i, o = tables["in_idx"], tables["out_idx"]
+    node = np.stack([i[:, 0] | i[:, 1] << 16, i[:, 2] | o[:, 0] << 16,
+                     o[:, 1] | tables["opcode"] << 16,
+                     np.zeros_like(o[:, 1])], 1)
+    arc = np.stack([tables["prod_node"] | tables["prod_slot"] << 16,
+                    tables["cons_node"] | tables["cons_slot"] << 16
+                    | (tables["const_mask"] > 0).astype(np.int32) << 24], 1)
+    return dict(node=node.astype(np.int32), arc=arc.astype(np.int32))
+
+
+def step_variant(tables) -> str:
+    """The fire step's variant for numpy or device tables, by
+    :func:`block_variant`'s size rule on the tables the step reads:
+    ``"warp"`` when the node and arc tables each have at most
+    :data:`WARP_ROWS` rows, ``"cta"`` otherwise."""
+    sizes = (len(tables["opcode"]), len(tables["prod_node"]))
+    return "warp" if max(sizes) <= WARP_ROWS else "cta"
 
 
 def _class_slices(tables):
@@ -261,6 +304,10 @@ def device_tables(tables, device) -> FireTables:
     out = FireTables({k: torch.tensor(x, device=device)
                       for k, x in t.items()})
     out.variant = block_variant(t)
+    out.step_variant = step_variant(t)
+    if out.step_variant == "warp":
+        out.step_words = {k: torch.tensor(x, device=device)
+                          for k, x in step_words(t).items()}
     out.ops = int(np.bitwise_or.reduce(1 << t["opcode"].astype(np.int64)))
     if cs is not None:
         out.class_slices = cs
@@ -694,11 +741,65 @@ def fire_step(tables, full, val):
     return nf[0], nv[0], ready.sum(1, dtype=torch.int32)
 
 
+def fire_step_warp_order(tables, full, val):
+    """The fire step in its warp variant's order (plain PyTorch, for the
+    tests and ``chip_smoke.py``; the main path runs :func:`fire_step`).
+    Same arguments and results as :func:`fire_step`; the results must be
+    equal.  Lane l owns node and arc rows l + 32 j.  The registers are
+    read once, at entry: into the lanes' own arc rows and into shared
+    memory.  The node phase takes each node's operands from shared memory
+    and stores its (z, cp) pair (cp: consume bits 0-2, produce bits 3-4,
+    0 when the node does not fire); the arc phase computes each arc from
+    its own row's registers, its producer's pair and its consumer's cp
+    word; ``fired`` sums the lanes' counts."""
+    dev = full.device
+    tab = _long_tables(tables, dev)
+    N2, A2 = tab["opcode"].shape[0], tab["prod_node"].shape[0]
+    lanes = 32
+    s_fv = torch.stack([full, val])             # the single state load
+    z = torch.zeros((N2,), dtype=val.dtype, device=dev)
+    cp = torch.zeros((N2,), dtype=torch.int32, device=dev)
+    fired = torch.zeros((lanes,), dtype=torch.int32, device=dev)
+    shift_c = torch.arange(3, device=dev)
+    shift_p = torch.arange(3, 5, device=dev)
+    for j in range(-(-N2 // lanes)):                # node phase
+        n = torch.arange(lanes * j, min(lanes * (j + 1), N2), device=dev)
+        ready, zj, cons, prod = _ready_and_z(
+            tab["opcode"][n], tab["in_idx"][n], tab["out_idx"][n],
+            s_fv[0][None], s_fv[1][None])
+        z[n] = zj[0]
+        cp[n] = ((cons[0].to(torch.int32) << shift_c).sum(-1)
+                 + (prod[0].to(torch.int32) << shift_p).sum(-1)).int()
+        fired = fired.index_add(0, n % lanes, ready[0].to(torch.int32))
+    full_o, val_o = torch.empty_like(full), torch.empty_like(val)
+    for j in range(-(-A2 // lanes)):                # arc phase
+        i = torch.arange(lanes * j, min(lanes * (j + 1), A2), device=dev)
+        pn, cn = tab["prod_node"][i], tab["cons_node"][i]
+        produced = ((cp[pn] >> (3 + tab["prod_slot"][i])) & 1) > 0
+        consumed = ((cp[cn] >> tab["cons_slot"][i]) & 1) > 0
+        full_o[i] = (((full[i] > 0) & ~consumed) | produced
+                     | (tab["const_mask"][i] > 0)).to(full.dtype)
+        val_o[i] = torch.where(produced, z[pn], val[i])
+    return full_o, val_o, fired.sum(0, keepdim=True, dtype=torch.int32)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 def _vp(x):
     return None if x is None else ctypes.c_void_p(x.data_ptr())
+
+
+def _device_and_stream(dev):
+    """(device index, a context that makes it the current device, its
+    current stream as a pointer) for a launch on ``dev``; the context is a
+    no-op when it is current already."""
+    cur = torch.cuda.current_device()
+    index = cur if dev.index is None else dev.index
+    ctx = contextlib.nullcontext() if index == cur \
+        else torch.cuda.device(index)
+    return index, ctx, ctypes.c_void_p(
+        torch.cuda.current_stream(index).cuda_stream)
 
 
 @functools.cache
@@ -908,44 +1009,101 @@ def fire_block_batched_cuda(tables, feed_vals, feed_len, full, val, ptr,
     return out
 
 
-def fire_step_cuda(tables, full, val):
-    """One fire step, no environment (the counterpart of
-    ``fire_step_pallas``): full/val[A2] -> (full', val', fired[1]).
-    CUDA tensors launch the fire-step kernel (one CTA) and count it in
-    ``fire_step_cuda.launches``; CPU tensors take :func:`fire_step`."""
-    if _on_cpu(full, val):
-        return fire_step(tables, full, val)
+def check_step_tables(tables) -> FireTables:
+    """Check, once per upload, what every fire-step launch on ``tables``
+    (:func:`device_tables` on a card) relies on: the step's eight tables
+    int32, contiguous and on one card and, for the CTA variant, the
+    shared memory of the fabric's registers.  Records the pointers the
+    launches pass for the tables in ``tables.step_args`` (per variant:
+    the eight tables for the CTA one, the packed words for the warp one).
+    ``ops.make_fire_step`` calls it when it builds the tables, the first
+    launch on other tables.  Returns the tables."""
     from repro_torch.kernels import _build
     if not isinstance(tables, FireTables):
         raise TypeError("the kernel takes tables from device_tables() only")
-    dev = full.device
-    N2 = tables["opcode"].shape[0]
-    A2 = tables["prod_node"].shape[0]
-    _check_tensors((("full", full), ("val", val),
-                    *((k, tables[k]) for k in STEP_KEYS)), dev)
+    dev = tables["opcode"].device
+    if dev.type != "cuda":
+        raise ValueError(f"the fire-step kernels take tables on a card, "
+                         f"not on {dev}")
+    _check_tensors(((k, tables[k]) for k in STEP_KEYS), dev)
+    if tables.step_variant == "cta":
+        N2, A2 = tables["opcode"].shape[0], tables["prod_node"].shape[0]
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        _check_smem(index, _build.load().fire_block_smem_bytes(
+            N2, A2, 0, 0, 2, 0), "the fabric")
+    args = dict(cta=[_vp(tables[k]) for k in STEP_KEYS])
+    if tables.step_words is not None:
+        args["warp"] = [_vp(tables.step_words[k]) for k in ("node", "arc")]
+    tables.step_args = args
+    return tables
+
+
+def _launch_step(variant, tables, full, val):
+    """Check ``full``/``val`` and launch the fire step's ``variant``
+    (None: the tables' own; the tables checked once,
+    :func:`check_step_tables`).  Returns (full', val', fired[1]), views
+    of one fresh allocation."""
+    from repro_torch.kernels import _build
+    if not isinstance(tables, FireTables):
+        raise TypeError("the kernel takes tables from device_tables() only")
+    variant = tables.step_variant if variant is None else variant
+    if variant not in STEP_VARIANTS or (variant == "warp"
+                                        and tables.step_variant != "warp"):
+        raise ValueError(f"fire-step variant {variant!r} cannot run this "
+                         f"fabric (its tables take {tables.step_variant!r})")
+    if tables.step_args is None:
+        check_step_tables(tables)
+    dev = tables["opcode"].device
+    N2, A2 = tables["opcode"].shape[0], tables["prod_node"].shape[0]
+    _check_tensors((("full", full), ("val", val)), dev)
     for k, x in (("full", full), ("val", val)):
         if tuple(x.shape) != (A2,):
             raise ValueError(f"{k}: shape {tuple(x.shape)}, want {(A2,)}")
     lib = _build.load()
-    index = dev.index if dev.index is not None \
-        else torch.cuda.current_device()
-    _check_smem(index, lib.fire_block_smem_bytes(N2, A2, 0, 0, 2, 0),
-                "the fabric")
-    with torch.cuda.device(index):
-        full_o, val_o = torch.empty_like(full), torch.empty_like(val)
-        fired = torch.empty((1,), dtype=torch.int32, device=dev)
-        err = lib.fire_step_launch(
-            *(_vp(tables[k]) for k in STEP_KEYS), _vp(full), _vp(val),
-            _vp(full_o), _vp(val_o), _vp(fired), N2, A2,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _, on_device, stream = _device_and_stream(dev)
+    with on_device:
+        out = torch.empty((2 * A2 + 1,), dtype=torch.int32, device=dev)
+        full_o, val_o, fired = out[:A2], out[A2:2 * A2], out[2 * A2:]
+        ptrs = (*tables.step_args[variant], _vp(full), _vp(val),
+                _vp(full_o), _vp(val_o), _vp(fired))
+        if variant == "warp":
+            err = lib.fire_step_warp_launch(*ptrs, N2, A2, tables.ops,
+                                            stream)
+        else:
+            err = lib.fire_step_launch(*ptrs, N2, A2, stream)
     if err:
-        raise RuntimeError("fire_step kernel launch failed: "
-                           + lib.fire_block_error_string(err).decode())
-    fire_step_cuda.launches += 1
+        raise RuntimeError(f"fire_step kernel launch ({variant} variant) "
+                           "failed: " + lib.fire_block_error_string(err)
+                           .decode())
     return full_o, val_o, fired
+
+
+def fire_step_cuda(tables, full, val):
+    """One fire step, no environment (the counterpart of
+    ``fire_step_pallas``): full/val[A2] -> (full', val', fired[1]).
+    CUDA tensors launch the tables' variant (:func:`step_variant`: one
+    warp, or one CTA for a large fabric) and count it in
+    ``fire_step_cuda.launches`` and ``launches_by``; CPU tensors take
+    :func:`fire_step`."""
+    if _on_cpu(full, val):
+        return fire_step(tables, full, val)
+    out = _launch_step(None, tables, full, val)
+    fire_step_cuda.launches += 1
+    fire_step_cuda.launches_by[tables.step_variant] += 1
+    return out
+
+
+def launch_step_variant(variant, tables, full, val):
+    """One launch of the fire step's ``variant`` (``"warp"`` only for
+    tables that take it) on CUDA tensors, counted nowhere: the tests and
+    ``chip_smoke.py`` hold each variant against the plain versions with
+    it.  Arguments and results as :func:`fire_step_cuda`."""
+    return _launch_step(variant, tables, full, val)
 
 
 for _w in (fire_block_cuda, fire_block_batched_cuda):
     _w.launches = _w.prof_launches = _w.spec_launches = 0
     _w.launches_by = dict.fromkeys(VARIANTS, 0)
 fire_step_cuda.launches = 0
+fire_step_cuda.launches_by = dict.fromkeys(STEP_VARIANTS, 0)

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.kernels.dataflow_fire import (FireTables,
                                                block_plan_arrays,
+                                               check_step_tables,
                                                device_tables,
                                                fire_block_batched_cuda,
                                                fire_block_cuda,
@@ -96,9 +97,13 @@ def _prof_arg(prof, profile):
 def make_fire_step(graph, device="cuda"):
     """The one-cycle fire step for a fabric (dense rule, unoptimized
     plan); returns (tables, step(full, val) -> (full', val', fired[1]))
-    on tensors on ``device``."""
+    on tensors on ``device``.  On a card the step's tables are checked
+    here, once (:func:`~repro_torch.kernels.dataflow_fire
+    .check_step_tables`), and each step checks only its registers."""
     tables = block_plan_arrays(graph)
     dt = device_tables(tables, device)
+    if dt["opcode"].device.type == "cuda":
+        check_step_tables(dt)
 
     def step(full, val):
         return fire_step_cuda(dt, full, val)

@@ -32,9 +32,10 @@ This module holds, side by side:
   uploaded again whenever the pattern registry has grown since;
 * the **plain PyTorch versions** :func:`sched_run` and
   :func:`sched_slot_step`;
-* :func:`sched_run_staged`, the plain replay of the run kernel's warp
-  variant: its feed windows, their restaging cycle, the clamp and the
-  alignment of each window's start (the tests hold it against the JAX
+* :func:`sched_run_staged` and :func:`sched_slot_step_staged`, the plain
+  replays of the two kernels' warp variants: their feed windows (and the
+  run's restaging cycle), the clamp, the alignment of each window's start
+  and the slot step's skipped cycles (the tests hold them against the JAX
   package);
 * the **kernel wrappers** :func:`sched_run_cuda` and
   :func:`sched_slot_step_cuda`: on CUDA tensors they launch the
@@ -47,12 +48,19 @@ This module holds, side by side:
   tables of at most :data:`WARP_ROWS` rows whose program fits the CTA's
   shared memory (:func:`warp_plan`), ``"cta"`` (one CTA per stream)
   otherwise; ``sched_run_cuda.launches_by`` counts each and
-  ``sched_run_cuda.last_plan`` holds the plan of the last launch.
+  ``sched_run_cuda.last_plan`` holds the plan of the last launch.  So
+  does the slot kernel, by :func:`slot_variant`: ``"warp"`` (one warp
+  per slot, up to four slots a CTA, the slot's registers, the
+  cycles that do work and its feed windows staged once on chip) when the
+  tables take it and one slot's windows fit a CTA (:func:`slot_plan`),
+  ``"cta"`` otherwise; ``sched_slot_step_cuda.launches_by`` and
+  ``.last_plan``.
 
 The program and the pid windows are host data (numpy): the wrappers
 check them on the host, on either device — every pid below the number of
 patterns the tables hold, so a stale table raises instead of running a
-no-op row — and copy them to the device with the launch.
+no-op row — and copy them to the device with the launch (the slot step's
+through a pinned buffer, one copy a launch).
 """
 from __future__ import annotations
 
@@ -63,7 +71,8 @@ import torch
 
 from repro_torch.core.graph import Op
 from repro_torch.kernels.dataflow_fire import (_CTRL_OPS, _alu_op,
-                                               _check_tensors, _on_cpu,
+                                               _check_tensors,
+                                               _device_and_stream, _on_cpu,
                                                _smem_limit, _vp)
 
 TABLE_KEYS = ("op", "i0", "i1", "o0", "o1", "feed", "drain", "full",
@@ -71,6 +80,7 @@ TABLE_KEYS = ("op", "i0", "i1", "o0", "o1", "feed", "drain", "full",
 PROGRAM_KEYS = ("seg_off", "seg_len", "seg_reps", "pids")
 MAX_THREADS = 1024      # one thread per feed row, fire row and drain row
 SCHED_VARIANTS = ("warp", "cta")
+SLOT_VARIANTS = ("warp", "cta")
 # the warp variant: the 32-row groups of each table a stream may take, and
 # the largest A2 its packed fire words hold (13-bit operand indices)
 WARP_ROW_GROUPS = (1, 2, 4)
@@ -91,11 +101,17 @@ class SchedTables(dict):
 
     ``n_patterns`` is the registry length the upload covers (pids at or
     past it are stale), ``ops`` the opcodes of the real fire rows and
-    ``warp`` the warp variant's packed tables (:func:`warp_tables`; None
-    when the tables are too wide for it)."""
+    ``warp`` the warp variants' packed tables (:func:`warp_tables`; None
+    when the tables are too wide for them).  ``ops_mask`` (bit k: opcode
+    k, COPY always) and ``ptrs`` (the tables' pointers, in
+    :data:`TABLE_KEYS` order) are what every launch passes;
+    ``slot_plans`` keeps the launcher's slot plans already asked for
+    (:func:`slot_plan`)."""
     n_patterns = 0
     ops: tuple = ()
     warp = None
+    ops_mask = 1 << int(Op.COPY)
+    ptrs: tuple = ()
 
 
 def host_sched_tables(ctx) -> dict:
@@ -209,6 +225,9 @@ def upload_sched_tables(host: dict, device, n_patterns: int) -> SchedTables:
                         for k in TABLE_KEYS})
     tabs.n_patterns = n_patterns
     tabs.ops = ops
+    tabs.ops_mask = sum(1 << o for o in ops) | 1 << int(Op.COPY)
+    tabs.ptrs = tuple(_vp(tabs[k]) for k in TABLE_KEYS)
+    tabs.slot_plans = {}
     warp = warp_tables(host)
     if warp is not None:
         tabs.warp = dict(
@@ -427,6 +446,76 @@ def sched_slot_step(tables, fv, pids, fsel, full, val, ptr, out_last,
     return full, val, ptr, ol, oc
 
 
+def slot_window_ints(K: int) -> int:
+    """Ints that hold the 16-byte pieces of a feed row's window of at most
+    K tokens, wherever the window starts (the replay's buffer; the
+    kernel's layout is its launcher's)."""
+    return 4 * (((K + 2) >> 2) + 1)
+
+
+def sched_slot_step_staged(tables, fv, pids, fsel, full, val, ptr, out_last,
+                           out_count, *, misalign: int = 0):
+    """The scheduled slot step in its warp variant's order (plain
+    PyTorch, for the tests and ``chip_smoke.py``; the main path runs
+    :func:`sched_slot_step`).  Same arguments and results as
+    :func:`sched_slot_step`; the results must be equal.  The order:
+
+    * each slot walks its pid window once: each feed row counts the n
+      tokens it takes, and only the cycles that feed, fire or drain run
+      (pid 0, the no-op pattern, and any other pattern that does nothing
+      are skipped); a slot with no such cycle copies its state through;
+    * each feed row's window is copied once: tokens clamp(ptr) ..
+      clamp(ptr + n - 1) in 16-byte pieces aligned on the device address
+      (``misalign``: ints between a 16-byte boundary and the tokens'
+      start), so token p lies at (row + p) - ((row + clamp(ptr)) & ~3); a
+      read outside the copied pieces comes back stale;
+    * the cycles run in order, each feed taking its token from the
+      window at the row's clamped pointer."""
+    dev = full.device
+    pids = torch.as_tensor(np.asarray(pids, np.int32), device=dev).long()
+    fsel = torch.as_tensor(np.asarray(fsel, np.int32), device=dev).long()
+    B, n_in, L = fv.shape
+    K = pids.shape[1]
+    fed = tables["feed"][pids] > 0                          # [B, K, n_in]
+    works = fed.any(2) | (tables["drain"][pids] > 0).any(2) \
+        | (tables["nfire"][pids] > 0)                       # [B, K]
+    nfed = fed.sum(1)                                       # [B, n_in]
+    p0 = ptr.long()
+    a = p0.clamp(0, L - 1)
+    e = (p0 + nfed - 1).clamp(0, L - 1)
+    row = misalign + (torch.arange(B, device=dev)[:, None] * n_in
+                      + torch.arange(n_in, device=dev)[None]) * L
+    start = (row + a) & ~3
+    held = torch.where(nfed > 0, 4 * (((row + e - start) >> 2) + 1), 0)
+    RI = slot_window_ints(K)
+    stale = lambda *shape: torch.full(shape, _STALE, dtype=fv.dtype,
+                                      device=dev)
+    flat = torch.cat([stale(misalign), fv.reshape(-1), stale(RI + 8)])
+    k = torch.arange(RI, device=dev)
+    idx = (start[..., None] + k).clamp(0, flat.numel() - 1)
+    win = torch.where(k < held[..., None], flat[idx], stale(B, n_in, RI))
+
+    def read(p):
+        slot = row + p.long().clamp(0, L - 1) - start
+        got = torch.gather(win, 2, slot.clamp(0, RI - 1)[..., None])[..., 0]
+        return torch.where((slot >= 0) & (slot < held), got,
+                           stale(B, n_in))
+
+    v, pt, ol, oc = val, ptr, out_last, out_count
+    for j in range(K):
+        run = works[:, j, None]
+        nv, npt, nol, noc = _cycle(tables, tables.ops, fv, v, pt, ol, oc,
+                                   pids[:, j], tok=read(pt))
+        v, pt = torch.where(run, nv, v), torch.where(run, npt, pt)
+        ol, oc = torch.where(run, nol, ol), torch.where(run, noc, oc)
+    live = works.any(1)[:, None]            # the others copy through
+    v, pt = torch.where(live, v, val), torch.where(live, pt, ptr)
+    ol, oc = torch.where(live, ol, out_last), torch.where(live, oc, out_count)
+    full = torch.where(fsel[:, None] >= 0, tables["full"][fsel.clamp(min=0)],
+                       full)
+    return full, v, pt, ol, oc
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -456,9 +545,13 @@ def _check_pids(tables, pids, name, lo=0):
 
 
 def _prepare(tables, named, dev):
-    """Argument checks common to both wrappers; returns (A2, n_in, n_out,
-    F, device index)."""
-    _check_tensors((*named, *tables.items()), dev)
+    """Argument checks common to both wrappers (the tables were checked
+    when they were uploaded: here only that they lie on ``dev``);
+    returns (A2, n_in, n_out, F, device index)."""
+    _check_tensors(named, dev)
+    if tables["val0"].device != dev:
+        raise ValueError(f"the tables are on {tables['val0'].device}, the "
+                         f"state on {dev}")
     A2 = tables["val0"].shape[0]
     n_in, n_out = tables["ia"].shape[0], tables["oa"].shape[0]
     F = tables["op"].shape[1]
@@ -473,10 +566,6 @@ def _prepare(tables, named, dev):
                          f"memory per CTA; the card gives "
                          f"{_smem_limit(index)}")
     return A2, n_in, n_out, F, index
-
-
-def _table_ptrs(tables):
-    return [_vp(tables[k]) for k in TABLE_KEYS]
 
 
 def _raise_on(err, lib, what):
@@ -576,7 +665,7 @@ def _launch_run(variant, tables, prog, fv, window=None, warps=None,
                 [prog[k] for k in PROGRAM_KEYS] + [np.zeros(1, np.int32)]),
                 device=dev)
             err = lib.sched_run_launch(
-                *_table_ptrs(tables), _vp(flat), _vp(fv), _vp(ol), _vp(oc),
+                *tables.ptrs, _vp(flat), _vp(fv), _vp(ol), _vp(oc),
                 prog["seg_off"].size, B, A2, n_in, n_out, L, F, stream)
         else:
             run = warp_plan(tables, prog, B, index, window, warps)
@@ -597,7 +686,7 @@ def _launch_run(variant, tables, prog, fv, window=None, warps=None,
                 (ptr & 15) // 4, wp["seg_off"].size, wp["pids"].size,
                 wp["used"].size, B, A2, n_in, n_out, L, tables.warp["Fp"],
                 wp["cycles"], run["window"], run["warps"], int(restage),
-                sum(1 << o for o in tables.ops) | 1 << int(Op.COPY), stream)
+                tables.ops_mask, stream)
     _raise_on(err, lib, f"sched_run ({variant} variant)")
     sched_run_cuda.last_plan = plan
     return ol, oc
@@ -651,23 +740,44 @@ def sched_floor_cuda(tables, program, fv):
                        fv[:1], warps=1, restage=False)
 
 
-def sched_slot_step_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
-                         out_count):
-    """K scheduled cycles per slot (the counterpart of
-    ``make_sched_slot_step``): one CTA per slot, ``pids`` (host int32
-    [B, K]) and ``fsel`` (host int32 [B]) from the plan.  CUDA tensors
-    launch the kernel and count it in ``sched_slot_step_cuda.launches``;
-    CPU tensors take :func:`sched_slot_step`.  Returns (full', val',
-    ptr', out_last', out_count')."""
-    _check_tables(tables)
-    pids = _host_i32(pids, "pids")
-    fsel = _host_i32(fsel, "fsel")
-    _check_pids(tables, pids, "pids")
-    _check_pids(tables, fsel, "fsel", lo=-1)
-    state = (full, val, ptr, out_last, out_count)
-    if _on_cpu(fv, *state, tables["val0"]):
-        return sched_slot_step(tables, fv, pids, fsel, *state)
-    from repro_torch.kernels import _build
+def slot_plan(tables, K, B, device_index):
+    """How the slot step's warp variant would run K cycles of B slots
+    over ``tables`` (:func:`device_sched_tables`) on card
+    ``device_index``: dict(streams), or None when it cannot.  The
+    kernel's launcher plans (``csrc`` ``slot_plan``, which owns the
+    shared-memory layout): one warp a slot, the most slots a CTA (up to
+    4) with which two CTAs fit an SM, or one slot; None when one slot's
+    windows for K cycles do not fit a CTA."""
+    if tables.warp is None:
+        return None
+    key = (K, B, device_index)
+    if key not in tables.slot_plans:
+        from repro_torch.kernels import _build
+        out = (ctypes.c_int * 1)()
+        err = _build.load().sched_slot_plan(
+            tables["val0"].shape[0], tables["ia"].shape[0],
+            tables["oa"].shape[0], tables.warp["Fp"], K, B, device_index,
+            out)
+        tables.slot_plans[key] = None if err else dict(streams=out[0])
+    plan = tables.slot_plans[key]
+    return None if plan is None else dict(plan)
+
+
+def slot_variant(tables, K, B, device_index) -> str:
+    """The slot kernel's variant for ``tables`` (:func:`device_sched_tables`)
+    and K cycles of B slots on card ``device_index``: ``"warp"`` when the
+    tables are at most :data:`WARP_ROWS` rows wide (:attr:`SchedTables.warp`
+    is set) and one slot's feed windows for K cycles fit a CTA
+    (:func:`slot_plan`), ``"cta"`` otherwise."""
+    if slot_plan(tables, K, B, device_index) is None:
+        return "cta"
+    return "warp"
+
+
+def _check_slot(tables, fv, pids, fsel, state):
+    """Argument checks of a slot-step launch on the card; returns (B, K,
+    L, A2, n_in, n_out, F, device index)."""
+    full = state[0]
     dev = full.device
     names = ("fv", "full", "val", "ptr", "out_last", "out_count")
     A2, n_in, n_out, F, index = _prepare(tables, zip(names, (fv, *state)),
@@ -684,23 +794,117 @@ def sched_slot_step_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
                          f"({B}, K) / ({B},)")
     if B < 1 or L < 1:
         raise ValueError("the kernel needs B >= 1 and L >= 1")
-    K = pids.shape[1]
+    return B, pids.shape[1], L, A2, n_in, n_out, F, index
+
+
+def _launch_slot(variant, tables, fv, pids, fsel, state):
+    """Check the arguments (host pids and fsel already checked) and launch
+    the slot kernel's ``variant`` (the warp one as the launcher plans it,
+    :func:`slot_plan`).  Records the launch's plan in
+    ``sched_slot_step_cuda.last_plan``.  Returns (full', val', ptr',
+    out_last', out_count')."""
+    from repro_torch.kernels import _build
+    if variant not in SLOT_VARIANTS or (variant == "warp"
+                                        and tables.warp is None):
+        raise ValueError(f"variant {variant!r} cannot run these tables")
+    B, K, L, A2, n_in, n_out, F, index = _check_slot(tables, fv, pids, fsel,
+                                                     state)
+    dev = fv.device
+    plan = dict(variant=variant, streams=1)
+    if variant == "warp":
+        run = slot_plan(tables, K, B, index)
+        if run is None:
+            raise ValueError(
+                f"the warp variant cannot run K = {K} cycles of {B} slots: "
+                "shapes or shared memory")
+        plan.update(run)
     lib = _build.load()
-    with torch.cuda.device(index):
+    _, on_device, stream = _device_and_stream(dev)
+    with on_device:
         ctl = torch.as_tensor(np.concatenate([pids.reshape(-1), fsel]),
                               device=dev)
+        fsel_p = ctypes.c_void_p(ctl.data_ptr() + 4 * B * K)
         outs = [torch.empty_like(x) for x in state]
-        err = lib.sched_slot_step_launch(
-            *_table_ptrs(tables), _vp(fv), _vp(ctl), _vp(ctl[B * K:]),
-            *(_vp(x) for x in state), *(_vp(x) for x in outs),
-            B, K, A2, n_in, n_out, L, F,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _raise_on(err, lib, "sched_slot_step")
-    sched_slot_step_cuda.launches += 1
+        io = (*(_vp(x) for x in state), *(_vp(x) for x in outs))
+        if variant == "cta":
+            err = lib.sched_slot_step_launch(
+                *tables.ptrs, _vp(fv), _vp(ctl), fsel_p, *io, B, K, A2, n_in,
+                n_out, L, F, stream)
+        else:
+            ptr = fv.data_ptr()
+            err = lib.sched_slot_warp_launch(
+                _vp(tables.warp["fire"]),
+                _vp(tables.warp["bits"][1]), _vp(tables["ia"]),
+                _vp(tables["oa"]), _vp(tables["full"]),
+                ctypes.c_void_p(ptr & ~15), _vp(ctl), fsel_p, *io,
+                (ptr & 15) // 4, B, K, A2, n_in, n_out, L,
+                tables.warp["Fp"], tables.ops_mask, stream)
+    _raise_on(err, lib, f"sched_slot_step ({variant} variant)")
+    sched_slot_step_cuda.last_plan = plan
     return tuple(outs)
+
+
+def _slot_args(tables, pids, fsel):
+    _check_tables(tables)
+    pids = _host_i32(pids, "pids")
+    fsel = _host_i32(fsel, "fsel")
+    _check_pids(tables, pids, "pids")
+    _check_pids(tables, fsel, "fsel", lo=-1)
+    return pids, fsel
+
+
+def sched_slot_step_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
+                         out_count):
+    """K scheduled cycles per slot (the counterpart of
+    ``make_sched_slot_step``): ``pids`` (host int32 [B, K]) and ``fsel``
+    (host int32 [B]) from the plan.  CUDA tensors launch the variant
+    :func:`slot_variant` picks (one warp per slot, or one CTA) and count it
+    in ``sched_slot_step_cuda.launches`` and ``launches_by``; CPU tensors
+    take :func:`sched_slot_step`.  Returns (full', val', ptr', out_last',
+    out_count')."""
+    pids, fsel = _slot_args(tables, pids, fsel)
+    state = (full, val, ptr, out_last, out_count)
+    if _on_cpu(fv, *state, tables["val0"]):
+        return sched_slot_step(tables, fv, pids, fsel, *state)
+    dev = full.device
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    K = pids.shape[1] if pids.ndim == 2 else 0
+    variant = slot_variant(tables, K, full.shape[0] if full.dim() else 1,
+                           index)
+    out = _launch_slot(variant, tables, fv, pids, fsel, state)
+    sched_slot_step_cuda.launches += 1
+    sched_slot_step_cuda.launches_by[variant] += 1
+    return out
+
+
+def launch_slot_variant(variant, tables, fv, pids, fsel, full, val, ptr,
+                        out_last, out_count):
+    """One launch of the slot kernel's ``variant`` (``"warp"`` only for
+    tables and K that take it) on CUDA tensors, counted nowhere: the tests
+    and ``chip_smoke.py`` hold each variant against the plain versions and
+    the other variant with it.  Arguments and results as
+    :func:`sched_slot_step_cuda`."""
+    pids, fsel = _slot_args(tables, pids, fsel)
+    return _launch_slot(variant, tables, fv, pids, fsel,
+                        (full, val, ptr, out_last, out_count))
+
+
+def sched_slot_floor_cuda(tables, fv, pids, fsel, full, val, ptr, out_last,
+                          out_count):
+    """The slot step's latency floor, for timing: the warp variant's own
+    launch — its pid walk, its windows staged once, its loop over the
+    cycles that work — on one slot (slot 0 of the arguments, CUDA) of one
+    warp, counted nowhere.  Returns slot 0's results."""
+    pids, fsel = _slot_args(tables, pids, fsel)
+    return _launch_slot("warp", tables, fv[:1], pids[:1], fsel[:1],
+                        (full[:1], val[:1], ptr[:1], out_last[:1],
+                         out_count[:1]))
 
 
 sched_run_cuda.launches = 0
 sched_run_cuda.launches_by = dict.fromkeys(SCHED_VARIANTS, 0)
 sched_run_cuda.last_plan = None
 sched_slot_step_cuda.launches = 0
+sched_slot_step_cuda.launches_by = dict.fromkeys(SLOT_VARIANTS, 0)
+sched_slot_step_cuda.last_plan = None

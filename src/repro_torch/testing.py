@@ -171,6 +171,46 @@ def random_sched_slot_inputs(ctx, B: int, K: int, L: int, rng) -> dict:
                 out_count=rng.integers(0, 100, (B, n_out)).astype(np.int32))
 
 
+def slot_plans(ctx, L: int, rng, n: int = 8) -> list:
+    """``n`` plans of ``ctx`` for random, mixed feed lengths in 1..L,
+    extended past quiescence (for :func:`random_slot_window_inputs`)."""
+    plans = []
+    for _ in range(n):
+        plan = ctx.plan_for(tuple(int(x) for x in
+                                  rng.integers(1, L + 1, ctx.in_arc.size)))
+        plan.ensure(4 * L + 64)
+        plans.append(plan)
+    return plans
+
+
+def random_slot_window_inputs(ctx, plans, B: int, K: int, L: int, rng,
+                              parked: float = 0.25) -> dict:
+    """Random inputs for the scheduled slot step over ``ctx``, as int32
+    numpy arrays, for many slots from a few plans: each slot rides one of
+    ``plans`` (:func:`slot_plans`) with the pid window
+    ``ConcretePlan.pids_window`` gives at a random position (past the
+    plan's end too), or is parked (pid 0, fsel -1) with probability
+    ``parked``; random registers, streams and accumulators; pointers at
+    L - 1, at L, past L (the clamp) or random below L."""
+    n_in, n_out = ctx.ia_pad.size, ctx.oa_pad.size
+    pids = np.zeros((B, K), np.int32)
+    fsel = np.full((B,), -1, np.int32)
+    for b in np.nonzero(rng.random(B) >= parked)[0]:
+        plan = plans[int(rng.integers(len(plans)))]
+        pos = int(rng.integers(0, plan.total + K))
+        plan.ensure(pos + K)
+        pids[b] = plan.pids_window(pos, pos + K)
+        fsel[b] = pids[b, -1]
+    pick = rng.random((B, n_in))
+    ptr = np.select([pick < 0.15, pick < 0.25, pick < 0.3],
+                    [L - 1, L, L + 5], rng.integers(0, L, (B, n_in)))
+    return dict(fv=edge_ints(rng, (B, n_in, L)), pids=pids, fsel=fsel,
+                full=rng.integers(0, 2, (B, ctx.A2)).astype(np.int32),
+                val=edge_ints(rng, (B, ctx.A2)), ptr=ptr.astype(np.int32),
+                out_last=edge_ints(rng, (B, n_out)),
+                out_count=rng.integers(0, 100, (B, n_out)).astype(np.int32))
+
+
 def random_sched_run_inputs(ctx, B: int, L: int, rng, cap: int = 1 << 20):
     """Random inputs for the scheduled run over ``ctx``: B streams
     (int32 numpy [B, n_in, L], a third edge operands) sharing one tuple

@@ -558,6 +558,187 @@ def test_warp_plan_fits_two_ctas_an_sm(cuda):
 
 
 @pytest.mark.parametrize("name", SCHED_BENCHES)
+def test_slot_step_variants_match_plain(cuda, name):
+    """Both slot-step variants bit for bit against the plain slot step and
+    its warp-order replay: B = 1, 8 and 64, K = 1, 16, 64 and 65,
+    slots riding 4 plans at random positions (a quarter parked, pointers
+    clamped), the tokens 0-3 ints off a 16-byte boundary."""
+    from repro_torch.testing import random_slot_window_inputs, slot_plans
+    ctx = _sched_ctx(cuda, name)
+    rng = np.random.default_rng(41)
+    plans = slot_plans(ctx, 40, rng, n=4)
+    for B in (1, 8, 64):
+        for K in (1, 16, 64, 65):
+            x = random_slot_window_inputs(ctx, plans, B, K, 40, rng)
+            tabs = ksf.device_sched_tables(ctx, cuda)
+            args = list(_slot_args(cuda, x))
+            want = ksf.sched_slot_step(tabs, *args)
+            for mis in range(4):
+                args[0] = _misaligned(_slot_args(cuda, x)[0], mis)
+                _assert_equal(ksf.sched_slot_step_staged(tabs, *args,
+                                                         misalign=mis), want)
+                for v in ksf.SLOT_VARIANTS:
+                    _assert_equal(ksf.launch_slot_variant(v, tabs, *args),
+                                  want)
+
+
+def test_slot_step_launches_by_counts_the_variant_that_ran(cuda):
+    """dot_prod n = 32 runs the warp variant, a fabric of 160 feed rows
+    the CTA one; each launch counted under its variant, the plan in
+    last_plan; launch_slot_variant and the floor count nothing."""
+    from repro_torch.testing import random_slot_window_inputs, slot_plans
+    rng = np.random.default_rng(5)
+    for graph, want in ((library.dot_product_graph(32).graph, "warp"),
+                        (library.dot_product_graph(80).graph, "cta")):
+        ctx = DataflowEngine(graph, device=cuda, schedule=True)._sched_ctx()
+        x = random_slot_window_inputs(ctx, slot_plans(ctx, 16, rng, n=2), 8,
+                                      16, 16, rng)
+        tabs = ksf.device_sched_tables(ctx, cuda)
+        args = _slot_args(cuda, x)
+        n0 = ksf.sched_slot_step_cuda.launches
+        by0 = dict(ksf.sched_slot_step_cuda.launches_by)
+        _assert_equal(ksf.sched_slot_step_cuda(tabs, *args),
+                      ksf.sched_slot_step(tabs, *args))
+        assert ksf.sched_slot_step_cuda.launches == n0 + 1
+        assert ksf.sched_slot_step_cuda.launches_by == \
+            dict(by0, **{want: by0[want] + 1})
+        assert ksf.sched_slot_step_cuda.last_plan["variant"] == want
+    with pytest.raises(ValueError, match="cannot run"):
+        ksf.launch_slot_variant("warp", tabs, *args)
+    ctx = _sched_ctx(cuda, "dot_prod")
+    x = random_slot_window_inputs(ctx, slot_plans(ctx, 16, rng, n=2), 8, 16,
+                                  16, rng)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    args = _slot_args(cuda, x)
+    by = dict(ksf.sched_slot_step_cuda.launches_by)
+    ksf.launch_slot_variant("cta", tabs, *args)
+    one = ksf.sched_slot_floor_cuda(tabs, *args)
+    assert ksf.sched_slot_step_cuda.launches_by == by
+    assert ksf.sched_slot_step_cuda.last_plan == dict(variant="warp",
+                                                      streams=1)
+    _assert_equal(one, [w[:1] for w in ksf.sched_slot_step(tabs, *args)])
+
+
+def test_slot_step_back_to_back_calls_read_their_own_pids(cuda):
+    """Six wrapper calls in a row with no sync between them, each with its
+    own pids and fsel uploaded while the card may still run the calls
+    before: every result equals the plain slot step's on its own
+    arguments."""
+    from repro_torch.testing import random_slot_window_inputs, slot_plans
+    ctx = _sched_ctx(cuda, "dot_prod")
+    rng = np.random.default_rng(8)
+    plans = slot_plans(ctx, 40, rng, n=4)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    calls = [_slot_args(cuda, random_slot_window_inputs(ctx, plans, 64, 64,
+                                                        40, rng))
+             for _ in range(6)]
+    torch.cuda.synchronize()
+    got = [ksf.sched_slot_step_cuda(tabs, *a) for a in calls]
+    for a, g in zip(calls, got):
+        _assert_equal(g, ksf.sched_slot_step(tabs, *a))
+
+
+def test_slot_plan_by_width_slots_and_k(cuda):
+    """The launcher's slot plan for dot_prod n = 32 (64 feed rows, 64 fire
+    rows a pattern): 4 slots a CTA at B = 1024 and below 4 slots an SM
+    (one warp a slot), B bounds the slots; a window too long for a CTA's
+    shared memory (K = 16384) sends the call to the CTA variant, which
+    runs it."""
+    ctx = _sched_ctx(cuda, "dot_prod")
+    ctx.plan_for((8,) * ctx.in_arc.size).ensure(1 << 12)
+    tabs = ksf.device_sched_tables(ctx, cuda)
+    index = torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    assert ksf.slot_plan(tabs, 64, 1024, index) == dict(streams=4)
+    assert ksf.slot_plan(tabs, 65, 4 * sms, index) == dict(streams=4)
+    assert ksf.slot_plan(tabs, 64, 8, index) == dict(streams=4)
+    assert ksf.slot_plan(tabs, 64, 2, index) == dict(streams=2)
+    assert ksf.slot_variant(tabs, 64, 1024, index) == "warp"
+    assert ksf.slot_plan(tabs, 1 << 14, 1, index) is None
+    assert ksf.slot_variant(tabs, 1 << 14, 1, index) == "cta"
+    n_in, n_out = ctx.ia_pad.size, ctx.oa_pad.size
+    K, L = 1 << 14, 8
+    rng = np.random.default_rng(2)
+    x = dict(fv=edge_ints(rng, (1, n_in, L)),
+             pids=np.zeros((1, K), np.int32), fsel=np.full((1,), -1, np.int32),
+             full=rng.integers(0, 2, (1, ctx.A2)).astype(np.int32),
+             val=edge_ints(rng, (1, ctx.A2)),
+             ptr=np.zeros((1, n_in), np.int32),
+             out_last=edge_ints(rng, (1, n_out)),
+             out_count=np.zeros((1, n_out), np.int32))
+    by = dict(ksf.sched_slot_step_cuda.launches_by)
+    args = _slot_args(cuda, x)
+    _assert_equal(ksf.sched_slot_step_cuda(tabs, *args),
+                  ksf.sched_slot_step(tabs, *args))
+    assert ksf.sched_slot_step_cuda.launches_by["cta"] == by["cta"] + 1
+
+
+@pytest.mark.parametrize("name", sorted(library.BENCHES))
+def test_fire_step_variants_match_plain(cuda, name):
+    """Both fire-step variants and the warp order's replay against the
+    plain fire step on random registers."""
+    tables = df.block_plan_arrays(_bench(name).graph)
+    dt = df.device_tables(tables, cuda)
+    assert dt.step_variant == "warp"
+    x = random_block_inputs(tables, 8, 1, np.random.default_rng(6))
+    for b in range(8):
+        full = torch.tensor(x["full"][b], device=cuda)
+        val = torch.tensor(x["val"][b], device=cuda)
+        want = df.fire_step(dt, full, val)
+        _assert_equal(df.fire_step_warp_order(dt, full, val), want)
+        for v in df.STEP_VARIANTS:
+            _assert_equal(df.launch_step_variant(v, dt, full, val), want)
+
+
+def test_fire_step_launches_by_counts_the_variant_that_ran(cuda):
+    """A bench runs the warp fire step, a fabric above 256 rows the CTA
+    one (and refuses the warp one); launch_step_variant counts nothing;
+    run_fabric launches the warp step once a cycle."""
+    for graph, want in ((library.dot_product_graph(32).graph, "warp"),
+                        (random_graph(1, nodes=150), "cta")):
+        tables = df.block_plan_arrays(graph)
+        dt = df.device_tables(tables, cuda)
+        x = random_block_inputs(tables, 1, 1, np.random.default_rng(0))
+        full = torch.tensor(x["full"][0], device=cuda)
+        val = torch.tensor(x["val"][0], device=cuda)
+        by0 = dict(df.fire_step_cuda.launches_by)
+        _assert_equal(df.fire_step_cuda(dt, full, val),
+                      df.fire_step(dt, full, val))
+        assert df.fire_step_cuda.launches_by == dict(by0,
+                                                     **{want: by0[want] + 1})
+        by1 = dict(df.fire_step_cuda.launches_by)
+        df.launch_step_variant("cta", dt, full, val)
+        assert df.fire_step_cuda.launches_by == by1
+    with pytest.raises(ValueError, match="cannot run"):
+        df.launch_step_variant("warp", dt, full, val)
+    bench = _bench("fir")
+    feeds = library.random_feeds("fir", bench, 6, np.random.default_rng(1))
+    by0 = dict(df.fire_step_cuda.launches_by)
+    got = ops.run_fabric(bench.graph, feeds, device=cuda)
+    assert df.fire_step_cuda.launches_by["warp"] == by0["warp"] + got.cycles
+    assert df.fire_step_cuda.launches_by["cta"] == by0["cta"]
+
+
+def test_fire_step_rejects_bad_arguments(cuda):
+    """The registers are checked on every call (the tables once, by
+    make_fire_step or the first launch): int64, a wrong length, another
+    device and tables not from device_tables raise."""
+    tables, step = ops.make_fire_step(_bench("dot_prod").graph, cuda)
+    A2 = tables["plan"]["A"] + 2
+    dt = df.device_tables(tables, cuda)
+    full = torch.zeros(A2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        step(full.long(), full)
+    with pytest.raises(ValueError):
+        step(full[:-1].clone(), full[:-1].clone())
+    with pytest.raises(ValueError):
+        step(full.cpu(), full)
+    with pytest.raises(TypeError):
+        df.fire_step_cuda(dict(dt), full, full)
+    assert len(step(full, full)) == 3
+
+
+@pytest.mark.parametrize("name", SCHED_BENCHES)
 def test_scheduled_engine_matches_reference(cuda, name):
     """Scheduled run and run_batch go through the run kernel (one launch
     each) and equal the oracle in every field, profile included."""
