@@ -72,6 +72,24 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              variant on every bench) against ``run_reference``, with its
              microseconds per cycle beside the fused engine's at K = 16
              and 64 (the paper's Table-1 comparison);
+4b. compile — the torch ALU (the ``"torch"`` backend's and compile's) on
+             the card against ``alu_numpy`` on the edge operands, int32,
+             uint32 and float32, float shifts at every integer in
+             [-149, 126]; ``compile()``'s every executor (``"dag"`` where
+             legal, ``"unrolled"``, ``"torch"``, ``"cuda"``) on the 7
+             benches at K in {1, 16, 64}, ``optimize`` False / spec /
+             full / sched, profile off and on, against ``run_reference``
+             (``"dag"`` streams against each bench's reference), the cuda
+             routes raising rows 1-5's and 7's launches; ``"torch"``,
+             ``"dag"``, ``"unrolled"`` and ``"reference"`` in uint32,
+             float32 and on tokens of shape (4,) on the 7 benches and 16
+             random fabrics fed edge operands, bit for bit; at full width
+             (phase 5's dot_prod deployment: 1024 streams of 4096 tokens)
+             ``run_batch`` of the torch engine (int32, float32) and the
+             cuda engine (dynamic, scheduled), every int32 result equal
+             across them and 8 sampled streams to ``run_reference``,
+             ``"dag"`` over all tokens, ``"unrolled"`` on one stream, with
+             each executor's wall time and microseconds per fabric cycle;
 5. serving — ``DataflowServer(slots=1024, block_cycles=64)`` on the
              paper's dot-product fabric at n = 32, 2048 requests of
              256..4096 tokens: dense, then optimized and profiled, then
@@ -120,7 +138,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 9. summary — the ``kernels`` JSON line, the card, and the result line.
 
 The launch counts in the summary come from the main paths alone: every
-count is set to 0 just before phase 4 and read after phase 5, before
+count is set to 0 just before phase 4 and read after phase 5 (phase 4b's
+compile routes included), before
 the sampled checks (the fabric's rows 1-8), and set to 0 again just
 before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
@@ -1562,6 +1581,384 @@ def phase_run_fabric(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: compile() and the "torch" backend
+# ---------------------------------------------------------------------------
+# the JAX package's ALU edge operands (its tests/test_passes.py), and float
+# shift counts at every integer in [-149, 126] (ROADMAP C8)
+ALU_EDGES = {
+    "int32": [-(2 ** 31), -(2 ** 31) + 1, -40, -2, -1, 0, 1, 5, 31, 32, 33,
+              40, 2 ** 31 - 1],
+    "uint32": [0, 1, 2, 5, 7, 31, 32, 40, 2 ** 31, 2 ** 32 - 1],
+    "float32": [-np.inf, -200.0, -13.0, -1.5, -0.0, 0.0, 0.5, 1.0, 13.0,
+                126.0, 200.0, np.inf],
+}
+COMPILE_CAP = 96        # cycle cap of phase 4b's random fabrics (they may
+                        # run free)
+
+
+def hold_torch_alu(dev) -> int:
+    """The torch ALU on the card against ``alu_numpy`` on the edge
+    operands, bit for bit (a NaN only has to meet a NaN): int32 wraps
+    (INT_MIN // -1, shifts past the clip), uint32 in its int64 carrier,
+    the float signed-zero tie of MAX/MIN, and float SHL/SHR at every
+    integral shift count in [-149, 126]."""
+    from repro_torch.core.engine import (_alu_op, alu_numpy, from_carrier,
+                                         to_carrier)
+    from repro_torch.core.graph import Op
+    from repro_torch.testing import tokens_equal
+    n = 0
+    for dtype, vals in ALU_EDGES.items():
+        dt = np.dtype(dtype)
+        vals = np.asarray(vals, dt)
+        A, B = np.meshgrid(vals, vals)
+        for op in Op:
+            if op in (Op.DMERGE, Op.NDMERGE):
+                continue
+            a, b = A.ravel(), B.ravel()
+            if dtype == "float32" and op in (Op.SHL, Op.SHR):
+                X, Y = np.meshgrid(vals, np.arange(-149, 127, dtype=dt))
+                a, b = X.ravel(), Y.ravel()
+            got = from_carrier(_alu_op(op, to_carrier(a, dt, dev),
+                                       to_carrier(b, dt, dev), dt), dt)
+            with np.errstate(all="ignore"):
+                want = np.asarray(alu_numpy(op, a, b, dt), dt)
+            check(tokens_equal(got, want), f"torch ALU {op.name} {dtype} on "
+                  "the card != alu_numpy")
+            n += a.size
+    log(f"  torch ALU on the card == alu_numpy on {n} edge operand pairs "
+        "(int32, uint32, float32; float shifts at every integer in "
+        "[-149, 126])")
+    return n
+
+
+def stream_and_expected(name, bench, k, seed):
+    """A k-token stream (the draws of ``library.random_feeds``) and each
+    output arc's expected k tokens from the bench's own reference, for the
+    DAG benches."""
+    rng = np.random.default_rng(seed)
+    n = len(bench.graph.input_arcs())
+    if name == "dot_prod":
+        a, b = rng.integers(0, 9, (k, n // 2)), rng.integers(0, 9, (k, n // 2))
+        return bench.make_feeds(a, b), {bench.out_arc: bench.reference(a, b)}
+    if name == "pop_count":
+        x = rng.integers(0, 2 ** 16, (k,))
+    elif name == "fir":
+        x = rng.integers(0, 99, (k + n - 1,))
+    else:
+        x = rng.integers(0, 99, (k, n))
+    ref = bench.reference(x)
+    if bench.out_arcs:
+        return bench.make_feeds(x), {a: ref[:, i]
+                                     for i, a in enumerate(bench.out_arcs)}
+    return bench.make_feeds(x), {bench.out_arc: ref}
+
+
+def phase_compile_benches(dev) -> dict:
+    """(a) Every executor of ``compile`` on the 7 benches in int32, 16-token
+    streams: "dag" where legal, "unrolled", "torch" and "cuda" at K = 1, 16
+    and 64, optimize False / "spec" / "full" / "sched" where legal, profile
+    off and on for the engines; two streams batched (and one solo at
+    K = 1), every field
+    against ``run_reference`` of the compiled fabric (at K > 1 the profile
+    on node_fires, its full arrays at K = 1), and "dag" streams against
+    each bench's own reference.  The cuda routes must raise the kernels'
+    launch counts: optimize="sched" the scheduled run (row 7),
+    optimize="full" with profile=True the profiled and specialized blocks
+    (rows 2, 4, 5), the unprofiled dense engine rows 1 and 3."""
+    from repro_torch.core import compile as tc
+    from repro_torch.core import library
+    from repro_torch.core.engine import run_reference
+    from repro_torch.testing import assert_same_result, tokens_equal
+    deltas = {k: 0 for k in ("sched", "full_prof", "dense")}
+    rows_of = {"sched": ("sched_run",),
+               "full_prof": ("fire_block_prof", "fire_block_batched_prof",
+                             "fire_block_spec"),
+               "dense": ("fire_block", "fire_block_batched")}
+    grew = {k: {r: 0 for r in v} for k, v in rows_of.items()}
+    n_runs = 0
+    t0 = time.perf_counter()
+    for name, build in library.BENCHES.items():
+        bench = build()
+        feeds = [library.random_feeds(name, bench, 16,
+                                      np.random.default_rng(s))
+                 for s in range(2)]
+        wants = {}
+        for opt in (False, "spec", "full", "sched"):
+            for backend in ("torch", "cuda"):
+                for K in (1, 16, 64):
+                    for prof in (False, True):
+                        before = launch_counts()
+                        run = tc.compile(bench.graph, block_cycles=K,
+                                         backend=backend, optimize=opt,
+                                         profile=prof, device=dev)
+                        key = tasm_key(run.graph)
+                        if key not in wants:
+                            wants[key] = [run_reference(run.graph, f,
+                                                        profile=True)
+                                          for f in feeds]
+                        # a solo run at K = 1, two streams batched always
+                        got = run.engine.run_batch(feeds)
+                        if K == 1:
+                            got.append(run(feeds[1]))
+                        tag = (name, backend, K, opt, prof)
+                        for g, w in zip(got, wants[key] + wants[key][1:]):
+                            hold_engine(g, w, tag, prof, K == 1)
+                        n_runs += len(got)
+                        if backend != "cuda":
+                            continue
+                        after = launch_counts()
+                        group = ("sched" if opt == "sched" else "full_prof"
+                                 if opt == "full" and prof else "dense"
+                                 if opt is False and not prof else None)
+                        if group == "sched" and name == "fibonacci":
+                            group = None    # not schedulable: dynamic
+                        if group:
+                            deltas[group] += 1
+                            for r in rows_of[group]:
+                                grew[group][r] += after[r] - before[r]
+        for opt in (False, "full"):
+            for K in (1, 16, 64):
+                run = tc.compile(bench.graph, block_cycles=K,
+                                 backend="unrolled", optimize=opt,
+                                 device=dev)
+                key = tasm_key(run.graph)
+                wants.setdefault(key, [run_reference(run.graph, f)
+                                       for f in feeds])
+                for f, w in zip(feeds, wants[key]):
+                    got = run(f)
+                    assert_same_result(got, w, (name, "unrolled", K, opt),
+                                       dispatches=False)
+                    check(got.dispatches is None and got.profile is None,
+                          f"{name}: the unrolled executor reports "
+                          "dispatches or a profile")
+                    n_runs += 1
+            if not tc.GraphTraits.probe(bench.graph).tokens_out_static:
+                continue
+            run = tc.compile(bench.graph, backend="dag", optimize=opt,
+                             device=dev)
+            f, expected = stream_and_expected(name, bench, 16, 3)
+            out = run(f)
+            for a, v in expected.items():
+                check(tokens_equal(out[a], np.asarray(v, np.int32)),
+                      f"{name}: dag stream {a} != the bench's reference")
+            n_runs += 1
+        log(f"  {name:12s} compile(): dag / unrolled / torch / cuda x K=1/16/"
+            f"64 x optimize x profile == run_reference "
+            f"({time.perf_counter() - t0:.1f} s so far)")
+    for group, rows in grew.items():
+        for r, d in rows.items():
+            check(d > 0, f"compile(backend='cuda') {group} runs launched "
+                  f"{r} no time")
+    log(f"  {n_runs} runs; launches by the cuda routes: "
+        f"{json.dumps(grew)}")
+    return dict(runs=n_runs, cuda_launches=grew,
+                seconds=time.perf_counter() - t0)
+
+
+def tasm_key(graph) -> str:
+    from repro_torch.core import asm
+    return asm.emit(graph)
+
+
+def phase_compile_dtypes(dev) -> dict:
+    """(b) "torch", "dag", "unrolled" and "reference" in uint32 and float32
+    and on tokens of shape (4,), on the 7 benches and 16 random fabrics
+    fed edge operands of the dtype, bit for bit against ``run_reference``
+    (float shift counts are integral: the benches' and the random
+    fabrics' const buses, ``testing.FLOAT_SHIFTS``): two streams batched
+    on "torch" (profiled, K = 16), one on the others, random fabrics cut
+    at 96 cycles; "dag" streams also against the same executor on the
+    CPU."""
+    from repro_torch.core import compile as tc
+    from repro_torch.core import library
+    from repro_torch.core.engine import run_reference
+    from repro_torch.testing import (assert_same_result, edge_feeds,
+                                     random_graph, tokens_equal)
+    t0 = time.perf_counter()
+    n_runs = 0
+    for dtype, ts in (("uint32", ()), ("float32", ()), ("int32", (4,)),
+                      ("float32", (4,))):
+        dt = np.dtype(dtype)
+        fabrics = []
+        for name, build in library.BENCHES.items():
+            bench = build()
+            fabrics.append((bench.graph, [library.random_feeds(
+                name, bench, 16, np.random.default_rng(s)) for s in range(2)]))
+        for seed in range(16):
+            g = random_graph(seed, dtype=dt)
+            rng = np.random.default_rng(seed)
+            fabrics.append((g, [edge_feeds(g, dt, 1 + (seed + s) % 5, rng)
+                                for s in range(2)]))
+        for g, feeds in fabrics:
+            if ts:
+                feeds = [{a: np.asarray(v)[:, None] + np.arange(ts[0],
+                                                                dtype=dt)
+                          for a, v in f.items()} for f in feeds]
+            wants = [run_reference(g, f, ts, dt, COMPILE_CAP, profile=True)
+                     for f in feeds]
+            tag = (g.name, dtype, ts)
+            run = tc.compile(g, ts, dt, COMPILE_CAP, "torch", 16,
+                             profile=True, device=dev)
+            for r, w in zip(run.engine.run_batch(feeds), wants):
+                hold_engine(r, w, tag + ("torch",), True, False)
+            for backend in ("unrolled", "reference"):
+                run = tc.compile(g, ts, dt, COMPILE_CAP, backend,
+                                 device=dev)
+                assert_same_result(run(feeds[0]), wants[0], tag + (backend,),
+                                   dispatches=False)
+            n_runs += 2 + len(feeds)
+            if tc.GraphTraits.probe(g).tokens_out_static:
+                f = feeds[1]
+                out = tc.compile(g, ts, dt, backend="dag", device=dev)(f)
+                cpu = tc.compile(g, ts, dt, backend="dag", device="cpu")(f)
+                for a, v in out.items():
+                    check(tokens_equal(v, cpu[a]) and tokens_equal(
+                        v[-1], wants[1].outputs[a]), f"{tag}: dag {a}")
+                n_runs += 1
+        log(f"  {dtype} tokens of shape {ts}: torch / unrolled / reference "
+            f"(/ dag) on 7 benches and 16 random fabrics == run_reference "
+            f"({time.perf_counter() - t0:.1f} s so far)")
+    return dict(runs=n_runs, seconds=time.perf_counter() - t0)
+
+
+def _import_engine() -> None:
+    """A worker's first task: import the oracle before it is timed."""
+    import repro_torch.core.engine  # noqa: F401
+
+
+def _reference_stream(graph, feeds):
+    """run_reference in a worker process (phase 4b's sampled streams)."""
+    from repro_torch.core.engine import run_reference
+    return run_reference(graph, feeds)
+
+
+def phase_compile_full_width(dev, B=1024, L=4096, n=32) -> dict:
+    """(c) Phase 5's deployment through compile(): dot_prod n = 32 (63
+    nodes, 127 arcs), B = 1024 streams of L = 4096 tokens (1.07 GB of
+    feeds).  ``run_batch`` of compile(backend="torch") in int32 and
+    float32, of compile(backend="cuda") and compile(backend="cuda",
+    optimize="sched") in int32, K = 64; every int32 result equal field
+    for field across the three, the float32 run's equal in value; 8
+    sampled streams equal to run_reference (in 8 worker processes, started
+    and warmed before the timed runs, given the streams after them);
+    "dag" over all B x L tokens against the bench's reference;
+    "unrolled" on stream 0.  Wall time of each executor, and
+    microseconds per fabric cycle (for "dag", per cycle the engines take
+    for the same tokens)."""
+    import concurrent.futures
+    import multiprocessing
+    import torch
+    from repro_torch.core import compile as tc
+    from repro_torch.core import library
+    bench = library.dot_product_graph(n)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=8, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        warm = [pool.submit(_import_engine) for _ in range(8)]
+        out = _full_width_runs(dev, tc, bench, B, L, n, pool, warm)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _full_width_runs(dev, tc, bench, B, L, n, pool, warm) -> dict:
+    """The body of :func:`phase_compile_full_width`, with its worker pool
+    started."""
+    import torch
+    from repro_torch.testing import assert_same_result, tokens_equal
+    g = bench.graph
+    rng = np.random.default_rng(21)
+    t_gen = time.perf_counter()
+    a = rng.integers(0, 9, (B, L, n), dtype=np.int32)
+    b = rng.integers(0, 9, (B, L, n), dtype=np.int32)
+    feeds = [bench.make_feeds(a[i], b[i]) for i in range(B)]
+    sample = [0, *sorted(np.random.default_rng(22).choice(
+        np.arange(1, B), 7, replace=False).tolist())]
+    for w in warm:
+        w.result()
+    log(f"  {B} streams of {L} tokens made in "
+        f"{time.perf_counter() - t_gen:.1f} s (8 workers started and "
+        f"warmed beside); sampled streams {sample}")
+    out = {}
+
+    def timed_run(key, fn, cycles=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        cycles = cycles or (res[0] if isinstance(res, list) else res).cycles
+        out[key] = dict(wall_s=wall, fabric_cycles=cycles,
+                        us_per_cycle=wall / cycles * 1e6)
+        log(f"  {key}: {wall:.3f} s wall, {wall / cycles * 1e6:.1f} us per "
+            f"fabric cycle ({cycles} cycles)")
+        return res
+
+    runs = {}
+    for key, backend, opt, dtype in (
+            ("torch_int32", "torch", False, np.int32),
+            ("cuda_int32", "cuda", False, np.int32),
+            ("cuda_sched_int32", "cuda", "sched", np.int32),
+            ("torch_float32", "torch", False, np.float32)):
+        run = tc.compile(g, (), dtype, backend=backend, block_cycles=64,
+                         optimize=opt, device=dev)
+        check(run.engine._sched_on is (opt == "sched"),
+              f"{key}: the schedule flag")
+        runs[key] = timed_run(key, lambda: run.engine.run_batch(feeds))
+    base = runs["torch_int32"]
+    cycles = base[0].cycles
+    for key in ("cuda_int32", "cuda_sched_int32"):
+        for i, (x, y) in enumerate(zip(runs[key], base)):
+            assert_same_result(x, y, (key, i), dispatches=False)
+    for i, (x, y) in enumerate(zip(runs["torch_float32"], base)):
+        check(x.cycles == y.cycles and x.fired == y.fired
+              and x.counts == y.counts
+              and float(x.outputs["dot"]) == float(y.outputs["dot"]),
+              f"float32 stream {i} != the int32 run")
+    del runs
+    at = torch.from_numpy(a.reshape(B * L, n)).to(dev)
+    bt = torch.from_numpy(b.reshape(B * L, n)).to(dev)
+    dag_feeds = {f"a{i}": at[:, i] for i in range(n)}
+    dag_feeds.update({f"b{i}": bt[:, i] for i in range(n)})
+    dag = tc.compile(g, backend="dag", device=dev)
+    got = timed_run("dag_int32", lambda: dag(dag_feeds), cycles)
+    want = (a.astype(np.int64) * b).sum(-1).reshape(-1)
+    check(tokens_equal(got["dot"], want), "dag != the bench's reference "
+          f"over all {B * L} tokens")
+    del at, bt, dag_feeds, got
+    unrolled = tc.compile(g, backend="unrolled", device=dev)
+    one = timed_run("unrolled_int32_one_stream", lambda: unrolled(feeds[0]))
+    # the oracle on the sampled streams, one worker process each
+    t_ref = time.perf_counter()
+    refs = list(pool.map(_reference_stream, [g] * len(sample),
+                         [feeds[i] for i in sample]))
+    assert_same_result(one, refs[0], "unrolled", dispatches=False)
+    for i, w in zip(sample, refs):
+        assert_same_result(base[i], w, ("sampled", i), dispatches=False)
+    log(f"  run_reference on the {len(sample)} sampled streams: "
+        f"{time.perf_counter() - t_ref:.1f} s in {len(sample)} processes")
+    log(f"  full width: every int32 result equal across torch / cuda / "
+        f"cuda sched; {len(sample)} sampled streams == run_reference; dag "
+        f"== the bench's reference on {B * L} tokens; unrolled == "
+        "run_reference")
+    out["shape"] = f"dot_prod n={n}, B={B}, L={L}, K=64"
+    return out
+
+
+def phase_compile(dev) -> dict:
+    """Phase 4b: the torch ALU's edges on the card, then (a), (b), (c)."""
+    t0 = time.perf_counter()
+    out = dict(alu_pairs=hold_torch_alu(dev))
+    out["benches"] = phase_compile_benches(dev)
+    out["dtypes"] = phase_compile_dtypes(dev)
+    out["full_width"] = phase_compile_full_width(dev)
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card_line()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: serving
 # ---------------------------------------------------------------------------
 def time_slot_api(engine) -> tuple[dict, list]:
@@ -2715,6 +3112,11 @@ def main() -> int:
     table1 = phase_run_fabric(dev)
     log(f"  phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
+    log("== phase 4b: compile() and the torch backend (counts go on)")
+    compiled = phase_compile(dev)
+    log(f"  phase 4b done at {time.perf_counter() - t_start:.1f} s "
+        f"({compiled['seconds']:.1f} s)")
+
     log("== phase 5: serving")
     deployments = (
         ("dot_prod", "dot_prod", dot, 1024, dot_reqs, dot_lens, False, False,
@@ -2827,6 +3229,7 @@ def main() -> int:
     log(json.dumps({"lm_serving": lm_stats}, default=str))
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"table1_us_per_cycle": table1}))
+    log(json.dumps({"compile": compiled}))
     log(json.dumps({"sched_vs_fire_block": versus}))
     log(json.dumps({"latency_floor": floor}))
     log(json.dumps({"block_by_instantiation": {

@@ -19,6 +19,10 @@ Backends:
   (:mod:`repro_torch.kernels.dataflow_fire`); with ``device="cpu"`` the
   same loop runs the kernel's plain PyTorch version.  Scalar int32
   tokens.
+* ``"torch"`` — the cycle body as PyTorch tensor code (the counterpart of
+  the JAX package's ``"xla"`` backend): int32, uint32 or float32 tokens
+  of any shape, a host loop over K-cycle blocks with one read of the
+  progress flags per block.
 * ``"reference"`` — :func:`run_reference`, the pure-numpy oracle.
 
 Non-determinism note: ``ndmerge`` resolves same-cycle arrivals with a
@@ -181,13 +185,168 @@ def _prof_zeros(n_nodes: int, n_arcs: int, batch: int | None = None,
     return (z(n_nodes), z(n_nodes), z(n_nodes), z(n_arcs), z(n_arcs))
 
 
+# ---------------------------------------------------------------------------
+# Token dtypes and the torch ALU (the "torch" backend's and compile's)
+# ---------------------------------------------------------------------------
+# uint32 tokens ride in int64 tensors holding 0 .. 2^32 - 1: CPU torch
+# raises on +, >>, maximum, //, % and < of torch.uint32, and nothing may
+# rest on its arithmetic on the card either.  ADD, SUB, MUL and SHL mask
+# their results to 32 bits; SHR is then logical and DIV, the compares and
+# MAX/MIN unsigned, as for uint32.
+TOKEN_DTYPES = ("int32", "uint32", "float32")
+_CARRIER = {"int32": torch.int32, "uint32": torch.int64,
+            "float32": torch.float32}
+_U32 = 0xFFFFFFFF
+_CMP = {Op.IFGT: torch.gt, Op.IFGE: torch.ge, Op.IFLT: torch.lt,
+        Op.IFLE: torch.le, Op.IFEQ: torch.eq, Op.IFDF: torch.ne}
+
+
+def token_dtype(dtype) -> np.dtype:
+    """The numpy dtype of a fabric's tokens (numpy, string or torch
+    dtypes accepted); one of :data:`TOKEN_DTYPES`."""
+    if isinstance(dtype, torch.dtype):
+        dtype = str(dtype).removeprefix("torch.")
+    dt = np.dtype(dtype)
+    if dt.name not in TOKEN_DTYPES:
+        raise ValueError(f"token dtype {dt.name} not in {TOKEN_DTYPES}")
+    return dt
+
+
+def to_carrier(x, dtype, device) -> torch.Tensor:
+    """Tokens of ``dtype`` (numpy, or a tensor already in the carrier's
+    values) as a carrier tensor on ``device``."""
+    dt = token_dtype(dtype)
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=_CARRIER[dt.name])
+    x = np.asarray(x, dt)
+    if dt.name == "uint32":
+        x = x.astype(np.int64)
+    return torch.as_tensor(x, device=device)
+
+
+def from_carrier(t: torch.Tensor, dtype) -> np.ndarray:
+    """A carrier tensor back as numpy tokens of ``dtype``."""
+    return t.cpu().numpy().astype(token_dtype(dtype), copy=False)
+
+
+def _alu_op(op, a, b, dtype):
+    """One opcode's result on carrier tensors ``a``, ``b`` of tokens of
+    ``dtype`` — the formulas of the JAX package's ``_alu_op`` and of
+    :func:`alu_numpy`, bit for bit, with two rules torch needs spelled
+    out: float MAX/MIN keep the signed-zero tie of the JAX ALUs
+    (max(+0., -0.) is +0. and min is -0. in either order, where
+    ``torch.maximum`` keeps the second operand's zero), and uint32 wraps
+    by hand in its int64 carrier.  int32 DIV by -1 is a negation, so the
+    INT_MIN // -1 wrap never reaches a hardware divide; float SHL/SHR
+    take 2 ** b exactly at integral b (:func:`_exp2`)."""
+    kind = np.dtype(dtype).name
+    if op in (Op.COPY, Op.BRANCH, Op.SINK):
+        return a
+    if op == Op.NOT:
+        return (a == 0).to(a.dtype)
+    if op in _CMP:
+        return _CMP[op](a, b).to(a.dtype)
+    if kind == "float32":
+        if op == Op.ADD:
+            return a + b
+        if op == Op.SUB:
+            return a - b
+        if op == Op.MUL:
+            return a * b
+        if op == Op.DIV:
+            zero = b == 0
+            return torch.where(zero, 0.0, a / torch.where(zero, 1.0, b))
+        if op in (Op.AND, Op.OR, Op.XOR):
+            f = {Op.AND: torch.logical_and, Op.OR: torch.logical_or,
+                 Op.XOR: torch.logical_xor}[op]
+            return f(a != 0, b != 0).to(a.dtype)
+        if op == Op.MAX:
+            return torch.where((a == 0) & (b == 0), a + b,
+                               torch.maximum(a, b))
+        if op == Op.MIN:
+            return torch.where((a == 0) & (b == 0), -(-a + -b),
+                               torch.minimum(a, b))
+        if op == Op.SHL:
+            return a * _exp2(b)
+        if op == Op.SHR:
+            two_b = _exp2(b)
+            return a / torch.where(two_b == 0, 1.0, two_b)
+        raise AssertionError(op)
+    u32 = kind == "uint32"
+    if op == Op.ADD:
+        return (a + b) & _U32 if u32 else a + b
+    if op == Op.SUB:
+        return (a - b) & _U32 if u32 else a - b
+    if op == Op.MUL:
+        if not u32:
+            return a * b
+        # a * b mod 2^32 from 16-bit halves of a: every product < 2^49
+        return ((a & 0xFFFF) * b + ((((a >> 16) * b) & 0xFFFF) << 16)) & _U32
+    if op == Op.DIV:
+        if u32:
+            zero = b == 0
+            return torch.where(zero, 0, a // torch.where(zero, 1, b))
+        q = a // torch.where((b == 0) | (b == -1), 1, b)
+        return torch.where(b == 0, 0, torch.where(b == -1, -a, q))
+    if op == Op.AND:
+        return a & b
+    if op == Op.OR:
+        return a | b
+    if op == Op.XOR:
+        return a ^ b
+    if op == Op.MAX:
+        return torch.maximum(a, b)
+    if op == Op.MIN:
+        return torch.minimum(a, b)
+    if op == Op.SHL:
+        s = a << b.clamp(0, 31)
+        return s & _U32 if u32 else s
+    if op == Op.SHR:
+        return a >> b.clamp(0, 31)
+    raise AssertionError(op)
+
+
+def _exp2(b):
+    """2 ** b for float32 ``b``: built from its bits at every finite
+    integral ``b`` (exactly numpy's ``exp2`` there, from -149 to 126;
+    ``torch.exp2`` on the card is not exact at every integer), and
+    ``torch.exp2`` at the others (ROADMAP C8)."""
+    e = b.clamp(-150, 128).to(torch.int32)
+    one = torch.ones_like(e)
+    bits = torch.where(e >= -126, (e + 127).clamp(1, 254) << 23,
+                       torch.where(e >= -149, one << (e + 149).clamp(0, 22),
+                                   0))
+    bits = torch.where(e >= 128, 0x7F800000, bits)
+    whole = torch.isfinite(b) & (b == torch.round(b))
+    return torch.where(whole, bits.view(torch.float32), torch.exp2(b))
+
+
+def _alu(a, b, dtype, ops=tuple(Op)) -> dict:
+    """Every value opcode's result among ``ops`` (the generic fire rule
+    selects one per node)."""
+    return {op: _alu_op(op, a, b, dtype) for op in ops
+            if op not in (Op.DMERGE, Op.NDMERGE)}
+
+
+def _truthy(v, nts: int):
+    """Truth of control tokens ``v`` [..., *token_shape]: element 0."""
+    if nts:
+        v = v.reshape(*v.shape[:v.dim() - nts], -1)[..., 0]
+    return v != 0
+
+
+def _expand(mask, nts: int):
+    return mask.reshape(*mask.shape, *([1] * nts))
+
+
 @dataclasses.dataclass
 class EngineResult:
     outputs: dict       # arc -> last token value (numpy scalar)
     counts: dict        # arc -> number of tokens drained
     cycles: int
     fired: int          # total node firings
-    dispatches: int | None = None   # kernel launches (blocks) ridden
+    dispatches: int | None = None   # kernel launches (blocks) ridden;
+                                    # on "torch" 1 a run of the loop
     node_fires: np.ndarray | None = None  # int64[N] per-node firings in
                                           # graph order (profile=True;
                                           # sums exactly to `fired`)
@@ -316,7 +475,7 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-BACKENDS = ("cuda", "reference")
+BACKENDS = ("torch", "cuda", "reference")
 
 
 class DataflowEngine:
@@ -327,8 +486,23 @@ class DataflowEngine:
         environment feed/drain per launch, arc registers in shared
         memory within a block.  Batched runs launch one CTA per stream.
         With ``device="cpu"`` the blocks run the kernel's plain PyTorch
-        version instead.
+        version instead.  Scalar int32 tokens only: anything else
+        raises (never a quiet move to ``"torch"``).
+      * ``"torch"``     — the cycle body as PyTorch tensor code, the
+        counterpart of the JAX package's ``"xla"`` backend: tokens of
+        any ``token_shape`` and of ``dtype`` int32, uint32 or float32.
+        A host loop runs K-cycle blocks and reads the progress flags
+        once per block; ``run_batch`` carries all B streams in one
+        batched state and freezes each stream from the block its own
+        loop condition fails, so every result (profile included) equals
+        that stream's solo run.  ``dispatches`` counts runs of the block
+        loop (1 per result, as ``"xla"`` counts its one dispatch), not
+        kernel launches.  The resumable slot API is not offered.
       * ``"reference"`` — the pure-numpy oracle (:func:`run_reference`).
+
+    ``token_shape`` and ``dtype`` are keyword arguments after the others,
+    so that every positional call keeps its meaning; the JAX package
+    takes them second and third.
 
     ``optimize=True`` builds the opcode-class-specialized plan (permuted
     node and arc tables, the spec fire rule); ``profile=True`` carries
@@ -348,11 +522,20 @@ class DataflowEngine:
     def __init__(self, graph: Graph, max_cycles: int = 100_000,
                  backend: str = "cuda", block_cycles: int = 1,
                  device="cuda", optimize: bool = False,
-                 profile: bool = False, schedule: bool | str = False):
+                 profile: bool = False, schedule: bool | str = False, *,
+                 token_shape: tuple[int, ...] = (), dtype=np.int32):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if block_cycles < 1:
             raise ValueError("block_cycles must be >= 1")
+        self.token_shape = tuple(int(x) for x in token_shape)
+        self.dtype = token_dtype(dtype)
+        if backend == "cuda" and (self.token_shape != ()
+                                  or self.dtype != np.int32):
+            raise ValueError(
+                "the cuda backend supports scalar int32 tokens only, not "
+                f"{self.dtype.name} tokens of shape {self.token_shape}; "
+                'use backend="torch"')
         self.graph = graph
         self.max_cycles = max_cycles
         self.backend = backend
@@ -386,6 +569,7 @@ class DataflowEngine:
         self.p = _plan(graph, optimize=self.optimize)
         self._steps: dict[tuple[int, bool], object] = {}
         self._tables = None
+        self._fabric = None         # the "torch" backend's _TorchFabric
         if backend == "cuda":
             from repro_torch.kernels.dataflow_fire import (block_plan_arrays,
                                                            device_tables)
@@ -397,13 +581,15 @@ class DataflowEngine:
         """Lazy per-engine schedule state."""
         if self._sched is None:
             from repro_torch.core.schedule import ScheduleContext
-            self._sched = ScheduleContext(self.p, self.graph)
+            self._sched = ScheduleContext(self.p, self.graph,
+                                          self.token_shape, self.dtype)
         return self._sched
 
     # -- public ---------------------------------------------------------
     def run(self, feeds: Mapping[str, object] | None = None,
             max_cycles: int | None = None) -> EngineResult:
-        """feeds: arc -> [k] stream of tokens (k may vary per arc)."""
+        """feeds: arc -> [k, *token_shape] stream of tokens (k may vary
+        per arc; a [k] stream broadcasts over the token shape)."""
         max_cycles = max_cycles or self.max_cycles
         if self._sched_on:
             from repro_torch.core import schedule as _sched
@@ -412,8 +598,13 @@ class DataflowEngine:
             except _sched.ScheduleBail:
                 pass        # pathological period: dynamic path below
         if self.backend == "reference":
-            return run_reference(self.graph, feeds, max_cycles=max_cycles,
+            return run_reference(self.graph, feeds, self.token_shape,
+                                 self.dtype, max_cycles,
                                  profile=self.profile)
+        if self.backend == "torch":
+            fv, fl = pack_feeds(self.p["input_arcs"], feeds,
+                                self.token_shape, self.dtype)
+            return self._run_torch(fv[None], fl[None], max_cycles)[0]
         return self._run_cuda(feeds, max_cycles)
 
     def run_batch(self, feeds_batch, max_cycles: int | None = None
@@ -442,15 +633,20 @@ class DataflowEngine:
                 return res          # schedule is per-length; the dynamic
                                     # path takes the ragged batch
         if self.backend == "reference":
-            return [run_reference(self.graph, f, max_cycles=max_cycles,
+            return [run_reference(self.graph, f, self.token_shape,
+                                  self.dtype, max_cycles,
                                   profile=self.profile)
                     for f in feeds_batch]
         L = max((max((np.shape(v)[0] for v in (f or {}).values()),
                      default=0) for f in feeds_batch), default=0)
-        packed = [pack_feeds(self.p["input_arcs"], f, pad_rows=1,
+        torch_ = self.backend == "torch"
+        packed = [pack_feeds(self.p["input_arcs"], f, self.token_shape,
+                             self.dtype, pad_rows=None if torch_ else 1,
                              min_len=max(L, 1)) for f in feeds_batch]
         feed_vals = np.stack([fv for fv, _ in packed])
         feed_len = np.stack([fl for _, fl in packed])
+        if torch_:
+            return self._run_torch(feed_vals, feed_len, max_cycles)
         return self._run_cuda_batch(feed_vals, feed_len, max_cycles)
 
     def _result_from_state(self, out_last, out_count, cycles, fired,
@@ -485,9 +681,12 @@ class DataflowEngine:
     # clock, a request's result is bit-identical to running it alone
     # via run().
     def _check_slot_api(self):
-        if self.backend == "reference":
-            raise ValueError("the resumable slot API needs the cuda "
-                             "backend, not 'reference'")
+        if self.backend != "cuda":
+            # on "torch" the slot step would be the slot kernel's plain
+            # version, and a plain version never serves on the card
+            raise ValueError("the resumable slot API needs "
+                             'backend="cuda" (scalar int32 tokens through '
+                             f"the slot kernels), not {self.backend!r}")
 
     def _state0_rows(self):
         """(full0[A2], val0[A2]) int32 rows of a freshly-reset slot."""
@@ -813,12 +1012,354 @@ class DataflowEngine:
             if prof else None)
             for b in range(B)]
 
+    # -- torch backend (host loop over K-cycle blocks of tensor code) ------
+    @torch.inference_mode()
+    def _run_torch(self, feed_vals, feed_len,
+                   max_cycles: int) -> list[EngineResult]:
+        """The JAX package's ``_run_impl`` under ``vmap``, on B packed
+        streams (feed_vals[B, n_in, L, *ts] of ``dtype``, feed_len[B,
+        n_in]): blocks of K cycles while some stream's last cycle made
+        progress and ``cycles + K <= max_cycles``, each stream frozen from
+        the block its own condition fails; then ``max_cycles % K`` more
+        cycles for every stream, whatever the loop ended on; reported
+        cycles ``min(last_prog + 1, max_cycles)``.  The profile counts
+        every simulated cycle, the idle tail and the remainder included,
+        exactly as ``"xla"``'s does."""
+        if self._fabric is None:
+            self._fabric = _TorchFabric(self)
+        fab = self._fabric
+        K = self.block_cycles
+        fv = to_carrier(feed_vals, self.dtype, self.device)
+        fl = torch.as_tensor(np.asarray(feed_len, np.int32),
+                             device=self.device)
+        B = fv.shape[0]
+        s = fab.state0(B)
+        done = 0
+        while done + K <= max_cycles:
+            # only streams whose last cycle made progress take the block
+            # (a frozen stream's own flag stays down); one read per block
+            alive = s["progress"]
+            if done and not bool(alive.any()):
+                break
+            new = s
+            for _ in range(K):
+                new = fab.cycle(new, fv, fl)
+            s = new if B == 1 else {
+                k: torch.where(_expand(alive, v.dim() - 1), new[k], v)
+                for k, v in s.items()}
+            done += K
+        for _ in range(max_cycles % K):
+            s = fab.cycle(s, fv, fl)
+        cycles = torch.clamp(s["last_prog"] + 1, max=max_cycles).tolist()
+        fired = s["fired"].tolist()
+        out_last = from_carrier(s["out_last"], self.dtype)
+        out_count = s["out_count"].cpu().numpy()
+        prof = None
+        if self.profile:
+            prof = [x.cpu().numpy() for x in (s["nf"], s["si"], s["so"],
+                                              s["ab"], s["ahw"])]
+            simulated = s["cycles"].tolist()
+        return [self._result_from_state(
+            out_last[b], out_count[b], int(cycles[b]), int(fired[b]),
+            dispatches=1, prof=None if prof is None else
+            (*(x[b] for x in prof), int(simulated[b]), 1))
+            for b in range(B)]
+
 
 def _split(row, like):
     """Cut a concatenated host row back into arrays as wide as the last
     axes of the tensors ``like``."""
     bounds = np.cumsum([0] + [x.shape[-1] for x in like])
     return [row[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+class _TorchFabric:
+    """The ``"torch"`` backend's cycle body over one engine's plan, with
+    its index tables on the engine's device.
+
+    One cycle is the JAX package's: feed the empty input arcs, fire every
+    ready node against the post-feed registers (the generic rule, or the
+    opcode-bucketed one when the plan has ``class_slices``), restore the
+    const buses, sample the profile, drain the output arcs.  Registers are
+    updated by gathers, not scatters: each arc has at most one consuming
+    (node, slot) and one producing (node, slot) outside the const buses
+    and the pads, so ``consumed``/``produced``/the new value of every arc
+    is read from its own slot, and no index repeats (a scatter with
+    repeated indices picks an arbitrary writer on the card).  The pads
+    are never consumed or produced, so FULL_PAD stays full, EMPTY_PAD
+    empty and ``val`` there what the reset wrote (0).  On a control-free
+    fabric a node consumes and produces on every slot when it fires, so
+    ``consumed``/``produced`` are read from ``ready`` itself."""
+
+    def __init__(self, eng: "DataflowEngine"):
+        p, dev = eng.p, eng.device
+        self.dtype = eng.dtype
+        self.ts = eng.token_shape
+        self.nts = len(self.ts)
+        self.profile = eng.profile
+        self.dev = dev
+        A, N = p["A"], len(p["opcode"])
+        A2 = A + 2
+        self.N, self.A2 = N, A2
+        tt = lambda x, dt=torch.long: torch.as_tensor(np.array(x),
+                                                      dtype=dt, device=dev)
+        opcode = np.asarray(p["opcode"])
+        in_idx, out_idx = np.asarray(p["in_idx"]), np.asarray(p["out_idx"])
+        self.in_idx, self.out_idx = tt(in_idx), tt(out_idx)
+        self.in0, self.in1, self.in2 = (tt(in_idx[:, k]) for k in range(3))
+        self.in_arc = tt([p["aidx"][a] for a in p["input_arcs"]])
+        self.out_arc = tt([p["aidx"][a] for a in p["output_arcs"]])
+        self.n_in = max(len(p["input_arcs"]), 1)
+        self.n_out = max(len(p["output_arcs"]), 1)
+        const_mask = np.asarray(p["const_mask"])
+        # per-arc slot of its consumer in consume.reshape(N * 3) and of its
+        # producer in produce.reshape(N * 2); pads, const buses (restored
+        # every cycle) and open ends point at one always-False column
+        # (and of its consumer and producer node in ready, column N)
+        cons = np.full((A2,), N * _MAX_IN, np.int64)
+        prod = np.full((A2,), N * _MAX_OUT, np.int64)
+        cons_node = np.full((A2,), N, np.int64)
+        prod_node = np.full((A2,), N, np.int64)
+        for i in range(N):
+            for k in range(_MAX_IN):
+                a = in_idx[i, k]
+                if a < A and not const_mask[a]:
+                    cons[a], cons_node[a] = i * _MAX_IN + k, i
+            for k in range(_MAX_OUT):
+                a = out_idx[i, k]
+                if a < A:
+                    prod[a], prod_node[a] = i * _MAX_OUT + k, i
+        self.cons, self.prod = tt(cons), tt(prod)
+        self.cons_node, self.prod_node = tt(cons_node), tt(prod_node)
+        self.prod_z = tt(np.minimum(prod_node, N - 1))   # a node's value
+        onehot = lambda i: np.arange(A2) == i
+        pads = onehot(p["FULL_PAD"]) | onehot(p["EMPTY_PAD"])
+        # a const bus drained as an output arc is full again every cycle
+        self.consts = tt(const_mask, torch.bool)
+        self.not_pad = tt(~pads, torch.bool)
+        out_mask = np.zeros((A2,), bool)
+        out_mask[[p["aidx"][a] for a in p["output_arcs"]]] = True
+        self.not_out = tt(~out_mask, torch.bool)
+        present = {Op(int(o)) for o in opcode}
+        self.has = {op: op in present for op in (Op.NDMERGE, Op.DMERGE,
+                                                  Op.BRANCH)}
+        self.is_ = {op: tt(opcode == int(op), torch.bool)
+                    for op in self.has}
+        # the generic rule selects among the opcodes present only (an
+        # absent opcode's select is the identity)
+        self.value_ops = {op: _expand(tt(opcode == int(op), torch.bool),
+                                      self.nts)
+                          for op in sorted(present) if op not in (
+                              Op.COPY, Op.SINK, Op.BRANCH, Op.NDMERGE,
+                              Op.DMERGE)}
+        cs = p["class_slices"]
+        self.class_slices = cs
+        self.has_ctrl = any(self.has.values())
+        # state0: FULL_PAD and the const buses full, consts' and inits'
+        # values in place (np.full at the token dtype, as run_reference)
+        full0 = const_mask | onehot(p["FULL_PAD"])
+        val0 = np.zeros((A2, *self.ts), self.dtype)
+        for a, v in {**eng.graph.consts, **eng.graph.inits}.items():
+            full0[p["aidx"][a]] = True
+            val0[p["aidx"][a]] = np.full(self.ts, v, self.dtype)
+        self.full0 = tt(full0, torch.bool)
+        self.val0 = to_carrier(val0, self.dtype, dev)
+        self._zcol = {}
+
+    def state0(self, B: int) -> dict:
+        dev, ts = self.dev, self.ts
+        i32 = lambda *s: torch.zeros(s, dtype=torch.int32, device=dev)
+        s = dict(full=self.full0.expand(B, -1).clone(),
+                 val=self.val0.expand(B, *self.val0.shape).clone(),
+                 ptr=torch.zeros((B, self.n_in), dtype=torch.long,
+                                 device=dev),
+                 out_last=torch.zeros((B, self.n_out, *ts),
+                                      dtype=self.val0.dtype, device=dev),
+                 out_count=i32(B, self.n_out), cycles=i32(B), fired=i32(B),
+                 last_prog=i32(B),
+                 progress=torch.ones((B,), dtype=torch.bool, device=dev))
+        if self.profile:
+            s.update(nf=i32(B, self.N), si=i32(B, self.N), so=i32(B, self.N),
+                     ab=i32(B, self.A2), ahw=i32(B, self.A2))
+        return s
+
+    def _pad_col(self, B: int):
+        z = self._zcol.get(B)
+        if z is None:
+            z = self._zcol[B] = torch.zeros((B, 1), dtype=torch.bool,
+                                            device=self.dev)
+        return z
+
+    # -- fire rules: (ready[B,N], z[B,N,*ts], consume[B,N,3], produce[B,N,2]);
+    # consume and produce None when every firing node takes every slot
+    def _rule_generic(self, inf, oute, a, b, ctrl3):
+        """Every present opcode's ALU result for every node, selected per
+        node by opcode."""
+        nts, has, is_ = self.nts, self.has, self.is_
+        in0, in1, in2 = inf.unbind(-1)
+        all_out = oute.all(-1)
+        ready = inf.all(-1) & all_out
+        if has[Op.NDMERGE]:
+            ready = torch.where(is_[Op.NDMERGE], (in0 | in1) & all_out,
+                                ready)
+        if has[Op.DMERGE]:
+            ready = torch.where(is_[Op.DMERGE], in2 & torch.where(
+                ctrl3, in0, in1) & all_out, ready)
+        if has[Op.BRANCH]:
+            ctrl2 = _truthy(b, nts)
+            ready = torch.where(is_[Op.BRANCH], in0 & in1 & torch.where(
+                ctrl2, oute[..., 0], oute[..., 1]), ready)
+        z = a                       # COPY / BRANCH route a; SINK ignores
+        for op, r in _alu(a, b, self.dtype, self.value_ops).items():
+            z = torch.where(self.value_ops[op], r, z)
+        if has[Op.NDMERGE]:
+            z = torch.where(_expand(is_[Op.NDMERGE], nts),
+                            torch.where(_expand(in0, nts), a, b), z)
+        if has[Op.DMERGE]:
+            z = torch.where(_expand(is_[Op.DMERGE], nts),
+                            torch.where(_expand(ctrl3, nts), a, b), z)
+        if not self.has_ctrl:
+            return ready, z, None, None
+        r3 = ready[..., None]
+        consume = r3.expand(*ready.shape, _MAX_IN)
+        if has[Op.NDMERGE]:
+            pick = torch.stack([in0, ~in0, torch.zeros_like(in0)], -1)
+            consume = torch.where(is_[Op.NDMERGE][:, None], r3 & pick,
+                                  consume)
+        if has[Op.DMERGE]:
+            pick = torch.stack([ctrl3, ~ctrl3, torch.ones_like(ctrl3)], -1)
+            consume = torch.where(is_[Op.DMERGE][:, None], r3 & pick,
+                                  consume)
+        produce = r3.expand(*ready.shape, _MAX_OUT)
+        if has[Op.BRANCH]:
+            pick = torch.stack([ctrl2, ~ctrl2], -1)
+            produce = torch.where(is_[Op.BRANCH][:, None], r3 & pick,
+                                  produce)
+        return ready, z, consume, produce
+
+    def _rule_spec(self, inf, oute, a, b, ctrl3):
+        """The opcode-bucketed rule: nodes are sorted by opcode, so each
+        class's ALU result is computed on its own slice; control-free
+        fabrics keep the uniform ready/consume/produce masks whole."""
+        nts, dt = self.nts, self.dtype
+        base = inf.all(-1) & oute.all(-1)
+        if not self.has_ctrl:
+            zs = [_alu_op(Op(op), a[:, lo:hi], b[:, lo:hi], dt)
+                  for op, lo, hi in self.class_slices]
+            return base, zs[0] if len(zs) == 1 else torch.cat(zs, 1), \
+                None, None
+        rs, zs, cs, ps = [], [], [], []
+        for opi, lo, hi in self.class_slices:
+            op = Op(opi)
+            ak, bk = a[:, lo:hi], b[:, lo:hi]
+            i0, i1, i2 = inf[:, lo:hi].unbind(-1)
+            bk_ = base[:, lo:hi]
+            if op == Op.NDMERGE:
+                rk = (i0 | i1) & oute[:, lo:hi].all(-1)
+                zk = torch.where(_expand(i0, nts), ak, bk)
+                ck = rk[..., None] & torch.stack(
+                    [i0, ~i0, torch.zeros_like(i0)], -1)
+                pk = rk[..., None].expand(*rk.shape, _MAX_OUT)
+            elif op == Op.DMERGE:
+                c3 = ctrl3[:, lo:hi]
+                rk = i2 & torch.where(c3, i0, i1) & oute[:, lo:hi].all(-1)
+                zk = torch.where(_expand(c3, nts), ak, bk)
+                ck = rk[..., None] & torch.stack(
+                    [c3, ~c3, torch.ones_like(c3)], -1)
+                pk = rk[..., None].expand(*rk.shape, _MAX_OUT)
+            elif op == Op.BRANCH:
+                c2 = _truthy(bk, nts)
+                ok = oute[:, lo:hi]
+                rk = i0 & i1 & torch.where(c2, ok[..., 0], ok[..., 1])
+                zk = ak
+                ck = rk[..., None].expand(*rk.shape, _MAX_IN)
+                pk = rk[..., None] & torch.stack([c2, ~c2], -1)
+            else:
+                rk = bk_
+                zk = _alu_op(op, ak, bk, dt)
+                ck = rk[..., None].expand(*rk.shape, _MAX_IN)
+                pk = rk[..., None].expand(*rk.shape, _MAX_OUT)
+            rs.append(rk)
+            zs.append(zk)
+            cs.append(ck)
+            ps.append(pk)
+        return (torch.cat(rs, 1), torch.cat(zs, 1), torch.cat(cs, 1),
+                torch.cat(ps, 1))
+
+    def cycle(self, s: dict, fv, fl) -> dict:
+        """One feed -> fire -> drain cycle of every stream of ``s``."""
+        nts = self.nts
+        full, val, ptr = s["full"], s["val"], s["ptr"]
+        B = full.shape[0]
+        # 1. strobe the environment's input buses
+        if self.in_arc.numel():
+            ia = self.in_arc
+            fed = full[:, ia]
+            can = ~fed & (ptr < fl)
+            idx = ptr.clamp(max=fv.shape[2] - 1)
+            idx = idx.reshape(*idx.shape, 1, *([1] * nts)).expand(
+                *idx.shape, 1, *self.ts)
+            nxt = fv.gather(2, idx).squeeze(2)
+            val = val.index_copy(1, ia, torch.where(_expand(can, nts), nxt,
+                                                    val[:, ia]))
+            full = full.index_copy(1, ia, fed | can)
+            ptr = ptr + can
+            prog = can.any(1)
+        else:
+            prog = torch.zeros((B,), dtype=torch.bool, device=self.dev)
+        # 2. fire every ready node against the post-feed registers
+        inf = full[:, self.in_idx]                     # [B, N, 3]
+        oute = ~full[:, self.out_idx]                  # [B, N, 2]
+        a, b = val[:, self.in0], val[:, self.in1]
+        ctrl3 = _truthy(val[:, self.in2], nts) if self.has[Op.DMERGE] \
+            else None
+        rule = self._rule_spec if self.class_slices else self._rule_generic
+        ready, z, consume, produce = rule(inf, oute, a, b, ctrl3)
+        col = self._pad_col(B)
+        if consume is None:
+            rp = torch.cat([ready, col], 1)
+            consumed, produced = rp[:, self.cons_node], rp[:, self.prod_node]
+        else:
+            consumed = torch.cat([consume.reshape(B, -1), col],
+                                 1)[:, self.cons]
+            produced = torch.cat([produce.reshape(B, -1), col],
+                                 1)[:, self.prod]
+        val = torch.where(_expand(produced, nts), z[:, self.prod_z], val)
+        # consumed and produced arcs are disjoint (a node takes full
+        # arcs and fills empty ones)
+        full = torch.where(consumed, False, full | produced) | self.consts
+        out = {}
+        if self.profile:
+            # stall attribution on the post-feed registers the rule saw
+            # (ready implies inputs-ready); occupancy post-fire, pre-drain
+            in0, in1, in2 = inf.unbind(-1)
+            ir = inf.all(-1)
+            if self.has[Op.NDMERGE]:
+                ir = torch.where(self.is_[Op.NDMERGE], in0 | in1, ir)
+            if self.has[Op.DMERGE]:
+                ir = torch.where(self.is_[Op.DMERGE],
+                                 in2 & torch.where(ctrl3, in0, in1), ir)
+            occ = (full & self.not_pad).int()
+            out.update(nf=s["nf"] + ready.int(), si=s["si"] + (~ir).int(),
+                       so=s["so"] + (ir & ~ready).int(), ab=s["ab"] + occ,
+                       ahw=torch.maximum(s["ahw"], occ))
+        # 3. the environment drains the output buses
+        out_last, out_count = s["out_last"], s["out_count"]
+        if self.out_arc.numel():
+            got = full[:, self.out_arc]
+            out_last = torch.where(_expand(got, nts), val[:, self.out_arc],
+                                   out_last)
+            out_count = out_count + got
+            full = full & self.not_out
+            prog = prog | got.any(1)
+        n_fired = ready.sum(1, dtype=torch.int32)
+        prog = prog | (n_fired > 0)
+        cycles = s["cycles"] + 1
+        return dict(full=full, val=val, ptr=ptr, out_last=out_last,
+                    out_count=out_count, cycles=cycles,
+                    fired=s["fired"] + n_fired,
+                    last_prog=torch.where(prog, cycles, s["last_prog"]),
+                    progress=prog, **out)
 
 
 # ---------------------------------------------------------------------------

@@ -31,15 +31,18 @@ The pieces, in dependency order:
   by one launch of the scheduled-run kernel
   (:func:`repro_torch.kernels.schedule_fire.sched_run_cuda`) over
   per-pattern tables: nothing is generated or compiled per schedule.
+  On the ``"torch"`` backend the same program runs as PyTorch code
+  (:func:`_run_torch_sched`), for int32, uint32 or float32 tokens of any
+  shape; the ``"reference"`` backend interprets it in numpy.
 * slot path — per-pattern gather tables indexed by a host-computed pid
   window, K table-driven cycles per launch
   (:func:`repro_torch.kernels.schedule_fire.sched_slot_step_cuda`);
   per-slot clocks advance on the host from the plan, with no device read
-  per block.
+  per block.  Scalar int32 tokens (the ``"cuda"`` backend) only.
 
 Results are bit-identical to :func:`repro_torch.core.engine.run_reference`
 in every field (values, counts, cycles, node_fires, per-arc registers at
-block boundaries).  Scalar int32 tokens only.
+block boundaries).
 """
 from __future__ import annotations
 
@@ -48,7 +51,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.engine import _alu_numpy, pack_feeds
+from repro_torch.core.engine import (_alu_numpy, _alu_op, from_carrier,
+                                     pack_feeds, to_carrier)
 from repro_torch.core.graph import Graph, Op
 
 _CONTROL_OPS = (Op.BRANCH, Op.NDMERGE, Op.DMERGE)
@@ -384,9 +388,13 @@ class ScheduleContext:
     every concrete plan of the fabric), the plan cache keyed by feed
     lengths, and the per-pattern tables of both kernels."""
 
-    def __init__(self, p, graph: Graph):
+    def __init__(self, p, graph: Graph, token_shape=(), dtype=np.int32):
         self.p = p
         self.graph = graph
+        # tokens of the "torch" and "reference" runs; the kernels' tables
+        # and the slot path are scalar int32
+        self.token_shape = tuple(token_shape)
+        self.np_dtype = np.dtype(dtype)
         self.A2 = p["A"] + 2
         self.n_nodes = len(p["opcode"])
         self.in_arc = np.asarray(
@@ -408,6 +416,7 @@ class ScheduleContext:
         self._tables = None
         self._tables_len = 0
         self.device_tables: dict = {}   # kernels.schedule_fire's uploads
+        self._torch_pats: dict = {}     # (pid, device) -> _TorchPattern
         # reserved pid 0: the no-op filler inactive slots execute.  It is
         # registered under no key (a real all-quiet cycle must get its own
         # pattern: its full_after differs — FULL_PAD, consts, possibly
@@ -497,11 +506,21 @@ class ScheduleContext:
         return nf, si, so, ab, ahw
 
     def state0_val(self) -> np.ndarray:
-        """val[A2] int32 of a fresh run: the const buses' values."""
-        val = np.zeros((self.A2,), np.int32)
+        """val[A2, *token_shape] of a fresh run: the const buses' values
+        (int32 [A2] on the kernels' engines)."""
+        val = np.zeros((self.A2, *self.token_shape), self.np_dtype)
         for a, v in self.graph.consts.items():
             val[self.p["aidx"][a]] = v
         return val
+
+    def torch_pattern(self, pid: int, device) -> "_TorchPattern":
+        """Pattern ``pid``'s index tables on ``device`` (built once)."""
+        key = (pid, str(device))
+        tp = self._torch_pats.get(key)
+        if tp is None:
+            tp = self._torch_pats[key] = _TorchPattern(
+                self.registry[pid], self.A2, device)
+        return tp
 
     # -- per-pattern tables -------------------------------------------------
     def slot_tables(self):
@@ -558,16 +577,19 @@ def plan_key(eng, fl) -> tuple[int, ...]:
 
 
 def run_scheduled(eng, feeds, max_cycles: int):
-    """Scheduled run() path for either backend.  Raises ScheduleBail if
-    the plan never locks onto a period in budget (the caller falls back
-    to the dynamic engine)."""
+    """Scheduled run() path for any backend.  Raises ScheduleBail if the
+    plan never locks onto a period in budget (the caller falls back to
+    the dynamic engine)."""
     ctx = eng._sched_ctx()
-    fv, fl = pack_feeds(eng.p["input_arcs"], feeds, pad_rows=1)
+    fv, fl = pack_feeds(eng.p["input_arcs"], feeds, eng.token_shape,
+                        ctx.np_dtype, pad_rows=1)
     plan = ctx.plan_for(plan_key(eng, fl))
     plan.ensure(max_cycles)
     exec_ = min(plan.total, max_cycles)
     if eng.backend == "reference":
         return _run_reference_sched(eng, ctx, plan, fv, exec_)
+    if eng.backend == "torch":
+        return _run_torch_sched(eng, ctx, plan, fv[None], exec_)[0]
     return _run_device_sched(eng, ctx, plan, fv[None], exec_)[0]
 
 
@@ -579,8 +601,8 @@ def run_batch_scheduled(eng, feeds_batch, max_cycles: int):
     ctx = eng._sched_ctx()
     length = max((max((np.shape(v)[0] for v in (f or {}).values()),
                       default=0) for f in feeds_batch), default=0)
-    packed = [pack_feeds(eng.p["input_arcs"], f, pad_rows=1,
-                         min_len=max(length, 1))
+    packed = [pack_feeds(eng.p["input_arcs"], f, eng.token_shape,
+                         ctx.np_dtype, pad_rows=1, min_len=max(length, 1))
               for f in feeds_batch]
     flens = {plan_key(eng, fl) for _, fl in packed}
     if len(flens) != 1:
@@ -592,6 +614,8 @@ def run_batch_scheduled(eng, feeds_batch, max_cycles: int):
         return [_run_reference_sched(eng, ctx, plan, fv, exec_)
                 for fv, _ in packed]
     fvb = np.stack([fv for fv, _ in packed])
+    if eng.backend == "torch":
+        return _run_torch_sched(eng, ctx, plan, fvb, exec_)
     return _run_device_sched(eng, ctx, plan, fvb, exec_)
 
 
@@ -614,6 +638,80 @@ def _run_device_sched(eng, ctx, plan, fvb, exec_):
             for b in range(fvb.shape[0])]
 
 
+class _TorchPattern:
+    """One :class:`CyclePattern`'s index tables as tensors on a device,
+    and its cycle as PyTorch code (the ``"torch"`` scheduled run)."""
+
+    def __init__(self, pat: CyclePattern, A2: int, device):
+        t = lambda x: torch.as_tensor(np.array(x, np.int64), device=device)
+        self.fed = t(pat.fed) if pat.fed.size else None
+        self.fed_arcs = t(pat.fed_arcs)
+        self.drain = t(pat.drain) if pat.drain.size else None
+        self.drain_arcs = t(pat.drain_arcs)
+        # per bundle: op, operand arcs, the arcs written (drop sentinels
+        # left out) and the fire row each takes its value from
+        self.bundles = []
+        for op, i0, i1, out in pat.bundles:
+            ok = np.nonzero(out < A2)[0]
+            self.bundles.append((op, t(i0), t(i1), t(out[ok]), t(ok // 2)))
+
+    def apply(self, val, fv, ptr, ol, dtype) -> None:
+        """Feed, fire and drain in place on B streams' registers ``val``
+        [B, A2, *ts], streams ``fv`` [B, n_in, L, *ts], pointers ``ptr``
+        [n_in] (the same for every stream) and ``ol`` [B, n_out, *ts].
+        Every bundle reads the registers before any writes: produced and
+        consumed arcs are disjoint within a cycle."""
+        if self.fed is not None:
+            val[:, self.fed_arcs] = fv[:, self.fed, ptr[self.fed]]
+            ptr[self.fed] += 1
+        zs = [(out, src, _alu_op(op, val[:, i0], val[:, i1], dtype))
+              for op, i0, i1, out, src in self.bundles]
+        for out, src, z in zs:
+            val[:, out] = z[:, src]
+        if self.drain is not None:
+            ol[:, self.drain] = val[:, self.drain_arcs]
+
+
+@torch.inference_mode()
+def _run_torch_sched(eng, ctx, plan, fvb, exec_):
+    """The straight-line scheduled program as PyTorch code on the engine's
+    device, over B streams that share ``plan``: the plan's clipped
+    segments in order, a repeated period as a host loop over its
+    repetitions, each cycle its pattern's feed gather, bucketed fire and
+    drain.  Feed pointers and output counts are the same for every stream
+    (one plan), so the counts stay on the host; profiles are closed-form
+    from the plan, and ``dispatches`` is 1 as on the dynamic ``"torch"``
+    run."""
+    dev, ts = eng.device, ctx.token_shape
+    struct, reps = plan.trace_struct(exec_)
+    fv = to_carrier(fvb, ctx.np_dtype, dev)
+    B = fv.shape[0]
+    val0 = to_carrier(ctx.state0_val(), ctx.np_dtype, dev)
+    val = val0.expand(B, *val0.shape).clone()
+    ptr = torch.zeros((fv.shape[1],), dtype=torch.long, device=dev)
+    n_out = ctx.out_arc.size
+    ol = torch.zeros((B, max(n_out, 1), *ts), dtype=val.dtype, device=dev)
+    oc = np.zeros((max(n_out, 1),), np.int64)
+    r = 0
+    for pids, dyn in struct:
+        n = int(reps[r]) if dyn else 1
+        r += dyn
+        pats = [(ctx.torch_pattern(pid, dev), ctx.registry[pid].drain)
+                for pid in pids]
+        for _ in range(n):
+            for tp, drain in pats:
+                tp.apply(val, fv, ptr, ol, ctx.np_dtype)
+                oc[drain] += 1
+    olh = from_carrier(ol, ctx.np_dtype)
+    fired = plan.fires_between(0, exec_)
+    prof = None
+    if eng.profile:
+        prof = (*ctx.profile_counts(plan, 0, exec_), exec_, 1)
+    return [eng._result_from_state(olh[b][:n_out], oc[:n_out], exec_,
+                                   fired, 1, prof=prof)
+            for b in range(B)]
+
+
 def _run_reference_sched(eng, ctx, plan, fv, exec_):
     """Numpy schedule interpreter — the scheduled mirror of
     run_reference (same dispatches=None result shape, profile
@@ -622,7 +720,7 @@ def _run_reference_sched(eng, ctx, plan, fv, exec_):
         val = ctx.state0_val()
         ptr = np.zeros((max(ctx.in_arc.size, 1),), np.int64)
         n_out = ctx.out_arc.size
-        ol = np.zeros((n_out,), np.int32)
+        ol = np.zeros((n_out, *ctx.token_shape), ctx.np_dtype)
         oc = np.zeros((n_out,), np.int64)
         for pid in plan.pids_window(0, exec_):
             pat = ctx.registry[pid]
@@ -630,8 +728,8 @@ def _run_reference_sched(eng, ctx, plan, fv, exec_):
                 val[pat.fed_arcs] = fv[pat.fed, ptr[pat.fed]]
                 ptr[pat.fed] += 1
             for op, i0, i1, out in pat.bundles:
-                z2 = np.repeat(_alu_numpy(op, val[i0], val[i1], np.int32),
-                               2, axis=0)
+                z2 = np.repeat(_alu_numpy(op, val[i0], val[i1],
+                                          ctx.np_dtype), 2, axis=0)
                 ok = out < ctx.A2
                 val[out[ok]] = z2[ok]
             if pat.drain.size:

@@ -11,6 +11,20 @@ import numpy as np
 EDGE_VALS = np.asarray([-(2 ** 31), 2 ** 31 - 1, -1, 0, 1, 31, 32, -32],
                        np.int64)
 
+# the same edges for the other token dtypes (one entry for each of
+# EDGE_VALS, so a seed draws the same graph shape in every dtype):
+# unsigned wraparound, and float signed zeros, infinities and magnitudes
+EDGE_VALS_BY_DTYPE = {
+    "int32": EDGE_VALS,
+    "uint32": np.asarray([2 ** 31, 2 ** 32 - 1, 2 ** 31 - 1, 0, 1, 31, 32,
+                          40], np.int64),
+    "float32": np.asarray([-np.inf, 3.0e38, -1.5, -0.0, 0.0, 1.0, np.inf,
+                           -200.0], np.float32),
+}
+# float SHL/SHR operands of the random graphs: integral, in [-149, 126],
+# where numpy's and torch's exp2 agree bit for bit (ROADMAP C8)
+FLOAT_SHIFTS = np.asarray([-149, -126, -13, -1, 0, 1, 13, 126], np.float32)
+
 STATE_KEYS = ("full", "val", "ptr", "out_last", "out_count")
 PROFILE_ARRAYS = ("node_fires", "stall_in", "stall_out", "arc_busy",
                   "arc_hw")
@@ -60,12 +74,17 @@ def random_prof(tables, B: int, rng) -> tuple:
             rng.integers(0, 2, (B, A2)).astype(np.int32))
 
 
-def random_graph(seed: int, nodes: int | None = None):
+def random_graph(seed: int, nodes: int | None = None, dtype=np.int32):
     """A random well-formed acyclic fabric over the whole opcode set
     (control operators included), reading environment streams, open
-    producer outputs and const buses holding int32 edge values; 6-13
-    nodes, or ``nodes``."""
+    producer outputs and const buses holding edge values of ``dtype``
+    (:data:`EDGE_VALS_BY_DTYPE`); 6-13 nodes, or ``nodes``.  In float32
+    the shift count of every SHL/SHR is a const bus of its own, from
+    :data:`FLOAT_SHIFTS`."""
     from repro_torch.core.graph import ARITY, Graph, Op
+    kind = np.dtype(dtype).name
+    edges = EDGE_VALS_BY_DTYPE[kind]
+    as_const = int if kind != "float32" else float
     rng = np.random.default_rng(5000 + seed)
     g = Graph(name=f"random{seed}")
     open_arcs: list[str] = []
@@ -82,7 +101,7 @@ def random_graph(seed: int, nodes: int | None = None):
         if open_arcs and r < 0.55:
             return open_arcs.pop(int(rng.integers(len(open_arcs))))
         if r < 0.75:
-            return g.const(fresh("c"), int(rng.choice(EDGE_VALS)))
+            return g.const(fresh("c"), as_const(rng.choice(edges)))
         return fresh("x")
 
     ops = list(Op)
@@ -91,6 +110,8 @@ def random_graph(seed: int, nodes: int | None = None):
         op = ops[seed % len(ops)] if i == 0 else ops[rng.integers(len(ops))]
         n_in, n_out = ARITY[op]
         ins = [src(i == 0 and k == 0) for k in range(n_in)]
+        if kind == "float32" and op in (Op.SHL, Op.SHR):
+            ins[1] = g.const(fresh("c"), float(rng.choice(FLOAT_SHIFTS)))
         outs = [fresh("a") for _ in range(n_out)]
         g.add(op, ins, outs)
         open_arcs.extend(outs)
@@ -100,12 +121,32 @@ def random_graph(seed: int, nodes: int | None = None):
     return g
 
 
+def tokens_equal(got, want) -> bool:
+    """Tokens (scalars or arrays, numpy or JAX) equal bit for bit: the same
+    shape, and integers equal as integers; floats of one dtype with the
+    same bits, except that a NaN need only meet a NaN (its payload is not
+    compared: numpy, XLA and the card make different NaNs)."""
+    g, w = np.atleast_1d(np.asarray(got)), np.atleast_1d(np.asarray(want))
+    if g.shape != w.shape:
+        return False
+    if "f" not in (g.dtype.kind, w.dtype.kind):
+        return bool((g.astype(np.int64) == w.astype(np.int64)).all())
+    if g.dtype != w.dtype:
+        return False
+    nan = np.isnan(w)
+    if (np.isnan(g) != nan).any():
+        return False
+    u = np.dtype(f"u{w.dtype.itemsize}")
+    return bool((g.view(u)[~nan] == w.view(u)[~nan]).all())
+
+
 def assert_same_result(got, want, tag, dispatches: bool = True,
                        profile: bool = False) -> None:
     """Every EngineResult field of ``got`` equals ``want``'s: cycles,
     fired, counts, the last value of every arc that drained a token, and
     (unless ``dispatches=False``, for oracles that launch nothing) the
-    launch count.  With ``profile=True`` also ``node_fires`` and the
+    launch count; token values as :func:`tokens_equal`.  With
+    ``profile=True`` also ``node_fires`` and the
     FabricProfile: its names, its five counter arrays, its cycles and
     (with ``dispatches``) its launch count.  Works across the two
     packages' result types."""
@@ -116,8 +157,8 @@ def assert_same_result(got, want, tag, dispatches: bool = True,
     assert set(got.outputs) == set(want.outputs), (tag, "outputs")
     for a, c in want.counts.items():
         if c:
-            assert int(np.asarray(got.outputs[a])) == \
-                int(np.asarray(want.outputs[a])), (tag, "outputs", a)
+            assert tokens_equal(got.outputs[a], want.outputs[a]), (
+                tag, "outputs", a, got.outputs[a], want.outputs[a])
     if dispatches:
         assert got.dispatches == want.dispatches, \
             (tag, "dispatches", got.dispatches, want.dispatches)
@@ -135,6 +176,25 @@ def assert_same_result(got, want, tag, dispatches: bool = True,
         if dispatches:
             assert gp.dispatches == wp.dispatches, (tag,
                                                     "profile.dispatches")
+
+
+def edge_feeds(graph, dtype, k: int, rng) -> dict:
+    """A k-token stream of ``dtype`` for every input arc of ``graph``:
+    about half edge values (:data:`EDGE_VALS_BY_DTYPE`), the rest random
+    over the dtype's range (floats: a spread of magnitudes)."""
+    kind = np.dtype(dtype).name
+    edges = EDGE_VALS_BY_DTYPE[kind]
+    out = {}
+    for a in graph.input_arcs():
+        if kind == "float32":
+            rnd = (rng.standard_normal(k)
+                   * 10.0 ** rng.integers(-3, 6, k)).astype(np.float32)
+        else:
+            lo, hi = (-2 ** 31, 2 ** 31) if kind == "int32" else (0, 2 ** 32)
+            rnd = rng.integers(lo, hi, k)
+        out[a] = np.where(rng.random(k) < 0.5, rng.choice(edges, k),
+                          rnd).astype(dtype)
+    return out
 
 
 def edge_ints(rng, shape):

@@ -1131,3 +1131,118 @@ def test_reduced_serve_engine_cuda_matches_cpu(cuda):
     for g, w in zip(got, want):
         assert g.uid == w.uid
         np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+# ---------------------------------------------------------------------------
+# the "torch" backend and compile() on the card
+# ---------------------------------------------------------------------------
+TORCH_ALU_EDGES = {
+    "int32": [-(2 ** 31), -(2 ** 31) + 1, -40, -2, -1, 0, 1, 5, 31, 32, 33,
+              40, 2 ** 31 - 1],
+    "uint32": [0, 1, 2, 5, 7, 31, 32, 40, 2 ** 31, 2 ** 32 - 1],
+    "float32": [-np.inf, -200.0, -13.0, -1.5, -0.0, 0.0, 0.5, 1.0, 13.0,
+                126.0, 200.0, np.inf],
+}
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint32", "float32"])
+def test_torch_alu_edges_on_card(cuda, dtype):
+    """The torch ALU on the card against alu_numpy on the JAX package's
+    edge operands, bit for bit: int32 wraps (INT_MIN // -1, shifts past
+    the clip), uint32 in its int64 carrier, float signed zeros and exp2
+    at every integral shift in [-149, 126] (C8; fractional shifts are
+    the CPU tests' part)."""
+    from repro_torch.core.engine import (_alu_op, alu_numpy, from_carrier,
+                                         to_carrier)
+    from repro_torch.core.graph import Op
+    from repro_torch.testing import tokens_equal
+    dt = np.dtype(dtype)
+    vals = np.asarray(TORCH_ALU_EDGES[dtype], dt)
+    A, B = np.meshgrid(vals, vals)
+    a, b = A.ravel(), B.ravel()
+    for op in Op:
+        if op in (Op.DMERGE, Op.NDMERGE):
+            continue
+        x, y = a, b
+        if dtype == "float32" and op in (Op.SHL, Op.SHR):
+            X, Y = np.meshgrid(vals, np.arange(-149, 127, dtype=dt))
+            x, y = X.ravel(), Y.ravel()
+        got = from_carrier(_alu_op(op, to_carrier(x, dt, cuda),
+                                   to_carrier(y, dt, cuda), dt), dt)
+        with np.errstate(all="ignore"):
+            want = np.asarray(alu_numpy(op, x, y, dt), dt)
+        assert tokens_equal(got, want), (op, dtype)
+
+
+@pytest.mark.parametrize("dtype,ts", [("int32", ()), ("uint32", ()),
+                                      ("float32", ()), ("float32", (4,))])
+def test_torch_backend_on_card(cuda, dtype, ts):
+    """"torch" engines and compile()'s executors on the card against
+    run_reference: 4 benches and 4 random fabrics, dense and optimized,
+    profiled, solo and batched."""
+    from repro_torch.core import compile as tcomp
+    from repro_torch.testing import edge_feeds, tokens_equal
+    dt = np.dtype(dtype)
+    cases = []
+    for name in ("fibonacci", "dot_prod", "pop_count", "bubble_sort"):
+        bench = _bench(name)
+        fb = [library.random_feeds(name, bench, 2 + 3 * s,
+                                   np.random.default_rng(s))
+              for s in range(3)]
+        cases.append((bench.graph, fb))
+    for seed in range(4):
+        g = random_graph(seed, dtype=dt)
+        fb = [edge_feeds(g, dt, 1 + s, np.random.default_rng(seed + s))
+              for s in range(3)]
+        cases.append((g, fb))
+    for g, fb in cases:
+        if ts:
+            fb = [{a: np.asarray(v)[:, None] + np.arange(4, dtype=dt)
+                   for a, v in f.items()} for f in fb]
+        wants = [run_reference(g, f, ts, dt, max_cycles=400, profile=True)
+                 for f in fb]
+        for opt in (False, True):
+            eng = DataflowEngine(g, backend="torch", block_cycles=1,
+                                 max_cycles=400, device=cuda, optimize=opt,
+                                 profile=True, token_shape=ts, dtype=dt)
+            got = [eng.run(f) for f in fb] + eng.run_batch(fb)
+            for r, w in zip(got, wants + wants):
+                assert_same_result(r, w, (g.name, opt), dispatches=False,
+                                   profile=eng.block_cycles == 1)
+        run = tcomp.compile(g, ts, dt, max_cycles=400, backend="unrolled",
+                            device=cuda)
+        for f, w in zip(fb, wants):
+            assert_same_result(run(f), w, (g.name, "unrolled"),
+                               dispatches=False)
+        if tcomp.GraphTraits.probe(g).tokens_out_static:
+            out = tcomp.compile(g, ts, dt, backend="dag", device=cuda)(fb[1])
+            for a, v in out.items():
+                assert tokens_equal(v[-1], wants[1].outputs[a])
+
+
+def test_compile_cuda_launches_the_kernels(cuda):
+    """compile(backend="cuda") reaches the kernels: optimize="sched" the
+    scheduled-run kernel, optimize="full" with profile=True the profiled
+    and specialized fire blocks, single-stream and batched."""
+    from repro_torch.core import compile as tcomp
+    bench = _bench("dot_prod")
+    f = library.random_feeds("dot_prod", bench, 6, np.random.default_rng(0))
+    fb = [f] * 3
+    one, bat = df.fire_block_cuda, df.fire_block_batched_cuda
+    n = ksf.sched_run_cuda.launches
+    run = tcomp.compile(bench.graph, backend="cuda", optimize="sched",
+                        device=cuda)
+    assert_same_result(run(f), run_reference(bench.graph, f), "sched",
+                       dispatches=False)
+    run.engine.run_batch(fb)
+    assert ksf.sched_run_cuda.launches == n + 2
+    counts = (one.prof_launches, one.spec_launches, bat.prof_launches,
+              bat.spec_launches)
+    run = tcomp.compile(bench.graph, backend="cuda", optimize="full",
+                        profile=True, device=cuda)
+    assert_same_result(run(f), run_reference(bench.graph, f), "full",
+                       dispatches=False)
+    run.engine.run_batch(fb)
+    after = (one.prof_launches, one.spec_launches, bat.prof_launches,
+             bat.spec_launches)
+    assert all(x > y for x, y in zip(after, counts)), (counts, after)

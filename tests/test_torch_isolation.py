@@ -11,6 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.core import compile as tcompile  # noqa: E402
 from repro_torch.core import library  # noqa: E402
 from repro_torch.core.engine import DataflowEngine  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -73,6 +74,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
         dataflow_server.DataflowServer(graph, optimize=True, profile=True)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         ops.run_fabric(graph, library.fibonacci_graph().make_feeds(3))
+    for backend in tcompile.EXECUTORS:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tcompile.compile(graph, backend=backend)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DataflowEngine(graph, backend="torch", dtype="float32")
 
 
 def test_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
