@@ -100,6 +100,29 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              results per deployment are then checked against
              ``run_reference``, a solo ``run`` and (profiled) a solo
              replay of the same blocks (those runs are not counted);
+5b. hardened serving — phase 5's optimized, profiled dot_prod deployment
+             again with four tenants, a seeded ``FaultPlan`` (transient
+             dispatch faults that eat two retries, wedged slots, poisoned
+             feeds; ``max_retries=3``), a ``TraceRecorder`` and a
+             ``MetricsRegistry``, in turns with the same deployment plain
+             and with the trace and metrics alone (plain, hooks, hardened,
+             hardened, hooks, plain, plain, hooks, hardened: every plain
+             and hooks run equal to phase 5's in every field, every
+             hardened run to the first); unfaulted requests equal phase 5's
+             results (every field where they rode the same block
+             lengths), poisoned ones a solo run over the poisoned feeds,
+             16 of each against a solo replay of their blocks in every
+             field; the trace validates on both clocks and its terminal
+             events match the metrics, the snapshot validates and counts
+             the statuses and the retries; then the same hardened run
+             scheduled at 256 slots over 512 requests (every slot step
+             the warp variant), a persistent fault from block 5 at 64
+             slots (every request answered, the late ones with a typed
+             error, nothing raised) and a compile fault that raises; the
+             walls of the turns and the host seconds in the hooks and in
+             the garbage collector.  The checks of the two hardened runs
+             (their solo runs and replays) come after phase 5's sampled
+             checks, once the launch counts are read;
 6. trace   — the optimized, profiled dot_prod serving runs again under
              ``torch.profiler`` (CPU and CUDA), dynamic and scheduled:
              busy time and idle share;
@@ -138,12 +161,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 9. summary — the ``kernels`` JSON line, the card, and the result line.
 
 The launch counts in the summary come from the main paths alone: every
-count is set to 0 just before phase 4 and read after phase 5 (phase 4b's
-compile routes included), before
-the sampled checks (the fabric's rows 1-8), and set to 0 again just
+count is set to 0 just before phase 4 and read after phase 5b's
+serving runs (phase 4b's compile routes included), before phase 5's
+sampled checks and phase 5b's checks (the fabric's rows 1-8), and set
+to 0 again just
 before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
-rows 1-8's per variant come from phases 4-5).  The
+rows 1-8's per variant come from phases 4-5b).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
@@ -2138,18 +2162,24 @@ def check_sampled(dev, bench, reqs, results, max_cycles, blocks,
         + f" ({time.perf_counter() - t_ref:.1f} s)")
 
 
+def same_results(got, want, what) -> None:
+    """Two runs answered every request alike: every EngineResult field
+    (profile and launch count included) and every metric."""
+    import dataclasses
+    from repro_torch.testing import assert_same_result
+    check(len(got) == len(want), f"{what}: the runs answered differently")
+    for g, w in zip(got, want):
+        check(g.uid == w.uid and g.status == w.status, f"{what}: {g.uid}")
+        assert_same_result(g.engine, w.engine, (what, g.uid), profile=True)
+        check(dataclasses.asdict(g.metrics) == dataclasses.asdict(w.metrics),
+              f"{what}: request {g.uid}: metrics differ")
+
+
 def same_as_dynamic(sched, dyn, stats_s, stats_d) -> None:
     """The scheduled deployment answered every request as the dynamic
     deployment did: every EngineResult field (profile and launch count
     included), every metric, residency p50/p99."""
-    import dataclasses
-    from repro_torch.testing import assert_same_result
-    check(len(sched) == len(dyn), "the deployments answered differently")
-    for s, d in zip(sched, dyn):
-        check(s.uid == d.uid and s.status == d.status, f"request {s.uid}")
-        assert_same_result(s.engine, d.engine, ("sched", s.uid), profile=True)
-        check(dataclasses.asdict(s.metrics) == dataclasses.asdict(d.metrics),
-              f"request {s.uid}: metrics differ")
+    same_results(sched, dyn, "sched")
     for k in ("blocks", "residency_p50", "residency_p99"):
         check(stats_s[k] == stats_d[k], f"{k}: scheduled {stats_s[k]}, "
               f"dynamic {stats_d[k]}")
@@ -2215,6 +2245,350 @@ def trace_serving(dev, bench, slots, reqs, untraced_wall, optimize,
         log("  the profiler recorded no device events: idle share not "
             "measured")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: hardened serving
+# ---------------------------------------------------------------------------
+# the seeded plan of phase 5b (a, b): transients that eat two retries,
+# wedged slots, poisoned feeds
+HARDENED_FAULTS = dict(dispatch_fail_rate=0.04, transient_attempts=2,
+                       wedge_rate=0.01, poison_rate=0.02)
+HOOKS = ("_trace", "_count", "_observe_result", "_update_queue_metrics")
+# phase 5b's turns: three of each mode, each mode early and late
+TURNS = ("plain", "hooks", "hardened", "hardened", "hooks", "plain",
+         "plain", "hooks", "hardened")
+
+
+def time_hooks(srv) -> dict:
+    """Wrap the server's trace and metrics hooks with host-time
+    accumulators: seconds inside each hook (nested calls included) and
+    ``all``, the seconds inside any hook counted once."""
+    totals = dict.fromkeys(HOOKS, 0.0)
+    totals["all"] = 0.0
+    depth = [0]
+    for k in HOOKS:
+        fn = getattr(srv, k)
+
+        def timed_hook(*a, _fn=fn, _k=k, **kw):
+            depth[0] += 1
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                dt = time.perf_counter() - t
+                depth[0] -= 1
+                totals[_k] += dt
+                if not depth[0]:
+                    totals["all"] += dt
+        setattr(srv, k, timed_hook)
+    return totals
+
+
+def gc_timer() -> tuple[dict, object]:
+    """Seconds and counts of the garbage collector's passes from now on
+    (``gc.callbacks``), and the function that stops counting."""
+    import gc
+    acc = dict(s=0.0, passes=0, gen2=0)
+    start = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+            return
+        acc["s"] += time.perf_counter() - start[0]
+        acc["passes"] += 1
+        acc["gen2"] += info["generation"] == 2
+    gc.callbacks.append(on_gc)
+    return acc, lambda: gc.callbacks.remove(on_gc)
+
+
+def serve_turn(dev, bench, slots, reqs, schedule=False, mode="plain"):
+    """Phase 5's submission pattern (half the requests, 8 heartbeats, the
+    rest, drain) on a new optimized, profiled server at K = 64.  ``mode``
+    ``"plain"``: phase 5's deployment; ``"hooks"``: the same with a
+    ``TraceRecorder`` and a ``MetricsRegistry``; ``"hardened"``: with
+    them, four tenants, the seeded ``FaultPlan`` and ``max_retries=3``.
+    With hooks, the host seconds in each hook are summed; the garbage
+    collector's seconds are summed in every mode."""
+    import dataclasses
+    import torch
+    from repro_torch.obs import MetricsRegistry, TraceRecorder
+    from repro_torch.serve.dataflow_server import DataflowServer
+    from repro_torch.serve.faults import FaultPlan
+    kw = {}
+    if mode != "plain":
+        kw = dict(trace=TraceRecorder(), metrics=MetricsRegistry())
+    if mode == "hardened":
+        kw.update(faults=FaultPlan(seed=7, **HARDENED_FAULTS), max_retries=3)
+        reqs = [dataclasses.replace(r, tenant=f"t{r.uid % 4}") for r in reqs]
+    srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
+                         device=dev, optimize=True, profile=True,
+                         schedule=schedule, **kw)
+    hooks = time_hooks(srv) if kw else None
+    _, blocks = time_slot_api(srv.engine)
+    row = "sched_slot_step" if schedule else "fire_block_batched_prof"
+    before = launch_counts()
+    half = len(reqs) // 2
+    gc_s, stop_gc = gc_timer()
+    t0 = time.perf_counter()
+    for r in reqs[:half]:
+        srv.submit(r)
+    results = []
+    for _ in range(8):
+        results += srv.step()
+    for r in reqs[half:]:
+        srv.submit(r)
+    results += srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stop_gc()
+    for k in ("reset_slots", "step_block", "harvest"):
+        delattr(srv.engine, k)              # back to the plain methods
+    after = launch_counts()
+    launches = after[row] - before[row]
+    check(launches == srv.block == len(blocks),
+          f"{srv.block} server blocks, {len(blocks)} steps, {launches} "
+          "kernel launches")
+    if schedule:
+        warp = after["sched_slot_step_by"]["warp"] - \
+            before["sched_slot_step_by"]["warp"]
+        check(warp == launches, f"{warp} of {launches} scheduled slot steps "
+              "ran the warp variant")
+    results.sort(key=lambda r: r.uid)
+    check([r.uid for r in results] == [r.uid for r in reqs],
+          "a request got no result, or two")
+    return dict(srv=srv, reqs=reqs, results=results, blocks=blocks,
+                wall=wall, hooks=hooks, launches=launches, mode=mode,
+                gc=gc_s)
+
+
+def check_hardened(dev, bench, run, want, want_blocks, schedule=False):
+    """Phase 5b's checks of one hardened run against phase 5's optimized,
+    profiled run of the same requests (``want``, by uid; its block
+    lengths ``want_blocks``).  Every request that is neither poisoned nor
+    wedged equals phase 5's result in cycles, fired, counts, outputs and
+    node_fires, and in every field (launch count and profile included)
+    where it rode the same block lengths; 16 of the others, and 16
+    poisoned requests, equal a solo replay of the blocks they rode in
+    every field; poisoned requests equal a solo ``run`` over
+    ``faults.poison(feeds)``; wedged requests are ``wedged`` (or
+    ``truncated``, when their budget ran out first).  The trace passes
+    ``validate_chrome`` on both clocks, each uid's terminal event carries
+    its ``finished_block`` and status; the snapshot passes
+    ``validate_snapshot``, counts the statuses, and its retries equal the
+    plan's transients."""
+    import collections
+    import dataclasses
+    from repro_torch.core.engine import DataflowEngine
+    from repro_torch.obs import validate_chrome, validate_snapshot
+    from repro_torch.obs.trace import TERMINAL_KINDS
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.testing import assert_same_result
+    srv, faults, blocks = run["srv"], run["srv"].faults, run["blocks"]
+    replays, poisoned = [], []
+    n = dict(same_window=0, other_window=0, wedged=0, poisoned=0)
+    for r, q in zip(run["results"], run["reqs"]):
+        w = want[q.uid]
+        wedge, poison = faults.wedge(q.uid), faults.poisoned(q.uid)
+        status = ("truncated" if q.max_cycles else "wedged") if wedge \
+            else w.status
+        check(r.status == status and r.error is None,
+              f"request {q.uid}: {r.status}, want {status}")
+        r.engine.profile.check()
+        if poison:
+            n["poisoned"] += 1
+            poisoned.append((q, r))
+            continue
+        assert_same_result(r.engine, w.engine, ("5b", q.uid),
+                           dispatches=False)
+        np.testing.assert_array_equal(r.engine.node_fires,
+                                      w.engine.node_fires)
+        m, wm = r.metrics, w.metrics
+        if wedge:
+            n["wedged"] += 1
+        elif blocks[m.admitted_block:m.finished_block] == \
+                want_blocks[wm.admitted_block:wm.finished_block]:
+            assert_same_result(r.engine, w.engine, ("5b", q.uid),
+                               profile=True)
+            n["same_window"] += 1
+        else:
+            n["other_window"] += 1
+            replays.append((q, r))
+    check(n["wedged"] and n["poisoned"], f"the plan wedged or poisoned "
+          f"nothing: {n}")
+    rng = np.random.default_rng(2)
+    plan = FaultPlan(seed=7, **HARDENED_FAULTS)   # a fresh log for poison
+    solo = DataflowEngine(bench.graph, block_cycles=64, device=dev,
+                          optimize=True, profile=True, schedule=schedule)
+    picks = [replays[i] for i in rng.permutation(len(replays))[:16]]
+    picks += [(dataclasses.replace(q, feeds=plan.poison(q.feeds, q.uid)), r)
+              for q, r in (poisoned[i] for i in
+                           rng.permutation(len(poisoned))[:16])]
+    for q, r in picks:
+        cap = q.max_cycles or srv.max_cycles
+        assert_same_result(r.engine, replay(solo, q, r, blocks, cap),
+                           ("5b replay", q.uid), profile=True)
+        if faults.poisoned(q.uid):
+            alone = solo.run(q.feeds, max_cycles=cap)
+            assert_same_result(r.engine, alone, ("5b poisoned", q.uid),
+                               dispatches=False)
+            np.testing.assert_array_equal(r.engine.node_fires,
+                                          alone.node_fires)
+    trace = srv.trace
+    for clock in ("block", "wall"):
+        info = validate_chrome(trace.to_chrome(clock))
+        check(info["uids"] == len(run["reqs"]), f"trace: {info}")
+    terminal = {}
+    for e in trace.events:
+        if e.kind in TERMINAL_KINDS:
+            check(e.uid not in terminal, f"uid {e.uid}: two terminal events")
+            terminal[e.uid] = (e.block, e.status)
+    for r in run["results"]:
+        check(terminal[r.uid] == (r.metrics.finished_block, r.status),
+              f"uid {r.uid}: terminal event {terminal[r.uid]}")
+    snap = srv.metrics.snapshot()
+    validate_snapshot(snap)
+    c = snap["counters"]
+    statuses = collections.Counter(r.status for r in run["results"])
+    for s, k in statuses.items():
+        check(c[f"requests_finished{{status={s}}}"] == k, f"{s}: {k}")
+    check(sum(v for k, v in c.items() if k.startswith("requests_finished"))
+          == len(run["results"]), "requests_finished")
+    retries = sum(v for k, v in c.items() if k.startswith("dispatch_retries"))
+    transients = sum(e[0] == "dispatch-transient" for e in faults.log)
+    check(retries == transients > 0, f"{retries} retries counted, "
+          f"{transients} transients injected")
+    check(c["dispatches{backend=cuda}"] == srv.block, "dispatches")
+    return dict(**n, replays=len(picks), statuses=dict(statuses),
+                retries=retries, blocks=srv.block,
+                trace_events=len(trace.events),
+                metric_series=sum(len(snap[k]) for k in (
+                    "counters", "gauges", "histograms")),
+                events=dict(collections.Counter(
+                    e["kind"] for e in srv.events)))
+
+
+def phase_persistent(dev, bench, slots=64, n_req=128, from_block=5):
+    """A persistent injected fault from block ``from_block``: every uid
+    answered once, no exception; requests done by then ``ok`` with the
+    reference's values, the rest ``error`` with a ``DispatchFault`` and
+    their partial results.  A planned compile fault raises from the
+    constructor."""
+    from repro_torch.core import library
+    from repro_torch.obs import (MetricsRegistry, TraceRecorder,
+                                 validate_chrome, validate_snapshot)
+    from repro_torch.serve.dataflow_server import DataflowServer
+    from repro_torch.serve.faults import (CompileFault, DispatchFault,
+                                          FaultPlan)
+    from repro_torch.serve.types import Request
+    rng = np.random.default_rng(11)
+    lens = rng.integers(8, 400, n_req)
+    reqs = [Request(uid=i + 1, feeds={
+        a: np.asarray(v, np.int32) for a, v in library.random_feeds(
+            "dot_prod", bench, int(k), rng).items()})
+        for i, k in enumerate(lens)]
+    tr, mr = TraceRecorder(), MetricsRegistry()
+    srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
+                         device=dev, faults=FaultPlan(
+                             seed=7, persistent_backends={"cuda"},
+                             persistent_from_block=from_block),
+                         trace=tr, metrics=mr)
+    results = srv.run(reqs)                         # must not raise
+    check([r.uid for r in results] == [q.uid for q in reqs],
+          "a request got no result, or two")
+    check(srv.block == from_block and srv.pending == 0, "server state")
+    ok = 0
+    for r, q, k in zip(results, reqs, lens):
+        if r.status == "ok":
+            ok += 1
+            check(r.metrics.finished_block <= from_block, f"uid {r.uid}")
+            last = expected_last("dot_prod", bench, q.feeds)
+            check(r.engine.counts["dot"] == library.tokens_out(
+                "dot_prod", int(k)) and int(r.engine.outputs["dot"]) ==
+                int(last[0]), f"uid {r.uid}: value")
+        else:
+            check(r.status == "error" and isinstance(r.error, DispatchFault)
+                  and r.metrics.finished_block == from_block
+                  and r.metrics.retries == srv.max_retries
+                  and r.engine.dispatches == from_block
+                  - r.metrics.admitted_block, f"uid {r.uid}: {r}")
+    check(0 < ok < n_req, f"{ok} of {n_req} finished before the fault")
+    check(validate_chrome(tr.to_chrome())["uids"] == n_req, "trace")
+    validate_snapshot(mr.snapshot())
+    try:
+        DataflowServer(bench.graph, slots=slots, block_cycles=64,
+                       device=dev, faults=FaultPlan(compile_fail={"cuda"}))
+    except CompileFault:
+        pass
+    else:
+        check(False, "compile_fail={'cuda'} built a server")
+    failed = sum(e["kind"] == "dispatch-failed" for e in srv.events)
+    return dict(requests=n_req, slots=slots, ok=ok, error=n_req - ok,
+                failed_dispatches=failed)
+
+
+def phase_hardened(dev, bench, reqs, want, slots=1024, sched_slots=256,
+                   sched_requests=512) -> tuple[dict, list]:
+    """Phase 5b's serving runs: (a) phase 5's optimized, profiled
+    dot_prod deployment hardened (tenants, faults, trace, metrics), run
+    in turns with the same deployment without hooks and with the hooks
+    alone (``TURNS``: three of each); (b) the
+    hardened deployment scheduled at ``sched_slots`` slots; (c) a
+    persistent fault and a compile fault; (d) the walls and the hooks'
+    host seconds.  Returns the summary and the hardened runs that
+    ``check_phase_hardened`` checks: their checks replay requests through
+    the counted wrappers, so they run after the main path's counts are
+    read."""
+    t0 = time.perf_counter()
+    turns = []
+    for mode in TURNS:
+        run = serve_turn(dev, bench, slots, reqs, mode=mode)
+        turns.append(run)
+        log(f"  turn {mode}: {run['wall']:.4f} s, {run['srv'].block} "
+            f"blocks, gc {run['gc']['s']:.4f} s ({run['gc']['passes']} "
+            f"passes, {run['gc']['gen2']} gen-2)" +
+            (f", hooks {run['hooks']['all']:.4f} s" if run["hooks"] else ""))
+    # the plain turns are phase 5's deployment; the hooks change nothing
+    same_results(turns[0]["results"], want, "plain turn vs phase 5")
+    for t in turns[1:]:
+        first = turns[TURNS.index("hardened")] if t["mode"] == "hardened" \
+            else turns[0]
+        if t is not first:
+            same_results(t["results"], first["results"], t["mode"])
+    out = dict(card=card_line(), requests=len(reqs), slots=slots)
+    for mode in ("plain", "hooks", "hardened"):
+        mine = [t for t in turns if t["mode"] == mode]
+        out[mode] = dict(wall_s=[t["wall"] for t in mine],
+                         blocks=mine[0]["srv"].block,
+                         gc=[t["gc"] for t in mine])
+        if mode != "plain":
+            out[mode]["hook_s"] = [{k: round(v, 6) for k, v in
+                                    t["hooks"].items()} for t in mine]
+            out[mode]["trace_events"] = len(mine[0]["srv"].trace.events)
+    dynamic = turns[TURNS.index("hardened")]
+    del turns
+    run = serve_turn(dev, bench, sched_slots, reqs[:sched_requests],
+                     schedule=True, mode="hardened")
+    out["dynamic"] = {}
+    out["scheduled"] = dict(slots=sched_slots, requests=sched_requests,
+                            wall_s=run["wall"], gc=run["gc"],
+                            hook_s=run["hooks"])
+    out["persistent"] = phase_persistent(dev, bench)
+    out["seconds"] = time.perf_counter() - t0
+    return out, [("dynamic", dynamic, False), ("scheduled", run, True)]
+
+
+def check_phase_hardened(dev, bench, out, runs, want, want_blocks) -> None:
+    """``check_hardened`` on phase 5b's hardened runs, after the main
+    path's counts are read; its results join the summary ``out``."""
+    t0 = time.perf_counter()
+    want = {r.uid: r for r in want}
+    for key, run, schedule in runs:
+        out[key].update(check_hardened(dev, bench, run, want, want_blocks,
+                                       schedule=schedule))
+    out["check_seconds"] = time.perf_counter() - t0
+    log(f"  dot_prod hardened: {json.dumps(out)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3131,8 +3505,14 @@ def main() -> int:
     for key, name, bench, slots, reqs, lens, opt, prof, sch in deployments:
         serve[key], *served[key] = phase_serving(dev, name, bench, slots,
                                                  reqs, lens, opt, prof, sch)
+    log("== phase 5b: hardened serving (counts go on)")
+    hardened, hardened_runs = phase_hardened(dev, dot, dot_reqs,
+                                             served["dot_prod_opt_prof"][0])
+    log(f"  phase 5b's serving runs done at "
+        f"{time.perf_counter() - t_start:.1f} s "
+        f"({hardened['seconds']:.1f} s)")
     launches = launch_counts()
-    log(f"  main-path launches (phases 4-5): "
+    log(f"  main-path launches (phases 4-5b): "
         f"{json.dumps({k: launches[k] for k in ROWS})}; fire block by "
         f"variant {json.dumps(launches['fire_block_by'])}")
     for k in ROWS:
@@ -3152,7 +3532,11 @@ def main() -> int:
     for key, name, bench, slots, reqs, lens, opt, prof, sch in deployments:
         check_sampled(dev, bench, reqs, *served[key], optimize=opt,
                       profile=prof, schedule=sch)
-    del served, bub_reqs
+    check_phase_hardened(dev, dot, hardened, hardened_runs,
+                         served["dot_prod_opt_prof"][0],
+                         served["dot_prod_opt_prof"][2])
+    log(f"  phase 5b's checks took {hardened['check_seconds']:.1f} s")
+    del served, bub_reqs, hardened_runs
     log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 6: traces of the optimized, profiled dot_prod serving runs")
@@ -3226,6 +3610,7 @@ def main() -> int:
                 x["tol_ratio"] <= 1 for x in k.get("variants", ()))
         check(ok, f"{k['name']} disagrees with plain beyond its tolerance")
     log(json.dumps({"serving": serve}))
+    log(json.dumps({"hardened_serving": hardened}))
     log(json.dumps({"lm_serving": lm_stats}, default=str))
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"table1_us_per_cycle": table1}))

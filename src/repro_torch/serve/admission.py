@@ -92,6 +92,11 @@ class FairQueue:
         for q in self._buckets.values():
             yield from q
 
+    def depths(self) -> dict:
+        """Per-tenant queued-request counts (observability export —
+        feeds the server's ``queue_depth{tenant=...}`` gauges)."""
+        return {t: len(q) for t, q in self._buckets.items() if q}
+
     def _bucket(self, tenant) -> collections.deque:
         q = self._buckets.get(tenant)
         if q is None:

@@ -11,8 +11,8 @@
   residency metrics.
 
 The JAX package's ``repro.serve.types`` with the same fields, names,
-order and defaults, less the server's degradation fields (``degraded``,
-``retries``: the port's server has no fallback chain).
+order and defaults, less ``RequestMetrics.degraded`` (the port's server
+has no degradation chain).
 """
 from __future__ import annotations
 
@@ -77,6 +77,7 @@ class RequestMetrics:
     #                           slot: token/firing counts stopped
     #                           changing for wedge_timeout_blocks
     #                           without the quiescence signal arriving
+    retries: int = 0          # dispatch retries ridden while resident
     backend: str = ""         # backend that produced the final result
 
 
@@ -95,7 +96,8 @@ class Result:
     metrics: RequestMetrics | None = None
     error: Exception | None = None      # typed failure: the request was
     #                                     answered, not computed (queue
-    #                                     drop)
+    #                                     drop, a dispatch that failed
+    #                                     past its retries)
 
     @property
     def status(self) -> str:

@@ -776,6 +776,92 @@ def test_scheduled_server_matches_reference(cuda):
         assert_same_result(r.engine, run_reference(bench.graph, f), r.uid,
                            dispatches=False)
 
+@pytest.mark.parametrize("schedule", [False, True])
+def test_hardened_server_on_card(cuda, schedule):
+    """chip_smoke.py phase 5b (a, b) at a small size: tenants, transient
+    dispatch faults, wedges and poison, a trace and a metrics registry.
+    Unfaulted requests equal the oracle, poisoned ones a solo run over
+    the poisoned feeds; the trace and the snapshot validate; every block
+    is one launch."""
+    from repro_torch.obs import (MetricsRegistry, TraceRecorder,
+                                 validate_chrome, validate_snapshot)
+    from repro_torch.serve.faults import FaultPlan
+    from repro_torch.serve.types import Request
+    bench = _bench("dot_prod")
+    reqs = [Request(uid=i + 1, tenant=f"t{i % 4}",
+                    max_cycles=40 if i % 9 == 8 else None,
+                    feeds=library.random_feeds("dot_prod", bench, 3 + 5 * i,
+                                               np.random.default_rng(i)))
+            for i in range(40)]
+    plan = FaultPlan(seed=7, dispatch_fail_rate=0.2, transient_attempts=2,
+                     wedge_rate=0.1, poison_rate=0.15)
+    tr, mr = TraceRecorder(), MetricsRegistry()
+    srv = DataflowServer(bench.graph, slots=8, block_cycles=16, device=cuda,
+                         optimize=True, profile=True, schedule=schedule,
+                         max_retries=3, wedge_timeout_blocks=4, faults=plan,
+                         trace=tr, metrics=mr)
+    wrapper = ksf.sched_slot_step_cuda if schedule else \
+        df.fire_block_batched_cuda
+    n0 = wrapper.launches + getattr(wrapper, "prof_launches", 0)
+    got = srv.run(reqs)
+    assert wrapper.launches + getattr(wrapper, "prof_launches", 0) == \
+        n0 + srv.block
+    assert [r.uid for r in got] == [q.uid for q in reqs]
+    solo = DataflowEngine(bench.graph, block_cycles=16, device=cuda,
+                          optimize=True, profile=True)
+    kinds = set()
+    for r, q in zip(got, reqs):
+        cap = q.max_cycles or srv.max_cycles
+        if plan.wedge(q.uid):
+            kinds.add("wedged")
+            assert r.status == ("truncated" if q.max_cycles else "wedged")
+        feeds = q.feeds
+        if plan.poisoned(q.uid):
+            kinds.add("poisoned")
+            feeds = FaultPlan(seed=7, poison_rate=0.15).poison(feeds, q.uid)
+        want = run_reference(bench.graph, feeds, max_cycles=cap)
+        assert_same_result(r.engine, want, q.uid, dispatches=False)
+        np.testing.assert_array_equal(
+            r.engine.node_fires, solo.run(feeds, max_cycles=cap).node_fires)
+    assert kinds == {"wedged", "poisoned"}
+    for clock in ("block", "wall"):
+        assert validate_chrome(tr.to_chrome(clock))["uids"] == len(reqs)
+    snap = mr.snapshot()
+    validate_snapshot(snap)
+    retries = sum(v for k, v in snap["counters"].items()
+                  if k.startswith("dispatch_retries"))
+    assert retries == sum(e[0] == "dispatch-transient" for e in plan.log) > 0
+
+
+def test_persistent_fault_on_card(cuda):
+    """chip_smoke.py phase 5b (c) at a small size: a persistent injected
+    fault answers the residents with a typed error, the run returns, and
+    a compile fault raises from the constructor."""
+    from repro_torch.serve.faults import (CompileFault, DispatchFault,
+                                          FaultPlan)
+    bench = _bench("dot_prod")
+    feeds = [library.random_feeds("dot_prod", bench, 2 + 9 * i,
+                                  np.random.default_rng(i))
+             for i in range(16)]
+    srv = DataflowServer(bench.graph, slots=4, block_cycles=16, device=cuda,
+                         faults=FaultPlan(persistent_backends={"cuda"},
+                                          persistent_from_block=3))
+    got = srv.run(feeds)
+    assert [r.uid for r in got] == list(range(1, 17)) and srv.block == 3
+    statuses = {r.status for r in got}
+    assert statuses == {"ok", "error"}
+    for r, f in zip(got, feeds):
+        if r.status == "ok":
+            assert r.metrics.finished_block <= 3
+            assert_same_result(r.engine, run_reference(bench.graph, f),
+                               r.uid, dispatches=False)
+        else:
+            assert isinstance(r.error, DispatchFault)
+            assert r.metrics.retries == srv.max_retries
+    with pytest.raises(CompileFault):
+        DataflowServer(bench.graph, slots=4, device=cuda,
+                       faults=FaultPlan(compile_fail={"cuda"}))
+
 
 # ---------------------------------------------------------------------------
 # the LM kernels (flash attention, RMSNorm) and the LM serving engine

@@ -42,11 +42,11 @@ def _check(got, want, tag):
 
 
 def _jax_metrics(m):
-    """The JAX server's RequestMetrics as a dict, without the fault
-    fields (``degraded``, ``retries``) the port has no counterpart of;
-    a fault-free run leaves them at their defaults."""
+    """The JAX server's RequestMetrics as a dict, without ``degraded``
+    (the port's server has no degradation chain; a fault-free run leaves
+    it at its default).  ``retries`` stays and is compared as a field."""
     d = dataclasses.asdict(m)
-    assert (d.pop("degraded"), d.pop("retries")) == (False, 0), d
+    assert d.pop("degraded") is False, d
     return d
 
 
