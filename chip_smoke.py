@@ -123,6 +123,26 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              the garbage collector.  The checks of the two hardened runs
              (their solo runs and replays) come after phase 5's sampled
              checks, once the launch counts are read;
+5c. traced programs — the ten traced benches of the library (torch
+             programs through ``repro_torch.front``) traced on the card's
+             torch, each held to the asm digest the CPU tests pin, with
+             each trace's seconds; ``dot_prod_traced`` at phase 5's
+             deployment (1024 slots, K = 64, the same 2048 requests),
+             plain and optimized+profiled, every request against
+             Bench.reference and every request that ran to the end equal
+             in value and token count to phase 5's hand-built result (the
+             truncated ones stop at the same 500-cycle budget with fewer
+             tokens out of the deeper chain; 4 of them against
+             run_reference); ``DataflowServer.for_fn(gcd)`` at 1024
+             slots, K = 64: 4096 ``submit_args`` requests (uniform in
+             [1, 1024]) equal to ``math.gcd`` and 8 that never quiesce,
+             truncated at 4096 cycles with nothing left busy, 64 sampled
+             results against a solo ``run_reference`` in every field;
+             the other eight benches through ``compile_fn`` (int32 on
+             ``"cuda"``, plain and spec+profiled; ``newton_sqrt`` on
+             ``"torch"``) against ``run_reference`` bit for bit; rows
+             1-5 must each launch here.  The sampled checks come after
+             the counts are read;
 6. trace   — the optimized, profiled dot_prod serving runs again under
              ``torch.profiler`` (CPU and CUDA), dynamic and scheduled:
              busy time and idle share;
@@ -161,13 +181,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 9. summary — the ``kernels`` JSON line, the card, and the result line.
 
 The launch counts in the summary come from the main paths alone: every
-count is set to 0 just before phase 4 and read after phase 5b's
-serving runs (phase 4b's compile routes included), before phase 5's
-sampled checks and phase 5b's checks (the fabric's rows 1-8), and set
+count is set to 0 just before phase 4 and read after phase 5c's
+runs (phase 4b's compile routes included), before phase 5's sampled
+checks and phase 5b's and 5c's checks (the fabric's rows 1-8), and set
 to 0 again just
 before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
-rows 1-8's per variant come from phases 4-5b).  The
+rows 1-8's per variant come from phases 4-5c).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
@@ -548,7 +568,7 @@ def phase_kernel(dev) -> dict:
                                      random_block_inputs, random_graph,
                                      random_prof)
     err = dict.fromkeys(ROWS, 0)
-    for name, build in library.BENCHES.items():
+    for name, build in library.HAND_BUILT.items():
         g = build().graph
         for opt in (False, True):
             tables = df.block_plan_arrays(g, optimize=opt)
@@ -632,7 +652,7 @@ def sched_benches() -> dict:
     """The benches a static schedule can run (all but fibonacci)."""
     from repro_torch.core import library
     from repro_torch.core.schedule import schedulable
-    return {n: b for n, b in library.BENCHES.items()
+    return {n: b for n, b in library.HAND_BUILT.items()
             if schedulable(b().graph)}
 
 
@@ -1457,7 +1477,7 @@ def hold_engine(got, want, tag, profile, same_window) -> None:
 def phase_engine(dev):
     from repro_torch.core import library
     from repro_torch.core.engine import DataflowEngine, run_reference
-    for name, build in library.BENCHES.items():
+    for name, build in library.HAND_BUILT.items():
         bench = build()
         feeds = [library.random_feeds(name, bench, 1 + 3 * b,
                                       np.random.default_rng(b))
@@ -1520,7 +1540,7 @@ def phase_passes(dev):
     from repro_torch.core import library
     from repro_torch.core.engine import DataflowEngine, run_reference
     from repro_torch.core.passes import optimize_graph
-    for name, build in library.BENCHES.items():
+    for name, build in library.HAND_BUILT.items():
         bench = build()
         g, rep = optimize_graph(bench.graph)
         eng = DataflowEngine(g, block_cycles=16, device=dev, optimize=True,
@@ -1561,7 +1581,7 @@ def phase_run_fabric(dev) -> dict:
         return float(np.median(ts)) * 1e6
 
     table = {}
-    for name, build in library.BENCHES.items():
+    for name, build in library.HAND_BUILT.items():
         bench = build()
         k = 20 if name == "fibonacci" else 8
         feeds = library.random_feeds(name, bench, k, np.random.default_rng(0))
@@ -1701,7 +1721,7 @@ def phase_compile_benches(dev) -> dict:
     grew = {k: {r: 0 for r in v} for k, v in rows_of.items()}
     n_runs = 0
     t0 = time.perf_counter()
-    for name, build in library.BENCHES.items():
+    for name, build in library.HAND_BUILT.items():
         bench = build()
         feeds = [library.random_feeds(name, bench, 16,
                                       np.random.default_rng(s))
@@ -1804,7 +1824,7 @@ def phase_compile_dtypes(dev) -> dict:
                       ("float32", (4,))):
         dt = np.dtype(dtype)
         fabrics = []
-        for name, build in library.BENCHES.items():
+        for name, build in library.HAND_BUILT.items():
             bench = build()
             fabrics.append((bench.graph, [library.random_feeds(
                 name, bench, 16, np.random.default_rng(s)) for s in range(2)]))
@@ -2010,6 +2030,9 @@ def time_slot_api(engine) -> tuple[dict, list]:
 def expected_last(name, bench, feeds):
     """Bench.reference on a request's last input vector: the last value
     each output arc must drain."""
+    if name == "dot_prod_traced":       # in0..in31 are a, in32..in63 b
+        v = np.stack([feeds[f"in{i}"][-1:] for i in range(64)], 1)
+        return np.atleast_1d(bench.reference(v[:, :32], v[:, 32:])[-1])
     if name == "dot_prod":
         a = np.stack([feeds[f"a{i}"][-1:] for i in range(32)], 1)
         b = np.stack([feeds[f"b{i}"][-1:] for i in range(32)], 1)
@@ -2589,6 +2612,259 @@ def check_phase_hardened(dev, bench, out, runs, want, want_blocks) -> None:
                                        schedule=schedule))
     out["check_seconds"] = time.perf_counter() - t0
     log(f"  dot_prod hardened: {json.dumps(out)}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: traced programs
+# ---------------------------------------------------------------------------
+GCD_REQUESTS = 4096     # submit_args(a, b), a and b uniform in [1, 1024]
+GCD_DIVERGENT = 8       # (0, b): never quiesces, capped at 4096 cycles
+DIVERGENT_CAP = 4096
+GCD_SAMPLE = 64         # results held against a solo run_reference
+BLOCK_ROWS = ("fire_block", "fire_block_prof", "fire_block_batched",
+              "fire_block_batched_prof", "fire_block_spec")
+
+
+def row_deltas(before) -> dict:
+    """Launches per fire-block row (rows 1-5) since ``before``."""
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in BLOCK_ROWS}
+
+
+def trace_benches() -> tuple[dict, dict]:
+    """Every traced bench of the library, traced on this torch and held
+    to the digest pinned from the CPU tests' torch; the seconds of each
+    trace (the first pays the capture's own imports)."""
+    from repro_torch.core import library
+    from repro_torch.testing import TRACED_ASM_SHA256, asm_sha256
+    benches, secs = {}, {}
+    for name, build in library.TRACED.items():
+        t0 = time.perf_counter()
+        bench = build()
+        secs[name] = time.perf_counter() - t0
+        digest = asm_sha256(bench.graph)
+        check(digest == TRACED_ASM_SHA256[name],
+              f"{name}: this torch traced another fabric (sha256 {digest}, "
+              f"pinned {TRACED_ASM_SHA256[name]})")
+        benches[name] = bench
+    log(f"  traced {len(benches)} benches, every asm digest as pinned; "
+        f"seconds: {json.dumps({k: round(v, 3) for k, v in secs.items()})}")
+    return benches, secs
+
+
+def same_as_hand_built(traced, hand, out_arc, what) -> int:
+    """The traced dot_prod deployment answered every request as phase 5's
+    hand-built one: status, and for every request that ran to the end
+    the drained value and token count.  A truncated request stops at the
+    same 500-cycle budget in both, with fewer tokens out of the traced
+    fabric's deeper chain; it is held against run_reference by
+    check_sampled instead."""
+    check(len(traced) == len(hand), f"{what}: the runs answered "
+          "differently")
+    done = 0
+    for t, h in zip(traced, hand):
+        check(t.uid == h.uid and t.status == h.status, f"{what}: {t.uid}")
+        if t.status == "truncated":
+            check(t.engine.cycles == h.engine.cycles == 500,
+                  f"{what}: request {t.uid} budget")
+            continue
+        check(t.engine.counts[out_arc] == h.engine.counts["dot"],
+              f"{what}: request {t.uid}: token count")
+        check(int(t.engine.outputs[out_arc]) == int(h.engine.outputs["dot"]),
+              f"{what}: request {t.uid}: value")
+        done += 1
+    return done
+
+
+def phase_traced_dag(dev, bench, served, stats5, n_req=2048, slots=1024,
+                     max_len=4096):
+    """dot_prod_traced at phase 5's deployment, plain and optimized +
+    profiled: every result against Bench.reference (phase_serving) and
+    against phase 5's hand-built results of the same uid."""
+    reqs, lens = serving_workload("dot_prod_traced", bench, n_req, seed=0,
+                                  max_len=max_len)
+    out, runs = {}, []
+    for key, opt, prof in (("dot_prod", False, False),
+                           ("dot_prod_opt_prof", True, True)):
+        before = launch_counts()
+        stats, results, cap, blocks = phase_serving(
+            dev, "dot_prod_traced", bench, slots, reqs, lens, opt, prof)
+        stats["launches_by_row"] = row_deltas(before)
+        stats["ran_to_end_equal_to_hand_built"] = same_as_hand_built(
+            results, served[key][0], bench.out_arc,
+            f"traced {key} vs phase 5")
+        stats["hand_built_wall_s"] = stats5[key]["wall_s"]
+        stats["hand_built_req_per_s"] = stats5[key]["req_per_s"]
+        out[key] = stats
+        runs.append((reqs, results, cap, blocks, opt, prof))
+        log(f"  dot_prod_traced {key}: wall {stats['wall_s']:.3f} s, "
+            f"{stats['req_per_s']:.1f} req/s (hand-built "
+            f"{stats5[key]['wall_s']:.3f} s, "
+            f"{stats5[key]['req_per_s']:.1f} req/s); "
+            f"{stats['ran_to_end_equal_to_hand_built']} results equal to "
+            f"the hand-built ones; launches {stats['launches_by_row']}")
+    return out, runs
+
+
+def phase_traced_gcd(dev, bench, n_req=GCD_REQUESTS, slots=1024):
+    """A loop deployment: DataflowServer.for_fn(gcd) at 1024 slots, K =
+    64, 4096 submit_args requests and 8 that never quiesce."""
+    import math
+    import torch
+    from repro_torch.serve.dataflow_server import DataflowServer
+    from repro_torch.serve.types import Request
+    fn, avals, kw = bench.program
+    t0 = time.perf_counter()
+    srv = DataflowServer.for_fn(fn, *avals, slots=slots, block_cycles=64,
+                                device=dev, **kw)
+    trace_s = time.perf_counter() - t0
+    ab = np.random.default_rng(7).integers(1, 1025, (n_req, 2))
+    bad_b = np.random.default_rng(8).integers(1, 1025, GCD_DIVERGENT)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    bad = []
+    for j, b in enumerate(bad_b[:GCD_DIVERGENT // 2]):
+        bad.append(srv.submit(Request(
+            uid=n_req + 1 + j, feeds=srv.make_feeds(0, int(b)),
+            max_cycles=DIVERGENT_CAP)))
+    uids = [srv.submit_args(int(a), int(b)) for a, b in ab]
+    for j, b in enumerate(bad_b[GCD_DIVERGENT // 2:], GCD_DIVERGENT // 2):
+        bad.append(srv.submit(Request(
+            uid=n_req + 1 + j, feeds=srv.make_feeds(0, int(b)),
+            max_cycles=DIVERGENT_CAP)))
+    results = {r.uid: r for r in srv.drain()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = row_deltas(before)
+    check(len(results) == n_req + GCD_DIVERGENT, "gcd: a request got no "
+          "result")
+    check(srv.pending == 0 and not bool(srv.state.active.any()),
+          "gcd: the queue or a slot is left busy")
+    out_arc = srv.traced.out_arc
+    for uid, (a, b) in zip(uids, ab):
+        r = results[uid]
+        check(r.status == "ok" and not r.metrics.truncated,
+              f"gcd request {uid}: {r.status}")
+        check(r.engine.counts[out_arc] == 1 and
+              int(r.engine.outputs[out_arc]) == math.gcd(int(a), int(b)),
+              f"gcd({a}, {b}) request {uid}")
+    for uid in bad:
+        r = results[uid]
+        check(r.status == "truncated" and r.metrics.truncated
+              and r.engine.cycles == DIVERGENT_CAP,
+              f"divergent request {uid}: {r.status}, {r.engine.cycles}")
+    check(launches["fire_block_batched"] == srv.block,
+          f"gcd: {srv.block} blocks, {launches['fire_block_batched']} "
+          "batched launches")
+    cyc = np.array([results[u].engine.cycles for u in uids])
+    res = np.array([results[u].metrics.residency_blocks for u in uids])
+    stats = dict(requests=n_req, divergent=GCD_DIVERGENT, slots=slots,
+                 block_cycles=64, blocks=srv.block, wall_s=wall,
+                 req_per_s=(n_req + GCD_DIVERGENT) / wall,
+                 trace_s=trace_s, launches_by_row=launches,
+                 cycles={"min": int(cyc.min()),
+                         "p50": float(np.percentile(cyc, 50)),
+                         "p99": float(np.percentile(cyc, 99)),
+                         "max": int(cyc.max())},
+                 longest_rode_blocks=int(res.max()),
+                 divergent_rode_blocks=[
+                     results[u].metrics.residency_blocks for u in bad],
+                 card=card_line())
+    log(f"  gcd for_fn: {json.dumps(stats)}")
+    return stats, (srv, ab, uids, results)
+
+
+def check_traced_gcd(dev, bench, run) -> float:
+    """64 sampled gcd results against a solo run_reference and a solo
+    engine run, every EngineResult field (after the counts are read)."""
+    from repro_torch.core.engine import run_reference
+    from repro_torch.testing import assert_same_result
+    srv, ab, uids, results = run
+    t0 = time.perf_counter()
+    pick = np.random.default_rng(2).choice(len(uids), GCD_SAMPLE,
+                                           replace=False)
+    for i in pick:
+        a, b = (int(v) for v in ab[i])
+        feeds = srv.make_feeds(a, b)
+        r = results[uids[i]]
+        assert_same_result(r.engine, run_reference(bench.graph, feeds),
+                           ("gcd sample", a, b), dispatches=False)
+        assert_same_result(r.engine, srv.engine.run(feeds),
+                           ("gcd solo", a, b), dispatches=False)
+    secs = time.perf_counter() - t0
+    log(f"  gcd: {GCD_SAMPLE} sampled results == run_reference and a solo "
+        f"run in every field ({secs:.1f} s)")
+    return secs
+
+
+def phase_traced_rest(dev, benches) -> dict:
+    """The other eight benches once each through compile_fn on the card
+    (int32 on "cuda", plain and optimized + profiled; newton_sqrt on
+    "torch"), every field against run_reference bit for bit."""
+    from repro_torch.core import library
+    from repro_torch.core.compile import compile_fn
+    from repro_torch.core.engine import run_reference
+    from repro_torch.testing import assert_same_result
+    out = {}
+    for name, bench in benches.items():
+        if name in ("dot_prod_traced", "gcd"):
+            continue
+        fn, avals, kw = bench.program
+        k = 40 if name in library.SINGLE_SHOT else 64
+        feeds = library.random_feeds(name, bench, k,
+                                     np.random.default_rng(3))
+        want = run_reference(bench.graph, feeds, dtype=bench.dtype)
+        routes = (("torch", False, False),) if bench.dtype != np.int32 \
+            else (("cuda", False, False), ("cuda", "spec", True))
+        for backend, opt, prof in routes:
+            t0 = time.perf_counter()
+            run = compile_fn(fn, *avals, backend=backend, block_cycles=64,
+                             optimize=opt, profile=prof, device=dev, **kw)
+            got = run(feeds)
+            assert_same_result(got, want, (name, backend, opt),
+                               dispatches=False)
+            out[f"{name}/{backend}" + ("/spec+prof" if prof else "")] = \
+                dict(cycles=int(got.cycles), fired=int(got.fired),
+                     seconds=time.perf_counter() - t0)
+    log(f"  compile_fn on the card == run_reference bit for bit: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def phase_traced(dev, served, stats5, small=None):
+    """Phase 5c: traced programs on the card's main path.  Returns the
+    summary and what check_phase_traced replays once the counts are
+    read.  ``small`` (a CPU rehearsal) is ``(dag kwargs, gcd kwargs)``
+    of smaller deployments."""
+    dag_kw, gcd_kw = small or ({}, {})
+    t0 = time.perf_counter()
+    before = launch_counts()
+    benches, secs = trace_benches()
+    out = {"trace_s": secs}
+    out["dag"], dag_runs = phase_traced_dag(
+        dev, benches["dot_prod_traced"], served, stats5, **dag_kw)
+    out["gcd"], gcd_run = phase_traced_gcd(dev, benches["gcd"], **gcd_kw)
+    out["compile_fn"] = phase_traced_rest(dev, benches)
+    out["launches_by_row"] = row_deltas(before)
+    for k in BLOCK_ROWS:
+        check(out["launches_by_row"][k] > 0,
+              f"{k} was never launched by the traced programs")
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card_line()
+    log(f"  phase 5c: launches by row {json.dumps(out['launches_by_row'])}")
+    return out, (benches, dag_runs, gcd_run)
+
+
+def check_phase_traced(dev, out, runs) -> None:
+    """Phase 5c's sampled checks (their solo runs and replays go through
+    the counted wrappers, so they come after the counts are read)."""
+    benches, dag_runs, gcd_run = runs
+    t0 = time.perf_counter()
+    for reqs, results, cap, blocks, opt, prof in dag_runs:
+        check_sampled(dev, benches["dot_prod_traced"], reqs, results, cap,
+                      blocks, optimize=opt, profile=prof)
+    check_traced_gcd(dev, benches["gcd"], gcd_run)
+    out["check_seconds"] = time.perf_counter() - t0
 
 
 # ---------------------------------------------------------------------------
@@ -3511,8 +3787,12 @@ def main() -> int:
     log(f"  phase 5b's serving runs done at "
         f"{time.perf_counter() - t_start:.1f} s "
         f"({hardened['seconds']:.1f} s)")
+    log("== phase 5c: traced programs (counts go on)")
+    traced, traced_runs = phase_traced(dev, served, serve)
+    log(f"  phase 5c's runs done at {time.perf_counter() - t_start:.1f} s "
+        f"({traced['seconds']:.1f} s)")
     launches = launch_counts()
-    log(f"  main-path launches (phases 4-5b): "
+    log(f"  main-path launches (phases 4-5c): "
         f"{json.dumps({k: launches[k] for k in ROWS})}; fire block by "
         f"variant {json.dumps(launches['fire_block_by'])}")
     for k in ROWS:
@@ -3536,7 +3816,9 @@ def main() -> int:
                          served["dot_prod_opt_prof"][0],
                          served["dot_prod_opt_prof"][2])
     log(f"  phase 5b's checks took {hardened['check_seconds']:.1f} s")
-    del served, bub_reqs, hardened_runs
+    check_phase_traced(dev, traced, traced_runs)
+    log(f"  phase 5c's checks took {traced['check_seconds']:.1f} s")
+    del served, bub_reqs, hardened_runs, traced_runs
     log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 6: traces of the optimized, profiled dot_prod serving runs")
@@ -3611,6 +3893,7 @@ def main() -> int:
         check(ok, f"{k['name']} disagrees with plain beyond its tolerance")
     log(json.dumps({"serving": serve}))
     log(json.dumps({"hardened_serving": hardened}))
+    log(json.dumps({"traced_programs": traced}))
     log(json.dumps({"lm_serving": lm_stats}, default=str))
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"table1_us_per_cycle": table1}))

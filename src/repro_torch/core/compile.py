@@ -347,3 +347,43 @@ def compile_graph(graph: Graph, token_shape=(), dtype=np.int32,
     return compile(graph, token_shape, dtype, max_cycles, backend,
                    block_cycles, optimize, profile, partition,
                    device=device)
+
+
+def compile_fn(fn, *avals, backend: str = "cuda", block_cycles: int = 16,
+               optimize=False, max_cycles: int = 100_000,
+               name: str | None = None, const_args: dict | None = None,
+               profile: bool = False, device="cuda"):
+    """Trace a scalar torch program (:func:`repro_torch.front.trace`) and
+    hand the synthesized fabric to :func:`compile` in one step.
+
+    The fabric is routed through the :class:`GraphTraits` probe like
+    any other graph, so a traced program that needs token-presence
+    semantics (loops, ``torch.where`` control, initial tokens) either
+    gets an executor that provides them (the default ``backend="cuda"``
+    engine and ``"auto"`` both do) or a precise error naming the
+    blocking trait — never a silently-lockstep compilation.  The
+    execution dtype is the avals' common dtype; ``"cuda"`` runs int32
+    only and raises for another, naming ``backend="torch"``.
+
+    Returns the executor callable with the frontend bookkeeping
+    attached: ``run.make_feeds(*streams)`` is the positional feed
+    adapter, ``run.out_arcs`` the result arcs in return order,
+    ``run.traced`` the :class:`~repro_torch.front.TracedProgram` as
+    authored (``run.graph`` is the post-rewrite fabric when
+    ``optimize`` folds it)::
+
+        run = compile_fn(lambda x, y: torch.where(x > y, x - y, y - x),
+                         np.int32, np.int32, optimize="full")
+        res = run(run.make_feeds([5, 1], [2, 9]))
+        res.outputs[run.out_arcs[0]]        # -> 8 (last token)
+    """
+    from repro_torch.front import trace
+    prog = trace(fn, *avals, name=name, const_args=const_args)
+    run = compile(prog, token_shape=(), dtype=prog.dtype,
+                  max_cycles=max_cycles, backend=backend,
+                  block_cycles=block_cycles, optimize=optimize,
+                  profile=profile, device=device)
+    run.traced = prog
+    run.make_feeds = prog.make_feeds
+    run.out_arcs = list(prog.out_arcs)
+    return run

@@ -277,6 +277,45 @@ class DataflowServer:
         runs on no other)."""
         return self.engine.backend
 
+    @classmethod
+    def for_fn(cls, fn, *avals, const_args=None, name=None,
+               **server_kw) -> "DataflowServer":
+        """Serve a traced Python program: lower ``fn`` through the
+        :mod:`repro_torch.front` frontend and build the server on the
+        synthesized fabric.  A traced program is just another asm
+        signature to the engine cache, so structurally equal traces
+        (across servers, across processes re-tracing the same source)
+        share one engine.  The program's positional feed adapter rides
+        along as ``server.make_feeds``, the program as ``server.traced``::
+
+            srv = DataflowServer.for_fn(
+                lambda x, y: torch.where(x > y, x - y, y - x),
+                np.int32, np.int32, slots=8)
+            srv.submit(srv.make_feeds([5, 1], [2, 9]))
+
+        The trace runs once, here, before the first request.
+        """
+        from repro_torch.front import trace
+        prog = trace(fn, *avals, name=name, const_args=const_args)
+        srv = cls(prog, **server_kw)
+        srv.traced = prog
+        srv.make_feeds = prog.make_feeds
+        return srv
+
+    def submit_args(self, *args) -> int:
+        """Submit one *evaluation* of a traced program (``for_fn``
+        servers): ``make_feeds(*args)`` + ``submit`` in one step.  This
+        is the natural request shape for loop fabrics (DESIGN.md §10):
+        one initiation per request, data-dependent trip count inside
+        the slot, per-slot quiescence detection ending it — requests
+        that never quiesce are force-harvested at their cycle cap with
+        ``metrics.truncated`` set."""
+        if not hasattr(self, "make_feeds"):
+            raise AttributeError(
+                "submit_args needs a server built by for_fn (only "
+                "traced programs carry a positional feed adapter)")
+        return self.submit(self.make_feeds(*args))
+
     # -- admission ------------------------------------------------------
     def submit(self, request):
         """Enqueue a request (a :class:`Request` or a bare feeds dict);

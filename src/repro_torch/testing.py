@@ -25,6 +25,42 @@ EDGE_VALS_BY_DTYPE = {
 # where numpy's and torch's exp2 agree bit for bit (ROADMAP C8)
 FLOAT_SHIFTS = np.asarray([-149, -126, -13, -1, 0, 1, 13, 126], np.float32)
 
+# sha256 of asm.emit of each traced bench of core/library.py, as torch
+# 2.13's capture builds it (the same text as the JAX package's fabric):
+# the CPU tests and chip_smoke.py hold every trace to these, so a capture
+# that drifts with the torch version fails instead of running another
+# fabric
+TRACED_ASM_SHA256 = {
+    "dot_prod_traced":
+        "9a3d8b22c3f0cc8770e5410028d657d80b267201f59799fcaeca42bacfde83fa",
+    "pop_count_traced":
+        "a988a747b970d3f016372ae09841e2590c8207e8996f7babf942c2d2f865e516",
+    "fir_traced":
+        "ae4e0ce258fa21c5787dfbcbb9993fb3464cb6f8ba337d3b35853e1319350449",
+    "horner":
+        "4e39a2fa4899ee4bca78059d133fa71592edd6c6a18b4e0be2a4c0bb30f442c9",
+    "saxpy":
+        "f6eb5c2ce6ad564773f1319e4db54b82fc7119fadd531b78bef41304d779198e",
+    "relu_chain":
+        "a028b8d40f645dae97c07b50ca6fc5b3bfa5a4c00a41e80fd80218ca99d3ccaa",
+    "gcd":
+        "48651efbe7d9105cee124560ce0d8c23f69c12a32490391bec3fb9f5fe44f9c0",
+    "fib":
+        "ba15c3fead66ad04eead3cc38b15be9760cfa52ac1987f8492e43a0136b6e303",
+    "newton_sqrt":
+        "1ef6dd67ded2ee00b6ddcb2e1c130f264385d736545fadbb7954bfbd64483286",
+    "horner_loop":
+        "7f4b82a81aa73c11a0e0378dd6eaa973263e446da6d449f7dbac207032721b8b",
+}
+
+
+def asm_sha256(graph) -> str:
+    """The digest :data:`TRACED_ASM_SHA256` pins: sha256 of asm.emit."""
+    import hashlib
+    from repro_torch.core import asm
+    return hashlib.sha256(asm.emit(graph).encode()).hexdigest()
+
+
 STATE_KEYS = ("full", "val", "ptr", "out_last", "out_count")
 PROFILE_ARRAYS = ("node_fires", "stall_in", "stall_out", "arc_busy",
                   "arc_hw")

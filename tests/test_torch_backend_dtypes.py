@@ -22,7 +22,7 @@ from repro_torch.core.engine import DataflowEngine  # noqa: E402
 from repro_torch.core.engine import run_reference  # noqa: E402
 from repro_torch.testing import assert_same_result  # noqa: E402
 
-NAMES = sorted(tlib.BENCHES)
+NAMES = sorted(tlib.HAND_BUILT)
 K = 4
 LANES = 4
 # (dtype, bench) pairs with a float shift count of 13 or more (C8)

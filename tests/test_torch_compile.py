@@ -31,7 +31,7 @@ from repro_torch.core.graph import Graph, Op  # noqa: E402
 from repro_torch.testing import (assert_same_result,  # noqa: E402
                                  random_graph, tokens_equal)
 
-NAMES = sorted(tlib.BENCHES)
+NAMES = sorted(tlib.HAND_BUILT)
 DAG_NAMES = [n for n in NAMES if n != "fibonacci"]
 LEVELS = [False, "spec", "full", "sched"]
 RANDOM_SEEDS = range(12)

@@ -22,7 +22,7 @@ from repro_torch.core.engine import run_reference  # noqa: E402
 from repro_torch.testing import assert_same_result  # noqa: E402
 
 KS = [1, 4, 16]
-NAMES = sorted(tlib.BENCHES)
+NAMES = sorted(tlib.HAND_BUILT)
 
 
 def _bench(lib, name):

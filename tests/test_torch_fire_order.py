@@ -32,7 +32,7 @@ from repro_torch.kernels import dataflow_fire as tdf  # noqa: E402
 from repro_torch.testing import (STATE_KEYS, random_block_inputs,  # noqa: E402
                                  random_graph, random_prof)
 
-BENCHES = sorted(tlib.BENCHES)
+BENCHES = sorted(tlib.HAND_BUILT)
 CHUNK = tdf.STAGE_CYCLES
 # K of a block: 1, 2, 16, 64 cycles and one past the staging chunk
 KS = (1, 2, 16, 64, CHUNK + 1)

@@ -28,7 +28,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.testing import (assert_same_result,  # noqa: E402
                                  random_block_inputs, random_graph)
 
-NAMES = sorted(tlib.BENCHES)
+NAMES = sorted(tlib.HAND_BUILT)
 
 
 def _jax_tables(jg):

@@ -29,7 +29,7 @@ from repro_torch.testing import (STATE_KEYS,  # noqa: E402
                                  random_sched_slot_inputs)
 
 pytestmark = pytest.mark.gpu
-SCHED_BENCHES = sorted(n for n, b in library.BENCHES.items()
+SCHED_BENCHES = sorted(n for n, b in library.HAND_BUILT.items()
                        if schedulable(b().graph))
 
 
@@ -44,7 +44,7 @@ def _bench(name):
     return library.BENCHES[name]()
 
 
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_kernel_matches_plain(cuda, name):
     tables = df.block_plan_arrays(_bench(name).graph)
     dt = df.device_tables(tables, cuda)
@@ -91,7 +91,7 @@ def test_kernel_rejects_bad_arguments(cuda):
                                    n_cycles=4)
 
 
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_engine_matches_reference(cuda, name):
     bench = _bench(name)
     feeds = [library.random_feeds(name, bench, 1 + b % 5,
@@ -144,7 +144,7 @@ def _assert_equal(got, want):
 
 
 @pytest.mark.parametrize("optimize", [False, True])
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_profiled_and_spec_kernels_match_plain(cuda, name, optimize):
     """The profiled instantiation (random counters in, parked streams
     keep theirs) and, on an optimized plan, the spec instantiation,
@@ -282,7 +282,7 @@ def test_launches_by_counts_the_variant_that_ran(cuda):
     assert df.fire_block_batched_cuda.launches_by == n
 
 
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_fire_step_kernel_matches_plain(cuda, name):
     tables = df.block_plan_arrays(_bench(name).graph)
     dt = df.device_tables(tables, cuda)
@@ -296,7 +296,7 @@ def test_fire_step_kernel_matches_plain(cuda, name):
         _assert_equal(got, df.fire_step(dt, full, val))
 
 
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_optimized_profiled_engine_matches_reference(cuda, name):
     bench = _bench(name)
     feeds = [library.random_feeds(name, bench, 1 + b % 5,
@@ -315,7 +315,7 @@ def test_optimized_profiled_engine_matches_reference(cuda, name):
             g.profile.check()
 
 
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_run_fabric_matches_reference(cuda, name):
     bench = _bench(name)
     feeds = library.random_feeds(name, bench, 4, np.random.default_rng(2))
@@ -673,7 +673,7 @@ def test_slot_plan_by_width_slots_and_k(cuda):
     assert ksf.sched_slot_step_cuda.launches_by["cta"] == by["cta"] + 1
 
 
-@pytest.mark.parametrize("name", sorted(library.BENCHES))
+@pytest.mark.parametrize("name", sorted(library.HAND_BUILT))
 def test_fire_step_variants_match_plain(cuda, name):
     """Both fire-step variants and the warp order's replay against the
     plain fire step on random registers."""
@@ -1332,3 +1332,61 @@ def test_compile_cuda_launches_the_kernels(cuda):
     after = (one.prof_launches, one.spec_launches, bat.prof_launches,
              bat.spec_launches)
     assert all(x > y for x, y in zip(after, counts)), (counts, after)
+
+
+# ---------------------------------------------------------------------------
+# traced programs (repro_torch.front) on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", sorted(library.TRACED))
+def test_traced_digest_on_the_cards_torch(cuda, name):
+    """This machine's torch traces the fabric the CPU tests pinned."""
+    from repro_torch.testing import TRACED_ASM_SHA256, asm_sha256
+    assert asm_sha256(library.BENCHES[name]().graph) == \
+        TRACED_ASM_SHA256[name]
+
+
+def test_traced_gcd_served_on_card(cuda):
+    """DataflowServer.for_fn(gcd) on the card: every result is math.gcd,
+    sampled ones equal a solo run_reference in every field, and each
+    block is one batched fire-block launch."""
+    import math
+    bench = library.gcd_graph()
+    fn, avals, kw = bench.program
+    srv = DataflowServer.for_fn(fn, *avals, slots=64, block_cycles=64,
+                                device=cuda, **kw)
+    ab = np.random.default_rng(7).integers(1, 257, (200, 2))
+    n0 = df.fire_block_batched_cuda.launches
+    uids = [srv.submit_args(int(a), int(b)) for a, b in ab]
+    res = {r.uid: r for r in srv.drain()}
+    assert df.fire_block_batched_cuda.launches - n0 == srv.block
+    out = srv.traced.out_arc
+    for uid, (a, b) in zip(uids, ab):
+        r = res[uid]
+        assert r.status == "ok"
+        assert int(r.engine.outputs[out]) == math.gcd(int(a), int(b))
+    for i in range(0, 200, 13):
+        a, b = (int(v) for v in ab[i])
+        assert_same_result(res[uids[i]].engine,
+                           run_reference(bench.graph, srv.make_feeds(a, b)),
+                           (a, b), dispatches=False)
+
+
+def test_dot_prod_traced_on_cuda_matches_hand_built(cuda):
+    """compile_fn(..., backend="cuda") of dot_prod_traced drains the
+    hand-built dot_prod's values and token counts on the card."""
+    from repro_torch.core.compile import compile_fn
+    tb, hb = _bench("dot_prod_traced"), _bench("dot_prod")
+    fn, avals, kw = tb.program
+    run = compile_fn(fn, *avals, backend="cuda", block_cycles=64,
+                     device=cuda, **kw)
+    hand = DataflowEngine(hb.graph, block_cycles=64, device=cuda)
+    for seed, k in ((0, 1), (1, 33), (2, 300)):
+        ft = library.random_feeds("dot_prod_traced", tb, k,
+                                  np.random.default_rng(seed))
+        fh = library.random_feeds("dot_prod", hb, k,
+                                  np.random.default_rng(seed))
+        got, want = run(ft), hand.run(fh)
+        assert got.counts[run.out_arcs[0]] == want.counts["dot"] == k
+        assert int(got.outputs[run.out_arcs[0]]) == int(want.outputs["dot"])
+        assert_same_result(got, run_reference(tb.graph, ft), (seed, k),
+                           dispatches=False)

@@ -160,3 +160,46 @@ def test_lm_wrappers_on_cpu_tensors_build_and_launch_nothing(monkeypatch):
     assert ops.rmsnorm(q, torch.ones(16)).shape == q.shape
     assert (fa.flash_attention_cuda.launches,
             rn.rmsnorm_cuda.launches) == launches
+
+
+_TRACES_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None            # any import of jax now fails
+from repro_torch import front
+from repro_torch.front import adapter, lowering, tracer
+from repro_torch.core import library
+from repro_torch.testing import TRACED_ASM_SHA256, asm_sha256
+for name in ("gcd", "horner_loop", "relu_chain"):
+    bench = library.BENCHES[name]()
+    assert asm_sha256(bench.graph) == TRACED_ASM_SHA256[name], name
+bad = [m for m in sys.modules
+       if m.startswith("jax.") or m == "repro" or m.startswith("repro.")]
+assert sys.modules["jax"] is None and not bad, bad
+print("ok")
+"""
+
+
+def test_front_traces_loops_without_jax():
+    """The four front modules import, and capture a loop (torch's
+    while_loop goes through dynamo), with jax unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = subprocess.run([sys.executable, "-c", _TRACES_WITHOUT_JAX],
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "ok"
+
+
+def test_front_entry_points_without_cuda_raise(monkeypatch):
+    """compile_fn and for_fn run on the card unless asked for the CPU."""
+    from repro_torch.core.compile import compile_fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dataflow_server.clear_engine_cache()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        compile_fn(lambda x, y: x + y, np.int32, np.int32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        dataflow_server.DataflowServer.for_fn(lambda x: x * 3, np.int32)
+    run = compile_fn(lambda x, y: x + y, np.int32, np.int32, device="cpu")
+    assert int(run(run.make_feeds([1], [2])).outputs[run.out_arcs[0]]) == 3

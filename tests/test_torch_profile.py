@@ -39,7 +39,7 @@ from repro_torch.serve.types import Request  # noqa: E402
 from repro_torch.testing import (STATE_KEYS, assert_same_result,  # noqa: E402
                                  random_block_inputs, random_prof)
 
-NAMES = sorted(tlib.BENCHES)
+NAMES = sorted(tlib.HAND_BUILT)
 BLOCK_OUT = (*STATE_KEYS, "fired", "last_prog", "nf", "si", "so", "ab",
              "ahw")
 

@@ -28,7 +28,7 @@ from repro_torch.core.schedule import schedulable  # noqa: E402
 from repro_torch.kernels import schedule_fire as ksf  # noqa: E402
 from repro_torch.testing import edge_ints, every_cycle_sched  # noqa: E402
 
-SCHED_BENCHES = sorted(n for n, b in tlib.BENCHES.items()
+SCHED_BENCHES = sorted(n for n, b in tlib.HAND_BUILT.items()
                        if schedulable(b().graph))
 W = 4
 # stream lengths: 1, around the window, and odd past two windows

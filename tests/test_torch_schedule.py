@@ -105,7 +105,7 @@ def _same_contexts(jctx, tctx, tag):
 # ---------------------------------------------------------------------------
 # the schedulability gate
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("name", sorted(tlib.BENCHES))
+@pytest.mark.parametrize("name", sorted(tlib.HAND_BUILT))
 def test_schedule_blockers_match_jax(name):
     jg = jlib.BENCHES[name]().graph
     tg = tlib.BENCHES[name]().graph

@@ -45,7 +45,7 @@ from repro_torch.testing import (STATE_KEYS, edge_ints,  # noqa: E402
                                  random_block_inputs, random_graph,
                                  random_slot_window_inputs, slot_plans)
 
-SCHED_BENCHES = sorted(n for n, b in tlib.BENCHES.items()
+SCHED_BENCHES = sorted(n for n, b in tlib.HAND_BUILT.items()
                        if schedulable(b().graph))
 CAP = 4096
 
@@ -210,7 +210,7 @@ def _hold_warp_order(jg, tg, B, seed):
     return fired
 
 
-@pytest.mark.parametrize("name", sorted(tlib.BENCHES))
+@pytest.mark.parametrize("name", sorted(tlib.HAND_BUILT))
 def test_fire_step_warp_order_matches_pallas(name):
     jg, tg = jlib.BENCHES[name]().graph, tlib.BENCHES[name]().graph
     assert tdf.step_variant(tdf.block_plan_arrays(tg)) == "warp"
@@ -244,7 +244,7 @@ def test_step_variant_at_256_and_257_rows():
     assert small.step_variant == "warp"
 
 
-@pytest.mark.parametrize("name", sorted(tlib.BENCHES))
+@pytest.mark.parametrize("name", sorted(tlib.HAND_BUILT))
 def test_step_words_pack_the_step_tables(name):
     """Each packed node word unpacks to the row's operand offsets and
     opcode, each arc word to its producer, consumer and const flag; a
