@@ -143,6 +143,23 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              ``"torch"``) against ``run_reference`` bit for bit; rows
              1-5 must each launch here.  The sampled checks come after
              the counts are read;
+5d. sharded serving — phase 5's dot_prod deployment (1024 slots, K =
+             64, the same 2048 requests) with ``partition=2`` and ``4``,
+             dense and optimized+profiled: each block one launch of the
+             sharded block kernel (``mf_block_cuda``, one CTA per stream,
+             one warp per region), every request equal to phase 5's solo
+             result of the same uid in every field (outputs, counts,
+             cycles, fired, dispatches, node_fires, the node and arc
+             counters, every metric), the channel counters within their
+             bounds and each channel's pushes equal to its producer's
+             firings; walls, requests/s, blocks, launches and
+             ``reset_slots`` seconds beside phase 5's.  After the counts
+             are read: the kernel against its plain version bit for bit on
+             the slot state each run had after 8 heartbeats (B = 1, 8 and
+             1024; K = 1, 16, 64 and 65; counters off and on), its device
+             ms a block at each full state beside its bound, and one
+             partitioned ``"torch"`` ``run_batch`` in float32 (8 streams of
+             64 edge tokens) against ``run_reference``;
 6. trace   — the optimized, profiled dot_prod serving runs again under
              ``torch.profiler`` (CPU and CUDA), dynamic and scheduled:
              busy time and idle share;
@@ -178,12 +195,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              ``torch.profiler`` trace of 4 of its decode steps (naming
              the split and combine kernels), and a prompt holding ids
              outside the vocabulary;
-9. summary — the ``kernels`` JSON line, the card, and the result line.
+9. summary — the ``kernels`` JSON line (Pallas rows 1-10, and row 11, the
+             sharded block kernel, which replaces the JAX package's jnp
+             block ``MultiFabric._core_fn``), the card, and the result
+             line.
 
 The launch counts in the summary come from the main paths alone: every
-count is set to 0 just before phase 4 and read after phase 5c's
+count is set to 0 just before phase 4 and read after phase 5d's
 runs (phase 4b's compile routes included), before phase 5's sampled
-checks and phase 5b's and 5c's checks (the fabric's rows 1-8), and set
+checks and phase 5b's, 5c's and 5d's checks (the fabric's rows 1-8 and
+the sharded block, row 11), and set
 to 0 again just
 before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
@@ -288,6 +309,7 @@ def launch_counts() -> dict:
     (of either entry, profiled or not)."""
     from repro_torch.kernels import dataflow_fire as df
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import multifabric as kmf
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import schedule_fire as ksf
     one, bat = df.fire_block_cuda, df.fire_block_batched_cuda
@@ -306,14 +328,18 @@ def launch_counts() -> dict:
             "flash_attention": fa.flash_attention_cuda.launches,
             "flash_attention_by": dict(fa.flash_attention_cuda.launches_by),
             "rmsnorm": rn.rmsnorm_cuda.launches,
-            "rmsnorm_by": dict(rn.rmsnorm_cuda.launches_by)}
+            "rmsnorm_by": dict(rn.rmsnorm_cuda.launches_by),
+            "mf_block": kmf.mf_block_cuda.launches,
+            "mf_block_prof": kmf.mf_block_cuda.prof_launches}
 
 
 def reset_counts() -> None:
     from repro_torch.kernels import dataflow_fire as df
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import multifabric as kmf
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import schedule_fire as ksf
+    kmf.mf_block_cuda.launches = kmf.mf_block_cuda.prof_launches = 0
     for w in (df.fire_block_cuda, df.fire_block_batched_cuda):
         w.launches = w.prof_launches = w.spec_launches = 0
         w.launches_by = dict.fromkeys(df.VARIANTS, 0)
@@ -2042,18 +2068,22 @@ def expected_last(name, bench, feeds):
 
 
 def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
-                  profile=False, schedule=False):
+                  profile=False, schedule=False, partition=None,
+                  capture=None):
     """Serve the workload; check every result against Bench.reference
     (and, profiled, every profile's partition); return the stats, the
     results sorted by uid, the server's cap and the heartbeats' block
-    lengths."""
+    lengths.  ``partition`` serves it sharded (each block one launch of
+    the sharded block kernel); ``capture`` (a dict) receives a copy of
+    the slot state after the first 8 heartbeats, the state the main path
+    gives the kernel."""
     import torch
     from repro_torch.core import library
     from repro_torch.serve.dataflow_server import DataflowServer
     torch.cuda.reset_peak_memory_stats()
     srv = DataflowServer(bench.graph, slots=slots, block_cycles=64,
                          device=dev, optimize=optimize, profile=profile,
-                         schedule=schedule)
+                         schedule=schedule, partition=partition)
     check(srv.engine._sched_on == schedule, "the schedule flag was lost")
     host_s, blocks = time_slot_api(srv.engine)
     batched0 = launch_counts()
@@ -2064,6 +2094,10 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
     results = []
     for _ in range(8):
         results += srv.step()
+    if capture is not None:
+        t_cap = time.perf_counter()
+        capture.update(copy_slot_state(srv))
+        t0 += time.perf_counter() - t_cap    # the copy is not served time
     for r in reqs[half:]:
         srv.submit(r)
     results += srv.drain()
@@ -2073,7 +2107,8 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
         if k in host_s:
             delattr(srv.engine, k)          # back to the plain methods
     row = "sched_slot_step" if schedule else \
-        "fire_block_batched" + ("_prof" if profile else "")
+        ("mf_block" if partition else "fire_block_batched") \
+        + ("_prof" if profile else "")
     launches = launch_counts()[row] - batched0[row]
     if schedule:
         warp = launch_counts()["sched_slot_step_by"]["warp"] - \
@@ -2109,7 +2144,8 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
           f"{srv.block} server blocks but {launches} kernel launches")
     res = np.array([r.metrics.residency_blocks for r in results])
     stats = dict(requests=len(reqs), slots=slots, optimize=optimize,
-                 profile=profile, schedule=schedule, blocks=srv.block,
+                 profile=profile, schedule=schedule, partition=partition,
+                 blocks=srv.block,
                  launches=launches,
                  wall_s=wall, req_per_s=len(reqs) / wall,
                  tokens=int(lens.sum()), truncated=len(truncated),
@@ -2120,7 +2156,7 @@ def phase_serving(dev, name, bench, slots, reqs, lens, optimize=False,
                  seconds_in={k: round(v, 4) for k, v in host_s.items()},
                  card=card_line())
     log(f"  {bench.graph.name} optimize={optimize} profile={profile} "
-        f"schedule={schedule}: {json.dumps(stats)}")
+        f"schedule={schedule} partition={partition}: {json.dumps(stats)}")
     return stats, results, srv.max_cycles, blocks
 
 
@@ -2865,6 +2901,263 @@ def check_phase_traced(dev, out, runs) -> None:
                       blocks, optimize=opt, profile=prof)
     check_traced_gcd(dev, benches["gcd"], gcd_run)
     out["check_seconds"] = time.perf_counter() - t0
+
+
+# ---------------------------------------------------------------------------
+# phase 5d: sharded serving (partition=)
+# ---------------------------------------------------------------------------
+MF_SOURCE = "src/repro_torch/kernels/csrc/multifabric.cu"
+MF_REPLACES = "src/repro/core/multifabric.py:285"
+MF_STATE = ("full", "val", "ptr", "out_last", "out_count")
+
+
+def copy_slot_state(srv) -> dict:
+    """A copy on the card of a partitioned server's slot state (the
+    sharded block updates its state in place), with the engine's
+    tables."""
+    st = srv.state
+    return dict(tabs=srv.engine._mf.tabs, fv=st.fv.clone(),
+                fl=st.fl.clone(), active=st.active_dev.clone(),
+                state=[getattr(st, k).clone() for k in MF_STATE],
+                ch=[st.mf[k].clone() for k in ("chf", "chv")],
+                prof=None if st.prof is None else
+                [x.clone() for x in (*st.prof, *st.mf["chprof"])])
+
+
+def same_as_solo(got, want, profile, graph, what) -> int:
+    """The sharded deployment answered every request as phase 5's solo
+    deployment: every EngineResult field (launch count and, profiled, the
+    node and arc counters included) and every metric; the channel
+    counters keep their bounds, and every channel pushed as many tokens
+    as its producer fired (BRANCH producers aside).  Returns the channel
+    records checked."""
+    import dataclasses
+    from repro_torch.testing import assert_same_result, check_channels
+    check(len(got) == len(want), f"{what}: the runs answered differently")
+    n = 0
+    for g, w in zip(got, want):
+        check(g.uid == w.uid and g.status == w.status, f"{what}: {g.uid}")
+        assert_same_result(g.engine, w.engine, (what, g.uid),
+                           profile=profile, channels=False)
+        check(dataclasses.asdict(g.metrics) == dataclasses.asdict(w.metrics),
+              f"{what}: request {g.uid}: metrics differ")
+        if profile:
+            n += check_channels(g.engine, graph)
+    return n
+
+
+def phase_sharded(dev, bench, reqs, lens, served, stats5, slots=1024):
+    """Phase 5d's serving runs: phase 5's dot_prod deployment with
+    ``partition=2`` and ``4``, dense and optimized+profiled, every request
+    equal to phase 5's solo result of the same uid.  Returns the summary
+    and each run's slot state after 8 heartbeats, for
+    check_phase_sharded."""
+    t0 = time.perf_counter()
+    out, caps = {}, {}
+    for P in (2, 4):
+        for key, opt, prof in (("dot_prod", False, False),
+                               ("dot_prod_opt_prof", True, True)):
+            cap = {}
+            stats, results, _, _ = phase_serving(
+                dev, "dot_prod", bench, slots, reqs, lens, opt, prof,
+                partition=P, capture=cap)
+            n_ch = same_as_solo(results, served[key][0], prof, bench.graph,
+                                f"P={P} {key}")
+            check(stats["blocks"] == stats5[key]["blocks"],
+                  f"P={P} {key}: {stats['blocks']} blocks, phase 5 "
+                  f"{stats5[key]['blocks']}")
+            mf = cap["tabs"]
+            stats.update(P=P, channels=mf.C, regions_N2m=mf.N2m,
+                         regions_A2m=mf.A2m,
+                         phase5_wall_s=stats5[key]["wall_s"],
+                         wall_vs_phase5=stats["wall_s"]
+                         / stats5[key]["wall_s"],
+                         phase5_reset_slots_s=stats5[key]["seconds_in"][
+                             "reset_slots"])
+            out[f"P{P}/{key}"] = stats
+            caps[(P, opt)] = cap
+            log(f"  dot_prod P={P} {key}: all {len(results)} requests == "
+                f"phase 5's solo results in every field ({n_ch} channel "
+                f"records within bounds, pushes == producer fires); "
+                f"{stats['blocks']} blocks, {stats['launches']} launches, "
+                f"wall {stats['wall_s']:.3f} s ({stats['req_per_s']:.1f} "
+                f"requests/s) vs phase 5's {stats5[key]['wall_s']:.3f} s")
+    out["seconds"] = time.perf_counter() - t0
+    out["card"] = card_line()
+    return out, caps
+
+
+def mf_counters(c, seed):
+    """The captured state's counters, or random ones of the right shapes
+    (high-water bits 0/1) for a state served without them."""
+    import torch
+    if c["prof"] is not None:
+        return c["prof"]
+    tabs, B = c["tabs"], c["fv"].shape[0]
+    PN, PA = tabs.P * tabs.N2m, tabs.P * tabs.A2m
+    Cp = c["ch"][0].shape[1]
+    g = torch.Generator(device=c["fv"].device).manual_seed(seed)
+    rnd = lambda n, hi: torch.randint(0, hi, (B, n), generator=g,  # noqa
+                                      device=c["fv"].device,
+                                      dtype=torch.int32)
+    return [rnd(PN, 1000), rnd(PN, 1000), rnd(PN, 1000), rnd(PA, 1000),
+            rnd(PA, 2), rnd(Cp, 1000), rnd(Cp, 2), rnd(Cp, 1000)]
+
+
+def mf_pair(c, rows, K, prof):
+    """One uncounted kernel launch and its plain version on copies of the
+    captured state's ``rows``: both results, (fired, last_prog, state,
+    channels, counters), and the pointers before."""
+    from repro_torch.kernels import multifabric as kmf
+    sub = lambda x: x[rows].contiguous()          # noqa: E731
+    fv, fl, act = sub(c["fv"]), sub(c["fl"]), sub(c["active"])
+    outs = []
+    for fn in (kmf.launch_mf, kmf.mf_block):
+        x = [sub(t).clone() for t in c["state"]]
+        ch = [sub(t).clone() for t in c["ch"]]
+        pr = None if prof is None else [sub(t).clone() for t in prof]
+        f, lp = fn(c["tabs"], fv, fl, *x, *ch, n_cycles=K, active=act,
+                   prof=None if pr is None else pr[:5],
+                   chprof=None if pr is None else pr[5:])
+        outs.append([f, lp, *x, *ch, *(pr or [])])
+    return outs
+
+
+def hold_mf(caps) -> tuple[int, int]:
+    """The kernel against its plain version, bit for bit, on every
+    captured sharded serving state (P = 2 and 4, optimize off and on): B
+    = 1 (the first active slot), 8 and 1024; K = 1, 16, 64 and 65; with
+    and without counters.  Returns the largest error and the cases."""
+    import torch
+    err = n = 0
+    for (P, opt), c in sorted(caps.items()):
+        one = int(c["active"].nonzero()[0])
+        counters = mf_counters(c, seed=P)
+        for rows in (slice(one, one + 1), slice(0, 8), slice(None)):
+            for K in (1, 16, 64, 65):
+                for prof in (None, counters):
+                    got, want = mf_pair(c, rows, K, prof)
+                    torch.cuda.synchronize()
+                    e = max_abs_err(got, want)
+                    err = max(err, e)
+                    n += 1
+                    check(e == 0, f"mf_block P={P} optimize={opt} "
+                          f"rows={rows} K={K} prof={prof is not None}: "
+                          f"kernel != plain (max |err| {e})")
+                    if rows == slice(None) and K >= 16:
+                        check(int(want[0].sum()) > 0,
+                              "nothing fired in the captured state")
+    return err, n
+
+
+def mf_bound(c, K, prof, tokens) -> dict:
+    """The least time the card could take for one sharded block: the
+    bytes it must move (the packed tables, every state, channel and
+    counter array read and written once, fl and active read, fired and
+    last_prog written, and the feed tokens this block consumed) over HBM
+    bandwidth, against one 32-bit operation per node row, arc slot, feed
+    row, drain row and channel (and counter) per active stream per cycle
+    over the scalar rate."""
+    tabs = c["tabs"]
+    B, n_in, _ = c["fv"].shape
+    PN, PA = tabs.P * tabs.N2m, tabs.P * tabs.A2m
+    n_out, Cp = c["state"][3].shape[1], c["ch"][0].shape[1]
+    per_row = 2 * (2 * PA + n_in + 2 * n_out + 2 * Cp) + n_in + 1 + 2
+    per_cycle = PN + PA + n_in + n_out + Cp
+    if prof is not None:
+        per_row += 2 * (3 * PN + 2 * PA + 3 * Cp)
+        per_cycle += 3 * PN + 2 * PA + 3 * Cp
+    nbytes = sum(w.numel() * 4 for w in tabs.words.values()) \
+        + 4 * B * per_row + 4 * tokens
+    ops = int(c["active"].sum()) * K * per_cycle
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, tokens=tokens)
+
+
+def time_mf(c, K=64) -> dict:
+    """Device ms per block of the kernel (profiler) on fresh copies of a
+    captured full serving state (B = 1024), its µs per cycle, the plain
+    version's ms per call (CUDA events) and the bound."""
+    from repro_torch.kernels import multifabric as kmf
+    prof = c["prof"]
+
+    def run(fn):
+        x = [t.clone() for t in c["state"]]
+        ch = [t.clone() for t in c["ch"]]
+        pr = None if prof is None else [t.clone() for t in prof]
+        return fn(c["tabs"], c["fv"], c["fl"], *x, *ch, n_cycles=K,
+                  active=c["active"], prof=None if pr is None else pr[:5],
+                  chprof=None if pr is None else pr[5:]), x
+
+    _, x = run(kmf.launch_mf)
+    tokens = int((x[2] - c["state"][2]).sum())
+    ms = device_ms(lambda: run(kmf.launch_mf), 20, "mf_block_kernel")
+    plain_ms = cuda_ms(lambda: run(kmf.mf_block), 2, warmup=1)
+    tabs = c["tabs"]
+    return dict(ms=ms, ms_from="profiler", us_per_cycle=ms * 1e3 / K,
+                plain_ms=plain_ms, **mf_bound(c, K, prof, tokens),
+                shape=f"B={c['fv'].shape[0]} slots "
+                f"({int(c['active'].sum())} active), K={K}, "
+                f"L={c['fv'].shape[2]}, P={tabs.P}, N2m={tabs.N2m}, "
+                f"A2m={tabs.A2m}, C={tabs.C}"
+                + (", counters" if prof is not None else ""))
+
+
+def sharded_torch_float(dev) -> dict:
+    """One partitioned ``"torch"`` ``run_batch`` in float32 on the card
+    (dot_prod n = 32, P = 2, K = 64, 8 streams of 64 edge-operand
+    tokens) against ``run_reference``, every field, profile included."""
+    import torch
+    from repro_torch.core import library
+    from repro_torch.core.engine import DataflowEngine, run_reference
+    from repro_torch.testing import assert_same_result, edge_feeds
+    bench = library.dot_product_graph(32)
+    rng = np.random.default_rng(7)
+    feeds = [edge_feeds(bench.graph, np.float32, 64, rng) for _ in range(8)]
+    eng = DataflowEngine(bench.graph, backend="torch", block_cycles=64,
+                         device=dev, partition=2, profile=True,
+                         dtype=np.float32)
+    t0 = time.perf_counter()
+    got = eng.run_batch(feeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, (g, f) in enumerate(zip(got, feeds)):
+        want = run_reference(bench.graph, f, dtype=np.float32, profile=True)
+        assert_same_result(g, want, ("torch float32", k), dispatches=False)
+        np.testing.assert_array_equal(g.node_fires, want.node_fires)
+        g.profile.check()
+    return dict(streams=len(feeds), tokens=64, P=2, K=64, wall_s=wall,
+                cycles=int(got[0].cycles), blocks=int(got[0].dispatches))
+
+
+def check_phase_sharded(dev, out, caps) -> dict:
+    """Phase 5d's kernel checks and times (uncounted launches, after the
+    counts are read): the holds, the kernel's time at each full serving
+    state, and the float32 ``"torch"`` run.  Returns row 11's fields."""
+    t0 = time.perf_counter()
+    err, n = hold_mf(caps)
+    log(f"  mf_block == mf_block (plain) bit for bit in {n} cases "
+        "(P = 2, 4; optimize off, on; B = 1, 8, 1024; K = 1, 16, 64, 65; "
+        "counters off, on)")
+    out["times"] = {f"P{P}/opt={opt}": time_mf(c)
+                    for (P, opt), c in sorted(caps.items())}
+    for k, t in out["times"].items():
+        log(f"  mf_block {k}: {t['ms']:.4f} ms a block ("
+            f"{t['us_per_cycle']:.3f} µs/cycle), plain {t['plain_ms']:.2f} "
+            f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
+            f"{t['shape']}")
+    out["torch_float32"] = sharded_torch_float(dev)
+    log(f"  partitioned torch run_batch in float32 == run_reference: "
+        f"{json.dumps(out['torch_float32'])}")
+    out["holds"] = n
+    out["check_seconds"] = time.perf_counter() - t0
+    main = out["times"]["P2/opt=False"]
+    return dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                us_per_cycle=main["us_per_cycle"], shape=main["shape"],
+                times=out["times"])
 
 
 # ---------------------------------------------------------------------------
@@ -3791,12 +4084,25 @@ def main() -> int:
     traced, traced_runs = phase_traced(dev, served, serve)
     log(f"  phase 5c's runs done at {time.perf_counter() - t_start:.1f} s "
         f"({traced['seconds']:.1f} s)")
+    log("== phase 5d: sharded serving (counts go on)")
+    sharded, sharded_caps = phase_sharded(dev, dot, dot_reqs, dot_lens,
+                                          served, serve)
+    log(f"  phase 5d's runs done at {time.perf_counter() - t_start:.1f} s "
+        f"({sharded['seconds']:.1f} s)")
     launches = launch_counts()
     log(f"  main-path launches (phases 4-5c): "
         f"{json.dumps({k: launches[k] for k in ROWS})}; fire block by "
         f"variant {json.dumps(launches['fire_block_by'])}")
     for k in ROWS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    mf_launches = launches["mf_block"] + launches["mf_block_prof"]
+    log(f"  mf_block launches (phase 5d): {launches['mf_block']} unprofiled,"
+        f" {launches['mf_block_prof']} profiled")
+    for k in ("mf_block", "mf_block_prof"):
+        check(launches[k] > 0, f"{k} was never launched on the main path")
+    check(mf_launches == sum(v["launches"] for k, v in sharded.items()
+                             if k.startswith("P")),
+          "a sharded block was not one mf_block launch")
     check(launches["sched_run_by"]["warp"] > 0, "sched_run: the warp "
           "variant never ran on the main path")
     check(launches["sched_slot_step_by"]["warp"] > 0, "sched_slot_step: the "
@@ -3818,7 +4124,12 @@ def main() -> int:
     log(f"  phase 5b's checks took {hardened['check_seconds']:.1f} s")
     check_phase_traced(dev, traced, traced_runs)
     log(f"  phase 5c's checks took {traced['check_seconds']:.1f} s")
-    del served, bub_reqs, hardened_runs, traced_runs
+    mf_row = check_phase_sharded(dev, sharded, sharded_caps)
+    for k in ("fire_block_batched", "fire_block_batched_prof"):
+        log(f"  beside {k} (row {list(ROWS).index(k) + 1}): "
+            f"{times[k]['us_per_cycle']:.3f} µs/cycle")
+    log(f"  phase 5d's checks took {sharded['check_seconds']:.1f} s")
+    del served, bub_reqs, hardened_runs, traced_runs, sharded_caps
     log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     log("== phase 6: traces of the optimized, profiled dot_prod serving runs")
@@ -3885,6 +4196,20 @@ def main() -> int:
                                       slot_cases))
         if k["name"] == "fire_step":
             k.update(fire_step_extras(times["fire_step"], launches))
+    kernels.append(dict(
+        name="mf_block", route="cuda", source=MF_SOURCE,
+        replaces=MF_REPLACES,
+        pallas="none: MultiFabric._core_fn, a jnp program (vmap or "
+        "shard_map, lax.psum a cycle) that XLA fuses into one dispatch a "
+        "block", launches=mf_launches,
+        launches_by={"unprofiled": launches["mf_block"],
+                     "profiled": launches["mf_block_prof"]},
+        max_abs_err=mf_row["max_abs_err"], tolerance=0, library_ms=None,
+        matches_plain=mf_row["max_abs_err"] == 0, ms=mf_row["ms"],
+        ms_from="profiler", plain_ms=mf_row["plain_ms"],
+        bound_ms=mf_row["bound_ms"], bound_by=mf_row["bound_by"],
+        us_per_cycle=mf_row["us_per_cycle"], shape=mf_row["shape"],
+        by_state=mf_row["times"]))
     kernels += lm_rows(lm_errs, lm_times, lm_launches, norm_variants)
     for k in kernels:       # rows 1-8 bit for bit, rows 9-10 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
@@ -3894,6 +4219,7 @@ def main() -> int:
     log(json.dumps({"serving": serve}))
     log(json.dumps({"hardened_serving": hardened}))
     log(json.dumps({"traced_programs": traced}))
+    log(json.dumps({"sharded_serving": sharded}))
     log(json.dumps({"lm_serving": lm_stats}, default=str))
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"table1_us_per_cycle": table1}))

@@ -261,14 +261,30 @@ def compile(graph: Graph, token_shape=(), dtype=np.int32,    # noqa: A001
     Engine backends only — the SSA executors have no fabric to count, so
     asking is an error, not a silent no-op.
 
-    partition (sharding a fabric across regions) is not ported: anything
-    but None raises ``NotImplementedError``.  ``device`` is where every
-    executor runs (the card unless ``"cpu"`` is asked for).
+    partition shards the fabric across regions (DESIGN.md §14):
+      * ``None``   — single fabric (default);
+      * ``int P``  — :func:`repro_torch.core.partition.partition_graph`
+        splits the (post-rewrite) graph into P cost-balanced regions,
+        never cutting a loop cycle;
+      * ``"auto"`` — :func:`repro_torch.core.partition.auto_partition`
+        picks P from the CUDA card count (1 without a card) and the
+        graph's size;
+      * a :class:`repro_torch.core.partition.Partition` — used as given
+        (validated).
+    A resolved P > 1 partition needs a cycle-accurate engine: with
+    ``backend="auto"`` it routes to ``"cuda"`` for scalar int32 tokens
+    and to ``"torch"`` otherwise (where the JAX package routes to
+    ``"xla"``); asking for ``"dag"``/``"unrolled"`` raises.  Execution
+    stays bit-identical to the single-fabric engine in every EngineResult
+    field.  P = 1 (or an ``"auto"`` resolution of 1) is the ordinary
+    pipeline.  ``device`` is where every executor runs (the card unless
+    ``"cpu"`` is asked for).
 
     The returned callable exposes the (possibly rewritten) graph as
     ``.graph``, the rewrite report as ``.report`` (None when no
     rewrites ran), the capability probe as ``.traits``, the executor it
-    resolved to as ``.executor`` and ``.partition`` (None).
+    resolved to as ``.executor`` and the resolved partition (or None) as
+    ``.partition``.
     """
     if block_cycles < 1:
         raise ValueError(
@@ -277,10 +293,6 @@ def compile(graph: Graph, token_shape=(), dtype=np.int32,    # noqa: A001
         raise ValueError(f"optimize {optimize!r} not in {OPTIMIZE_LEVELS}")
     if backend not in EXECUTORS:
         raise ValueError(f"backend {backend!r} not in {EXECUTORS}")
-    if partition is not None:
-        raise NotImplementedError(
-            f"partition={partition!r}: sharding a fabric across regions is "
-            "not ported yet (ROADMAP Queue A 10)")
     if optimize in ("spec", "sched") and backend in ("auto", "dag",
                                                      "unrolled"):
         # specialization/scheduling is plan-level; the SSA executors
@@ -290,7 +302,9 @@ def compile(graph: Graph, token_shape=(), dtype=np.int32,    # noqa: A001
             f'optimize={optimize!r} needs an engine backend '
             f'({BACKENDS_NOTE}); backend={backend!r} only supports the '
             'rewrite pipeline (optimize="full"/True)')
-    if profile and backend not in BACKENDS:
+    if profile and backend not in BACKENDS and not (
+            backend == "auto" and partition is not None):
+        # (auto + partition defers: a resolved P>1 routes to an engine)
         raise ValueError(
             f"profile=True needs an engine backend ({BACKENDS_NOTE}); "
             f"backend={backend!r} runs SSA semantics with no fabric "
@@ -302,8 +316,32 @@ def compile(graph: Graph, token_shape=(), dtype=np.int32,    # noqa: A001
         from repro_torch.core import passes
         graph, report = passes.optimize_graph(graph, dtype=dt)
     traits = GraphTraits.probe(graph)
+    part = None
+    if partition is not None:
+        # resolve against the post-rewrite graph: node indices in the
+        # assignment must name the fabric that actually runs
+        from repro_torch.core.partition import resolve_partition
+        part = resolve_partition(graph, partition)
+    if part is not None and part.P > 1:
+        if backend in ("dag", "unrolled"):
+            raise ValueError(
+                f"{graph.name}: partition={partition!r} needs a "
+                f"cycle-accurate engine backend ({BACKENDS_NOTE}); the "
+                f"{backend!r} SSA executor has no fabric to shard")
+        if backend == "auto":
+            # the sharded block kernel takes scalar int32 tokens; the
+            # stacked PyTorch program every other dtype
+            backend = "cuda" if tuple(token_shape) == () \
+                and dt == np.int32 else "torch"
     if backend == "auto":
         backend = "dag" if traits.tokens_out_static else "unrolled"
+        if profile and backend not in BACKENDS:
+            # the deferred check above: partition resolved to P=1, so
+            # auto landed on an SSA executor after all
+            raise ValueError(
+                f"profile=True needs an engine backend ({BACKENDS_NOTE});"
+                f" backend={backend!r} runs SSA semantics with no fabric "
+                "cycles to count")
     if backend == "dag" and not traits.tokens_out_static:
         raise ValueError(
             f"{graph.name}: backend='dag' runs lockstep SSA semantics "
@@ -316,7 +354,8 @@ def compile(graph: Graph, token_shape=(), dtype=np.int32,    # noqa: A001
                              device, optimize=optimize is not False,
                              profile=profile,
                              schedule="auto" if optimize == "sched"
-                             else False, token_shape=token_shape, dtype=dt)
+                             else False, token_shape=token_shape, dtype=dt,
+                             partition=part)
         run = lambda feeds, max_cycles=None: eng.run(feeds, max_cycles)
         run.engine = eng
     elif backend == "unrolled":
@@ -334,7 +373,7 @@ def compile(graph: Graph, token_shape=(), dtype=np.int32,    # noqa: A001
     run.graph = graph
     run.report = report
     run.traits = traits
-    run.partition = None
+    run.partition = part
     run.executor = backend
     return run
 

@@ -400,6 +400,12 @@ class SlotState:
       sched         :class:`~repro_torch.core.schedule.SlotSched` — each
                     slot's plan and schedule position, and (profiled) the
                     counters accrued on the host from the plan
+
+    Partitioned engines (``partition=``, P > 1): ``full``/``val`` and the
+    counters are the regions' flat register file ([B, P*A2m], node rows
+    [B, P*N2m]; see :mod:`repro_torch.core.multifabric`), and
+      mf            dict of the channel registers ``chf``/``chv`` [B, Cp]
+                    and (profiled) the three channel counters ``chprof``
     """
     fv: torch.Tensor
     fl: torch.Tensor
@@ -420,6 +426,7 @@ class SlotState:
     prof: tuple | None = None
     prof_cycles: np.ndarray | None = None
     sched: object = None
+    mf: dict | None = None
 
     @property
     def slots(self) -> int:
@@ -504,6 +511,16 @@ class DataflowEngine:
     so that every positional call keeps its meaning; the JAX package
     takes them second and third.
 
+    ``partition`` (None, an int P, ``"auto"`` or a
+    :class:`~repro_torch.core.partition.Partition`; keyword-only, last)
+    shards the fabric into P regions that run in lockstep through token
+    channels (:mod:`repro_torch.core.multifabric`): on ``"cuda"`` each
+    block is one launch of the sharded block kernel, on ``"torch"`` the
+    stacked PyTorch program; every result field stays the solo fabric's.
+    P = 1 is the solo engine.  Scalar tokens only; ``"reference"`` and
+    ``schedule=True`` refuse it (``schedule="auto"`` lets the partition
+    win), and the slot API stays ``"cuda"``'s.
+
     ``optimize=True`` builds the opcode-class-specialized plan (permuted
     node and arc tables, the spec fire rule); ``profile=True`` carries
     the five fabric counters through every block, inside the same
@@ -523,7 +540,8 @@ class DataflowEngine:
                  backend: str = "cuda", block_cycles: int = 1,
                  device="cuda", optimize: bool = False,
                  profile: bool = False, schedule: bool | str = False, *,
-                 token_shape: tuple[int, ...] = (), dtype=np.int32):
+                 token_shape: tuple[int, ...] = (), dtype=np.int32,
+                 partition=None):
         if backend not in BACKENDS:
             raise ValueError(f"backend {backend!r} not in {BACKENDS}")
         if block_cycles < 1:
@@ -566,11 +584,47 @@ class DataflowEngine:
                     f"fabric, but this one has: {', '.join(blockers)} "
                     "(use schedule='auto' to fall back dynamically)")
             self._sched_on = not blockers
+        # partition: None/1 = solo fabric; int P / "auto" / Partition =
+        # shard the graph into P regions (DESIGN.md §14) that run as
+        # communicating fabrics; every run and slot entry point goes
+        # through core/multifabric.py when engaged
+        self.partition = None
+        self._mf = None             # the MultiFabric of a partitioned engine
+        if partition is not None:
+            from repro_torch.core.partition import resolve_partition
+            self.partition = resolve_partition(graph, partition)
+        self._part_on = (self.partition is not None
+                         and self.partition.P > 1)
+        if self._part_on:
+            if backend == "reference":
+                raise ValueError(
+                    "partitioned execution needs a device backend "
+                    "(cuda or torch), not 'reference' — the reference "
+                    "oracle IS the solo fabric the shards are checked "
+                    "against")
+            if self.token_shape != ():
+                raise ValueError(
+                    "partitioned execution supports scalar tokens only")
+            if schedule is True:
+                raise ValueError(
+                    "schedule=True cannot compose with partition > 1 "
+                    "(regions run the dynamic cycle body; use "
+                    "schedule='auto' to let partition win)")
+            # regions execute the lockstep cycle body; the static firing
+            # schedule is a whole-fabric program
+            self._sched_on = False
         self.p = _plan(graph, optimize=self.optimize)
         self._steps: dict[tuple[int, bool], object] = {}
         self._tables = None
         self._fabric = None         # the "torch" backend's _TorchFabric
-        if backend == "cuda":
+        if self._part_on:
+            from repro_torch.core.multifabric import MultiFabric
+            self._mf = MultiFabric(
+                graph, self.partition, backend=backend, dtype=self.dtype,
+                block_cycles=self.block_cycles, optimize=self.optimize,
+                profile=self.profile, max_cycles=max_cycles,
+                device=self.device)
+        elif backend == "cuda":
             from repro_torch.kernels.dataflow_fire import (block_plan_arrays,
                                                            device_tables)
             self._tables = device_tables(
@@ -591,6 +645,8 @@ class DataflowEngine:
         """feeds: arc -> [k, *token_shape] stream of tokens (k may vary
         per arc; a [k] stream broadcasts over the token shape)."""
         max_cycles = max_cycles or self.max_cycles
+        if self._part_on:
+            return self._mf.run(feeds, max_cycles)
         if self._sched_on:
             from repro_torch.core import schedule as _sched
             try:
@@ -622,6 +678,8 @@ class DataflowEngine:
             raise ValueError(
                 "run_batch: feeds_batch is empty — pass at least one "
                 "feed dict (use run() for a single stream)")
+        if self._part_on:
+            return self._mf.run_batch(feeds_batch, max_cycles)
         if self._sched_on:
             from repro_torch.core import schedule as _sched
             try:
@@ -650,12 +708,18 @@ class DataflowEngine:
         return self._run_cuda_batch(feed_vals, feed_len, max_cycles)
 
     def _result_from_state(self, out_last, out_count, cycles, fired,
-                           dispatches, prof=None):
+                           dispatches, prof=None, chan=None):
         """Per-arc result dicts from flat (host) accumulators.
 
         prof: optional (nf, si, so, ab, ahw, profiled_cycles,
         dispatches) plan-order counters, turned into a graph-order
-        :class:`~repro_torch.obs.FabricProfile`."""
+        :class:`~repro_torch.obs.FabricProfile`; a partitioned engine's
+        are the regions' flat counters, with the channel counters
+        ``chan``."""
+        if self._part_on:
+            return self._mf.result(
+                out_last, out_count, cycles, fired, dispatches,
+                None if prof is None else (prof[:5], chan, prof[5]))
         out_arcs = self.p["output_arcs"]
         profile = node_fires = None
         if prof is not None:
@@ -689,7 +753,10 @@ class DataflowEngine:
                              f"the slot kernels), not {self.backend!r}")
 
     def _state0_rows(self):
-        """(full0[A2], val0[A2]) int32 rows of a freshly-reset slot."""
+        """(full0[A2], val0[A2]) int32 rows of a freshly-reset slot (a
+        partitioned engine's flat rows)."""
+        if self._part_on:
+            return self._mf.state0_rows()
         p = self.p
         full = np.zeros((p["A"] + 2,), np.int32)
         val = np.zeros((p["A"] + 2,), np.int32)
@@ -713,6 +780,8 @@ class DataflowEngine:
         None on an unprofiled engine."""
         if not self.profile:
             return None
+        if self._part_on:
+            return self._mf.counters0(batch)
         return _prof_zeros(len(self.graph.nodes) + 1, self.p["A"] + 2,
                            batch=batch, device=self.device)
 
@@ -741,7 +810,8 @@ class DataflowEngine:
             # plan (closed form): no device counters
             prof=None if self._sched_on else self._prof0(B),
             prof_cycles=z64() if self.profile else None,
-            sched=self._make_slot_sched(B) if self._sched_on else None)
+            sched=self._make_slot_sched(B) if self._sched_on else None,
+            mf=self._mf.channels0(B) if self._part_on else None)
 
     def _make_slot_sched(self, slots: int):
         from repro_torch.core.schedule import SlotSched
@@ -808,6 +878,8 @@ class DataflowEngine:
         for x in (state.ptr, state.out_last, state.out_count,
                   *(state.prof or ())):
             x.index_fill_(0, ids, 0)
+        if state.mf is not None:
+            self._mf.reset_channels(state.mf, ids)
         active = state.active.copy()
         for host in (base := state.base.copy(), last := state.last.copy(),
                      fired := state.fired.copy(),
@@ -837,7 +909,7 @@ class DataflowEngine:
                          last, fired, quiesced, disp, cap=cap,
                          stalled=stalled, active_dev=self._dev(active),
                          prof=state.prof, prof_cycles=prof_cycles,
-                         sched=sched)
+                         sched=sched, mf=state.mf)
 
     def step_block(self, state: SlotState,
                    n_cycles: int | None = None) -> SlotState:
@@ -857,13 +929,21 @@ class DataflowEngine:
         if self._sched_on:
             from repro_torch.core import schedule as _sched
             return _sched.step_block_sched(self, state, nb)
-        res = self._step(nb, True)(
-            state.fv, state.fl, state.full, state.val, state.ptr,
-            state.out_last, state.out_count, state.active_dev,
-            *(state.prof or ()))
-        dev, f, lp = res[:5], res[5], res[6]
-        prof = tuple(res[7:]) or None
-        f, lp = torch.cat([f, lp], 1).cpu().numpy().T  # one sync per block
+        if self._part_on:
+            # the sharded block updates the state in place
+            dev = (state.full, state.val, state.ptr, state.out_last,
+                   state.out_count)
+            prof = state.prof
+            f, lp = self._mf.block(state.fv, state.fl, *dev, state.mf,
+                                         state.active_dev, prof, nb)
+        else:
+            res = self._step(nb, True)(
+                state.fv, state.fl, state.full, state.val, state.ptr,
+                state.out_last, state.out_count, state.active_dev,
+                *(state.prof or ()))
+            dev, f, lp = res[:5], res[5], res[6]
+            prof = tuple(res[7:]) or None
+            f, lp = torch.cat([f, lp], 1).cpu().numpy().T  # one sync
         fired = state.fired + f
         last = np.where(lp > 0, state.base + lp, state.last)
         ran = np.where(state.active > 0, nb, 0)
@@ -885,7 +965,8 @@ class DataflowEngine:
                          base, last, fired, quiesced, disp,
                          cap=state.cap, stalled=stalled,
                          active_dev=state.active_dev, prof=prof,
-                         prof_cycles=prof_cycles, sched=state.sched)
+                         prof_cycles=prof_cycles, sched=state.sched,
+                         mf=state.mf)
 
     def harvest(self, state: SlotState, slot_ids
                 ) -> tuple[SlotState, list[EngineResult]]:
@@ -901,7 +982,9 @@ class DataflowEngine:
         if idle:
             raise ValueError(f"slots {idle} are free — nothing to harvest")
         ids = torch.as_tensor(slot_ids, dtype=torch.long, device=self.device)
-        cols = (state.out_last, state.out_count, *(state.prof or ()))
+        chprof = () if state.mf is None else state.mf["chprof"] or ()
+        cols = (state.out_last, state.out_count, *(state.prof or ()),
+                *chprof)
         acc = torch.cat([x[ids] for x in cols], 1).cpu().numpy()
         bounds = np.cumsum([0] + [x.shape[1] for x in cols])
         parts = [acc[:, lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
@@ -914,13 +997,13 @@ class DataflowEngine:
                         int(state.dispatches[b]))
             if state.prof is None:
                 return None
-            return (*(x[k] for x in parts[2:]), int(state.prof_cycles[b]),
+            return (*(x[k] for x in parts[2:7]), int(state.prof_cycles[b]),
                     int(state.dispatches[b]))
         results = [self._result_from_state(
             parts[0][k], parts[1][k],
             int(min(state.last[b] + 1, state.cap[b])),
             int(state.fired[b]), int(state.dispatches[b]),
-            prof=prof_row(k, b))
+            prof=prof_row(k, b), chan=[x[k] for x in parts[7:]])
             for k, b in enumerate(slot_ids)]
         active = state.active.copy()
         quiesced = state.quiesced.copy()
@@ -1422,20 +1505,24 @@ def _alu_numpy(op, a, b, dtype):
 
 def run_reference(graph: Graph, feeds=None, token_shape=(), dtype=np.int32,
                   max_cycles: int = 100_000,
-                  profile: bool = False) -> EngineResult:
+                  profile: bool = False, *, trace=None) -> EngineResult:
     """Slow, obviously-correct mirror of :class:`DataflowEngine`, on the
     graph as authored (the unoptimized plan).  ``profile=True`` also
     counts the five fabric counters (the oracle for the engine's
-    profiled runs).  One errstate for the whole run: integer
-    wraparound / float specials are the ALU contract (see
-    :func:`alu_numpy`)."""
+    profiled runs).  ``trace`` (keyword-only, so that positional calls
+    keep their meaning) is called with ``(cycle, node_index, value)`` for
+    every firing — the 1-based cycle, the node's graph index, and element
+    0 of the token it produced (of the token it consumed, for a node
+    that produces none); :mod:`repro_torch.core.pipeline` reads schedules
+    from it.  One errstate for the whole run: integer wraparound / float
+    specials are the ALU contract (see :func:`alu_numpy`)."""
     with np.errstate(all="ignore"):
         return _run_reference(graph, feeds, token_shape, dtype, max_cycles,
-                              profile)
+                              profile, trace)
 
 
 def _run_reference(graph, feeds, token_shape, dtype, max_cycles,
-                   profile=False) -> EngineResult:
+                   profile=False, trace=None) -> EngineResult:
     p = _plan(graph)
     feeds = {a: np.asarray(v, dtype).reshape(-1, *token_shape)
              if np.asarray(v).ndim == 1 and token_shape == ()
@@ -1529,6 +1616,9 @@ def _run_reference(graph, feeds, token_shape, dtype, max_cycles,
             for x, v in prods:
                 full[x] = True
                 val[x] = v
+            if trace is not None:
+                tv = prods[0][1] if prods else val.get(cons[0], 0)
+                trace((cycles + 1, n_idx, int(np.asarray(tv).ravel()[0])))
             fired += 1
             progress = True
         for a in graph.consts:

@@ -4,7 +4,8 @@
 fire-block kernel's two variants, the fire step's two and two latency
 probes; ``schedule_fire.cu``: the static-schedule kernels (the run
 kernel's two variants and the slot step's two), both including
-``csrc/alu.cuh``; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
+``csrc/alu.cuh``; ``multifabric.cu``: the sharded block kernel, which
+includes it too; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
 kernels) for Hopper (``sm_90a``), one compiler per source, all started
 together, and links
 the objects into one shared library with a plain C interface.  It is
@@ -63,6 +64,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ("sched_run_warp_launch", 9, 15),
                                ("sched_slot_step_launch", 25, 7),
                                ("sched_slot_warp_launch", 18, 9),
+                               ("mf_block_launch", 22, 10),
                                ("flash_attention_tiled_launch", 4, 10),
                                ("flash_attention_wgmma_launch", 4, 10),
                                ("flash_attention_split_launch", 6, 12),
@@ -80,6 +82,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sched_warp_plan.restype = ci
     lib.sched_slot_plan.argtypes = [ci] * 7 + [vp]
     lib.sched_slot_plan.restype = ci
+    lib.mf_block_smem_bytes.argtypes = [ci] * 7
+    lib.mf_block_smem_bytes.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci
     lib.fire_block_error_string.argtypes = [ci]

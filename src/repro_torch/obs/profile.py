@@ -22,9 +22,8 @@ length K does not divide the quiescence point; ``node_fires`` is exact
 regardless (nothing fires in an idle cycle).
 
 All arrays are in **graph order** (the plan's node/arc permutations are
-undone before this object is built).  The JAX package's class of the
-same name also carries channel counters of sharded runs; the port does
-not shard, so it has none.
+undone before this object is built).  A partitioned (multi-fabric)
+run adds the channel counters of its cut arcs.
 """
 from __future__ import annotations
 
@@ -51,6 +50,18 @@ class FabricProfile:
     arc_hw: np.ndarray      # int64[A]
     cycles: int             # simulated (profiled) cycles
     dispatches: int         # launches that produced these counters
+
+    # Channel counters -- present only on partitioned (multi-fabric) runs.
+    # Channels are the inter-region arcs; each is a depth-1 register pair
+    # both endpoint regions see, so busy/high-water obey the same bounds as
+    # ordinary arcs.  ``ch_pushes`` counts tokens that crossed the channel,
+    # i.e. the cut-arc traffic of the run.  ``ch_depth`` records the block
+    # length K whose fused channel exchange the depth argument is about.
+    ch_names: list[str] | None = None
+    ch_busy: np.ndarray | None = None    # int64[C]
+    ch_hw: np.ndarray | None = None      # int64[C]
+    ch_pushes: np.ndarray | None = None  # int64[C]
+    ch_depth: int | None = None
 
     # ---------------------------------------------------------------- derived
     @property
@@ -99,10 +110,14 @@ class FabricProfile:
             raise AssertionError("arc_busy exceeds profiled cycles")
         if (self.arc_hw > 1).any():
             raise AssertionError("arc high-water > 1 on a depth-1 fabric")
+        if self.ch_busy is not None and (self.ch_busy > self.cycles).any():
+            raise AssertionError("channel busy exceeds profiled cycles")
+        if self.ch_hw is not None and (self.ch_hw > 1).any():
+            raise AssertionError("channel high-water > 1 (register pair)")
 
     # ---------------------------------------------------------------- export
     def to_json(self) -> dict:
-        return {
+        out = {
             "cycles": int(self.cycles),
             "dispatches": int(self.dispatches),
             "fired": self.fired,
@@ -126,6 +141,20 @@ class FabricProfile:
                 for i in range(len(self.arc_names))
             ],
         }
+        if self.ch_names is not None:
+            out["channels"] = {
+                "depth": int(self.ch_depth or 0),
+                "arcs": [
+                    {
+                        "name": self.ch_names[i],
+                        "busy": int(self.ch_busy[i]),
+                        "high_water": int(self.ch_hw[i]),
+                        "pushes": int(self.ch_pushes[i]),
+                    }
+                    for i in range(len(self.ch_names))
+                ],
+            }
+        return out
 
     def save(self, path: str) -> None:
         with open(path, "w") as fh:

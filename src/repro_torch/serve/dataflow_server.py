@@ -57,6 +57,7 @@ import numpy as np
 from repro_torch.core import asm
 from repro_torch.core.engine import DataflowEngine
 from repro_torch.core.graph import Graph
+from repro_torch.core.partition import resolve_partition
 from repro_torch.serve.admission import (POLICIES, DroppedError, FairQueue,
                                          QueueFullError, Rejected)
 from repro_torch.serve.faults import InjectedFault
@@ -85,24 +86,33 @@ def graph_signature(graph: Graph) -> str:
 def cached_engine(graph: Graph, *, block_cycles: int = 16,
                   max_cycles: int = 100_000, device="cuda",
                   optimize: bool = False, profile: bool = False,
-                  schedule: bool | str = False) -> DataflowEngine:
+                  schedule: bool | str = False,
+                  partition=None) -> DataflowEngine:
     """Engine for (graph signature, K, max_cycles, device, optimize,
-    profile, schedule) — built once and shared by every server that
-    presents the same fabric (the key hashes the signature, not the graph
-    object, so structurally equal graphs share).  The flags join the key:
-    an optimized engine runs other tables, a profiled engine threads
-    counters through every step, and a scheduled engine runs other
-    kernels, so none may stand in for another's (``schedule`` keys as
-    ``str(schedule)``: True and "auto" stay apart)."""
+    profile, schedule, partition) — built once and shared by every server
+    that presents the same fabric (the key hashes the signature, not the
+    graph object, so structurally equal graphs share).  The flags join the
+    key: an optimized engine runs other tables, a profiled engine threads
+    counters through every step, a scheduled engine runs other kernels,
+    and a partitioned engine runs the sharded block over state that
+    carries channel registers, so none may stand in for another's
+    (``schedule`` keys as ``str(schedule)``: True and "auto" stay apart).
+    The partition keys as ``Partition.spec()`` (region count and
+    assignment hash), so two region assignments never alias; a P = 1
+    partition keys as unsharded, since it is the same engine."""
+    part = resolve_partition(graph, partition)
+    if part is not None and part.P <= 1:
+        part = None            # degenerate: same engine as unsharded
     key = (hashlib.sha256(graph_signature(graph).encode()).hexdigest(),
            int(block_cycles), int(max_cycles), str(device), bool(optimize),
-           bool(profile), str(schedule))
+           bool(profile), str(schedule),
+           "none" if part is None else part.spec())
     eng = _ENGINE_CACHE.get(key)
     if eng is None:
         eng = DataflowEngine(graph, max_cycles=max_cycles,
                              block_cycles=block_cycles, device=device,
                              optimize=optimize, profile=profile,
-                             schedule=schedule)
+                             schedule=schedule, partition=part)
         _ENGINE_CACHE[key] = eng
         while len(_ENGINE_CACHE) > _ENGINE_CACHE_MAX:
             _ENGINE_CACHE.popitem(last=False)
@@ -147,7 +157,11 @@ class DataflowServer:
     ``schedule=True`` (or ``"auto"``) steps a control-free fabric's slots
     from its static firing schedule (one launch of the scheduled
     slot-step kernel per block, no device read per block).  None of the
-    three changes a result.  An explicit ``engine=`` decides all three.
+    three changes a result.  ``partition=`` (None, an int P, ``"auto"``
+    or a :class:`~repro_torch.core.partition.Partition`) serves the fabric
+    sharded into P regions: each block one launch of the sharded block
+    kernel, every result the solo fabric's.  An explicit ``engine=``
+    decides all four.
 
     ``faults=`` takes a :class:`~repro_torch.serve.faults.FaultPlan`,
     ``trace=`` a :class:`~repro_torch.obs.TraceRecorder` and
@@ -165,7 +179,7 @@ class DataflowServer:
                  optimize: bool = False, profile: bool = False,
                  schedule: bool | str = False, max_retries: int = 3,
                  retry_backoff_s: float = 0.0, faults=None, trace=None,
-                 metrics=None):
+                 metrics=None, partition=None):
         if slots < 1:
             raise ValueError("slots must be >= 1")
         if policy not in POLICIES:
@@ -202,7 +216,7 @@ class DataflowServer:
             engine = cached_engine(graph, block_cycles=block_cycles,
                                    max_cycles=max_cycles, device=device,
                                    optimize=optimize, profile=profile,
-                                   schedule=schedule)
+                                   schedule=schedule, partition=partition)
         self.graph = graph
         self.slots = slots
         self.engine = engine

@@ -176,16 +176,22 @@ def tokens_equal(got, want) -> bool:
     return bool((g.view(u)[~nan] == w.view(u)[~nan]).all())
 
 
+CHANNEL_ARRAYS = ("ch_busy", "ch_hw", "ch_pushes")
+
+
 def assert_same_result(got, want, tag, dispatches: bool = True,
-                       profile: bool = False) -> None:
+                       profile: bool = False,
+                       channels: bool = True) -> None:
     """Every EngineResult field of ``got`` equals ``want``'s: cycles,
     fired, counts, the last value of every arc that drained a token, and
     (unless ``dispatches=False``, for oracles that launch nothing) the
     launch count; token values as :func:`tokens_equal`.  With
     ``profile=True`` also ``node_fires`` and the
     FabricProfile: its names, its five counter arrays, its cycles and
-    (with ``dispatches``) its launch count.  Works across the two
-    packages' result types."""
+    (with ``dispatches``) its launch count, and (unless
+    ``channels=False``, for a partitioned run held against a solo one)
+    its channel counters: names, depth and the three arrays, present on
+    both or on neither.  Works across the two packages' result types."""
     assert got.cycles == want.cycles, (tag, "cycles", got.cycles, want.cycles)
     assert got.fired == want.fired, (tag, "fired", got.fired, want.fired)
     assert dict(got.counts) == dict(want.counts), (tag, "counts",
@@ -212,6 +218,33 @@ def assert_same_result(got, want, tag, dispatches: bool = True,
         if dispatches:
             assert gp.dispatches == wp.dispatches, (tag,
                                                     "profile.dispatches")
+        if channels:
+            ch = lambda p, k: getattr(p, k, None)   # noqa: E731
+            assert (ch(gp, "ch_names"), ch(gp, "ch_depth")) == (
+                ch(wp, "ch_names"), ch(wp, "ch_depth")), (tag, "channels")
+            for k in CHANNEL_ARRAYS:
+                g, w = ch(gp, k), ch(wp, k)
+                assert (g is None) == (w is None), (tag, k)
+                if w is not None:
+                    np.testing.assert_array_equal(
+                        g, w, err_msg=f"{tag} profile.{k}")
+
+
+def check_channels(result, graph) -> int:
+    """A partitioned run's channel counters keep their bounds
+    (``FabricProfile.check``), and every channel pushed as many tokens as
+    its producer node fired (BRANCH producers aside: they fire into one
+    of two arcs).  Returns the channels checked."""
+    from repro_torch.core.graph import Op
+    p = result.profile
+    p.check()
+    assert p.ch_names, "the profile has no channels"
+    prod = {a: ns[0] for a, ns in graph.producers().items()}
+    for k, a in enumerate(p.ch_names):
+        if graph.nodes[prod[a]].op != Op.BRANCH:
+            assert p.ch_pushes[k] == result.node_fires[prod[a]], (
+                "channel", a, int(p.ch_pushes[k]))
+    return len(p.ch_names)
 
 
 def edge_feeds(graph, dtype, k: int, rng) -> dict:

@@ -9,7 +9,10 @@ against JAX ``"dag"`` and each bench's own reference, ``"unrolled"``
 against JAX ``compile_cyclic`` in every field (fibonacci's initial
 tokens included), the engine backends against the JAX package's
 reference engine and ``"xla"``.  Other dtypes and tensor tokens are held
-against ``run_reference``.
+against ``run_reference``.  ``partition=`` threads through ``compile`` as
+through the JAX ``compile`` (resolved on the rewritten graph, refused by
+the SSA executors), ``"auto"`` routing a P > 1 partition to ``"cuda"``
+for scalar int32 tokens and to ``"torch"`` otherwise.
 """
 import functools
 
@@ -28,6 +31,7 @@ from repro_torch.core import library as tlib  # noqa: E402
 from repro_torch.core.engine import DataflowEngine  # noqa: E402
 from repro_torch.core.engine import run_reference  # noqa: E402
 from repro_torch.core.graph import Graph, Op  # noqa: E402
+from repro_torch.core.partition import partition_graph  # noqa: E402
 from repro_torch.testing import (assert_same_result,  # noqa: E402
                                  random_graph, tokens_equal)
 
@@ -141,13 +145,81 @@ def test_lockstep_executor_refuses_token_presence_fabrics():
         tcomp.compile(fib, backend="dag", device="cpu")
 
 
+def _chain_graph():
+    """4-node pipeline with a const — every 2-way partition cuts it."""
+    g = Graph(name="chain")
+    g.const("c", 1)
+    g.add(Op.ADD, ["x", "c"], ["a1"])
+    g.add(Op.MUL, ["a1", "c"], ["a2"])
+    g.add(Op.ADD, ["a2", "c"], ["a3"])
+    g.add(Op.MUL, ["a3", "c"], ["o"])
+    g.validate()
+    return g
+
+
+def test_compile_partition_threading():
+    g = _chain_graph()
+    feeds = {"x": [3, 4, 5]}
+    ref = run_reference(g, feeds, profile=True)
+    run = tcomp.compile(g, backend="auto", partition=2, profile=True,
+                        device="cpu")
+    assert run.partition.P == 2 and run.executor == "cuda"
+    assert run.engine._part_on     # auto routed off the SSA path
+    r = run(feeds)
+    assert_same_result(r, ref, "auto", dispatches=False)
+    np.testing.assert_array_equal(r.node_fires, ref.node_fires)
+    r.profile.check()
+    # other dtypes route to the stacked PyTorch program
+    runf = tcomp.compile(g, dtype=np.float32, partition=2, device="cpu")
+    assert runf.executor == "torch" and runf.engine._part_on
+    assert float(runf({"x": [2.5]}).outputs["o"]) == 4.5
+    # a degenerate resolution takes the traits dispatch (dag here)
+    run1 = tcomp.compile(g, partition=1, device="cpu")
+    assert run1.partition.P == 1 and not hasattr(run1, "engine")
+    assert run1.executor == "dag"
+    # "auto" resolves from the card count: P = 1 without a card
+    runa = tcomp.compile(g, backend="cuda", partition="auto", device="cpu")
+    assert runa.partition.P >= 1
+    # the JAX compile threads the same partition
+    jrun = jcomp.compile(
+        _jax_graph(g), backend="auto", partition=2, profile=True)
+    assert jrun.partition.assign == run.partition.assign
+    assert_same_result(r, jrun(feeds), "jax", profile=True)
+    # compile_graph passes it through; the resolution follows the rewrite
+    rung = tcomp.compile_graph(g, backend="torch", partition=2,
+                               optimize="full", device="cpu")
+    assert rung.partition.P == 2
+    assert len(rung.partition.assign) == len(rung.graph.nodes)
+
+
 def test_partition_refused():
-    g = tlib.dot_product_graph(4).graph
-    for part in (2, "auto", 1):
-        with pytest.raises(NotImplementedError, match="A 10"):
-            tcomp.compile(g, backend="torch", partition=part, device="cpu")
-        with pytest.raises(NotImplementedError, match="A 10"):
-            tcomp.compile_graph(g, partition=part, device="cpu")
+    """What a partition still cannot do: the SSA executors, the reference
+    oracle, ``schedule=True``, tensor tokens, other dtypes on ``"cuda"``,
+    and placement across cards (the JAX ``test_compile_partition_errors``
+    and more)."""
+    g = _chain_graph()
+    with pytest.raises(ValueError, match="shard"):
+        tcomp.compile(g, backend="dag", partition=2, device="cpu")
+    with pytest.raises(ValueError, match="shard"):
+        tcomp.compile(g, backend="unrolled", partition=2, device="cpu")
+    with pytest.raises(ValueError, match="reference"):
+        DataflowEngine(g, backend="reference", partition=2, device="cpu")
+    with pytest.raises(ValueError, match="schedule"):
+        DataflowEngine(g, schedule=True, partition=2, device="cpu")
+    with pytest.raises(ValueError, match="scalar"):
+        DataflowEngine(g, backend="torch", partition=2, device="cpu",
+                       token_shape=(2,))
+    with pytest.raises(ValueError, match="int32"):
+        DataflowEngine(g, partition=2, device="cpu", dtype=np.float32)
+    # profile with the SSA executors still refuses once P resolves to 1
+    with pytest.raises(ValueError, match="profile"):
+        tcomp.compile(g, partition=1, profile=True, device="cpu")
+    # schedule="auto" lets the partition win
+    eng = DataflowEngine(g, schedule="auto", partition=2, device="cpu")
+    assert eng._part_on and not eng._sched_on
+    from repro_torch.core.multifabric import MultiFabric
+    with pytest.raises(NotImplementedError, match="A 10b"):
+        MultiFabric(g, partition_graph(g, 2), placement="shard_map")
 
 
 def test_compile_without_cuda_raises(monkeypatch):

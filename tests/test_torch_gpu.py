@@ -1390,3 +1390,84 @@ def test_dot_prod_traced_on_cuda_matches_hand_built(cuda):
         assert int(got.outputs[run.out_arcs[0]]) == int(want.outputs["dot"])
         assert_same_result(got, run_reference(tb.graph, ft), (seed, k),
                            dispatches=False)
+
+
+# ---------------------------------------------------------------------------
+# the sharded block kernel (partition=)
+# ---------------------------------------------------------------------------
+MF_STATE = ("full", "val", "ptr", "out_last", "out_count")
+
+
+def _mf_served_state(cuda, name, P, opt, slots=16, blocks=2):
+    """A partitioned engine's slot state on the card after a few served
+    blocks (random feed lengths, a quarter of the slots parked), with
+    random counters."""
+    from repro_torch.kernels import multifabric as kmf
+    bench = library.BENCHES[name]()
+    eng = DataflowEngine(bench.graph, block_cycles=8, device=cuda,
+                         partition=P, optimize=opt, profile=True)
+    rng = np.random.default_rng(P)
+    st = eng.init_state(slots)
+    ids = [b for b in range(slots) if b % 4 != 3]
+    st = eng.reset_slots(st, ids, [library.random_feeds(
+        name, bench, int(rng.integers(1, 40)), rng) for _ in ids])
+    for _ in range(blocks):
+        st = eng.step_block(st)
+    for x in (*st.prof, *st.mf["chprof"]):
+        x.copy_(torch.randint_like(x, 0, 50))
+    st.mf["chprof"][1].clamp_(0, 1)
+    st.prof[4].clamp_(0, 1)
+    return eng._mf.tabs, st, kmf
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("name", ["dot_prod", "bubble_sort", "fibonacci",
+                                  "pop_count"])
+def test_multifabric_kernel_matches_plain(cuda, name, P):
+    for opt in (False, True):
+        tabs, st, kmf = _mf_served_state(cuda, name, P, opt)
+        for K in (1, 16, 65):
+            for prof in (False, True):
+                runs = []
+                for fn in (kmf.launch_mf, kmf.mf_block):
+                    x = [getattr(st, k).clone() for k in MF_STATE]
+                    ch = [st.mf[k].clone() for k in ("chf", "chv")]
+                    pr = [v.clone() for v in (*st.prof, *st.mf["chprof"])]
+                    f, lp = fn(tabs, st.fv, st.fl, *x, *ch, n_cycles=K,
+                               active=st.active_dev,
+                               prof=pr[:5] if prof else None,
+                               chprof=pr[5:] if prof else None)
+                    torch.cuda.synchronize()
+                    runs.append([f, lp, *x, *ch, *(pr if prof else [])])
+                for a, b in zip(*runs):
+                    assert torch.equal(a, b), (name, P, opt, K, prof)
+
+
+def test_multifabric_engine_and_server_on_card(cuda):
+    from repro_torch.kernels import multifabric as kmf
+    for name in sorted(library.HAND_BUILT):
+        bench = library.BENCHES[name]()
+        feeds = [library.random_feeds(name, bench, k,
+                                      np.random.default_rng(k))
+                 for k in (3, 1, 6)]
+        for P in (2, 4):
+            n0 = kmf.mf_block_cuda.prof_launches
+            eng = DataflowEngine(bench.graph, block_cycles=16, device=cuda,
+                                 partition=P, optimize=True, profile=True)
+            got = eng.run_batch(feeds)
+            assert kmf.mf_block_cuda.prof_launches - n0 == \
+                got[0].dispatches
+            for g, f in zip(got, feeds):
+                ref = run_reference(bench.graph, f, profile=True)
+                assert_same_result(g, ref, (name, P), dispatches=False)
+                np.testing.assert_array_equal(g.node_fires, ref.node_fires)
+                g.profile.check()
+    bench = library.dot_product_graph(8)
+    srv = DataflowServer(bench.graph, slots=8, block_cycles=16, device=cuda,
+                         partition=2)
+    reqs = [library.random_feeds("dot_prod", bench, k,
+                                 np.random.default_rng(k))
+            for k in range(1, 20)]
+    for r, f in zip(srv.run(reqs), reqs):
+        assert_same_result(r.engine, run_reference(bench.graph, f),
+                           r.uid, dispatches=False)
