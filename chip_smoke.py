@@ -195,10 +195,28 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              ``torch.profiler`` trace of 4 of its decode steps (naming
              the split and combine kernels), and a prompt holding ids
              outside the vocabulary;
-9. summary — the ``kernels`` JSON line (Pallas rows 1-10, and row 11, the
+8b. LM training — internlm2-1.8b: (a) ``train.loop.make_train_step`` at
+             full width and depth (f32 parameters, bf16 compute, remat),
+             30 steps of batch 4 x seq 128 from ``SyntheticLM(seed=0)``
+             (peak memory, ms per step, tokens/s; every loss finite and
+             the last 5 below the first 5; a profiled step); (b) 3 steps
+             at seq 4096, batch 1 (train_4k's length; its batch of 256
+             cut to fit one card), with the forward and backward kernels'
+             launches by variant; (e) ``train.loop.run`` at reduced width:
+             a failure at step 5, the resume from step 3 byte-equal to a
+             clean run, and ``launch.train --reduced --steps 8``; then (c)
+             the loss and every gradient at full width, 2 layers, seq
+             4096 through the kernels against the plain path, and (d)
+             each backward kernel against its plain version (attention at
+             (b)'s shape and odd lengths, RMSNorm at three shapes, f32 and
+             bf16) and its device time beside its bound, the plain
+             version's and the library's backward;
+9. summary — the ``kernels`` JSON line (Pallas rows 1-10; row 11, the
              sharded block kernel, which replaces the JAX package's jnp
-             block ``MultiFabric._core_fn``), the card, and the result
-             line.
+             block ``MultiFabric._core_fn``; rows 12-14, the backward
+             kernels of attention (dK/dV, dQ) and RMSNorm, which replace
+             the JAX package's autodiff of its jnp layers), the card, and
+             the result line.
 
 The launch counts in the summary come from the main paths alone: every
 count is set to 0 just before phase 4 and read after phase 5d's
@@ -208,7 +226,9 @@ the sharded block, row 11), and set
 to 0 again just
 before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
-rows 1-8's per variant come from phases 4-5c).  The
+rows 1-8's per variant come from phases 4-5c), and once more just before
+phase 8b and read after its training runs (a), (b) and (e), before its
+comparisons (c) and (d) (rows 12-14).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
@@ -329,6 +349,12 @@ def launch_counts() -> dict:
             "flash_attention_by": dict(fa.flash_attention_cuda.launches_by),
             "rmsnorm": rn.rmsnorm_cuda.launches,
             "rmsnorm_by": dict(rn.rmsnorm_cuda.launches_by),
+            "attention_bwd_dkdv":
+                fa.flash_attention_backward_cuda.launches_by["dkdv"],
+            "attention_bwd_dq":
+                fa.flash_attention_backward_cuda.launches_by["dq"],
+            "rmsnorm_bwd": rn.rmsnorm_backward_cuda.launches,
+            "rmsnorm_bwd_by": dict(rn.rmsnorm_backward_cuda.launches_by),
             "mf_block": kmf.mf_block_cuda.launches,
             "mf_block_prof": kmf.mf_block_cuda.prof_launches}
 
@@ -352,6 +378,12 @@ def reset_counts() -> None:
     fa.flash_attention_cuda.launches = rn.rmsnorm_cuda.launches = 0
     rn.rmsnorm_cuda.launches_by = dict.fromkeys(rn.VARIANTS, 0)
     fa.flash_attention_cuda.launches_by = dict.fromkeys(fa.VARIANTS, 0)
+    fa.flash_attention_backward_cuda.launches = 0
+    fa.flash_attention_backward_cuda.launches_by = dict.fromkeys(
+        fa.BWD_KERNELS, 0)
+    rn.rmsnorm_backward_cuda.launches = 0
+    rn.rmsnorm_backward_cuda.launches_by = dict.fromkeys(
+        (*rn.BWD_VARIANTS, "reduce"), 0)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -3854,6 +3886,548 @@ def check_long_wave(dev, eng, reqs, results, rec) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8b: LM training
+# ---------------------------------------------------------------------------
+JAX_LAYERS = "src/repro/models/layers.py"
+# the backward kernels: (what they replace, the row they differentiate,
+# CUDA source); the JAX package differentiates its jnp attention and
+# RMSNorm with autodiff and has no backward kernel
+TRAIN_ROWS = {
+    "attention_bwd_dkdv": (f"{JAX_LAYERS}:72",
+                           "row 9 (flash_attention): dK, dV",
+                           "src/repro_torch/kernels/csrc/flash_attention.cu",
+                           "flash_attention_bwd_dkdv_kernel"),
+    "attention_bwd_dq": (f"{JAX_LAYERS}:72",
+                         "row 9 (flash_attention): dQ (and D)",
+                         "src/repro_torch/kernels/csrc/flash_attention.cu",
+                         "flash_attention_bwd_dq_kernel"),
+    "rmsnorm_bwd": (f"{JAX_LAYERS}:24",
+                    "row 10 (rmsnorm): dx, dw with its reduction",
+                    "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "rmsnorm_bwd"),
+}
+# kernel path against plain path (phase 8b c): the loss relative, each
+# gradient leaf as a relative Frobenius error (bf16 compute: the kernels
+# round P to bf16 before P.V, the plain path keeps it f32)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 3e-2
+# RMSNorm's dw in f32 sums thousands of rows in another order (per-CTA
+# partials); in bf16 the model rounding rounds x^ to bf16 before the
+# product, and a row factor r one f32 ulp off the plain one's flips that
+# rounding now and then (one bf16 step), so dw takes the bf16 tolerance
+NORM_DW_TOL = {"float32": 1e-4, "bfloat16": LM_TOL["bfloat16"]["rmsnorm"]}
+# phase 8b (e)'s (batch, seq): the loop's runs and the launcher's; (d)
+# holds the kernels at these shapes too, the reduced width's head dim and
+# dtype being builds of their own
+LOOP_SHAPES = {"loop": (2, 32), "launcher": (4, 128)}
+TRAIN_LAUNCH_KEYS = ("flash_attention_by", "attention_bwd_dkdv",
+                     "attention_bwd_dq", "rmsnorm_by", "rmsnorm_bwd",
+                     "rmsnorm_bwd_by")
+
+
+def count_delta(before, after) -> dict:
+    """The training kernels' launches between two ``launch_counts()``."""
+    out = {}
+    for k in TRAIN_LAUNCH_KEYS:
+        a, b = before[k], after[k]
+        out[k] = {x: b[x] - a[x] for x in b} if isinstance(b, dict) \
+            else b - a
+    return out
+
+
+def train_steps(dev, step, state, src, n) -> tuple:
+    """``n`` steps of ``step`` on ``src``'s batches 0..n-1: each step's
+    loss (``float``, the step's sync), wall ms (the card synchronised
+    before) and host ms (until the step returned, before the sync)."""
+    import torch
+    losses, ms, host = [], [], []
+    for i in range(n):
+        batch = src.batch_for_step(i)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        host.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, dict(losses=losses, ms=ms, host_ms=host)
+
+
+def trace_step(dev, step, state, batch, reps=2) -> tuple:
+    """``reps`` train steps under torch.profiler (CPU and CUDA): wall and
+    device busy ms per step, the card's idle share, device ms by kernel
+    name (the 8 largest)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize(dev)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, m = step(state, batch)
+            float(m["loss"])
+        wall = time.perf_counter() - t0
+    busy_us, per = device_busy_us(prof)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    return state, dict(steps=reps, traced_ms_per_step=wall * 1e3 / reps,
+                       device_busy_ms_per_step=busy_us / 1e3 / reps,
+                       idle_share=(1 - busy_us / 1e6 / wall) if busy_us
+                       else None,
+                       device_ms_per_step_by_name={
+                           k[:80]: v / 1e3 / reps for k, v in top})
+
+
+def phase_train(dev, cfg) -> dict:
+    """Phase 8b (a) and (b): ``make_train_step`` at full width and depth
+    (f32 parameters, bf16 compute, remat on), 30 steps at the JAX
+    launcher's batch 4 x seq 128 with ``OptConfig(lr=3e-4, warmup_steps=20,
+    total_steps=30)``, then 3 steps at train_4k's seq 4096 with the batch
+    cut to 1; each with peak memory, ms per step, tokens/s and the forward
+    and backward kernels' launches by variant."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    check(cfg.remat and cfg.param_dtype == "float32" and
+          cfg.compute_dtype == "bfloat16", f"{cfg.name}: not f32 parameters, "
+          "bf16 compute, remat")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train_loop.init_state(cfg, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    out = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               n_params=tfm.count_params(state[0]),
+               init_s=time.perf_counter() - t0,
+               state_bytes=torch.cuda.max_memory_allocated(dev))
+    step = train_loop.make_train_step(
+        cfg, adamw.OptConfig(lr=3e-4, warmup_steps=20, total_steps=30))
+    for key, B, S, n in (("a", 4, 128, 30), ("b", 1, 4096, 3)):
+        n0 = launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        src = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
+        state, rec = train_steps(dev, step, state, src, n)
+        steady = rec["ms"][1:]
+        rec.update(batch=B, seq=S, steps=n, first_step_ms=rec["ms"][0],
+                   ms_per_step=float(np.median(steady)),
+                   host_ms_per_step=float(np.median(rec["host_ms"][1:])),
+                   tokens_per_s=B * S / float(np.median(steady)) * 1e3,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                   launches=count_delta(n0, launch_counts()))
+        check(all(np.isfinite(rec["losses"])), f"8b ({key}): a loss is not "
+              f"finite: {rec['losses']}")
+        if key == "a":
+            first, last = (float(np.mean(rec["losses"][:5])),
+                           float(np.mean(rec["losses"][-5:])))
+            rec.update(mean_first_5=first, mean_last_5=last)
+            check(last < first, f"8b (a): the loss did not fall ({first} -> "
+                  f"{last})")
+            state, rec["trace"] = trace_step(dev, step, state,
+                                             src.batch_for_step(n))
+        out[key] = rec
+        log(f"  8b ({key}) batch {B} x seq {S}, {n} steps: "
+            f"{rec['ms_per_step']:.1f} ms/step (median after the first; "
+            f"first {rec['first_step_ms']:.0f} ms; host "
+            f"{rec['host_ms_per_step']:.1f} ms), {rec['tokens_per_s']:.0f} "
+            f"tokens/s, peak memory {rec['peak_memory_bytes']} B; losses "
+            f"{[round(x, 4) for x in rec['losses']]}")
+        log(f"    launches: {json.dumps(rec['launches'])}")
+        if "trace" in rec:
+            log(f"    trace: {json.dumps(rec['trace'])}")
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_loop(dev, cfg) -> dict:
+    """Phase 8b (e): ``train.loop.run`` at ``cfg.reduced()`` on the card
+    (8 steps of batch 2 x seq 32, a checkpoint every 3 steps): a run that
+    fails at step 5, its resume from step 3, final parameters byte-equal
+    to a clean run's; then the launcher (``--reduced --steps 8``).  All
+    into a temporary directory, deleted afterwards.  At reduced width
+    because one full-width checkpoint holds 1.889e9 x 3 f32 arrays
+    (parameters and two moments), 22.7 GB a save."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import pytree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    rcfg = cfg.reduced()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    t0 = time.perf_counter()
+    try:
+        B, S = LOOP_SHAPES["loop"]
+        src = SyntheticLM(vocab=rcfg.vocab, seq_len=S, global_batch=B,
+                          seed=0)
+        opt = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+
+        def run(d, fail=None):
+            return train_loop.run(rcfg, train_loop.LoopConfig(
+                total_steps=8, ckpt_every=3, ckpt_dir=str(tmp / d),
+                log_every=100, fail_at_step=fail), opt, src, seed=0,
+                device=dev)
+        failed = None
+        try:
+            run("a", fail=5)
+        except train_loop.SimulatedFailure as e:
+            failed = str(e)
+        check(failed is not None, "8b (e): fail_at_step=5 did not raise")
+        check(ckpt.latest_step(str(tmp / "a")) == 3, "8b (e): LATEST is "
+              "not step 3 after the failure: "
+              f"{ckpt.latest_step(str(tmp / 'a'))}")
+        resumed = run("a")
+        check(resumed["resumed"] and resumed["start_step"] == 3,
+              f"8b (e): the resume started at {resumed['start_step']}")
+        clean = run("b")
+        check(not clean["resumed"], "8b (e): the clean run resumed")
+        pairs = list(zip(pytree.leaves(resumed["state"]),
+                         pytree.leaves(clean["state"])))
+        check(all(a.device.type == "cuda" for a, _ in pairs),
+              "8b (e): the state left the card")
+        same = sum(torch.equal(a, b) for a, b in pairs)
+        check(same == len(pairs), f"8b (e): {len(pairs) - same} of "
+              f"{len(pairs)} leaves differ after the resume")
+        check(resumed["losses"] == clean["losses"][3:], "8b (e): the "
+              "resumed losses differ from the clean run's")
+        B, S = LOOP_SHAPES["launcher"]        # the launcher's defaults
+        launcher = launch_train.main(["--arch", LM_ARCH, "--reduced",
+                                      "--steps", "8", "--batch", str(B),
+                                      "--seq", str(S), "--ckpt-dir",
+                                      str(tmp / "launcher")])
+        check(launcher["reduced"] and not launcher["resumed"] and
+              launcher["device"].startswith("cuda") and
+              len(launcher["losses"]) == 8 and
+              all(np.isfinite(launcher["losses"])), "8b (e): the launcher "
+              "did not train 8 reduced steps on the card")
+        check(ckpt.latest_step(str(tmp / "launcher")) == 8,
+              "8b (e): the launcher left no step-8 checkpoint")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not tmp.exists(), f"8b (e): {tmp} was not deleted")
+    out = dict(arch=rcfg.name, d_model=rcfg.d_model, n_layers=rcfg.n_layers,
+               failure=failed, start_step=resumed["start_step"],
+               resumed_losses=resumed["losses"],
+               clean_losses=clean["losses"], leaves_equal=same,
+               launcher_losses=launcher["losses"],
+               seconds=time.perf_counter() - t0)
+    log(f"  8b (e) loop at reduced width: {json.dumps(out)}")
+    return out
+
+
+class plain_training:
+    """Within the block the model's layers run the plain versions of
+    attention and RMSNorm (no Function, no kernel): autograd
+    differentiates the plain forward."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import rmsnorm as rn
+        from repro_torch.models import layers
+        self.saved = (layers, layers.flash_attention, layers.rmsnorm)
+        layers.flash_attention = lambda q, k, v, *, causal, q_offset=0, \
+            kv_len=None: fa.attention(q, k, v, causal=causal,
+                                      q_offset=q_offset, kv_len=kv_len)
+        layers.rmsnorm = lambda x, w, eps=1e-5: rn.rmsnorm(x, w, eps,
+                                                           model=True)
+        return self
+
+    def __exit__(self, *exc):
+        layers, fa_fn, rn_fn = self.saved
+        layers.flash_attention, layers.rmsnorm = fa_fn, rn_fn
+        return False
+
+
+def phase_train_vs_plain(dev, cfg, S=4096) -> dict:
+    """Phase 8b (c): at full width and 2 layers, batch 1 x seq 4096, the
+    loss and every gradient leaf through the kernels against the plain
+    path (autograd of the plain versions) on the same card."""
+    import dataclasses
+    import torch
+    from repro_torch import pytree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = tfm.init_params(cfg2, seed=1, device=dev)
+    batch = SyntheticLM(vocab=cfg2.vocab, seq_len=S, global_batch=1,
+                        seed=0).batch_for_step(0)
+    flat, treedef = pytree.flatten(params)
+
+    def loss_and_grads():
+        leaves = [p.detach().requires_grad_(True) for p in flat]
+        loss, _ = tfm.loss_fn(cfg2, pytree.unflatten(treedef, leaves), batch)
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+    n0 = launch_counts()
+    lk, gk = loss_and_grads()
+    used = count_delta(n0, launch_counts())
+    check(used["attention_bwd_dkdv"] == used["attention_bwd_dq"] == 2 and
+          used["rmsnorm_bwd"] == 5, f"8b (c): the kernel path launched "
+          f"{json.dumps(used)}")
+    n1 = launch_counts()
+    with plain_training():
+        lp, gp = loss_and_grads()
+    check(launch_counts() == n1, "8b (c): the plain path launched a kernel")
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(gk, gp)]
+    out = dict(n_layers=2, seq=S, loss_kernel=lk, loss_plain=lp,
+               loss_rel_err=abs(lk - lp) / abs(lp), grad_rel_err=rel,
+               max_grad_rel_err=max(rel), loss_tol=TRAIN_LOSS_TOL,
+               grad_tol=TRAIN_GRAD_TOL,
+               leaf_shapes=[list(p.shape) for p in flat])
+    log(f"  8b (c) kernel vs plain path: {json.dumps(out)}")
+    check(out["loss_rel_err"] <= TRAIN_LOSS_TOL, f"8b (c): loss {lk} vs "
+          f"plain {lp}")
+    check(out["max_grad_rel_err"] <= TRAIN_GRAD_TOL, f"8b (c): a gradient "
+          f"leaf is {max(rel)} off the plain path's")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+def attn_bwd_bound(B, S, H, Hkv, hd, es, products, causal=True) -> dict:
+    """Least time of ``products`` products of 2 hd flops per visible (query,
+    key) pair and head at the bf16 tensor-core rate (f32: outside the
+    tensor cores), or of the bytes: q, k, v, o, dO read once, the f32 lse
+    and D, dQ, dK, dV written once."""
+    flops = products * 2 * hd * B * H * visible_pairs(S, S, causal, 0)
+    nbytes = es * (2 * 3 * B * S * H * hd + 3 * 2 * B * S * Hkv * hd) \
+        + 4 * 2 * B * H * S
+    rate = BF16_FLOPS_PER_S if es == 2 else SCALAR_OPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
+    return dict(bound_ms=max(t_b, t_o) * 1e3,
+                bound_by="bytes" if t_b >= t_o else "operations",
+                bytes=nbytes, flops=flops)
+
+
+def library_ms(make_backward, reps, bound) -> tuple[float, str]:
+    """Device ms of a library call's backward: CUDA events around replays
+    of a CUDA graph that holds one backward, so no host work sits between
+    its kernels and no profiler record can be lost.  ``make_backward()``
+    runs the forward and returns the backward's callable; forward and
+    capture run on one side stream, the stream autograd gives the
+    backward's kernels.  A reading below the bound is an error."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run = make_backward()
+        for _ in range(3):                 # warm-up: library plans
+            run()
+        side.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            run()
+    torch.cuda.synchronize()
+    g.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        g.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1) / reps
+    check(ms >= bound["bound_ms"], f"a library backward read {ms} ms, below "
+          f"its bound {bound['bound_ms']} ms")
+    return ms, f"cuda graph replay, {reps} replays of one backward"
+
+
+def phase_train_kernels(dev, cfg, S=4096) -> tuple:
+    """Phase 8b (d): each backward kernel against its plain version on the
+    card — attention at (b)'s shape (bf16), at (e)'s shapes (the reduced
+    width's heads, head dim and dtype, :data:`LOOP_SHAPES`) and at odd
+    lengths (333, hd 64 and 128, causal and not, G = 1 and 2) in f32 and
+    bf16, after the forward's output and lse against the plain ones;
+    RMSNorm at [4096, 2048], [3, 130] (the generic route), [512, 2048] in
+    f32 and bf16 and at (e)'s rows and width; then their device times at
+    (b)'s shape beside their bounds, the plain versions' and the library's
+    backward times."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=dev).manual_seed(25)
+    errs = {dtn: {k: dict(max_abs_err=0.0, tol_ratio=0.0)
+                  for k in TRAIN_ROWS} for dtn in LM_TOL}
+
+    def note(dtn, row, got, want, ratio, what):
+        e = float((got.float() - want.float()).abs().max()) \
+            if got.numel() else 0.0
+        rec = errs[dtn][row]
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        rec["tol_ratio"] = max(rec["tol_ratio"], ratio)
+        check(ratio <= 1, f"{row} {dtn} {what}: kernel != plain ({ratio} of "
+              "the tolerance)")
+
+    def rnd(shape, dt, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
+    rcfg = cfg.reduced()
+    cases = [(1, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True,
+              (cfg.compute_dtype,))] + [
+        (B, Sq, rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim, True,
+         (rcfg.compute_dtype,)) for B, Sq in LOOP_SHAPES.values()] + [
+        (1, 333, 2 * G, 2, hd, causal, ("float32", "bfloat16"))
+        for hd in (64, 128) for causal in (True, False) for G in (1, 2)]
+    for B, Sq, H, Hkv, hd, causal, dtns in cases:
+        for dtn in dtns:
+            dt = getattr(torch, dtn)
+            q, do = rnd((B, Sq, H, hd), dt), rnd((B, Sq, H, hd), dt)
+            k, v = rnd((B, Sq, Hkv, hd), dt), rnd((B, Sq, Hkv, hd), dt)
+            what = f"B={B} S={Sq} H={H}/{Hkv} hd={hd} causal={causal}"
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                               with_lse=True)
+            pout, plse = fa.attention(q, k, v, causal=causal, with_lse=True)
+            e_lse = float((lse - plse).abs().max())
+            check(e_lse <= 1e-4, f"{what} {dtn}: forward lse off the plain "
+                  f"one by {e_lse}")
+            r_out = fa.error_ratio(out, pout, LM_TOL[dtn]["flash_attention"])
+            check(r_out <= 1, f"{what} {dtn}: forward output {r_out} of the "
+                  "tolerance off the plain one")
+            got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                   causal=causal)
+            want = fa.attention_backward(q, k, v, out, lse, do,
+                                         causal=causal)
+            tol = LM_TOL[dtn]["flash_attention"]
+            for g, w, row in zip(got, want, ("attention_bwd_dq",
+                                             "attention_bwd_dkdv",
+                                             "attention_bwd_dkdv")):
+                note(dtn, row, g, w, fa.grad_error_ratio(g, w, tol), what)
+            log(f"  attention backward {dtn:8s} {what}: lse {e_lse:.2g}, "
+                "dq/dk/dv " + ", ".join(
+                    f"{fa.grad_error_ratio(g, w, tol):.3f}"
+                    for g, w in zip(got, want)) + f" of the tolerance "
+                f"(rtol = {tol:g}, atol = {tol:g} x min(1, tensor RMS))")
+            del q, k, v, do, out, lse, pout, plse, got, want
+    for dtn in LM_TOL:
+        dt = getattr(torch, dtn)
+        tol = LM_TOL[dtn]["rmsnorm"]
+        shapes = [(4096, 2048), (3, 130), (512, 2048)]
+        if dtn == rcfg.compute_dtype:
+            shapes += [(B * Sq, rcfg.d_model) for B, Sq in LOOP_SHAPES.values()]
+        for rows, d in shapes:
+            x, dy = rnd((rows, d), dt, 3.0), rnd((rows, d), dt)
+            w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
+            dx, dw = rn.rmsnorm_backward_cuda(x, w, dy)
+            pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
+            what = f"[{rows}, {d}]"
+            rx = float(((dx.float() - pdx.float()).abs()
+                        / (tol * (1 + pdx.float().abs()))).max())
+            rw = float(((dw - pdw).abs()
+                        / (NORM_DW_TOL[dtn] * (1 + pdw.abs()))).max())
+            note(dtn, "rmsnorm_bwd", dx, pdx, rx, what)
+            note(dtn, "rmsnorm_bwd", dw, pdw, rw, what)
+            log(f"  rmsnorm backward {dtn:8s} {what}: dx {rx:.3f} of "
+                f"rtol = atol = {tol:g}, dw {rw:.3f} of rtol = atol = "
+                f"{NORM_DW_TOL[dtn]:g}")
+    torch.cuda.empty_cache()
+
+    # times at (b)'s shape, bf16
+    bf = torch.bfloat16
+    H, Hkv, hd, d = 16, 8, 128, 2048
+    q, do = rnd((1, S, H, hd), bf), rnd((1, S, H, hd), bf)
+    k, v = rnd((1, S, Hkv, hd), bf), rnd((1, S, Hkv, hd), bf)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    run_k = lambda: fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                     causal=True)
+    run_p = lambda: fa.attention_backward(q, k, v, out, lse, do, causal=True)
+    def sdpa_backward():
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        do_t = do.transpose(1, 2)
+        return lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                           retain_graph=True)
+    call_ms = cuda_ms(run_k, 5)
+    plain_ms = cuda_ms(run_p, 2, warmup=1)
+    both = attn_bwd_bound(1, S, H, Hkv, hd, 2, 5)
+    lib_ms, lib_from = library_ms(sdpa_backward, 10, both)
+    shape = f"B=1, S={S}, H={H}/{Hkv}, hd={hd}, causal, bfloat16"
+    times = {}
+    for row, products in (("attention_bwd_dkdv", 4), ("attention_bwd_dq", 3)):
+        times[row] = dict(
+            ms=device_ms(run_k, 5, TRAIN_ROWS[row][3]), ms_from="profiler",
+            call_ms=call_ms, call_of="both backward kernels (one wrapper "
+            "call)", plain_ms=plain_ms, plain_of="attention_backward (both)",
+            library_ms=lib_ms, library_from=lib_from, library_of="the "
+            "backward of F.scaled_dot_product_attention (dq, dk, dv "
+            "together)",
+            shape=shape, **attn_bwd_bound(1, S, H, Hkv, hd, 2, products))
+    total = sum(t["ms"] for t in times.values())
+    for t in times.values():      # the whole backward beside its 5 products
+        t.update(backward_ms=total, backward_bound_ms=both["bound_ms"])
+    del q, k, v, do, out, lse
+    x, dy = rnd((S, d), bf, 3.0), rnd((S, d), bf)
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
+
+    def rms_norm_backward():
+        xl = x.detach().requires_grad_()
+        wl = w.to(bf).detach().requires_grad_()
+        y_lib = F.rms_norm(xl, (d,), wl, eps=1e-5)
+        return lambda: torch.autograd.grad(y_lib, (xl, wl), dy,
+                                           retain_graph=True)
+    run_k = lambda: rn.rmsnorm_backward_cuda(x, w, dy)
+    nbytes = 3 * S * d * 2 + 2 * 4 * d
+    ops_n = 8 * S * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
+    bound = dict(bound_ms=max(t_b, t_o) * 1e3,
+                 bound_by="bytes" if t_b >= t_o else "operations",
+                 bytes=nbytes, flops=ops_n)
+    lib_ms, lib_from = library_ms(rms_norm_backward, 20, bound)
+    # each kernel under its own filter (one launch a call), so a launch
+    # record the profiler loses is seen and made up for
+    bwd_ms, reduce_ms = (device_ms(run_k, 20, name) for name in (
+        "rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"))
+    times["rmsnorm_bwd"] = dict(
+        ms=bwd_ms + reduce_ms, ms_from="profiler (the backward kernel and "
+        "its reduction, each under its own name)", bwd_kernel_ms=bwd_ms,
+        reduce_kernel_ms=reduce_ms, call_ms=cuda_ms(run_k, 20),
+        call_of="one wrapper call", plain_ms=cuda_ms(
+            lambda: rn.rmsnorm_backward(x, w, dy, model=True), 5, warmup=1),
+        plain_of="rmsnorm_backward", library_ms=lib_ms,
+        library_from=lib_from, library_of="the backward of F.rms_norm",
+        shape=f"[{S}, {d}] model rounding, bfloat16", **bound)
+    torch.cuda.empty_cache()
+    for k, t in times.items():
+        log(f"  {k:20s} kernel {t['ms']:.4f} ms ({t['ms_from']}; "
+            f"{t['call_ms']:.4f} per call: {t['call_of']})  plain "
+            f"{t['plain_ms']:.3f} ms  library {t['library_ms']:.4f} ms "
+            f"({t['library_from']})  "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {t['bytes']} B,"
+            f" {t['flops']:.4g} flops)  [{t['shape']}]")
+    return errs, times
+
+
+def train_rows(errs, times, launches) -> list:
+    """The ``kernels`` line's rows 12-14: launches from phase 8b's main
+    path ((a), (b), (e)), errors from (d) (bf16, the training dtype, and
+    f32), times at (b)'s shape."""
+    rows = []
+    for k, (replaces, diff, source, _) in TRAIN_ROWS.items():
+        b16, f32 = errs["bfloat16"][k], errs["float32"][k]
+        attn = k.startswith("attention")
+        rule = ("rtol = tolerance, atol = tolerance x min(1, the gradient's "
+                "RMS)" if attn else "dx: allclose, rtol = atol = tolerance; "
+                "dw: allclose, rtol = atol = tolerance in bf16, "
+                f"{NORM_DW_TOL['float32']:g} in f32")
+        name = "flash_attention" if attn else "rmsnorm"
+        rows.append(dict(
+            name=k, route="cuda", source=source, replaces=replaces,
+            pallas="none: the JAX package differentiates its jnp "
+            f"{name} with autodiff", differentiates=diff,
+            launches=launches[k], max_abs_err=b16["max_abs_err"],
+            tolerance=LM_TOL["bfloat16"][name], tolerance_rule=rule,
+            tol_ratio=b16["tol_ratio"], max_abs_err_f32=f32["max_abs_err"],
+            tolerance_f32=LM_TOL["float32"][name],
+            tol_ratio_f32=f32["tol_ratio"],
+            **({"launches_by": launches["rmsnorm_bwd_by"]} if not attn
+               else {}), **times[k]))
+    return rows
+
+
 def attention_variants(errs, times, launches) -> list:
     """Row 9's variants: main-path launches (phase 8), largest errors
     against the plain versions (phase 7, the variant's own dtype: bf16
@@ -4175,6 +4749,27 @@ def main() -> int:
     log(f"  phase 8 done at {time.perf_counter() - t_start:.1f} s (LM phases "
         f"{lm_stats['phases_s']:.1f} s)")
 
+    log("== phase 8b: LM training (main path: counts from here on)")
+    t_train = time.perf_counter()
+    reset_counts()
+    train = phase_train(dev, cfg)
+    train["e"] = phase_train_loop(dev, cfg)
+    train_launches = launch_counts()
+    train["launches"] = {k: train_launches[k] for k in TRAIN_LAUNCH_KEYS}
+    log(f"  main-path launches (phase 8b a, b, e): "
+        f"{json.dumps(train['launches'])}")
+    for k in TRAIN_ROWS:
+        check(train_launches[k] > 0, f"{k} was never launched on the main "
+              "path")
+    for k in ("prefill_mma", "tiled_f32"):
+        check(train_launches["flash_attention_by"][k] > 0, f"training never "
+              f"launched attention variant {k} (with its lse)")
+    train["c"] = phase_train_vs_plain(dev, cfg)
+    train_errs, train_times = phase_train_kernels(dev, cfg)
+    train["seconds"] = time.perf_counter() - t_train
+    log(f"  phase 8b done at {time.perf_counter() - t_start:.1f} s "
+        f"({train['seconds']:.1f} s)")
+
     log("== phase 9: summary")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=ROWS[k][0], pallas=ROWS[k][1],
@@ -4211,7 +4806,8 @@ def main() -> int:
         us_per_cycle=mf_row["us_per_cycle"], shape=mf_row["shape"],
         by_state=mf_row["times"]))
     kernels += lm_rows(lm_errs, lm_times, lm_launches, norm_variants)
-    for k in kernels:       # rows 1-8 bit for bit, rows 9-10 allclose
+    kernels += train_rows(train_errs, train_times, train_launches)
+    for k in kernels:       # rows 1-8 and 11 bit for bit, 9-10, 12-14 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
             k["tol_ratio"] <= 1 and k["tol_ratio_f32"] <= 1 and all(
                 x["tol_ratio"] <= 1 for x in k.get("variants", ()))
@@ -4222,6 +4818,7 @@ def main() -> int:
     log(json.dumps({"sharded_serving": sharded}))
     log(json.dumps({"lm_serving": lm_stats}, default=str))
     log(json.dumps({"lm_kernel_times": lm_times}))
+    log(json.dumps({"lm_training": train}))
     log(json.dumps({"table1_us_per_cycle": table1}))
     log(json.dumps({"compile": compiled}))
     log(json.dumps({"sched_vs_fire_block": versus}))

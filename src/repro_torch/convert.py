@@ -2,8 +2,8 @@
 JAX package.
 
 What crosses between the two packages is the fabric (as assembler text,
-which both packages emit and parse alike), the resumable slot state and
-the LM's parameter tree (both as numpy arrays).  No function here
+which both packages emit and parse alike), the resumable slot state, the
+LM's parameter tree and its training state (all as numpy arrays).  No function here
 imports the JAX package; the caller hands over plain text and arrays.
 """
 from __future__ import annotations
@@ -113,3 +113,21 @@ def lm_params_from_numpy(cfg, tree, device="cuda"):
                 torch.bfloat16).to(device)
         return torch.from_numpy(a).to(device)
     return carry(param_shapes(cfg), tree, "")
+
+
+def train_state_from_numpy(cfg, params_tree, opt_tree, device="cuda"):
+    """The port's training state ``(params, OptState)`` from the JAX
+    package's ``(params, adamw.OptState)`` given as numpy
+    (``jax.tree.map(np.asarray, state)``): the parameters as
+    :func:`lm_params_from_numpy` carries them, the step as a 0-d int32
+    tensor, the moments (and the master weights, when there are any) in
+    the parameters' structure.  ``opt_tree`` may be the NamedTuple or a
+    dict with its fields."""
+    from repro_torch.optim.adamw import OptState
+    opt = opt_tree if isinstance(opt_tree, dict) else opt_tree._asdict()
+    carry = lambda tree: None if tree is None else \
+        lm_params_from_numpy(cfg, tree, device)
+    return carry(params_tree), OptState(
+        step=torch.tensor(np.asarray(opt["step"]).astype(np.int32),
+                          device=device),
+        m=carry(opt["m"]), v=carry(opt["v"]), master=carry(opt.get("master")))

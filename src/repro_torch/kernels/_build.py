@@ -6,7 +6,7 @@ probes; ``schedule_fire.cu``: the static-schedule kernels (the run
 kernel's two variants and the slot step's two), both including
 ``csrc/alu.cuh``; ``multifabric.cu``: the sharded block kernel, which
 includes it too; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
-kernels) for Hopper (``sm_90a``), one compiler per source, all started
+kernels, forward and backward) for Hopper (``sm_90a``), one compiler per source, all started
 together, and links
 the objects into one shared library with a plain C interface.  It is
 written under ``build/`` at the repository root (named by a hash over
@@ -65,8 +65,11 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ("sched_slot_step_launch", 25, 7),
                                ("sched_slot_warp_launch", 18, 9),
                                ("mf_block_launch", 22, 10),
-                               ("flash_attention_tiled_launch", 4, 10),
-                               ("flash_attention_wgmma_launch", 4, 10),
+                               ("flash_attention_tiled_launch", 5, 10),
+                               ("flash_attention_wgmma_launch", 5, 10),
+                               ("flash_attention_bwd_dq_launch", 8, 8),
+                               ("flash_attention_bwd_dkdv_launch", 8, 8),
+                               ("rmsnorm_bwd_reduce_launch", 2, 2),
                                ("flash_attention_split_launch", 6, 12),
                                ("flash_attention_combine_launch", 4, 7)):
         fn = getattr(lib, name)
@@ -76,6 +79,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     # and variant int, eps float
     lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 5 + [ctypes.c_float, vp]
     lib.rmsnorm_launch.restype = ci
+    lib.rmsnorm_bwd_launch.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float,
+                                                            vp]
+    lib.rmsnorm_bwd_launch.restype = ci
     lib.fire_block_smem_bytes.argtypes = [ci] * 6
     lib.fire_block_smem_bytes.restype = ci
     lib.sched_warp_plan.argtypes = [ci] * 10 + [vp]

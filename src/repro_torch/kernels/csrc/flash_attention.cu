@@ -69,6 +69,10 @@
 //    m* = max m_s, l* = sum l_s e^(m_s - m*), o = sum acc_s e^(m_s - m*) /
 //    l*, 0 where l* = 0; a split whose keys are all masked (m_s = -inf)
 //    adds exactly 0.
+// 4. flash_attention_bwd_dq_kernel<T, HD> + flash_attention_bwd_dkdv_
+//    kernel<T, HD> (training): the gradient of the prefill kernels'
+//    function at q_offset 0 over every key, from their row log-sum-exp
+//    (which kernels 1 and 2 write when asked); described below.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -619,6 +623,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                      // [B, H, Sq] row log-sum-exp, or null
   int Sq, Skv, H, Hkv, G, BQ;      // BQ query positions per CTA
   int causal, q_offset, kv_valid;  // kv_valid = min(kv_len, Skv)
   float scale;
@@ -636,6 +641,7 @@ constexpr int kWgThreads = 128;             // one warpgroup
 constexpr int kWgRows = 64;                 // rows (query, head): 16 a warp
 constexpr int kWgKeys = 64;                 // keys per K/V tile
 constexpr int kQPad = 8;                    // bf16 of padding per Q row
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD>
 constexpr size_t wgmma_smem_bytes() {
@@ -827,6 +833,10 @@ flash_attention_wgmma_kernel(const Args a) {
     const int r = r0 + 8 * i;
     if (r >= rows) continue;
     const float inv = l_r[i] == 0.f ? 0.f : 1.f / l_r[i];
+    if (a.lse != nullptr && (lane & 3) == 0)   // m_r is in log2 units
+      a.lse[(static_cast<size_t>(b) * a.H + kvh * G + r % G) * a.Sq + q0 +
+            r / G] = l_r[i] == 0.f ? -INFINITY
+                                   : (m_r[i] + log2f(l_r[i])) * kLn2;
     bf16* dst = o + ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H +
                      kvh * G + r % G) * HD + (lane & 3) * 2;
 #pragma unroll
@@ -1075,6 +1085,9 @@ flash_attention_kernel(const Args a) {
     if (r >= rows) continue;
     const int qi = q0 + r / G, h = kvh * G + r % G;
     const float li = l[i] == 0.f ? 1.f : l[i];
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(static_cast<size_t>(b) * a.H + h) * a.Sq + qi] =
+          l[i] == 0.f ? -INFINITY : m[i] + logf(l[i]);
     float* dst = o + ((static_cast<size_t>(b) * a.Sq + qi) * a.H + h) * HD;
 #pragma unroll
     for (int mm = 0; mm < DN / VD; ++mm)
@@ -1407,6 +1420,407 @@ flash_attention_combine_kernel(const CombineArgs a) {
       store_out(dst + lane + 32 * i, lsum == 0.f ? 0.f : o[i] / lsum);
 }
 
+// ---------------------------------------------------------------------------
+// 4. the backward (training): dQ (and D), then dK and dV
+// ---------------------------------------------------------------------------
+// Replaces the gradient the JAX package takes by autodiff of its jnp
+// attention (src/repro/models/layers.py:72); its Pallas kernel has no
+// backward.  The training case only: q_offset = 0 and every key valid,
+// causal or not, any G.  With P = exp(S - lse) recomputed from (q hd^-1/2)
+// . k and the forward's row log-sum-exp, and D = rowsum(dO o O):
+//   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - D),
+//   dQ = hd^-1/2 dS K,  dK = hd^-1/2 dS^T Q.
+// Bound by operations: five products of 2 hd flops per visible (query,
+// key) pair and head (the dQ kernel recomputes S and dP, so the two
+// kernels run seven).  Both run on the CUDA cores in f32 (bf16 inputs are
+// widened as they are staged); tensor cores are left to a later design.
+// Deterministic: no float atomics, every output element is written once
+// by one thread, and every sum is taken in a fixed order.
+//
+// flash_attention_bwd_dq_kernel<T, HD>: one CTA (256 threads as 16 x 16)
+//   per (query tile of 64, head, batch row), the tiles with the most keys
+//   first.  It stages Q (times hd^-1/2) and dO as f32 in shared memory
+//   (rows padded by 4 floats: the 16-byte reads of 8 neighbouring rows
+//   fall in distinct banks), the rows' lse and D (which it computes, four
+//   threads a row, and writes out for the second kernel), then walks the
+//   key tiles its queries see: stages K and V, computes S and dP (a thread
+//   4 rows x 4 keys), P and dS, puts dS in shared memory and adds dS K to
+//   dQ, a thread's 4 rows x HD/16 dims in registers.
+// flash_attention_bwd_dkdv_kernel<T, HD>: one CTA per (key tile of 64, kv
+//   head, batch row), the tiles that the most queries see first.  It
+//   stages its K and V once, then walks, for each of the G query heads of
+//   its kv head in turn, every query tile that sees its keys: stages Q
+//   (scaled) and dO, lse and D, computes S, dP, P and dS (a thread 4 rows x
+//   4 keys) into shared memory, and adds P^T dO to dV and dS^T Q to dK, a
+//   thread's 4 keys x HD/16 dims in registers.  The sum over the G heads
+//   stays inside the CTA.
+// A row that sees no key (lse = -inf) has P = 0 and adds 0; a key that no
+// query sees gets dK = dV = 0.
+constexpr int kBwThreads = 256;      // 16 x 16
+constexpr int kBwTile = 64;          // queries of a query tile, keys of a key tile
+
+struct BwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;                  // [B, H, Sq] from the forward
+  float* D;                          // [B, H, Sq]: the dQ kernel writes it
+  void* dq;
+  void* dk;
+  void* dv;
+  int Sq, Skv, H, Hkv, G, causal;
+  float scale;
+};
+
+// four [64][HD + pad] f32 tiles, n_p [64][64 + pad] ones, lse and D
+template <int HD>
+constexpr size_t bwd_smem_bytes(int n_p) {
+  return sizeof(float) *
+         (4 * static_cast<size_t>(kBwTile) * (HD + kPad) +
+          static_cast<size_t>(n_p) * kBwTile * (kBwTile + kPad) +
+          2 * kBwTile);
+}
+
+// rows [0, n) of a tile of T at src (rows `stride` elements apart) into
+// dst ([64][HD + pad] f32), times mul; rows n.. are zero
+template <typename T, int HD>
+__device__ __forceinline__ void bwd_stage(float* dst, const T* src,
+                                          size_t stride, int n, float mul) {
+  constexpr int NC = HD / 8;
+  constexpr int LD = HD + kPad;
+  for (int e = threadIdx.x; e < kBwTile * NC; e += kBwThreads) {
+    const int r = e / NC, c = e % NC;
+    float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (r < n) load_f32<T, 8>(src + r * stride + c * 8, f);
+    float4* d4 = reinterpret_cast<float4*>(dst + r * LD + c * 8);
+    d4[0] = make_float4(f[0] * mul, f[1] * mul, f[2] * mul, f[3] * mul);
+    d4[1] = make_float4(f[4] * mul, f[5] * mul, f[6] * mul, f[7] * mul);
+  }
+}
+
+// S = Qs . Ks^T and dP = dOs . Vs^T for rows ty + 16 i, keys tx + 16 c
+template <int HD>
+__device__ __forceinline__ void bwd_scores(const float* Qs, const float* dOs,
+                                           const float* Ks, const float* Vs,
+                                           int ty, int tx, float (&s)[4][4],
+                                           float (&dp)[4][4]) {
+  constexpr int LD = HD + kPad;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[i][c] = dp[i][c] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 qv[4], ov[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qv[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LD + d);
+      ov[i] = *reinterpret_cast<const float4*>(dOs + (ty + 16 * i) * LD + d);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float4 kv =
+          *reinterpret_cast<const float4*>(Ks + (tx + 16 * c) * LD + d);
+      const float4 vv =
+          *reinterpret_cast<const float4*>(Vs + (tx + 16 * c) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][c] += qv[i].x * kv.x + qv[i].y * kv.y + qv[i].z * kv.z +
+                   qv[i].w * kv.w;
+        dp[i][c] += ov[i].x * vv.x + ov[i].y * vv.y + ov[i].z * vv.z +
+                    ov[i].w * vv.w;
+      }
+    }
+  }
+}
+
+// s -> P, dp -> dS for the thread's 4 x 4 (query tile at q0, key tile at
+// k0): P = exp(S - lse) where the key is visible, else 0
+__device__ __forceinline__ void bwd_probs(float (&s)[4][4], float (&dp)[4][4],
+                                          const float* lse_s,
+                                          const float* D_s, int ty, int tx,
+                                          int q0, int k0, int Sq, int Skv,
+                                          int causal) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const float L = lse_s[ty + 16 * i], Dv = D_s[ty + 16 * i];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int kj = k0 + tx + 16 * c;
+      const bool ok = qi < Sq && kj < Skv && (!causal || kj <= qi) &&
+                      L != -INFINITY;
+      const float p = ok ? expf(s[i][c] - L) : 0.f;
+      s[i][c] = p;
+      dp[i][c] = p * (dp[i][c] - Dv);
+    }
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwThreads, 1)
+flash_attention_bwd_dq_kernel(const BwdArgs a) {
+  constexpr int LD = HD + kPad, PLD = kBwTile + kPad;
+  constexpr int DN = HD / 16, VD = DN < 4 ? DN : 4;
+  extern __shared__ float4 bw_smem4[];
+  float* Qs = reinterpret_cast<float*>(bw_smem4);
+  float* dOs = Qs + kBwTile * LD;
+  float* Ks = dOs + kBwTile * LD;
+  float* Vs = Ks + kBwTile * LD;
+  float* dSs = Vs + kBwTile * LD;        // [key][slot 4 ty + i of row ty + 16 i]
+  float* lse_s = dSs + kBwTile * PLD;
+  float* D_s = lse_s + kBwTile;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwTile;   // heaviest first
+  const int h = blockIdx.x % a.H, b = blockIdx.x / a.H;
+  const int kvh = h / a.G;
+  const int nq = min(kBwTile, a.Sq - q0);
+  const size_t qs = static_cast<size_t>(a.H) * HD;
+  const size_t ks = static_cast<size_t>(a.Hkv) * HD;
+  const size_t qoff = (static_cast<size_t>(b) * a.Sq + q0) * qs + h * HD;
+  const size_t koff = static_cast<size_t>(b) * a.Skv * ks + kvh * HD;
+  const T* q = static_cast<const T*>(a.q) + qoff;
+  const T* o = static_cast<const T*>(a.o) + qoff;
+  const T* dout = static_cast<const T*>(a.dout) + qoff;
+  const T* k = static_cast<const T*>(a.k) + koff;
+  const T* v = static_cast<const T*>(a.v) + koff;
+  const size_t row0 = (static_cast<size_t>(b) * a.H + h) * a.Sq + q0;
+
+  bwd_stage<T, HD>(Qs, q, qs, nq, a.scale);
+  bwd_stage<T, HD>(dOs, dout, qs, nq, 1.f);
+  {  // D = rowsum(dO o O), four threads a row, in a fixed order
+    const int r = tid / 4, part = tid % 4;
+    float acc = 0.f;
+    if (r < nq) {
+      for (int d = part * 8; d < HD; d += 32) {
+        float fo[8], fd[8];
+        load_f32<T, 8>(o + r * qs + d, fo);
+        load_f32<T, 8>(dout + r * qs + d, fd);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) acc += fo[t] * fd[t];
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (part == 0) {
+      D_s[r] = acc;
+      lse_s[r] = r < nq ? a.lse[row0 + r] : -INFINITY;
+      if (r < nq) a.D[row0 + r] = acc;
+    }
+  }
+
+  int kend = a.Skv;
+  if (a.causal) kend = min(kend, q0 + nq);
+  const int n_kt = kend > 0 ? (kend + kBwTile - 1) / kBwTile : 0;
+  float acc[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DN; ++e) acc[i][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * kBwTile;
+    __syncthreads();               // staged rows ready; last tile's readers done
+    bwd_stage<T, HD>(Ks, k + k0 * ks, ks, min(kBwTile, a.Skv - k0), 1.f);
+    bwd_stage<T, HD>(Vs, v + k0 * ks, ks, min(kBwTile, a.Skv - k0), 1.f);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+    bwd_scores<HD>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+    bwd_probs(s, dp, lse_s, D_s, ty, tx, q0, k0, a.Sq, a.Skv, a.causal);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      *reinterpret_cast<float4*>(dSs + (tx + 16 * c) * PLD + 4 * ty) =
+          make_float4(dp[0][c], dp[1][c], dp[2][c], dp[3][c]);
+    __syncthreads();
+    const int jmax = min(kBwTile, kend - k0);
+    for (int j = 0; j < jmax; ++j) {
+      const float4 d4 = *reinterpret_cast<const float4*>(dSs + j * PLD + 4 * ty);
+      const float ds[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int mm = 0; mm < DN / VD; ++mm) {
+        float kv[VD];
+        lds<VD>(Ks + j * LD + VD * (tx + 16 * mm), kv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < VD; ++e) acc[i][mm * VD + e] += ds[i] * kv[e];
+      }
+    }
+  }
+
+  T* dq = static_cast<T*>(a.dq) + qoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= nq) continue;
+#pragma unroll
+    for (int mm = 0; mm < DN / VD; ++mm)
+#pragma unroll
+      for (int e = 0; e < VD; ++e)
+        store_out(dq + r * qs + VD * (tx + 16 * mm) + e,
+                  acc[i][mm * VD + e] * a.scale);
+  }
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kBwThreads, 1)
+flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
+  constexpr int LD = HD + kPad, PLD = kBwTile + kPad;
+  constexpr int DN = HD / 16, VD = DN < 4 ? DN : 4;
+  extern __shared__ float4 bw_smem4[];
+  float* Ks = reinterpret_cast<float*>(bw_smem4);
+  float* Vs = Ks + kBwTile * LD;
+  float* Qs = Vs + kBwTile * LD;
+  float* dOs = Qs + kBwTile * LD;
+  float* Ps = dOs + kBwTile * LD;        // [row][slot 4 tx + c of key tx + 16 c]
+  float* dSs = Ps + kBwTile * PLD;
+  float* lse_s = dSs + kBwTile * PLD;
+  float* D_s = lse_s + kBwTile;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int k0 = blockIdx.y * kBwTile;   // tile 0 is seen by the most queries
+  const int kvh = blockIdx.x % a.Hkv, b = blockIdx.x / a.Hkv;
+  const int nk = min(kBwTile, a.Skv - k0);
+  const size_t qs = static_cast<size_t>(a.H) * HD;
+  const size_t ks = static_cast<size_t>(a.Hkv) * HD;
+  const size_t koff = (static_cast<size_t>(b) * a.Skv + k0) * ks + kvh * HD;
+  bwd_stage<T, HD>(Ks, static_cast<const T*>(a.k) + koff, ks, nk, 1.f);
+  bwd_stage<T, HD>(Vs, static_cast<const T*>(a.v) + koff, ks, nk, 1.f);
+
+  float dk[4][DN], dv[4][DN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DN; ++e) dk[i][e] = dv[i][e] = 0.f;
+  const int n_qt = (a.Sq + kBwTile - 1) / kBwTile;
+  const int qt0 = a.causal ? k0 / kBwTile : 0;   // queries >= k0 see key k0
+  for (int g = 0; g < a.G; ++g) {
+    const int h = kvh * a.G + g;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int q0 = qt * kBwTile;
+      const int nq = min(kBwTile, a.Sq - q0);
+      const size_t qoff = (static_cast<size_t>(b) * a.Sq + q0) * qs + h * HD;
+      const size_t row0 = (static_cast<size_t>(b) * a.H + h) * a.Sq + q0;
+      __syncthreads();             // K, V staged; last tile's readers done
+      bwd_stage<T, HD>(Qs, static_cast<const T*>(a.q) + qoff, qs, nq,
+                       a.scale);
+      bwd_stage<T, HD>(dOs, static_cast<const T*>(a.dout) + qoff, qs, nq,
+                       1.f);
+      if (tid < kBwTile) {
+        lse_s[tid] = tid < nq ? a.lse[row0 + tid] : -INFINITY;
+        D_s[tid] = tid < nq ? a.D[row0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float s[4][4], dp[4][4];
+      bwd_scores<HD>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
+      bwd_probs(s, dp, lse_s, D_s, ty, tx, q0, k0, a.Sq, a.Skv, a.causal);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        *reinterpret_cast<float4*>(Ps + (ty + 16 * i) * PLD + 4 * tx) =
+            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        *reinterpret_cast<float4*>(dSs + (ty + 16 * i) * PLD + 4 * tx) =
+            make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      }
+      __syncthreads();
+      for (int r = 0; r < nq; ++r) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Ps + r * PLD + 4 * ty);
+        const float4 d4 = *reinterpret_cast<const float4*>(dSs + r * PLD + 4 * ty);
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+        const float ds[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int mm = 0; mm < DN / VD; ++mm) {
+          float ov[VD], qv[VD];
+          lds<VD>(dOs + r * LD + VD * (tx + 16 * mm), ov);
+          lds<VD>(Qs + r * LD + VD * (tx + 16 * mm), qv);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < VD; ++e) {
+              dv[i][mm * VD + e] += p[i] * ov[e];
+              dk[i][mm * VD + e] += ds[i] * qv[e];
+            }
+        }
+      }
+    }
+  }
+
+  T* dkp = static_cast<T*>(a.dk) + koff;
+  T* dvp = static_cast<T*>(a.dv) + koff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int j = ty + 16 * i;
+    if (j >= nk) continue;
+#pragma unroll
+    for (int mm = 0; mm < DN / VD; ++mm)
+#pragma unroll
+      for (int e = 0; e < VD; ++e) {
+        const size_t off = j * ks + VD * (tx + 16 * mm) + e;
+        store_out(dkp + off, dk[i][mm * VD + e]);   // Q was staged scaled
+        store_out(dvp + off, dv[i][mm * VD + e]);
+      }
+  }
+}
+
+template <typename T, int HD>
+int launch_bwd(const BwdArgs& a, int B, bool dq, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_bwd_dq_kernel<T, HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bwd_smem_bytes<HD>(1)));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bwd_smem_bytes<HD>(2)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  if (dq) {
+    const dim3 grid(B * a.H, (a.Sq + kBwTile - 1) / kBwTile);
+    flash_attention_bwd_dq_kernel<T, HD>
+        <<<grid, kBwThreads, bwd_smem_bytes<HD>(1), stream>>>(a);
+  } else {
+    const dim3 grid(B * a.Hkv, (a.Skv + kBwTile - 1) / kBwTile);
+    flash_attention_bwd_dkdv_kernel<T, HD>
+        <<<grid, kBwThreads, bwd_smem_bytes<HD>(2), stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_bwd_hd(const BwdArgs& a, int B, int hd, bool dq,
+                  cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_bwd<T, 16>(a, B, dq, stream);
+    case 32: return launch_bwd<T, 32>(a, B, dq, stream);
+    case 64: return launch_bwd<T, 64>(a, B, dq, stream);
+    case 128: return launch_bwd<T, 128>(a, B, dq, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// one backward launch: dq (the dQ kernel, which writes D) or dk/dv
+int bwd_launch(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* D, void* dq,
+               void* dk, void* dv, int B, int Sq, int Skv, int H, int Hkv,
+               int hd, int dtype, int causal, bool is_dq, void* stream) {
+  if (B < 0 || Sq < 0 || Skv < 0 || Hkv <= 0 || H % Hkv != 0 ||
+      H / Hkv > 64 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  BwdArgs a{};
+  a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse; a.D = D;
+  a.dq = dq; a.dk = dk; a.dv = dv;
+  a.Sq = Sq; a.Skv = Skv; a.H = H; a.Hkv = Hkv; a.G = H / Hkv;
+  a.causal = causal != 0;
+  a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  if (B == 0 || (is_dq ? Sq : Skv) == 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_bwd_hd<float>(a, B, hd, is_dq, s)
+                    : launch_bwd_hd<bf16>(a, B, hd, is_dq, s);
+}
+
 // the checks and fields every launch shares; false: invalid arguments
 bool fill_args(Args& a, const void* q, const void* k, const void* v,
                void* o, int B, int Sq, int Skv, int H, int Hkv, int hd,
@@ -1433,17 +1847,21 @@ extern "C" {
 // contiguous, 16-byte aligned; hd in {16, 32, 64, 128}; G = H / Hkv at
 // most 64; `dtype` 0 = float32, 1 = bfloat16.  Each returns
 // cudaGetLastError() (0 = ok); arguments a kernel does not take return
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue.  The two prefill kernels also write each row's
+// log-sum-exp of its scaled scores, f32 [B, H, Sq] (-inf for a row that
+// sees no key), where `lse` is not null (training; serving passes null).
 
 // the f32 CUDA-core kernel (dtype 0 only)
 int flash_attention_tiled_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int Sq, int Skv, int H,
-                                 int Hkv, int hd, int dtype, int causal,
-                                 int q_offset, int kv_len, void* stream) {
+                                 void* o, float* lse, int B, int Sq, int Skv,
+                                 int H, int Hkv, int hd, int dtype,
+                                 int causal, int q_offset, int kv_len,
+                                 void* stream) {
   Args a;
   if (!fill_args(a, q, k, v, o, B, Sq, Skv, H, Hkv, hd, causal, q_offset,
                  kv_len) || dtype != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.lse = lse;
   if (B == 0 || Sq == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -1456,13 +1874,15 @@ int flash_attention_tiled_launch(const void* q, const void* k, const void* v,
 
 // the bf16 tensor-core (wgmma) kernel (dtype 1 only)
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int Sq, int Skv, int H,
-                                 int Hkv, int hd, int dtype, int causal,
-                                 int q_offset, int kv_len, void* stream) {
+                                 void* o, float* lse, int B, int Sq, int Skv,
+                                 int H, int Hkv, int hd, int dtype,
+                                 int causal, int q_offset, int kv_len,
+                                 void* stream) {
   Args a;
   if (!fill_args(a, q, k, v, o, B, Sq, Skv, H, Hkv, hd, causal, q_offset,
                  kv_len) || dtype != 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.lse = lse;
   if (B == 0 || Sq == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
@@ -1528,6 +1948,32 @@ int flash_attention_combine_launch(const float* m, const float* l,
   else
     flash_attention_combine_kernel<bf16><<<grid, 128, 0, s>>>(c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The backward of the training case (q_offset 0, every key valid): first
+// the dQ kernel, which also writes D = rowsum(dO o O) [B, H, Sq] f32, then
+// the dK/dV kernel, which reads it.  q, k, v, o, dout, dq, dk, dv
+// contiguous, 16-byte aligned, of dtype `dtype`; lse [B, H, Sq] f32 from
+// the forward.
+int flash_attention_bwd_dq_launch(const void* q, const void* k,
+                                  const void* v, const void* o,
+                                  const void* dout, const float* lse,
+                                  float* D, void* dq, int B, int Sq, int Skv,
+                                  int H, int Hkv, int hd, int dtype,
+                                  int causal, void* stream) {
+  return bwd_launch(q, k, v, o, dout, lse, D, dq, nullptr, nullptr, B, Sq,
+                    Skv, H, Hkv, hd, dtype, causal, true, stream);
+}
+
+int flash_attention_bwd_dkdv_launch(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const float* lse, const float* D,
+                                    void* dk, void* dv, int B, int Sq,
+                                    int Skv, int H, int Hkv, int hd,
+                                    int dtype, int causal, void* stream) {
+  return bwd_launch(q, k, v, nullptr, dout, lse, const_cast<float*>(D),
+                    nullptr, dk, dv, B, Sq, Skv, H, Hkv, hd, dtype, causal,
+                    false, stream);
 }
 
 }  // extern "C"

@@ -33,6 +33,9 @@
 // variants: per-thread partials in element order, then an xor-shuffle tree
 // (and, in the split variant, the warps' sums added in warp order); the
 // plain replay of the split order is rmsnorm.rmsnorm_split_order.
+//
+// The backward (training) -- rmsnorm_bwd_kernel and the reduction of its
+// partials, rmsnorm_bwd_reduce_kernel -- is described where it is defined.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -237,6 +240,142 @@ int launch_typed(const void* xv, const float* w, void* outv, int rows, int d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// backward (training): dx, and dw through per-CTA partials
+// ---------------------------------------------------------------------------
+// Replaces the gradient the JAX package takes by autodiff of the model's
+// jnp RMSNorm (src/repro/models/layers.py:24); the Pallas kernel has no
+// backward.  With r = rsqrt(mean(x^2) + eps), x^ = x r and the incoming
+// gradient dy:
+//   g  = dy w            (dy times w rounded to T, the product rounded
+//                         to T, as the model's product is)
+//   dx = r (g - x^ mean(g x^)),  rounded to T
+//   dw = sum over rows of dy a,  a = x^ rounded to T, f32
+// (the gradient of the model's rounding; the Pallas kernel's rounding has
+// no backward here, since nothing trains through it).
+// Bound by bytes: x and dy are read (twice: the second pass from L1/L2),
+// dx written, w read and dw written once.
+// rmsnorm_bwd_kernel<T, VEC>: CTA c (256 threads) takes the rows
+// [c R, (c + 1) R).  Per row, one pass sums x^2 and g x (per-thread
+// partials in element order, warp shuffles, the warps' sums in warp
+// order), a second writes dx and adds each column's dy a to the CTA's
+// partial of dw in shared memory (a column belongs to one thread: no
+// atomics).  The partials [n_cta, d] f32 go to a workspace, and
+// rmsnorm_bwd_reduce_kernel sums each column's partials in CTA order (one
+// thread a column): deterministic.  VEC: 16-byte vectors of T where d and
+// the pointers allow ("vec"), else one element ("generic").
+constexpr int kBwdThreads = 256;
+// the partial of dw (dynamic) and red (static) share 48 KB of shared memory
+constexpr int kBwdRedBytes = 2 * (kBwdThreads / 32) * sizeof(float);
+constexpr int kBwdMaxD = (48 * 1024 - kBwdRedBytes) / sizeof(float);  // 12272
+
+template <typename T>
+__device__ __forceinline__ float grad_in(float dyf, float wf) {
+  return round_to<T>(dyf * round_to<T>(wf));
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kBwdThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const T* __restrict__ dy, T* __restrict__ dx,
+                   float* __restrict__ part, int rows, int d,
+                   int rows_per_cta, float eps) {
+  extern __shared__ float dw_s[];           // d floats: this CTA's partial
+  __shared__ float red[2][kBwdThreads / 32];
+  using V = Vec<T, VEC>;
+  const int nv = d / VEC;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  for (int i = tid; i < nv; i += kBwdThreads)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) dw_s[i * VEC + e] = 0.f;
+  const int r0 = blockIdx.x * rows_per_cta;
+  const int r1 = min(rows, r0 + rows_per_cta);
+  for (int row = r0; row < r1; ++row) {
+    const V* xr = reinterpret_cast<const V*>(x + static_cast<size_t>(row) * d);
+    const V* gr = reinterpret_cast<const V*>(dy + static_cast<size_t>(row) * d);
+    float ss = 0.f, sg = 0.f;
+    for (int i = tid; i < nv; i += kBwdThreads) {
+      const V a = xr[i], b = gr[i];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float xf = to_f32<T>(a.v[e]);
+        const float g = grad_in<T>(to_f32<T>(b.v[e]), w[i * VEC + e]);
+        ss += xf * xf;
+        sg += g * xf;
+      }
+    }
+    ss = warp_sum(ss);
+    sg = warp_sum(sg);
+    if (lane == 0) {
+      red[0][warp] = ss;
+      red[1][warp] = sg;
+    }
+    __syncthreads();
+    float tss = 0.f, tsg = 0.f;
+    for (int j = 0; j < kBwdThreads / 32; ++j) {
+      tss += red[0][j];
+      tsg += red[1][j];
+    }
+    __syncthreads();                        // red is the next row's
+    const float r = rsqrtf(tss / static_cast<float>(d) + eps);
+    const float mean = tsg * r / static_cast<float>(d);   // mean(g x^)
+    V* dxr = reinterpret_cast<V*>(dx + static_cast<size_t>(row) * d);
+    for (int i = tid; i < nv; i += kBwdThreads) {
+      const V a = xr[i], b = gr[i];
+      V out;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float dyf = to_f32<T>(b.v[e]);
+        const float g = grad_in<T>(dyf, w[i * VEC + e]);
+        const float xh = to_f32<T>(a.v[e]) * r;
+        out.v[e] = from_f32<T>(r * (g - xh * mean));
+        dw_s[i * VEC + e] += dyf * round_to<T>(xh);
+      }
+      dxr[i] = out;
+    }
+  }
+  float* pr = part + static_cast<size_t>(blockIdx.x) * d;
+  for (int i = tid; i < nv; i += kBwdThreads)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) pr[i * VEC + e] = dw_s[i * VEC + e];
+}
+
+__global__ void __launch_bounds__(256)
+rmsnorm_bwd_reduce_kernel(const float* __restrict__ part,
+                          float* __restrict__ dw, int n_cta, int d) {
+  const int c = blockIdx.x * 256 + threadIdx.x;
+  if (c >= d) return;
+  float s = 0.f;
+  for (int j = 0; j < n_cta; ++j) s += part[static_cast<size_t>(j) * d + c];
+  dw[c] = s;
+}
+
+template <typename T>
+int launch_bwd_typed(const void* xv, const float* w, const void* dyv,
+                     void* dxv, float* part, int rows, int d, int variant,
+                     int rows_per_cta, float eps, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(xv);
+  const T* dy = static_cast<const T*>(dyv);
+  T* dx = static_cast<T*>(dxv);
+  const int n_cta = (rows + rows_per_cta - 1) / rows_per_cta;
+  const size_t smem = sizeof(float) * d;
+  if (variant == 0) {                     // vec
+    if (d % kVec != 0 || reinterpret_cast<size_t>(x) % 16 != 0 ||
+        reinterpret_cast<size_t>(dy) % 16 != 0 ||
+        reinterpret_cast<size_t>(dx) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_bwd_kernel<T, kVec><<<n_cta, kBwdThreads, smem, stream>>>(
+        x, w, dy, dx, part, rows, d, rows_per_cta, eps);
+  } else if (variant == 1) {              // generic
+    rmsnorm_bwd_kernel<T, 1><<<n_cta, kBwdThreads, smem, stream>>>(
+        x, w, dy, dx, part, rows, d, rows_per_cta, eps);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -265,6 +404,39 @@ int rmsnorm_launch(const void* x, const void* w, void* out, int rows, int d,
                  : launch_typed<__nv_bfloat16, false>(x, wf, out, rows, d,
                                                       variant, eps, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of the model's rounding: dx [rows, d] (dtype code of x) and
+// this call's partials of dw, part [ceil(rows / rows_per_cta), d] f32; x,
+// dy, dx contiguous, w float32 [d]; variant 0 ("vec", 16-byte vectors) or 1
+// ("generic").  d at most kBwdMaxD (12272).
+int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy,
+                       void* dx, float* part, int rows, int d, int dtype,
+                       int variant, int rows_per_cta, float eps,
+                       void* stream) {
+  if (rows <= 0) return 0;
+  if (d <= 0 || d > kBwdMaxD || rows_per_cta <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* wf = static_cast<const float*>(w);
+  if (dtype == 0)
+    return launch_bwd_typed<float>(x, wf, dy, dx, part, rows, d, variant,
+                                   rows_per_cta, eps, s);
+  if (dtype == 1)
+    return launch_bwd_typed<__nv_bfloat16>(x, wf, dy, dx, part, rows, d,
+                                           variant, rows_per_cta, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dw[d] = the n_cta partials [n_cta, d] summed in order, column by column
+int rmsnorm_bwd_reduce_launch(const float* part, float* dw, int n_cta, int d,
+                              void* stream) {
+  if (d <= 0) return 0;
+  if (n_cta < 0) return static_cast<int>(cudaErrorInvalidValue);
+  rmsnorm_bwd_reduce_kernel<<<(d + 255) / 256, 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      part, dw, n_cta, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

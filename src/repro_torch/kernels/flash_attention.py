@@ -30,6 +30,16 @@ combine kernels; nothing on the main path calls them.  The kernels choose
 their own tiles and, in bf16, round the probabilities to bf16 before the
 P·V product: they agree with the plain version within float tolerance,
 not bit for bit.
+
+Training (q_offset 0, every key valid) goes through
+:class:`FlashAttentionFn`: its forward asks the prefill kernel for each
+row's log-sum-exp (``with_lse``), its backward,
+:func:`flash_attention_backward_cuda`, launches the two backward kernels
+(``dq``, which also writes D = rowsum(dO∘O), then ``dkdv``), counted in
+``flash_attention_backward_cuda.launches_by``.  Their plain version is
+:func:`attention_backward`; :func:`attention_backward_tiles` replays
+their walk over the tiles.  Gradients are held against the plain version
+by :func:`grad_error_ratio`.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ SPLIT_ALIGN = 64                  # keys: a split range starts at a multiple
 SPLIT_CTAS_PER_SM = 4             # split CTAs in flight the planner aims at
 H100_SMS = 132                    # SMs decode_splits plans for by default
 VARIANTS = ("prefill_mma", "tiled_f32", "decode_split", "decode_combine")
+BWD_KERNELS = ("dq", "dkdv")      # the backward's two kernels, in launch order
 
 
 def _valid(Skv: int, kv_len) -> int:
@@ -54,8 +65,11 @@ def _valid(Skv: int, kv_len) -> int:
 
 
 def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
-              kv_len: int | None = None) -> torch.Tensor:
-    """The plain PyTorch version (same semantics as the kernels)."""
+              kv_len: int | None = None, with_lse: bool = False):
+    """The plain PyTorch version (same semantics as the kernels).  With
+    ``with_lse``, returns (out, lse): lse [B, H, Sq] f32 is each row's
+    log-sum-exp of its scaled scores over the keys it sees (-inf for a row
+    that sees none)."""
     B, Sq, H, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
@@ -65,6 +79,7 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     v32 = v.float().permute(0, 2, 1, 3)              # [B, Hkv, Skv, hd]
     kpos = torch.arange(Skv, device=q.device)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     for s0 in range(0, Sq, PLAIN_Q_CHUNK):
         s1 = min(Sq, s0 + PLAIN_Q_CHUNK)
         qc = q[:, s0:s1].float().reshape(B, s1 - s0, Hkv, G, hd)
@@ -75,11 +90,119 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
             qpos = q_offset + torch.arange(s0, s1, device=q.device)
             mask = mask & (kpos[None, :] <= qpos[:, None])
         s = s.masked_fill(~mask, float("-inf"))
+        if with_lse:
+            lse[:, :, s0:s1] = torch.logsumexp(s, dim=-1).reshape(
+                B, H, s1 - s0)
         p = torch.softmax(s, dim=-1).nan_to_num(0.0)  # no visible key: 0
         o = torch.matmul(p, v32[:, :, None])          # [B, Hkv, G, n, hd]
         out[:, s0:s1] = o.permute(0, 3, 1, 2, 4).reshape(
             B, s1 - s0, H, hd).to(q.dtype)
-    return out
+    return (out, lse) if with_lse else out
+
+
+# ---------------------------------------------------------------------------
+# the backward (training): its plain versions
+# ---------------------------------------------------------------------------
+BWD_TILE = 64                     # queries / keys of the backward kernels' tiles
+
+
+def _bwd_tile(q, k, v, do, lse, D, b, h, kvh, qa, qe, ka, ke, causal, scale):
+    """One (query tile, key tile) pair of one head: (P, dS) f32 [nq, nk]
+    with P = exp(S - lse) where the key is visible, else 0."""
+    qs = q[b, qa:qe, h].float() * scale
+    s = qs @ k[b, ka:ke, kvh].float().T
+    dp = do[b, qa:qe, h].float() @ v[b, ka:ke, kvh].float().T
+    L = lse[b, h, qa:qe]
+    ok = torch.isfinite(L)[:, None].expand_as(s)
+    if causal:
+        ok = ok & (torch.arange(ka, ke)[None, :] <= torch.arange(qa, qe)[:, None])
+    p = torch.where(ok, torch.exp(s - torch.where(ok, L[:, None], 0.0)), 0.0)
+    return p, p * (dp - D[b, h, qa:qe, None]), qs
+
+
+def attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
+    """The plain version of the backward kernels: (dq, dk, dv) in q's
+    dtype for out = attention(q, k, v, causal=causal) at q_offset 0 over
+    every key, from its row log-sum-exp ``lse`` [B, H, Sq] and the output's
+    gradient ``do``.  f32 inside: P = exp(S - lse), D = rowsum(do o o),
+    dS = P o (dP - D), dQ = hd^-½ dS K, dK = hd^-½ dS^T Q, dV = P^T dO,
+    each kv head summing over its G query heads.  A row that sees no key
+    (lse = -inf) has P = 0."""
+    B, Sq, H, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    k32 = k.float().permute(0, 2, 1, 3)[:, :, None]   # [B, Hkv, 1, Skv, hd]
+    v32 = v.float().permute(0, 2, 1, 3)[:, :, None]
+    kpos = torch.arange(Skv, device=q.device)
+    D = (do.float() * o.float()).sum(-1).permute(0, 2, 1)   # [B, H, Sq]
+    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    dk = torch.zeros((B, Hkv, Skv, hd), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    rows = lambda x, s0, s1: x[:, s0:s1].float().reshape(
+        B, s1 - s0, Hkv, G, hd).permute(0, 2, 3, 1, 4)   # [B, Hkv, G, n, hd]
+    for s0 in range(0, Sq, PLAIN_Q_CHUNK):
+        s1 = min(Sq, s0 + PLAIN_Q_CHUNK)
+        qc, doc = rows(q, s0, s1) * scale, rows(do, s0, s1)
+        L = lse[:, :, s0:s1].reshape(B, Hkv, G, s1 - s0, 1)
+        Dc = D[:, :, s0:s1].reshape(B, Hkv, G, s1 - s0, 1)
+        s = torch.matmul(qc, k32.transpose(-1, -2))   # [B, Hkv, G, n, Skv]
+        mask = torch.isfinite(L)
+        if causal:
+            qpos = torch.arange(s0, s1, device=q.device)
+            mask = mask & (kpos[None, :] <= qpos[:, None])
+        p = torch.where(mask, torch.exp(s - torch.where(torch.isfinite(L), L,
+                                                        0.0)), 0.0)
+        dv += torch.matmul(p.transpose(-1, -2), doc).sum(2)
+        ds = p * (torch.matmul(doc, v32.transpose(-1, -2)) - Dc)
+        dq[:, s0:s1] = (torch.matmul(ds, k32) * scale).permute(
+            0, 3, 1, 2, 4).reshape(B, s1 - s0, H, hd).to(q.dtype)
+        dk += torch.matmul(ds.transpose(-1, -2), qc).sum(2)
+    return (dq, dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def attention_backward_tiles(q, k, v, o, lse, do, *, causal: bool = True,
+                             tile: int = BWD_TILE):
+    """The backward kernels' walk, replayed tile by tile in plain PyTorch
+    (for the tests, on small inputs): the dQ kernel's CTA per (query tile,
+    head) over the key tiles its queries see, then the dK/dV kernel's CTA
+    per (key tile, kv head) over each of its G heads' query tiles that see
+    its keys (from the key tile's own under the causal mask), with D from
+    the first pass.  f32 sums tile by tile in the kernels' order; returns
+    (dq, dk, dv) in q's dtype, as :func:`attention_backward` does."""
+    B, Sq, H, hd = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    n_qt, n_kt = -(-Sq // tile), -(-Skv // tile)
+    D = torch.zeros((B, H, Sq), dtype=torch.float32)
+    dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32)
+    dk = torch.zeros((B, Skv, Hkv, hd), dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    for b in range(B):
+        for h in range(H):
+            for qt in reversed(range(n_qt)):           # heaviest first
+                qa, qe = qt * tile, min(Sq, (qt + 1) * tile)
+                D[b, h, qa:qe] = (do[b, qa:qe, h].float()
+                                  * o[b, qa:qe, h].float()).sum(-1)
+                kend = min(Skv, qe) if causal else Skv
+                for kt in range(-(-kend // tile)):
+                    ka, ke = kt * tile, min(Skv, (kt + 1) * tile)
+                    _, ds, _ = _bwd_tile(q, k, v, do, lse, D, b, h, h // G,
+                                         qa, qe, ka, ke, causal, scale)
+                    dq[b, qa:qe, h] += ds @ k[b, ka:ke, h // G].float()
+        for kvh in range(Hkv):
+            for kt in range(n_kt):
+                ka, ke = kt * tile, min(Skv, (kt + 1) * tile)
+                for h in range(kvh * G, (kvh + 1) * G):
+                    for qt in range(kt if causal else 0, n_qt):
+                        qa, qe = qt * tile, min(Sq, (qt + 1) * tile)
+                        p, ds, qs = _bwd_tile(q, k, v, do, lse, D, b, h, kvh,
+                                              qa, qe, ka, ke, causal, scale)
+                        dv[b, ka:ke, kvh] += p.T @ do[b, qa:qe, h].float()
+                        dk[b, ka:ke, kvh] += ds.T @ qs
+    return (dq.mul_(scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -201,6 +324,24 @@ def error_ratio(got, want, tol: float) -> float:
     rms = w.square().mean(-1, keepdim=True).sqrt().clamp(max=1.0)
     lim = tol * (w.abs() + rms)
     return float(torch.where(d == 0, 0.0, d / lim).max())
+
+
+def grad_error_ratio(got, want, tol: float) -> float:
+    """How far a gradient ``got`` lies from the plain version's ``want``, as
+    a share of ``tol``: the largest ``|got - want| / (tol * (|want| +
+    min(1, rms)))`` with ``rms`` the root mean square of the whole of
+    ``want``.  :func:`error_ratio`'s absolute part scales with each row,
+    which a gradient cannot meet: under the causal mask query 0's dQ is 0
+    in exact arithmetic (its one probability is 1, so dS = dP - D = 0) and
+    a few ulps in floats.  A kernel holds when this is at most 1."""
+    d = (got.float() - want.float()).abs()
+    if d.numel() == 0:
+        return 0.0
+    w = want.float()
+    rms = min(1.0, float(w.square().mean().sqrt()))
+    if rms == 0:                     # want is all zeros: match exactly
+        return 0.0 if float(d.max()) == 0 else float("inf")
+    return float((d / (tol * (w.abs() + rms))).max())
 
 
 # ---------------------------------------------------------------------------
@@ -334,19 +475,34 @@ def combine_cuda(m, l, acc, out: torch.Tensor) -> torch.Tensor:
                         torch.cuda.current_stream().cuda_stream)
 
 
+def _training_case(k, q_offset, kv_len, what) -> None:
+    if q_offset != 0 or _valid(k.shape[1], kv_len) != k.shape[1]:
+        raise ValueError(f"{what} takes the training case only (q_offset 0, "
+                         f"every key valid), got q_offset={q_offset}, "
+                         f"kv_len={kv_len} of {k.shape[1]} keys")
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
-                         kv_len: int | None = None) -> torch.Tensor:
+                         kv_len: int | None = None, with_lse: bool = False):
     """Attention of q [B, Sq, H, hd] over k, v [B, Skv, Hkv, hd] (see the
     module docstring; ``kv_len=None`` means all Skv keys).  CUDA tensors
     launch the kernel(s) that :func:`variant_of` names; CPU tensors take
     :func:`attention`.  Mixed devices or dtypes, shapes or layouts the
-    kernels do not take raise, as does a kernel that fails to launch."""
+    kernels do not take raise, as does a kernel that fails to launch.
+
+    ``with_lse`` (training: q_offset 0 and every key valid, else it
+    raises) returns (out, lse) with each row's log-sum-exp [B, H, Sq] f32
+    for :func:`flash_attention_backward_cuda`; it always runs a prefill
+    kernel (``prefill_mma`` in bf16, ``tiled_f32`` in f32), which writes
+    it, whatever the shape."""
     q_offset = int(q_offset)
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
+    if with_lse:
+        _training_case(k, q_offset, kv_len, "with_lse")
     if {q.device.type, k.device.type, v.device.type} == {"cpu"}:
         return attention(q, k, v, causal=causal, q_offset=q_offset,
-                         kv_len=kv_len)
+                         kv_len=kv_len, with_lse=with_lse)
     _check(q, k, v)
     from repro_torch.kernels import _build
     lib = _build.load()
@@ -354,6 +510,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
     Skv, Hkv = k.shape[1], k.shape[2]
     kv = _valid(Skv, kv_len)
     variant = variant_of(q, k)
+    lse = None
+    if with_lse:
+        variant = "prefill_mma" if q.dtype == torch.bfloat16 else "tiled_f32"
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         out = torch.empty_like(q)
@@ -370,11 +530,85 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, q_offset: int = 0,
         launch = lib.flash_attention_wgmma_launch \
             if variant == "prefill_mma" else lib.flash_attention_tiled_launch
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     B, Sq, Skv, H, Hkv, hd, DTYPE_CODES[q.dtype],
-                     int(bool(causal)), q_offset, kv, stream)
+                     None if lse is None else lse.data_ptr(), B, Sq, Skv, H,
+                     Hkv, hd, DTYPE_CODES[q.dtype], int(bool(causal)),
+                     q_offset, kv, stream)
     _launched(lib, err, variant)
-    return out
+    return (out, lse) if with_lse else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by = dict.fromkeys(VARIANTS, 0)
+
+
+def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
+                                  causal: bool = True):
+    """(dq, dk, dv) of ``o = attention(q, k, v, causal=causal)`` at q_offset
+    0 over every key, from the forward's row log-sum-exp ``lse`` [B, H, Sq]
+    f32 (:func:`flash_attention_cuda` ``with_lse``) and the output's
+    gradient ``do``.  CUDA tensors launch the dQ kernel (which also writes
+    D = rowsum(do o o)) and then the dK/dV kernel, counted in
+    ``flash_attention_backward_cuda.launches_by`` (``dq``, ``dkdv``) and
+    ``.launches``; CPU tensors take :func:`attention_backward`.  Devices,
+    dtypes, shapes or layouts the kernels do not take raise, as does a
+    kernel that fails to launch."""
+    if {x.device.type for x in (q, k, v, o, lse, do)} == {"cpu"}:
+        return attention_backward(q, k, v, o, lse, do, causal=causal)
+    _check(q, k, v)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device \
+                or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: want q's shape {tuple(q.shape)}, dtype "
+                             f"and device, contiguous and 16-byte aligned")
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse: want float32 [{B}, {H}, {Sq}] on q's device, "
+                         f"got {lse.dtype} {tuple(lse.shape)}")
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    shape = (B, Sq, Skv, H, Hkv, hd, DTYPE_CODES[q.dtype], int(bool(causal)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for kernel, ptrs in (
+                ("dq", (q, k, v, o, do, lse, D, dq)),
+                ("dkdv", (q, k, v, do, lse, D, dk, dv))):
+            err = getattr(lib, f"flash_attention_bwd_{kernel}_launch")(
+                *(x.data_ptr() for x in ptrs), *shape, stream)
+            if err:
+                raise RuntimeError(
+                    f"flash_attention backward {kernel} kernel launch failed: "
+                    + lib.fire_block_error_string(err).decode())
+            flash_attention_backward_cuda.launches_by[kernel] += 1
+            flash_attention_backward_cuda.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward_cuda.launches = 0
+flash_attention_backward_cuda.launches_by = dict.fromkeys(BWD_KERNELS, 0)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with its gradient, for training (q_offset 0, every key
+    valid): the forward kernel with its row log-sum-exp, the backward
+    kernels on the saved q, k, v, output and lse.  Under
+    ``torch.utils.checkpoint`` the lse comes from the recomputed forward
+    with the rest.  CPU tensors take the plain versions of both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention_cuda(q, k, v, causal=causal,
+                                        with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward_cuda(
+            q, k, v, out, lse, do.contiguous(), causal=ctx.causal)
+        return dq, dk, dv, None

@@ -18,6 +18,12 @@ a ``d`` or an alignment the split variant does not take — and counts the
 launch in ``rmsnorm_cuda.launches`` and ``launches_by``; on CPU tensors
 it computes the plain version.  :func:`rmsnorm_split_order` replays the
 split variant's order of summation on the CPU.
+
+Training goes through :class:`RMSNormFn`, whose backward,
+:func:`rmsnorm_backward_cuda`, launches the backward kernel (per-CTA f32
+partials of dw) and the reduction of the partials; the plain version is
+:func:`rmsnorm_backward`, and :func:`rmsnorm_backward_partials` replays
+the partials.
 """
 from __future__ import annotations
 
@@ -170,3 +176,133 @@ def launch_norm_variant(variant: str, x: torch.Tensor, w: torch.Tensor,
 
 rmsnorm_cuda.launches = 0
 rmsnorm_cuda.launches_by = dict.fromkeys(VARIANTS, 0)
+
+
+# ---------------------------------------------------------------------------
+# the backward (training)
+# ---------------------------------------------------------------------------
+BWD_VARIANTS = ("vec", "generic")   # of the backward kernel; then "reduce"
+BWD_CTAS = 256                      # CTAs the backward spreads the rows over
+BWD_MAX_D = 12272                   # a CTA's partial of dw and its 64 B of
+                                    # sums fit 48 KB of shared memory
+
+
+def rmsnorm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5, model: bool = False):
+    """The plain version of the backward: (dx in x's dtype, dw f32 [d]) for
+    ``y = rmsnorm(x, w, eps, model)`` and its gradient ``dy``.  With r =
+    rsqrt(mean(x²) + eps), x̂ = x r and g = dy w (``model``: dy times w in
+    x's dtype, rounded, as the model's product's gradient is), dx = r (g -
+    x̂ mean(g x̂)) and dw = Σ_rows dy a, a = x̂ (``model``: x̂ rounded to
+    x's dtype)."""
+    x32 = x.float()
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    xh = x32 * r
+    if model:
+        g = (dy * w.to(dy.dtype)).float()
+        a = xh.to(x.dtype).float()
+    else:
+        g = dy.float() * w.float()
+        a = xh
+    dx = r * (g - xh * (g * xh).mean(dim=-1, keepdim=True))
+    d = x.shape[-1]
+    return dx.to(x.dtype), (dy.float() * a).reshape(-1, d).sum(0)
+
+
+def bwd_plan(rows: int) -> tuple[int, int]:
+    """(CTAs, rows per CTA) of the backward kernel: the rows cut into at
+    most :data:`BWD_CTAS` runs of equal length (the last shorter)."""
+    per = max(1, -(-rows // BWD_CTAS))
+    return -(-rows // per), per
+
+
+def rmsnorm_backward_partials(x, w, dy, eps: float = 1e-5) -> torch.Tensor:
+    """The backward kernel's partials of dw, replayed in plain PyTorch (for
+    the tests): f32 [CTAs, d], CTA c's the sum of dy a over its rows of
+    :func:`bwd_plan` in row order, in the model's rounding.  The reduction
+    kernel adds them in CTA order."""
+    d = x.shape[-1]
+    a = x.float() * torch.rsqrt((x.float() ** 2).mean(-1, keepdim=True) + eps)
+    a = a.to(x.dtype).float()
+    t = (dy.float() * a).reshape(-1, d)
+    n, per = bwd_plan(t.shape[0])
+    part = torch.zeros((n, d), dtype=torch.float32)
+    for c in range(n):
+        for row in range(c * per, min(t.shape[0], (c + 1) * per)):
+            part[c] += t[row]
+    return part
+
+
+def rmsnorm_backward_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                          eps: float = 1e-5):
+    """(dx, dw f32) of :func:`rmsnorm_backward` in the model's rounding (the
+    only one anything trains through).  CUDA tensors launch the
+    backward kernel (``vec`` where x, dy and dx are whole, aligned 16-byte
+    vectors a row, else ``generic``) and then the reduction of its
+    partials, counted in ``rmsnorm_backward_cuda.launches`` (the backward
+    kernel) and ``.launches_by`` (``vec``, ``generic``, ``reduce``); CPU
+    tensors take :func:`rmsnorm_backward`.  Mixed devices, other dtypes,
+    a ``dy`` unlike ``x``, or d past :data:`BWD_MAX_D` raise, as does a
+    kernel that fails to launch."""
+    if {x.device.type, w.device.type, dy.device.type} == {"cpu"}:
+        return rmsnorm_backward(x, w, dy, eps, model=True)
+    _check(x, w)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device \
+            or not dy.is_contiguous():
+        raise ValueError(f"dy: want x's shape {tuple(x.shape)}, dtype and "
+                         "device, contiguous")
+    d = x.shape[-1]
+    if d > BWD_MAX_D:
+        raise ValueError(f"the backward kernel takes d <= {BWD_MAX_D}, got {d}")
+    rows = x.numel() // d if d else 0
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    n_cta, per = bwd_plan(rows)
+    with torch.cuda.device(x.device):
+        w32 = w.float().contiguous()
+        dx = torch.empty_like(x)
+        part = torch.empty((n_cta, d), dtype=torch.float32, device=x.device)
+        dw = torch.empty((d,), dtype=torch.float32, device=x.device)
+        vec = 16 // x.element_size()
+        variant = "vec" if d % vec == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (x, dy, dx)) else "generic"
+        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device)
+                                 .cuda_stream)
+        for kernel, err in (
+                (variant, lambda: lib.rmsnorm_bwd_launch(
+                    x.data_ptr(), w32.data_ptr(), dy.data_ptr(),
+                    dx.data_ptr(), part.data_ptr(), rows, d,
+                    DTYPE_CODES[x.dtype], BWD_VARIANTS.index(variant), per, float(eps), stream)),
+                ("reduce", lambda: lib.rmsnorm_bwd_reduce_launch(
+                    part.data_ptr(), dw.data_ptr(), n_cta, d, stream))):
+            code = err()
+            if code:
+                raise RuntimeError(f"rmsnorm backward {kernel} kernel launch "
+                                   "failed: "
+                                   + lib.fire_block_error_string(code).decode())
+            rmsnorm_backward_cuda.launches_by[kernel] += 1
+        rmsnorm_backward_cuda.launches += 1
+    return dx, dw
+
+
+rmsnorm_backward_cuda.launches = 0
+rmsnorm_backward_cuda.launches_by = dict.fromkeys((*BWD_VARIANTS, "reduce"), 0)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """The model's RMSNorm (``model=True`` rounding) with its gradient, for
+    training: the forward kernel, then the backward kernels on the saved x
+    and w.  dw is f32 (the kernel reads w in f32 and rounds it itself).
+    CPU tensors take the plain versions."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm_cuda(x, w, eps, model=True)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_backward_cuda(x, w, dy.contiguous(), ctx.eps)
+        return dx, dw, None

@@ -6,7 +6,9 @@ dense RMSNorm/SwiGLU path needs.  Attention and RMSNorm run one
 hand-written CUDA kernel each on the card
 (:func:`~repro_torch.kernels.flash_attention.flash_attention_cuda`,
 :func:`~repro_torch.kernels.rmsnorm.rmsnorm_cuda` with the model's
-rounding) and their plain PyTorch versions on the CPU.  The matrix
+rounding) and their plain PyTorch versions on the CPU; when a gradient is
+wanted (training), each goes through its ``torch.autograd.Function``,
+whose backward is hand-written kernels too.  The matrix
 products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 
 Numerics follow the JAX layers: every matrix product casts its weight to
@@ -31,7 +33,8 @@ UNSUPPORTED = "ROADMAP Queue A 11b"   # the rest of the LM stack
 
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet ({UNSUPPORTED}); the port serves the "
+        f"{what} is not ported yet ({UNSUPPORTED}); the port serves and "
+        "trains the "
         "dense RMSNorm/SwiGLU family (internlm2-1.8b)")
 
 
@@ -43,10 +46,19 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def rmsnorm(x, w, eps=1e-5):
     """``(x32 * rsqrt(mean(x32²) + eps)).astype(x.dtype) * w.astype(x.dtype)``
-    (the model's rounding), through the RMSNorm kernel on the card."""
-    return rn.rmsnorm_cuda(x.contiguous(), w, eps, model=True)
+    (the model's rounding), through the RMSNorm kernel on the card; when a
+    gradient is wanted, through :class:`~repro_torch.kernels.rmsnorm.
+    RMSNormFn` (the backward kernels)."""
+    x = x.contiguous()
+    if _needs_grad(x, w):
+        return rn.RMSNormFn.apply(x, w, eps)
+    return rn.rmsnorm_cuda(x, w, eps, model=True)
 
 
 def apply_norm(cfg, p, x):
@@ -92,10 +104,15 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
               all Skv entries.
     Returns [B, Sq, H, hd] in q.dtype; accumulation in f32.  The JAX
     function's ``q_block``/``kv_block`` have no counterpart: the kernel
-    chooses its own tiles."""
-    return fa.flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal,
-                                   q_offset=q_offset, kv_len=kv_len)
+    chooses its own tiles.  When a gradient is wanted (training: q_offset
+    0, every key valid), through :class:`~repro_torch.kernels.
+    flash_attention.FlashAttentionFn` (the backward kernels)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _needs_grad(q, k, v):
+        fa._training_case(k, q_offset, kv_len, "attention with a gradient")
+        return fa.FlashAttentionFn.apply(q, k, v, causal)
+    return fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset,
+                                   kv_len=kv_len)
 
 
 def naive_attention(q, k, v, *, causal: bool, q_offset=0, kv_len=None):

@@ -1,4 +1,5 @@
-"""The dense transformer LM and its serving steps: prefill and decode.
+"""The dense transformer LM: its training loss and its serving steps
+(prefill and decode).
 
 The port of the dense branch of the JAX package's
 ``repro/models/transformer.py``: pre-norm layers (RMSNorm, GQA attention
@@ -9,6 +10,14 @@ JAX package stacks them for ``lax.scan``, and walked in a Python loop
 (each layer a view, no copy).  The weights are held at the config's
 ``param_dtype``.
 
+Training (:func:`forward`, :func:`loss_fn`) keeps the parameters at
+their own dtype (f32) and casts each weight to the compute dtype at its
+product, as the JAX package does; the layers' stacked weights are split
+into per-layer views once a forward (``unbind``, whose gradient stacks the
+layers' gradients once), and with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
+Serving casts them once (:func:`cast_params`).
+
 Only the dense RMSNorm/SwiGLU family runs here (internlm2-1.8b).  A
 config outside it (MoE, SSM, hybrid, encoder-decoder, frontends,
 layernorm, GELU) raises ``NotImplementedError`` naming the ROADMAP item;
@@ -17,7 +26,9 @@ it never runs through a different path.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import pytree
 from repro_torch.core.engine import resolve_device
 from repro_torch.models.layers import (KVCache, apply_norm, attn_block,
                                        dtype_of, init_attn, init_mlp,
@@ -87,12 +98,6 @@ def param_shapes(cfg) -> dict:
     return p
 
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def count_params(params) -> int:
     if isinstance(params, dict):
         return sum(count_params(v) for v in params.values())
@@ -107,7 +112,7 @@ def cast_params(cfg, params):
     norm weights stay as they are: the RMSNorm kernel reads them in f32
     and rounds them to the activations' dtype itself."""
     cdt = dtype_of(cfg.compute_dtype)
-    out = _tree_map(lambda t: t.to(cdt), params)
+    out = pytree.tree_map(lambda t: t.to(cdt), params)
     out["final_norm"] = params["final_norm"]
     for k in ("ln1", "ln2"):
         out["layers"][k] = params["layers"][k]
@@ -116,7 +121,7 @@ def cast_params(cfg, params):
 
 def layer(params, i: int):
     """Layer ``i``'s parameters: views into the stacked tensors."""
-    return _tree_map(lambda t: t[i], params["layers"])
+    return pytree.tree_map(lambda t: t[i], params["layers"])
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +159,68 @@ def _dense_body(cfg, lp, x, pos, cache=None, causal=True):
 def unembed(cfg, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return h @ w.to(h.dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward (training) and the chunked-vocab loss
+# ---------------------------------------------------------------------------
+def unstacked_layers(params) -> list[dict]:
+    """Each layer's parameters as views of the stacked tensors, made by one
+    ``unbind`` per tensor (its gradient is one stack of the layers')."""
+    flat, treedef = pytree.flatten(params["layers"])
+    cols = [t.unbind(0) for t in flat]
+    return [pytree.unflatten(treedef, [c[i] for c in cols])
+            for i in range(len(cols[0]))]
+
+
+def forward(cfg, params, batch):
+    """Full forward -> (final hidden states [B, S, d] after the final norm,
+    aux loss 0): the dense branch of the JAX package's ``forward``.
+    batch["tokens"] [B, S]; positions ``arange(S)``, causal, no cache."""
+    check_supported(cfg)
+    x = embed_inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device).expand(B, S)
+
+    def body(x, lp):
+        return _dense_body(cfg, lp, x, pos)[0]
+
+    for lp in unstacked_layers(params):
+        if cfg.remat:
+            x = checkpoint(body, x, lp, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = body(x, lp)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return apply_norm(cfg, params["final_norm"], x), aux
+
+
+def loss_fn(cfg, params, batch):
+    """Causal LM loss; batch["labels"] are next-token ids, -1 masked.
+    Returns (loss, {"nll", "tokens", "aux"}) as the JAX package does: the
+    cross-entropy is taken ``cfg.loss_chunk`` positions at a time (f32
+    logits of one chunk at a time), its sum and count added chunk by
+    chunk."""
+    h, aux = forward(cfg, params, batch)
+    labels = torch.as_tensor(batch["labels"], device=h.device).long()
+    B, S, d = h.shape
+    ck = min(cfg.loss_chunk, S)
+    if S % ck:
+        raise ValueError(f"seq {S} is not a multiple of loss_chunk {ck}")
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    w = w.to(h.dtype)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, ck):
+        ls = labels[:, c0:c0 + ck]
+        logits = (h[:, c0:c0 + ck] @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, ls.clamp(min=0)[..., None])[..., 0]
+        mask = (ls >= 0).float()
+        tot = tot + ((lse - tgt) * mask).sum()
+        cnt = cnt + mask.sum()
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"nll": tot, "tokens": cnt, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

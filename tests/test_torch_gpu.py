@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import pytree  # noqa: E402
 from repro_torch.core import library  # noqa: E402
 from repro_torch.core.engine import (DataflowEngine, pack_feeds,  # noqa: E402
                                      run_reference)
@@ -1169,7 +1170,7 @@ def test_out_of_vocabulary_prompt_on_the_card(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch("internlm2-1.8b").reduced()
     cpu = tfm.init_params(cfg, seed=0, device="cpu")
-    card = tfm._tree_map(lambda t: t.to(cuda), cpu)
+    card = pytree.tree_map(lambda t: t.to(cuda), cpu)
     V = cfg.vocab
     raw = np.array([1, 2, V + 3, -5, -V - 7, 3 * V, 17], np.int32)
     rows = tfm.vocab_rows(torch.from_numpy(raw), V).numpy().astype(np.int32)
@@ -1197,7 +1198,7 @@ def test_reduced_serve_engine_cuda_matches_cpu(cuda):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_arch("internlm2-1.8b").reduced()
     cpu = tfm.init_params(cfg, seed=0, device="cpu")
-    card = tfm._tree_map(lambda t: t.to(cuda), cpu)
+    card = pytree.tree_map(lambda t: t.to(cuda), cpu)
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (3, 11)).astype(np.int32))
     lc, _ = tfm.prefill(cfg, cpu, {"tokens": toks}, max_len=24)
@@ -1471,3 +1472,128 @@ def test_multifabric_engine_and_server_on_card(cuda):
     for r, f in zip(srv.run(reqs), reqs):
         assert_same_result(r.engine, run_reference(bench.graph, f),
                            r.uid, dispatches=False)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels (attention dQ and dK/dV, RMSNorm and its reduction)
+# and the training step on the card
+# ---------------------------------------------------------------------------
+# gradients by ``flash_attention.grad_error_ratio`` (rtol = tol, atol = tol
+# x min(1, the tensor's RMS): a gradient row can be 0 in exact arithmetic),
+# at the forward's tolerances; RMSNorm's dx and dw as allclose
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("G,causal", [(1, True), (2, True), (2, False),
+                                      (3, False)])
+def test_attention_backward_kernels_match_plain(cuda, dtype, hd, G, causal):
+    from repro_torch.kernels import flash_attention as fa
+    S = 333 if hd <= 64 else 130
+    q, k, v = _attn_inputs(cuda, 2, S, S, 2, G, hd, dtype, seed=hd * G)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(1), device=cuda).to(dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                       with_lse=True)
+    pout, plse = fa.attention(q, k, v, causal=causal, with_lse=True)
+    assert fa.error_ratio(out, pout, ATTN_TOL[dtype]) <= 1
+    torch.testing.assert_close(lse, plse, rtol=1e-5, atol=1e-5)
+    n0 = dict(fa.flash_attention_backward_cuda.launches_by)
+    got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                           causal=causal)
+    torch.cuda.synchronize()
+    assert {x: fa.flash_attention_backward_cuda.launches_by[x] - n0[x]
+            for x in n0} == {"dq": 1, "dkdv": 1}
+    want = fa.attention_backward(q, k, v, out, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert fa.grad_error_ratio(g, w, ATTN_TOL[dtype]) <= 1
+    again = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                             causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+def test_attention_backward_rejects_bad_arguments(cuda):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 1, 64, 64, 2, 2, 64, torch.bfloat16)
+    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    assert lse.shape == (1, 4, 64) and lse.dtype == torch.float32
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_backward_cuda(q, k, v, out, lse[:, :2], out)
+    with pytest.raises(ValueError, match="do"):
+        fa.flash_attention_backward_cuda(q, k, v, out, lse, out.float())
+    with pytest.raises(ValueError, match="training case"):
+        fa.flash_attention_cuda(q, k, v, q_offset=3, with_lse=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4096, 2048), (3, 130), (512, 2048),
+                                    (7, 128), (300, 96), (64, 12272)])
+def test_rmsnorm_backward_kernels_match_plain(cuda, dtype, rows, d):
+    """The backward kernels (the model's rounding) against the plain
+    version, up to the widest row they take (d = BWD_MAX_D: the partial of
+    dw and the kernel's static sums fill 48 KB of shared memory)."""
+    from repro_torch.kernels import rmsnorm as rn
+    assert d <= rn.BWD_MAX_D
+    gen = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(dtype)
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
+    dy = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+    variant = "vec" if d % (16 // x.element_size()) == 0 else "generic"
+    n0 = dict(rn.rmsnorm_backward_cuda.launches_by)
+    dx, dw = rn.rmsnorm_backward_cuda(x, w, dy)
+    torch.cuda.synchronize()
+    assert {v: rn.rmsnorm_backward_cuda.launches_by[v] - n0[v] for v in n0} \
+        == {"vec": variant == "vec", "generic": variant == "generic",
+            "reduce": 1}
+    pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
+    tol = NORM_TOL[dtype]
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=tol, atol=tol)
+    # dw sums rows in another order (per-CTA partials): f32 rounding grows
+    # with the row count, so its f32 tolerance is the f32 attention one; in
+    # bf16 the model rounding rounds x^ to bf16 first, and a row factor one
+    # ulp off the plain one's flips that rounding now and then
+    dw_tol = 1e-4 if dtype == torch.float32 else NORM_TOL[dtype]
+    torch.testing.assert_close(dw, pdw, rtol=dw_tol, atol=dw_tol)
+    dx2, dw2 = rn.rmsnorm_backward_cuda(x, w, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)     # no atomics
+
+
+def test_rmsnorm_backward_rejects_rows_past_its_limit(cuda):
+    from repro_torch.kernels import rmsnorm as rn
+    d = rn.BWD_MAX_D + 8
+    x = torch.ones((2, d), device=cuda)
+    w = torch.ones((d,), device=cuda)
+    with pytest.raises(ValueError, match=f"d <= {rn.BWD_MAX_D}"):
+        rn.rmsnorm_backward_cuda(x, w, x)
+
+
+def test_training_step_on_card_matches_cpu(cuda):
+    """A reduced internlm2-1.8b train step on the card (every forward and
+    backward kernel launched) against the same step on the CPU's plain
+    versions: loss and parameters; the card's step is deterministic."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("internlm2-1.8b").reduced()
+    ocfg = adamw.OptConfig(lr=1e-3, warmup_steps=1, total_steps=3)
+    batch = SyntheticLM(cfg.vocab, 64, 2, seed=0).batch_for_step(0)
+    cpu = train_loop.init_state(cfg, seed=0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(cuda), cpu)
+    card2 = pytree.tree_map(torch.clone, card)
+    step = train_loop.make_train_step(cfg, ocfg)
+    n0 = (fa.flash_attention_backward_cuda.launches,
+          rn.rmsnorm_backward_cuda.launches)
+    card, m = step(card, batch)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward_cuda.launches - n0[0] == 2 * 2
+    assert rn.rmsnorm_backward_cuda.launches - n0[1] == 2 * 2 + 1
+    cpu, mc = step(cpu, batch)
+    assert float(m["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
+    for a, b in zip(pytree.leaves(card[0]), pytree.leaves(cpu[0])):
+        assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm())
+    card2, _ = step(card2, batch)
+    for a, b in zip(pytree.leaves(card), pytree.leaves(card2)):
+        assert torch.equal(a, b)

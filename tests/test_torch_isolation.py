@@ -203,3 +203,55 @@ def test_front_entry_points_without_cuda_raise(monkeypatch):
         dataflow_server.DataflowServer.for_fn(lambda x: x * 3, np.int32)
     run = compile_fn(lambda x, y: x + y, np.int32, np.int32, device="cpu")
     assert int(run(run.make_feeds([1], [2])).outputs[run.out_arcs[0]]) == 3
+
+
+_TRAINS_WITHOUT_JAX = """
+import sys
+sys.modules["jax"] = None            # any import of jax now fails
+import repro_torch.data.pipeline, repro_torch.optim.adamw
+import repro_torch.ckpt.checkpoint, repro_torch.train.loop
+import repro_torch.launch.train, repro_torch.pytree
+out = repro_torch.launch.train.main(["--arch", "internlm2-1.8b", "--device",
+                                     "cpu", "--steps", "2", "--seq", "16",
+                                     "--batch", "1", "--ckpt-dir", sys.argv[1]])
+bad = [m for m in sys.modules
+       if m.startswith("jax.") or m == "repro" or m.startswith("repro.")]
+assert sys.modules["jax"] is None and not bad, bad
+print(len(out["losses"]))
+"""
+
+
+def test_training_modules_run_without_jax(tmp_path):
+    """data, optim, ckpt, train and launch.train import, and the launcher
+    trains two steps on the CPU, with jax unimportable."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = subprocess.run([sys.executable, "-c", _TRAINS_WITHOUT_JAX,
+                          str(tmp_path)], env=env, capture_output=True,
+                         text=True, timeout=240)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.split()[-1] == "2"
+
+
+def test_training_entry_points_without_cuda_raise(monkeypatch, tmp_path):
+    """Training runs on the card unless asked for the CPU: the launcher (at
+    either width), the loop and its initial state name device="cpu" when
+    there is no card."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("internlm2-1.8b").reduced()
+    for argv in ([], ["--reduced"]):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            launch_train.main(["--arch", "internlm2-1.8b", "--ckpt-dir",
+                               str(tmp_path), *argv])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_loop.init_state(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        train_loop.run(cfg, train_loop.LoopConfig(ckpt_dir=str(tmp_path)),
+                       adamw.OptConfig(), SyntheticLM(cfg.vocab, 16, 1))
+    assert not any(tmp_path.iterdir())
