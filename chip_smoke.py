@@ -204,13 +204,16 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              cut to fit one card), with the forward and backward kernels'
              launches by variant; (e) ``train.loop.run`` at reduced width:
              a failure at step 5, the resume from step 3 byte-equal to a
-             clean run, and ``launch.train --reduced --steps 8``; then (c)
+             clean run, and ``launch.train --reduced --steps 8``; (a)
+             and (b) must launch only the tensor-core backward kernels
+             (``dq_mma``, ``dkdv_mma``), (e) the f32 ones; then (c)
              the loss and every gradient at full width, 2 layers, seq
              4096 through the kernels against the plain path, and (d)
              each backward kernel against its plain version (attention at
-             (b)'s shape and odd lengths, RMSNorm at three shapes, f32 and
-             bf16) and its device time beside its bound, the plain
-             version's and the library's backward;
+             (b)'s shape and odd lengths, hd 16-128, RMSNorm at three
+             shapes, f32 and bf16; two calls byte-equal) and its device
+             time beside its bound, the plain version's and the library's
+             backward, and the f32 route's time at (b)'s shape;
 9. summary — the ``kernels`` JSON line (Pallas rows 1-10; row 11, the
              sharded block kernel, which replaces the JAX package's jnp
              block ``MultiFabric._core_fn``; rows 12-14, the backward
@@ -333,6 +336,7 @@ def launch_counts() -> dict:
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import schedule_fire as ksf
     one, bat = df.fire_block_cuda, df.fire_block_batched_cuda
+    bwd = fa.flash_attention_backward_cuda.launches_by
     return {"fire_block_by": {"fire_block": dict(one.launches_by),
                               "fire_block_batched": dict(bat.launches_by)},
             "fire_block": one.launches, "fire_block_prof": one.prof_launches,
@@ -349,10 +353,9 @@ def launch_counts() -> dict:
             "flash_attention_by": dict(fa.flash_attention_cuda.launches_by),
             "rmsnorm": rn.rmsnorm_cuda.launches,
             "rmsnorm_by": dict(rn.rmsnorm_cuda.launches_by),
-            "attention_bwd_dkdv":
-                fa.flash_attention_backward_cuda.launches_by["dkdv"],
-            "attention_bwd_dq":
-                fa.flash_attention_backward_cuda.launches_by["dq"],
+            "attention_bwd_dkdv": bwd["dkdv_mma"] + bwd["dkdv_f32"],
+            "attention_bwd_dq": bwd["dq_mma"] + bwd["dq_f32"],
+            "attention_bwd_by": dict(bwd),
             "rmsnorm_bwd": rn.rmsnorm_backward_cuda.launches,
             "rmsnorm_bwd_by": dict(rn.rmsnorm_backward_cuda.launches_by),
             "mf_block": kmf.mf_block_cuda.launches,
@@ -380,7 +383,7 @@ def reset_counts() -> None:
     fa.flash_attention_cuda.launches_by = dict.fromkeys(fa.VARIANTS, 0)
     fa.flash_attention_backward_cuda.launches = 0
     fa.flash_attention_backward_cuda.launches_by = dict.fromkeys(
-        fa.BWD_KERNELS, 0)
+        fa.BWD_VARIANTS, 0)
     rn.rmsnorm_backward_cuda.launches = 0
     rn.rmsnorm_backward_cuda.launches_by = dict.fromkeys(
         (*rn.BWD_VARIANTS, "reduce"), 0)
@@ -3897,11 +3900,11 @@ TRAIN_ROWS = {
     "attention_bwd_dkdv": (f"{JAX_LAYERS}:72",
                            "row 9 (flash_attention): dK, dV",
                            "src/repro_torch/kernels/csrc/flash_attention.cu",
-                           "flash_attention_bwd_dkdv_kernel"),
+                           "flash_attention_bwd_dkdv_wgmma_kernel"),
     "attention_bwd_dq": (f"{JAX_LAYERS}:72",
                          "row 9 (flash_attention): dQ (and D)",
                          "src/repro_torch/kernels/csrc/flash_attention.cu",
-                         "flash_attention_bwd_dq_kernel"),
+                         "flash_attention_bwd_dq_wgmma_kernel"),
     "rmsnorm_bwd": (f"{JAX_LAYERS}:24",
                     "row 10 (rmsnorm): dx, dw with its reduction",
                     "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -3916,13 +3919,21 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-2, 3e-2
 # product, and a row factor r one f32 ulp off the plain one's flips that
 # rounding now and then (one bf16 step), so dw takes the bf16 tolerance
 NORM_DW_TOL = {"float32": 1e-4, "bfloat16": LM_TOL["bfloat16"]["rmsnorm"]}
+# phase 8b (a) and (b)'s (batch, seq, steps) at full width in bf16: the
+# JAX launcher's batch 4 x seq 128, then train_4k's seq 4096 with the
+# batch cut to 1; (d) holds the tensor-core kernels at these shapes too
+TRAIN_SHAPES = {"a": (4, 128, 30), "b": (1, 4096, 3)}
 # phase 8b (e)'s (batch, seq): the loop's runs and the launcher's; (d)
 # holds the kernels at these shapes too, the reduced width's head dim and
 # dtype being builds of their own
 LOOP_SHAPES = {"loop": (2, 32), "launcher": (4, 128)}
 TRAIN_LAUNCH_KEYS = ("flash_attention_by", "attention_bwd_dkdv",
-                     "attention_bwd_dq", "rmsnorm_by", "rmsnorm_bwd",
-                     "rmsnorm_bwd_by")
+                     "attention_bwd_dq", "attention_bwd_by", "rmsnorm_by",
+                     "rmsnorm_bwd", "rmsnorm_bwd_by")
+# the f32 route of rows 12-13 (phase 8b e, the reduced width in f32) and
+# its profiler names, timed beside the tensor-core kernels in (d)
+F32_BWD = {"attention_bwd_dkdv": "flash_attention_bwd_dkdv_kernel",
+           "attention_bwd_dq": "flash_attention_bwd_dq_kernel"}
 
 
 def count_delta(before, after) -> dict:
@@ -3978,11 +3989,10 @@ def trace_step(dev, step, state, batch, reps=2) -> tuple:
 
 def phase_train(dev, cfg) -> dict:
     """Phase 8b (a) and (b): ``make_train_step`` at full width and depth
-    (f32 parameters, bf16 compute, remat on), 30 steps at the JAX
-    launcher's batch 4 x seq 128 with ``OptConfig(lr=3e-4, warmup_steps=20,
-    total_steps=30)``, then 3 steps at train_4k's seq 4096 with the batch
-    cut to 1; each with peak memory, ms per step, tokens/s and the forward
-    and backward kernels' launches by variant."""
+    (f32 parameters, bf16 compute, remat on) with ``OptConfig(lr=3e-4,
+    warmup_steps=20, total_steps=30)``, at :data:`TRAIN_SHAPES`; each with
+    peak memory, ms per step, tokens/s and the forward and backward
+    kernels' launches by variant."""
     import torch
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import transformer as tfm
@@ -4001,7 +4011,7 @@ def phase_train(dev, cfg) -> dict:
                state_bytes=torch.cuda.max_memory_allocated(dev))
     step = train_loop.make_train_step(
         cfg, adamw.OptConfig(lr=3e-4, warmup_steps=20, total_steps=30))
-    for key, B, S, n in (("a", 4, 128, 30), ("b", 1, 4096, 3)):
+    for key, (B, S, n) in TRAIN_SHAPES.items():
         n0 = launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
         src = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
@@ -4015,6 +4025,11 @@ def phase_train(dev, cfg) -> dict:
                    launches=count_delta(n0, launch_counts()))
         check(all(np.isfinite(rec["losses"])), f"8b ({key}): a loss is not "
               f"finite: {rec['losses']}")
+        by = rec["launches"]["attention_bwd_by"]
+        check(by["dq_mma"] == by["dkdv_mma"] > 0 and
+              by["dq_f32"] == by["dkdv_f32"] == 0, f"8b ({key}): bf16 "
+              f"training launched the backward kernels {json.dumps(by)}, "
+              "want only dq_mma and dkdv_mma")
         if key == "a":
             first, last = (float(np.mean(rec["losses"][:5])),
                            float(np.mean(rec["losses"][-5:])))
@@ -4140,7 +4155,7 @@ class plain_training:
         return False
 
 
-def phase_train_vs_plain(dev, cfg, S=4096) -> dict:
+def phase_train_vs_plain(dev, cfg, S=TRAIN_SHAPES["b"][1]) -> dict:
     """Phase 8b (c): at full width and 2 layers, batch 1 x seq 4096, the
     loss and every gradient leaf through the kernels against the plain
     path (autograd of the plain versions) on the same card."""
@@ -4235,16 +4250,89 @@ def library_ms(make_backward, reps, bound) -> tuple[float, str]:
     return ms, f"cuda graph replay, {reps} replays of one backward"
 
 
-def phase_train_kernels(dev, cfg, S=4096) -> tuple:
+def attn_bwd_alone(q, k, v, o, lse, do, causal) -> dict:
+    """``"dq"`` and ``"dkdv"`` -> a callable that launches that attention
+    backward kernel (of q's dtype's variant) and nothing else (the wrapper's entry point and arguments, on buffers
+    of its own; D from one dQ launch first), for times that need no
+    profiler record."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    lib = _build.load()
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    shape = (B, Sq, Skv, H, Hkv, hd, fa.DTYPE_CODES[q.dtype], int(causal))
+    dq_v, dkdv_v = fa.bwd_variant_of(q)
+    ptrs = {dq_v: (q, k, v, o, do, lse, D, dq),
+            dkdv_v: (q, k, v, do, lse, D, dk, dv)}
+
+    def launch(variant):
+        err = getattr(lib, fa.BWD_ENTRY[variant])(
+            *(x.data_ptr() for x in ptrs[variant]), *shape,
+            torch.cuda.current_stream(q.device).cuda_stream)
+        check(err == 0, f"the {variant} backward kernel did not launch")
+    launch(dq_v)
+    return {"dq": lambda: launch(dq_v), "dkdv": lambda: launch(dkdv_v)}
+
+
+def rmsnorm_bwd_alone(x, w, dy) -> dict:
+    """``""`` and ``"reduce_"`` -> a callable that launches the RMSNorm
+    backward kernel (its ``vec`` variant), or the reduction of its
+    partials, and nothing else (the wrapper's entry points and
+    arguments, on buffers of its own)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+    lib = _build.load()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    n_cta, per = rn.bwd_plan(rows)
+    w32, dx = w.float().contiguous(), torch.empty_like(x)
+    part = torch.empty((n_cta, d), dtype=torch.float32, device=x.device)
+    dw = torch.empty((d,), dtype=torch.float32, device=x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+    def run(err, what):
+        check(err == 0, f"the RMSNorm backward {what} did not launch")
+    return {"": lambda: run(lib.rmsnorm_bwd_launch(
+                x.data_ptr(), w32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                part.data_ptr(), rows, d, rn.DTYPE_CODES[x.dtype],
+                rn.BWD_VARIANTS.index("vec"), per, 1e-5, stream), "kernel"),
+            "reduce_": lambda: run(lib.rmsnorm_bwd_reduce_launch(
+                part.data_ptr(), dw.data_ptr(), n_cta, d, stream),
+                "reduction")}
+
+
+def kernel_ms(fn, reps: int, kernel: str, alone) -> tuple[float, str]:
+    """Device ms of ``kernel`` a call of fn(), and where it came from: the
+    profiler, or, where the profiler recorded none of its launches in any
+    window, CUDA events around calls of ``alone()``, which launch that
+    kernel and nothing else."""
+    ms = profiled_ms(fn, reps, kernel)
+    if ms > 0:
+        return ms, "profiler"
+    log(f"  (the profiler recorded no launch of {kernel}: CUDA events "
+        "around launches of it alone)")
+    return cuda_ms(alone, reps), ("cuda events around launches of the "
+                                  "kernel alone (the profiler recorded none)")
+
+
+def phase_train_kernels(dev, cfg) -> tuple:
     """Phase 8b (d): each backward kernel against its plain version on the
-    card — attention at (b)'s shape (bf16), at (e)'s shapes (the reduced
-    width's heads, head dim and dtype, :data:`LOOP_SHAPES`) and at odd
-    lengths (333, hd 64 and 128, causal and not, G = 1 and 2) in f32 and
-    bf16, after the forward's output and lse against the plain ones;
-    RMSNorm at [4096, 2048], [3, 130] (the generic route), [512, 2048] in
-    f32 and bf16 and at (e)'s rows and width; then their device times at
-    (b)'s shape beside their bounds, the plain versions' and the library's
-    backward times."""
+    card — attention at (a) and (b)'s shapes (bf16: the tensor-core
+    kernels, :data:`TRAIN_SHAPES`), at
+    (e)'s shapes (the reduced width's heads, head dim and dtype, f32: the
+    CUDA-core kernels, :data:`LOOP_SHAPES`) and at odd lengths (333; hd 64
+    and 128 in f32 and bf16, hd 16 and 32 in bf16; causal and not, G = 1
+    and 2), after the forward's output and lse against the plain ones, and
+    two calls byte-equal; RMSNorm at [4096, 2048], [3, 130] (the generic
+    route), [512, 2048] in f32 and bf16 and at (e)'s rows and width; then
+    their device times at (b)'s shape beside their bounds, the plain
+    versions' and the library's backward times, and the f32 route's times
+    at the same shape in f32."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -4265,12 +4353,14 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
     def rnd(shape, dt, scale=1.0):
         return (scale * torch.randn(shape, generator=gen, device=dev)).to(dt)
     rcfg = cfg.reduced()
-    cases = [(1, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True,
-              (cfg.compute_dtype,))] + [
+    cases = [(B, Sq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True,
+              (cfg.compute_dtype,)) for B, Sq, _ in TRAIN_SHAPES.values()] + [
         (B, Sq, rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim, True,
          (rcfg.compute_dtype,)) for B, Sq in LOOP_SHAPES.values()] + [
-        (1, 333, 2 * G, 2, hd, causal, ("float32", "bfloat16"))
-        for hd in (64, 128) for causal in (True, False) for G in (1, 2)]
+        (1, 333, 2 * G, 2, hd, causal, ("float32", "bfloat16") if hd >= 64
+         else ("bfloat16",))
+        for hd in (16, 32, 64, 128) for causal in (True, False)
+        for G in (1, 2)]
     for B, Sq, H, Hkv, hd, causal, dtns in cases:
         for dtn in dtns:
             dt = getattr(torch, dtn)
@@ -4288,6 +4378,10 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
                   "tolerance off the plain one")
             got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                    causal=causal)
+            again = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                     causal=causal)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{what} {dtn}: two backward calls differ (atomics?)")
             want = fa.attention_backward(q, k, v, out, lse, do,
                                          causal=causal)
             tol = LM_TOL[dtn]["flash_attention"]
@@ -4300,7 +4394,7 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
                     f"{fa.grad_error_ratio(g, w, tol):.3f}"
                     for g, w in zip(got, want)) + f" of the tolerance "
                 f"(rtol = {tol:g}, atol = {tol:g} x min(1, tensor RMS))")
-            del q, k, v, do, out, lse, pout, plse, got, want
+            del q, k, v, do, out, lse, pout, plse, got, again, want
     for dtn in LM_TOL:
         dt = getattr(torch, dtn)
         tol = LM_TOL[dtn]["rmsnorm"]
@@ -4326,9 +4420,10 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
 
     # times at (b)'s shape, bf16
     bf = torch.bfloat16
-    H, Hkv, hd, d = 16, 8, 128, 2048
-    q, do = rnd((1, S, H, hd), bf), rnd((1, S, H, hd), bf)
-    k, v = rnd((1, S, Hkv, hd), bf), rnd((1, S, Hkv, hd), bf)
+    B, S, _ = TRAIN_SHAPES["b"]
+    H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    q, do = rnd((B, S, H, hd), bf), rnd((B, S, H, hd), bf)
+    k, v = rnd((B, S, Hkv, hd), bf), rnd((B, S, Hkv, hd), bf)
     out, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
     run_k = lambda: fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
                                                      causal=True)
@@ -4343,24 +4438,40 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
                                            retain_graph=True)
     call_ms = cuda_ms(run_k, 5)
     plain_ms = cuda_ms(run_p, 2, warmup=1)
-    both = attn_bwd_bound(1, S, H, Hkv, hd, 2, 5)
+    both = attn_bwd_bound(B, S, H, Hkv, hd, 2, 5)
     lib_ms, lib_from = library_ms(sdpa_backward, 10, both)
-    shape = f"B=1, S={S}, H={H}/{Hkv}, hd={hd}, causal, bfloat16"
+    shape = f"B={B}, S={S}, H={H}/{Hkv}, hd={hd}, causal, bfloat16"
+    alone = attn_bwd_alone(q, k, v, out, lse, do, True)
     times = {}
     for row, products in (("attention_bwd_dkdv", 4), ("attention_bwd_dq", 3)):
+        ms, ms_from = kernel_ms(run_k, 5, TRAIN_ROWS[row][3],
+                                alone[row.split("_")[-1]])
         times[row] = dict(
-            ms=device_ms(run_k, 5, TRAIN_ROWS[row][3]), ms_from="profiler",
-            call_ms=call_ms, call_of="both backward kernels (one wrapper "
-            "call)", plain_ms=plain_ms, plain_of="attention_backward (both)",
+            ms=ms, ms_from=ms_from, call_ms=call_ms, call_of="both backward "
+            "kernels (one wrapper call)", plain_ms=plain_ms, plain_of="attention_backward (both)",
             library_ms=lib_ms, library_from=lib_from, library_of="the "
             "backward of F.scaled_dot_product_attention (dq, dk, dv "
             "together)",
-            shape=shape, **attn_bwd_bound(1, S, H, Hkv, hd, 2, products))
+            shape=shape, **attn_bwd_bound(B, S, H, Hkv, hd, 2, products))
     total = sum(t["ms"] for t in times.values())
     for t in times.values():      # the whole backward beside its 5 products
         t.update(backward_ms=total, backward_bound_ms=both["bound_ms"])
-    del q, k, v, do, out, lse
-    x, dy = rnd((S, d), bf, 3.0), rnd((S, d), bf)
+    del q, k, v, do, out, lse, alone
+    # the f32 route (CUDA cores) at the same shape, in f32
+    q, do = rnd((B, S, H, hd), torch.float32), rnd((B, S, H, hd),
+                                                   torch.float32)
+    k, v = rnd((B, S, Hkv, hd), torch.float32), rnd((B, S, Hkv, hd),
+                                                    torch.float32)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    run_f = lambda: fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                     causal=True)
+    alone = attn_bwd_alone(q, k, v, out, lse, do, True)
+    for row, name in F32_BWD.items():
+        ms, ms_from = kernel_ms(run_f, 3, name, alone[row.split("_")[-1]])
+        times[row].update(f32_ms=ms, f32_of=f"{name}, the f32 route at the "
+                          f"same shape in float32 ({ms_from})")
+    del q, k, v, do, out, lse, alone
+    x, dy = rnd((B * S, d), bf, 3.0), rnd((B * S, d), bf)
     w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
 
     def rms_norm_backward():
@@ -4370,8 +4481,8 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
         return lambda: torch.autograd.grad(y_lib, (xl, wl), dy,
                                            retain_graph=True)
     run_k = lambda: rn.rmsnorm_backward_cuda(x, w, dy)
-    nbytes = 3 * S * d * 2 + 2 * 4 * d
-    ops_n = 8 * S * d
+    nbytes = 3 * B * S * d * 2 + 2 * 4 * d
+    ops_n = 8 * B * S * d
     t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
     bound = dict(bound_ms=max(t_b, t_o) * 1e3,
                  bound_by="bytes" if t_b >= t_o else "operations",
@@ -4379,19 +4490,24 @@ def phase_train_kernels(dev, cfg, S=4096) -> tuple:
     lib_ms, lib_from = library_ms(rms_norm_backward, 20, bound)
     # each kernel under its own filter (one launch a call), so a launch
     # record the profiler loses is seen and made up for
-    bwd_ms, reduce_ms = (device_ms(run_k, 20, name) for name in (
-        "rmsnorm_bwd_kernel", "rmsnorm_bwd_reduce_kernel"))
+    alone = rmsnorm_bwd_alone(x, w, dy)
+    (bwd_ms, bwd_from), (reduce_ms, reduce_from) = (
+        kernel_ms(run_k, 20, f"rmsnorm_bwd_{name}kernel", alone[name])
+        for name in ("", "reduce_"))
     times["rmsnorm_bwd"] = dict(
-        ms=bwd_ms + reduce_ms, ms_from="profiler (the backward kernel and "
-        "its reduction, each under its own name)", bwd_kernel_ms=bwd_ms,
+        ms=bwd_ms + reduce_ms, ms_from=f"the backward kernel ({bwd_from}) "
+        f"and its reduction ({reduce_from}), each under its own name",
+        bwd_kernel_ms=bwd_ms,
         reduce_kernel_ms=reduce_ms, call_ms=cuda_ms(run_k, 20),
         call_of="one wrapper call", plain_ms=cuda_ms(
             lambda: rn.rmsnorm_backward(x, w, dy, model=True), 5, warmup=1),
         plain_of="rmsnorm_backward", library_ms=lib_ms,
         library_from=lib_from, library_of="the backward of F.rms_norm",
-        shape=f"[{S}, {d}] model rounding, bfloat16", **bound)
+        shape=f"[{B * S}, {d}] model rounding, bfloat16", **bound)
     torch.cuda.empty_cache()
     for k, t in times.items():
+        if "f32_ms" in t:
+            log(f"  {k:20s} f32 route {t['f32_ms']:.4f} ms ({t['f32_of']})")
         log(f"  {k:20s} kernel {t['ms']:.4f} ms ({t['ms_from']}; "
             f"{t['call_ms']:.4f} per call: {t['call_of']})  plain "
             f"{t['plain_ms']:.3f} ms  library {t['library_ms']:.4f} ms "
@@ -4423,8 +4539,10 @@ def train_rows(errs, times, launches) -> list:
             tol_ratio=b16["tol_ratio"], max_abs_err_f32=f32["max_abs_err"],
             tolerance_f32=LM_TOL["float32"][name],
             tol_ratio_f32=f32["tol_ratio"],
-            **({"launches_by": launches["rmsnorm_bwd_by"]} if not attn
-               else {}), **times[k]))
+            launches_by=launches["rmsnorm_bwd_by"] if not attn else {
+                v: n for v, n in launches["attention_bwd_by"].items()
+                if v.startswith(k.split("_")[-1] + "_")},
+            **times[k]))
     return rows
 
 
@@ -4585,6 +4703,7 @@ def main() -> int:
     from repro_torch.configs.base import get_arch
     from repro_torch.core import library
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -4764,6 +4883,9 @@ def main() -> int:
     for k in ("prefill_mma", "tiled_f32"):
         check(train_launches["flash_attention_by"][k] > 0, f"training never "
               f"launched attention variant {k} (with its lse)")
+    for k in fa.BWD_VARIANTS:      # bf16 (a, b) on the tensor cores, f32 (e)
+        check(train_launches["attention_bwd_by"][k] > 0, f"training never "
+              f"launched the attention backward's {k} kernel")
     train["c"] = phase_train_vs_plain(dev, cfg)
     train_errs, train_times = phase_train_kernels(dev, cfg)
     train["seconds"] = time.perf_counter() - t_train

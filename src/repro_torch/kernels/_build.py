@@ -69,6 +69,9 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ("flash_attention_wgmma_launch", 5, 10),
                                ("flash_attention_bwd_dq_launch", 8, 8),
                                ("flash_attention_bwd_dkdv_launch", 8, 8),
+                               ("flash_attention_bwd_dq_wgmma_launch", 8, 8),
+                               ("flash_attention_bwd_dkdv_wgmma_launch", 8,
+                                8),
                                ("rmsnorm_bwd_reduce_launch", 2, 2),
                                ("flash_attention_split_launch", 6, 12),
                                ("flash_attention_combine_launch", 4, 7)):

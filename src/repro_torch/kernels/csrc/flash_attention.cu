@@ -69,10 +69,14 @@
 //    m* = max m_s, l* = sum l_s e^(m_s - m*), o = sum acc_s e^(m_s - m*) /
 //    l*, 0 where l* = 0; a split whose keys are all masked (m_s = -inf)
 //    adds exactly 0.
-// 4. flash_attention_bwd_dq_kernel<T, HD> + flash_attention_bwd_dkdv_
-//    kernel<T, HD> (training): the gradient of the prefill kernels'
+// 4. flash_attention_bwd_dq_kernel<HD> + flash_attention_bwd_dkdv_
+//    kernel<HD> (training, f32): the gradient of the prefill kernels'
 //    function at q_offset 0 over every key, from their row log-sum-exp
-//    (which kernels 1 and 2 write when asked); described below.
+//    (which kernels 1 and 2 write when asked), on the CUDA cores;
+//    described below.
+// 5. flash_attention_bwd_dq_wgmma_kernel<HD> + flash_attention_bwd_dkdv_
+//    wgmma_kernel<HD> (training, bf16): the same gradient on the tensor
+//    cores; described below.  The wrapper picks 4 or 5 by dtype alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -650,33 +654,67 @@ constexpr size_t wgmma_smem_bytes() {
   return sizeof(bf16) * 2 * 2 * kWgKeys * HD;
 }
 
+// A tile of 64 rows (keys or queries) x HD dims of bf16 in shared memory,
+// as the tensor-core kernels keep K, V (and, in the backward, Q and dO):
+// blocks of W bytes of dims (64 rows x W bytes each), 16-byte chunks
+// swizzled within 8-row atoms (conflict-free for cp.async and for
+// wgmma's reads); tile bases 1024-byte aligned.  The same bytes serve as
+// a K-major operand (K: the dims) and as an N-major one (N: the dims).
+// At hd 64 the blocks are 32 dims wide, for two n32 halves (see the
+// header).
+template <int HD>
+struct SwzTile {
+  static constexpr int W = HD == 64 ? 64 : HD * 2 < 128 ? HD * 2 : 128;
+  static constexpr int NP = HD == 64 ? 2 : 1;  // N-major descriptors a step
+  static constexpr unsigned kLayout = W == 128 ? 1 : W == 64 ? 2 : 3;
+  static constexpr unsigned kSwz = W / 16 - 1;
+  static constexpr int CPR = HD / 8;           // 16-byte chunks a row
+  static constexpr int BYTES = kWgRows * HD * 2;
+
+  // byte offset of (row j, dims 8 c .. 8 c + 7)
+  static __device__ __forceinline__ unsigned off(int j, int c) {
+    const unsigned o = (c * 16 / W) * (kWgRows * W) + j * W + c * 16 % W;
+    return o ^ (((o >> 7) & kSwz) << 4);
+  }
+  // K-major operand (rows x dims; K = dims), 16-dim step kk
+  static __device__ __forceinline__ unsigned long long kmajor(unsigned base,
+                                                              int kk) {
+    return smem_desc(base + (kk * 32 / W) * (kWgRows * W) + kk * 32 % W, 16,
+                     8 * W, kLayout);
+  }
+  // N-major operand (N = dims, K = rows), 16-row step t, dim block h
+  static __device__ __forceinline__ unsigned long long nmajor(unsigned base,
+                                                              int t, int h) {
+    return smem_desc(base + h * kWgRows * W + t * 16 * W, kWgRows * W,
+                     8 * W, kLayout);
+  }
+  // rows [0, n) of the tile at dst from row_ptr(j), the rest zero-filled
+  template <typename F>
+  static __device__ __forceinline__ void load(unsigned char* dst, int n,
+                                              F row_ptr) {
+    for (int e = threadIdx.x; e < kWgRows * CPR; e += kWgThreads) {
+      const int j = e / CPR, c = e % CPR;
+      const bool ok = j < n;
+      cp_async16(dst + off(j, c), ok ? row_ptr(j) + c * 8 : row_ptr(0), ok);
+    }
+  }
+};
+
 template <int HD>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_wgmma_kernel(const Args a) {
   constexpr int KS = HD / 16;       // 16-dim steps of Q.K^T
   constexpr int NO = HD / 8;        // 8-dim tiles of the output
   constexpr int NS = kWgKeys / 8;   // 8-key tiles of S
-  constexpr int CPR = HD / 8;       // 16-byte chunks per row
+  using L = SwzTile<HD>;             // the K and V tiles' layout
+  constexpr int CPR = L::CPR;
+  constexpr int NP = L::NP;         // B descriptors per P.V step
   constexpr int TILE = kWgKeys * HD;
   constexpr int QLD = HD + kQPad;   // Q rows padded: ldmatrix conflict-free
-  // K and V tiles: [key][dim] in blocks of W bytes of dims (64 keys x W
-  // bytes each), 16-byte chunks swizzled within 8-key atoms; the same
-  // bytes serve as a K-major operand (K: the dims) and, for V, as an
-  // N-major one (N: the dims)
-  // (64 dims: blocks of 32, for the P.V product's two n32 halves)
-  constexpr int W = HD == 64 ? 64 : HD * 2 < 128 ? HD * 2 : 128;
-  constexpr int NP = HD == 64 ? 2 : 1;       // B descriptors per P.V step
-  constexpr unsigned kLayout = W == 128 ? 1 : W == 64 ? 2 : 3;
-  constexpr unsigned kSwz = W / 16 - 1;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   bf16* const sm = reinterpret_cast<bf16*>(wg_smem);
   static_assert(kWgRows * QLD <= 2 * TILE, "Q fits stage 1");
   bf16* const Qs = sm + 2 * TILE;
-  // byte offset of (key j, dims 8 c .. 8 c + 7) within a tile
-  auto tile_off = [](int j, int c) {
-    const unsigned off = (c * 16 / W) * (kWgKeys * W) + j * W + c * 16 % W;
-    return off ^ (((off >> 7) & kSwz) << 4);
-  };
 
   const bf16* q = static_cast<const bf16*>(a.q);
   const bf16* k = static_cast<const bf16*>(a.k);
@@ -715,8 +753,8 @@ flash_attention_wgmma_kernel(const Args a) {
           ok ? ((static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv + kvh) *
                    HD + c * 8
              : 0;
-      cp_async16(Ks + tile_off(j, c), k + off, ok);
-      cp_async16(Vs + tile_off(j, c), v + off, ok);
+      cp_async16(Ks + L::off(j, c), k + off, ok);
+      cp_async16(Vs + L::off(j, c), v + off, ok);
     }
   };
   if (n_tiles > 0) load_tile(0);
@@ -750,15 +788,11 @@ flash_attention_wgmma_kernel(const Args a) {
     const unsigned Ks = smem_addr(wg_smem) + (kt & 1) * 4 * TILE;
     const unsigned Vs = Ks + 2 * TILE;
 
-    // S = Q . K^T: K-major B, 16 dims (32 bytes) per step within a W-byte
-    // block; atoms of 8 keys sbo = 8 W apart
+    // S = Q . K^T: K-major B, 16 dims per step
     float s[NS * 4];
     unsigned long long dk[KS];
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      dk[kk] = smem_desc(Ks + (kk * 32 / W) * (kWgKeys * W) + kk * 32 % W,
-                         16, 8 * W, kLayout);
-    }
+    for (int kk = 0; kk < KS; ++kk) dk[kk] = L::kmajor(Ks, kk);
 #pragma unroll
     for (int i = 0; i < NS * 4; ++i) s[i] = 0.f;
     WgmmaQK<KS>::run(s, qf, dk);
@@ -811,15 +845,12 @@ flash_attention_wgmma_kernel(const Args a) {
       pa[t][2] = pack_bf16(s[8 * t + 4], s[8 * t + 5]);
       pa[t][3] = pack_bf16(s[8 * t + 6], s[8 * t + 7]);
     }
-    // O += P . V: N-major B, 16 keys (16 rows) per step; blocks of W
-    // bytes of dims lbo = 64 W apart, atoms of 8 keys sbo = 8 W apart
+    // O += P . V: N-major B, 16 keys per step
     unsigned long long dv[NS / 2 * NP];
 #pragma unroll
     for (int t = 0; t < NS / 2; ++t)
 #pragma unroll
-      for (int h = 0; h < NP; ++h)
-        dv[t * NP + h] = smem_desc(Vs + h * kWgKeys * W + t * 16 * W,
-                                   kWgKeys * W, 8 * W, kLayout);
+      for (int h = 0; h < NP; ++h) dv[t * NP + h] = L::nmajor(Vs, t, h);
     WgmmaPV<HD>::run(acc, pa, dv);
   }
 
@@ -1432,12 +1463,13 @@ flash_attention_combine_kernel(const CombineArgs a) {
 //   dQ = hd^-1/2 dS K,  dK = hd^-1/2 dS^T Q.
 // Bound by operations: five products of 2 hd flops per visible (query,
 // key) pair and head (the dQ kernel recomputes S and dP, so the two
-// kernels run seven).  Both run on the CUDA cores in f32 (bf16 inputs are
-// widened as they are staged); tensor cores are left to a later design.
-// Deterministic: no float atomics, every output element is written once
-// by one thread, and every sum is taken in a fixed order.
+// kernels run seven).  These two are the f32 route (dtype 0): they run on
+// the CUDA cores in f32, since TF32 would not hold the f32 tolerance;
+// bf16 takes the tensor-core kernels of section 5.  Deterministic: no
+// float atomics, every output element is written once by one thread, and
+// every sum is taken in a fixed order.
 //
-// flash_attention_bwd_dq_kernel<T, HD>: one CTA (256 threads as 16 x 16)
+// flash_attention_bwd_dq_kernel<HD>: one CTA (256 threads as 16 x 16)
 //   per (query tile of 64, head, batch row), the tiles with the most keys
 //   first.  It stages Q (times hd^-1/2) and dO as f32 in shared memory
 //   (rows padded by 4 floats: the 16-byte reads of 8 neighbouring rows
@@ -1446,7 +1478,7 @@ flash_attention_combine_kernel(const CombineArgs a) {
 //   key tiles its queries see: stages K and V, computes S and dP (a thread
 //   4 rows x 4 keys), P and dS, puts dS in shared memory and adds dS K to
 //   dQ, a thread's 4 rows x HD/16 dims in registers.
-// flash_attention_bwd_dkdv_kernel<T, HD>: one CTA per (key tile of 64, kv
+// flash_attention_bwd_dkdv_kernel<HD>: one CTA per (key tile of 64, kv
 //   head, batch row), the tiles that the most queries see first.  It
 //   stages its K and V once, then walks, for each of the G query heads of
 //   its kv head in turn, every query tile that sees its keys: stages Q
@@ -1483,17 +1515,17 @@ constexpr size_t bwd_smem_bytes(int n_p) {
           2 * kBwTile);
 }
 
-// rows [0, n) of a tile of T at src (rows `stride` elements apart) into
+// rows [0, n) of an f32 tile at src (rows `stride` elements apart) into
 // dst ([64][HD + pad] f32), times mul; rows n.. are zero
-template <typename T, int HD>
-__device__ __forceinline__ void bwd_stage(float* dst, const T* src,
+template <int HD>
+__device__ __forceinline__ void bwd_stage(float* dst, const float* src,
                                           size_t stride, int n, float mul) {
   constexpr int NC = HD / 8;
   constexpr int LD = HD + kPad;
   for (int e = threadIdx.x; e < kBwTile * NC; e += kBwThreads) {
     const int r = e / NC, c = e % NC;
     float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (r < n) load_f32<T, 8>(src + r * stride + c * 8, f);
+    if (r < n) load_f32<float, 8>(src + r * stride + c * 8, f);
     float4* d4 = reinterpret_cast<float4*>(dst + r * LD + c * 8);
     d4[0] = make_float4(f[0] * mul, f[1] * mul, f[2] * mul, f[3] * mul);
     d4[1] = make_float4(f[4] * mul, f[5] * mul, f[6] * mul, f[7] * mul);
@@ -1559,7 +1591,7 @@ __device__ __forceinline__ void bwd_probs(float (&s)[4][4], float (&dp)[4][4],
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_attention_bwd_dq_kernel(const BwdArgs a) {
   constexpr int LD = HD + kPad, PLD = kBwTile + kPad;
@@ -1581,23 +1613,23 @@ flash_attention_bwd_dq_kernel(const BwdArgs a) {
   const size_t ks = static_cast<size_t>(a.Hkv) * HD;
   const size_t qoff = (static_cast<size_t>(b) * a.Sq + q0) * qs + h * HD;
   const size_t koff = static_cast<size_t>(b) * a.Skv * ks + kvh * HD;
-  const T* q = static_cast<const T*>(a.q) + qoff;
-  const T* o = static_cast<const T*>(a.o) + qoff;
-  const T* dout = static_cast<const T*>(a.dout) + qoff;
-  const T* k = static_cast<const T*>(a.k) + koff;
-  const T* v = static_cast<const T*>(a.v) + koff;
+  const float* q = static_cast<const float*>(a.q) + qoff;
+  const float* o = static_cast<const float*>(a.o) + qoff;
+  const float* dout = static_cast<const float*>(a.dout) + qoff;
+  const float* k = static_cast<const float*>(a.k) + koff;
+  const float* v = static_cast<const float*>(a.v) + koff;
   const size_t row0 = (static_cast<size_t>(b) * a.H + h) * a.Sq + q0;
 
-  bwd_stage<T, HD>(Qs, q, qs, nq, a.scale);
-  bwd_stage<T, HD>(dOs, dout, qs, nq, 1.f);
+  bwd_stage<HD>(Qs, q, qs, nq, a.scale);
+  bwd_stage<HD>(dOs, dout, qs, nq, 1.f);
   {  // D = rowsum(dO o O), four threads a row, in a fixed order
     const int r = tid / 4, part = tid % 4;
     float acc = 0.f;
     if (r < nq) {
       for (int d = part * 8; d < HD; d += 32) {
         float fo[8], fd[8];
-        load_f32<T, 8>(o + r * qs + d, fo);
-        load_f32<T, 8>(dout + r * qs + d, fd);
+        load_f32<float, 8>(o + r * qs + d, fo);
+        load_f32<float, 8>(dout + r * qs + d, fd);
 #pragma unroll
         for (int t = 0; t < 8; ++t) acc += fo[t] * fd[t];
       }
@@ -1623,8 +1655,8 @@ flash_attention_bwd_dq_kernel(const BwdArgs a) {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kBwTile;
     __syncthreads();               // staged rows ready; last tile's readers done
-    bwd_stage<T, HD>(Ks, k + k0 * ks, ks, min(kBwTile, a.Skv - k0), 1.f);
-    bwd_stage<T, HD>(Vs, v + k0 * ks, ks, min(kBwTile, a.Skv - k0), 1.f);
+    bwd_stage<HD>(Ks, k + k0 * ks, ks, min(kBwTile, a.Skv - k0), 1.f);
+    bwd_stage<HD>(Vs, v + k0 * ks, ks, min(kBwTile, a.Skv - k0), 1.f);
     __syncthreads();
     float s[4][4], dp[4][4];
     bwd_scores<HD>(Qs, dOs, Ks, Vs, ty, tx, s, dp);
@@ -1650,7 +1682,7 @@ flash_attention_bwd_dq_kernel(const BwdArgs a) {
     }
   }
 
-  T* dq = static_cast<T*>(a.dq) + qoff;
+  float* dq = static_cast<float*>(a.dq) + qoff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty + 16 * i;
@@ -1664,7 +1696,7 @@ flash_attention_bwd_dq_kernel(const BwdArgs a) {
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
   constexpr int LD = HD + kPad, PLD = kBwTile + kPad;
@@ -1685,8 +1717,8 @@ flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
   const size_t qs = static_cast<size_t>(a.H) * HD;
   const size_t ks = static_cast<size_t>(a.Hkv) * HD;
   const size_t koff = (static_cast<size_t>(b) * a.Skv + k0) * ks + kvh * HD;
-  bwd_stage<T, HD>(Ks, static_cast<const T*>(a.k) + koff, ks, nk, 1.f);
-  bwd_stage<T, HD>(Vs, static_cast<const T*>(a.v) + koff, ks, nk, 1.f);
+  bwd_stage<HD>(Ks, static_cast<const float*>(a.k) + koff, ks, nk, 1.f);
+  bwd_stage<HD>(Vs, static_cast<const float*>(a.v) + koff, ks, nk, 1.f);
 
   float dk[4][DN], dv[4][DN];
 #pragma unroll
@@ -1703,9 +1735,9 @@ flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
       const size_t qoff = (static_cast<size_t>(b) * a.Sq + q0) * qs + h * HD;
       const size_t row0 = (static_cast<size_t>(b) * a.H + h) * a.Sq + q0;
       __syncthreads();             // K, V staged; last tile's readers done
-      bwd_stage<T, HD>(Qs, static_cast<const T*>(a.q) + qoff, qs, nq,
+      bwd_stage<HD>(Qs, static_cast<const float*>(a.q) + qoff, qs, nq,
                        a.scale);
-      bwd_stage<T, HD>(dOs, static_cast<const T*>(a.dout) + qoff, qs, nq,
+      bwd_stage<HD>(dOs, static_cast<const float*>(a.dout) + qoff, qs, nq,
                        1.f);
       if (tid < kBwTile) {
         lse_s[tid] = tid < nq ? a.lse[row0 + tid] : -INFINITY;
@@ -1745,8 +1777,8 @@ flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
     }
   }
 
-  T* dkp = static_cast<T*>(a.dk) + koff;
-  T* dvp = static_cast<T*>(a.dv) + koff;
+  float* dkp = static_cast<float*>(a.dk) + koff;
+  float* dvp = static_cast<float*>(a.dv) + koff;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int j = ty + 16 * i;
@@ -1762,16 +1794,16 @@ flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch_bwd(const BwdArgs& a, int B, bool dq, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bwd_dq_kernel<T, HD>,
+        flash_attention_bwd_dq_kernel<HD>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bwd_smem_bytes<HD>(1)));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<T, HD>,
+      e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_kernel<HD>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bwd_smem_bytes<HD>(2)));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -1779,35 +1811,669 @@ int launch_bwd(const BwdArgs& a, int B, bool dq, cudaStream_t stream) {
   }
   if (dq) {
     const dim3 grid(B * a.H, (a.Sq + kBwTile - 1) / kBwTile);
-    flash_attention_bwd_dq_kernel<T, HD>
+    flash_attention_bwd_dq_kernel<HD>
         <<<grid, kBwThreads, bwd_smem_bytes<HD>(1), stream>>>(a);
   } else {
     const dim3 grid(B * a.Hkv, (a.Skv + kBwTile - 1) / kBwTile);
-    flash_attention_bwd_dkdv_kernel<T, HD>
+    flash_attention_bwd_dkdv_kernel<HD>
         <<<grid, kBwThreads, bwd_smem_bytes<HD>(2), stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_bwd_hd(const BwdArgs& a, int B, int hd, bool dq,
                   cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_bwd<T, 16>(a, B, dq, stream);
-    case 32: return launch_bwd<T, 32>(a, B, dq, stream);
-    case 64: return launch_bwd<T, 64>(a, B, dq, stream);
-    case 128: return launch_bwd<T, 128>(a, B, dq, stream);
+    case 16: return launch_bwd<16>(a, B, dq, stream);
+    case 32: return launch_bwd<32>(a, B, dq, stream);
+    case 64: return launch_bwd<64>(a, B, dq, stream);
+    case 128: return launch_bwd<128>(a, B, dq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// one backward launch: dq (the dQ kernel, which writes D) or dk/dv
+
+// ---------------------------------------------------------------------------
+// 5. the backward on the tensor cores (bf16): dQ (and D), then dK and dV
+// ---------------------------------------------------------------------------
+// The same function as section 4 for bf16 inputs (it replaces the same
+// autodiff, src/repro/models/layers.py:72), its products on the tensor
+// cores (wgmma.mma_async m64nNk16, bf16 in, f32 accumulate, one
+// warpgroup of 128 threads a CTA).  Bound by operations at the bf16 rate:
+// four products of 2 hd flops per visible (query, key) pair and head in
+// the dK/dV kernel, three in the dQ kernel (it recomputes S and dP); at
+// train_4k's seq 4096, 16/8 heads, hd 128, causal, 0.139 and 0.104 ms on
+// an H100 at 989 TFLOP/s.  Every tile of Q,
+// dO, K and V lives in shared memory in the prefill kernel's swizzled
+// layout (`SwzTile`), read by descriptor as a K-major operand (A or B) and,
+// for the products over keys or queries, as an N-major one from the same
+// bytes.  P and dS are computed in f32 on the accumulator fragments and
+// become register A operands as the prefill kernel's P does, each carried
+// as two bf16 terms, hi = bf16(x) and lo = bf16(x - hi), so a product
+// over them takes 8 k-steps of 16 for 64 keys (or queries): one bf16
+// rounding of P and dS put the gradients at (b)'s shape, seq 4096, 1.2-2.0
+// times the bf16 tolerance away from the f32 plain version, two terms at
+// 0.21 (the plain replay, scripts/attn_bwd_rounding.py).  Each product is
+// one asm block that fences, starts its wgmmas, commits and waits.
+// Deterministic: no atomics; one CTA writes each output element, and the
+// G heads' sum of a kv head stays in its CTA.
+//
+// flash_attention_bwd_dq_wgmma_kernel<HD>: one CTA per 64 rows r = i G + g
+//   of one kv head (64 / G queries of its G heads, as the prefill kernel
+//   packs them: the G heads share every K/V tile), latest queries first.
+//   It loads its Q and dO tiles once (cp.async), computes D = rowsum(dO o
+//   O) of its rows (a quad of threads a row, in a fixed order) and writes
+//   it for the second kernel, then streams the 64-key K/V tiles its
+//   queries see through a two-stage cp.async ring, one barrier a tile:
+//   S = Q K^T and dP = dO V^T (A and B by descriptor), P = exp2(S hd^-1/2
+//   log2 e - lse log2 e), dS = P o (dP - D), dQ += dS K (K N-major).  dQ is
+//   scaled by hd^-1/2 in f32 at the end.
+// flash_attention_bwd_dkdv_wgmma_kernel<HD>: one CTA per 64 keys of one kv
+//   head, key tile 0 (seen by the most queries under the causal mask)
+//   first.  It loads K and V once, then walks each of the G heads' 64-query
+//   tiles that see its keys (from its own under the causal mask), Q, dO,
+//   lse and D through a two-stage cp.async ring: S^T = K Q^T and dP^T = V
+//   dO^T (K and V the A operands by descriptor), P^T and dS^T on the
+//   fragments, dV += P^T dO and dK += dS^T Q (dO and Q N-major).  dK is
+//   scaled by hd^-1/2 at the end.
+// Tiles wholly masked are never visited; only tiles that a bound (causal,
+// Sq, Skv) crosses are masked.  A row whose lse is -inf (none in the
+// training case unless Skv = 0) gets P = 0.
+
+// 4 bytes global -> shared, zero-filled when !ok
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// x, y -> hi = their bf16 roundings, lo = the bf16 roundings of what is
+// left (x - hi is exact in f32)
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x - f.x, y - f.y);
+}
+
+// a 64 x 64 accumulator (the mma.sync C layout per warp) -> A fragments
+// of its 4 16-column steps, hi terms in steps 0-3, lo terms in 4-7
+__device__ __forceinline__ void split_a(const float (&x)[32],
+                                        unsigned (&a)[8][4]) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      split_bf16(x[8 * t + 2 * i], x[8 * t + 2 * i + 1], a[t][i],
+                 a[4 + t][i]);
+}
+
+// asm text of the products: the accumulator lists, one wgmma a step
+#define WG_D8(a, b, c, d, e, f, g, h) \
+  "%" #a ", %" #b ", %" #c ", %" #d ", %" #e ", %" #f ", %" #g ", %" #h
+#define WG_D8S "{" WG_D8(0, 1, 2, 3, 4, 5, 6, 7) "}"
+#define WG_D16 "{" WG_D8(0, 1, 2, 3, 4, 5, 6, 7) ", " \
+  WG_D8(8, 9, 10, 11, 12, 13, 14, 15) "}"
+#define WG_D16B "{" WG_D8(16, 17, 18, 19, 20, 21, 22, 23) ", " \
+  WG_D8(24, 25, 26, 27, 28, 29, 30, 31) "}"
+#define WG_D32 "{" WG_D8(0, 1, 2, 3, 4, 5, 6, 7) ", " \
+  WG_D8(8, 9, 10, 11, 12, 13, 14, 15) ", " \
+  WG_D8(16, 17, 18, 19, 20, 21, 22, 23) ", " \
+  WG_D8(24, 25, 26, 27, 28, 29, 30, 31) "}"
+#define WG_D64 "{" WG_D8(0, 1, 2, 3, 4, 5, 6, 7) ", " \
+  WG_D8(8, 9, 10, 11, 12, 13, 14, 15) ", " \
+  WG_D8(16, 17, 18, 19, 20, 21, 22, 23) ", " \
+  WG_D8(24, 25, 26, 27, 28, 29, 30, 31) ", " \
+  WG_D8(32, 33, 34, 35, 36, 37, 38, 39) ", " \
+  WG_D8(40, 41, 42, 43, 44, 45, 46, 47) ", " \
+  WG_D8(48, 49, 50, 51, 52, 53, 54, 55) ", " \
+  WG_D8(56, 57, 58, 59, 60, 61, 62, 63) "}"
+// fence; pf / pt: a false and a true predicate from operand z
+#define WG_BEGIN(z) \
+  "{\n.reg .pred pf, pt;\n" \
+  "setp.ne.b32 pf, %" #z ", %" #z ";\n" \
+  "setp.eq.b32 pt, %" #z ", %" #z ";\n" \
+  "wgmma.fence.sync.aligned;\n"
+#define WG_END \
+  "wgmma.commit_group.sync.aligned;\n" \
+  "wgmma.wait_group.sync.aligned 0;\n}\n"
+// both operands K-major by descriptor; p: pf overwrites, pt adds
+#define WG_SS(ad, bd, p) \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32 \
+  ", %" #ad ", %" #bd ", " #p ", 1, 1, 0, 0;\n"
+// A in registers (operands a0-a3), B N-major by descriptor, adds
+#define WG_RS(n, acc, a0, a1, a2, a3, bd) \
+  "wgmma.mma_async.sync.aligned.m64n" #n "k16.f32.bf16.bf16 " acc \
+  ", {%" #a0 ", %" #a1 ", %" #a2 ", %" #a3 "}, %" #bd ", pt, 1, 1, 1;\n"
+#define WG_OUT8(d, i) \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_OUT32(d) WG_OUT8(d, 0), WG_OUT8(d, 8), WG_OUT8(d, 16), \
+  WG_OUT8(d, 24)
+#define WG_A4(a, t) "r"(a[t][0]), "r"(a[t][1]), "r"(a[t][2]), "r"(a[t][3])
+#define WG_A32(a) WG_A4(a, 0), WG_A4(a, 1), WG_A4(a, 2), WG_A4(a, 3), \
+  WG_A4(a, 4), WG_A4(a, 5), WG_A4(a, 6), WG_A4(a, 7)
+
+// D (64 x 64, f32) = A (64 x 16 KS, K-major by descriptor) . B^T (64 x 16
+// KS, K-major by descriptor), KS steps, the first overwriting D
+template <int KS>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<1> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned long long (&a)[1],
+      const unsigned long long (&b)[1]) {
+    asm volatile(
+        WG_BEGIN(34)
+        WG_SS(32, 33, pf)
+        WG_END
+        : WG_OUT32(d)
+        : "l"(a[0]), "l"(b[0]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaSS<2> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned long long (&a)[2],
+      const unsigned long long (&b)[2]) {
+    asm volatile(
+        WG_BEGIN(36)
+        WG_SS(32, 34, pf)
+        WG_SS(33, 35, pt)
+        WG_END
+        : WG_OUT32(d)
+        : "l"(a[0]), "l"(a[1]), "l"(b[0]), "l"(b[1]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaSS<4> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned long long (&a)[4],
+      const unsigned long long (&b)[4]) {
+    asm volatile(
+        WG_BEGIN(40)
+        WG_SS(32, 36, pf)
+        WG_SS(33, 37, pt)
+        WG_SS(34, 38, pt)
+        WG_SS(35, 39, pt)
+        WG_END
+        : WG_OUT32(d)
+        : "l"(a[0]), "l"(a[1]), "l"(a[2]), "l"(a[3]), "l"(b[0]), "l"(b[1]),
+          "l"(b[2]), "l"(b[3]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaSS<8> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned long long (&a)[8],
+      const unsigned long long (&b)[8]) {
+    asm volatile(
+        WG_BEGIN(48)
+        WG_SS(32, 40, pf)
+        WG_SS(33, 41, pt)
+        WG_SS(34, 42, pt)
+        WG_SS(35, 43, pt)
+        WG_SS(36, 44, pt)
+        WG_SS(37, 45, pt)
+        WG_SS(38, 46, pt)
+        WG_SS(39, 47, pt)
+        WG_END
+        : WG_OUT32(d)
+        : "l"(a[0]), "l"(a[1]), "l"(a[2]), "l"(a[3]), "l"(a[4]), "l"(a[5]),
+          "l"(a[6]), "l"(a[7]), "l"(b[0]), "l"(b[1]), "l"(b[2]), "l"(b[3]),
+          "l"(b[4]), "l"(b[5]), "l"(b[6]), "l"(b[7]), "r"(0)
+        : "memory");
+  }
+};
+
+// D (64 x N, f32) += A (64 x 64 as hi and lo bf16 terms: register A
+// fragments, steps 0-3 the hi terms of 16 columns each, 4-7 the lo terms)
+// . B (64 x N, N-major by descriptor, one a 16-row step, read for both
+// terms); N = 64 as two n32 halves (desc[2 t + h] for half h), as the
+// prefill kernel's P.V
+template <int N>
+struct WgmmaRS2;
+
+template <>
+struct WgmmaRS2<16> {
+  static __device__ __forceinline__ void run(
+      float (&d)[8], const unsigned (&a)[8][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        WG_BEGIN(44)
+        WG_RS(16, WG_D8S, 8, 9, 10, 11, 40)
+        WG_RS(16, WG_D8S, 12, 13, 14, 15, 41)
+        WG_RS(16, WG_D8S, 16, 17, 18, 19, 42)
+        WG_RS(16, WG_D8S, 20, 21, 22, 23, 43)
+        WG_RS(16, WG_D8S, 24, 25, 26, 27, 40)
+        WG_RS(16, WG_D8S, 28, 29, 30, 31, 41)
+        WG_RS(16, WG_D8S, 32, 33, 34, 35, 42)
+        WG_RS(16, WG_D8S, 36, 37, 38, 39, 43)
+        WG_END
+        : WG_OUT8(d, 0)
+        : WG_A32(a), "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]),
+          "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS2<32> {
+  static __device__ __forceinline__ void run(
+      float (&d)[16], const unsigned (&a)[8][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        WG_BEGIN(52)
+        WG_RS(32, WG_D16, 16, 17, 18, 19, 48)
+        WG_RS(32, WG_D16, 20, 21, 22, 23, 49)
+        WG_RS(32, WG_D16, 24, 25, 26, 27, 50)
+        WG_RS(32, WG_D16, 28, 29, 30, 31, 51)
+        WG_RS(32, WG_D16, 32, 33, 34, 35, 48)
+        WG_RS(32, WG_D16, 36, 37, 38, 39, 49)
+        WG_RS(32, WG_D16, 40, 41, 42, 43, 50)
+        WG_RS(32, WG_D16, 44, 45, 46, 47, 51)
+        WG_END
+        : WG_OUT8(d, 0), WG_OUT8(d, 8)
+        : WG_A32(a), "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]),
+          "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS2<64> {
+  static __device__ __forceinline__ void run(
+      float (&d)[32], const unsigned (&a)[8][4],
+      const unsigned long long (&desc)[8]) {
+    asm volatile(
+        WG_BEGIN(72)
+        WG_RS(32, WG_D16, 32, 33, 34, 35, 64)
+        WG_RS(32, WG_D16B, 32, 33, 34, 35, 65)
+        WG_RS(32, WG_D16, 36, 37, 38, 39, 66)
+        WG_RS(32, WG_D16B, 36, 37, 38, 39, 67)
+        WG_RS(32, WG_D16, 40, 41, 42, 43, 68)
+        WG_RS(32, WG_D16B, 40, 41, 42, 43, 69)
+        WG_RS(32, WG_D16, 44, 45, 46, 47, 70)
+        WG_RS(32, WG_D16B, 44, 45, 46, 47, 71)
+        WG_RS(32, WG_D16, 48, 49, 50, 51, 64)
+        WG_RS(32, WG_D16B, 48, 49, 50, 51, 65)
+        WG_RS(32, WG_D16, 52, 53, 54, 55, 66)
+        WG_RS(32, WG_D16B, 52, 53, 54, 55, 67)
+        WG_RS(32, WG_D16, 56, 57, 58, 59, 68)
+        WG_RS(32, WG_D16B, 56, 57, 58, 59, 69)
+        WG_RS(32, WG_D16, 60, 61, 62, 63, 70)
+        WG_RS(32, WG_D16B, 60, 61, 62, 63, 71)
+        WG_END
+        : WG_OUT32(d)
+        : WG_A32(a), "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]),
+          "l"(desc[4]), "l"(desc[5]), "l"(desc[6]), "l"(desc[7]), "r"(0)
+        : "memory");
+  }
+};
+
+template <>
+struct WgmmaRS2<128> {
+  static __device__ __forceinline__ void run(
+      float (&d)[64], const unsigned (&a)[8][4],
+      const unsigned long long (&desc)[4]) {
+    asm volatile(
+        WG_BEGIN(100)
+        WG_RS(128, WG_D64, 64, 65, 66, 67, 96)
+        WG_RS(128, WG_D64, 68, 69, 70, 71, 97)
+        WG_RS(128, WG_D64, 72, 73, 74, 75, 98)
+        WG_RS(128, WG_D64, 76, 77, 78, 79, 99)
+        WG_RS(128, WG_D64, 80, 81, 82, 83, 96)
+        WG_RS(128, WG_D64, 84, 85, 86, 87, 97)
+        WG_RS(128, WG_D64, 88, 89, 90, 91, 98)
+        WG_RS(128, WG_D64, 92, 93, 94, 95, 99)
+        WG_END
+        : WG_OUT32(d), WG_OUT8(d, 32), WG_OUT8(d, 40), WG_OUT8(d, 48),
+          WG_OUT8(d, 56)
+        : WG_A32(a), "l"(desc[0]), "l"(desc[1]), "l"(desc[2]), "l"(desc[3]),
+          "r"(0)
+        : "memory");
+  }
+};
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
+  using L = SwzTile<HD>;
+  constexpr int KS = HD / 16, NO = HD / 8;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* const Qs = wg_smem;
+  unsigned char* const dOs = Qs + L::BYTES;
+  unsigned char* const KV = dOs + L::BYTES;  // stage s: K, V at 2 s, 2 s + 1
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.G, BQ = kWgRows / G;
+  const int kvh = blockIdx.x % a.Hkv, b = blockIdx.x / a.Hkv;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;     // heaviest first
+  const int nq = min(BQ, a.Sq - q0), rows = nq * G;
+  int kend = a.Skv;
+  if (a.causal) kend = min(kend, q0 + nq);
+  const int n_tiles = (kend + kWgKeys - 1) / kWgKeys;
+  const bf16* const q = static_cast<const bf16*>(a.q);
+  const bf16* const o = static_cast<const bf16*>(a.o);
+  const bf16* const dout = static_cast<const bf16*>(a.dout);
+  const bf16* const k = static_cast<const bf16*>(a.k);
+  const bf16* const v = static_cast<const bf16*>(a.v);
+  // row r: query q0 + r / G of head kvh G + r % G
+  auto row_off = [&](int r) {
+    return ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H + kvh * G +
+            r % G) * HD;
+  };
+  auto row_stat = [&](int r) {          // its index in lse and D
+    return (static_cast<size_t>(b) * a.H + kvh * G + r % G) * a.Sq + q0 +
+           r / G;
+  };
+  L::load(Qs, rows, [&](int r) { return q + row_off(r); });
+  L::load(dOs, rows, [&](int r) { return dout + row_off(r); });
+  cp_async_commit();
+  auto load_tile = [&](int kt) {        // keys at or past kend zero-filled
+    unsigned char* Ks = KV + (kt & 1) * 2 * L::BYTES;
+    const int k0 = kt * kWgKeys;
+    auto key = [&](int j) {
+      return (static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv * HD +
+             kvh * HD;
+    };
+    L::load(Ks, kend - k0, [&](int j) { return k + key(j); });
+    L::load(Ks + L::BYTES, kend - k0, [&](int j) { return v + key(j); });
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+
+  // D = rowsum(dO o O) and lse (times log2 e; +inf where there is none)
+  // of the thread's rows r0, r0 + 8, the quad's four threads summing
+  // every fourth 8-dim chunk, then each other's sums
+  const float kLog2e = 1.4426950408889634f;
+  const int r0 = warp * 16 + (lane >> 2);
+  float Dr[2], Lr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    float acc = 0.f;
+    if (r < rows) {
+      for (int c = lane & 3; c < L::CPR; c += 4) {
+        float fo[8], fd[8];
+        load_f32<bf16, 8>(o + row_off(r) + c * 8, fo);
+        load_f32<bf16, 8>(dout + row_off(r) + c * 8, fd);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) acc += fo[t] * fd[t];
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    Dr[i] = acc;
+    const float l = r < rows ? a.lse[row_stat(r)] : -INFINITY;
+    Lr[i] = l == -INFINITY ? INFINITY : l * kLog2e;
+    if (r < rows && (lane & 3) == 0) a.D[row_stat(r)] = acc;
+  }
+
+  const float sl2 = a.scale * kLog2e;
+  const int qp0 = q0 + r0 / G, qp1 = q0 + (r0 + 8) / G;
+  float acc[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (kt + 1 < n_tiles) load_tile(kt + 1);
+    cp_async_commit();
+    const unsigned Ks = smem_addr(KV) + (kt & 1) * 2 * L::BYTES;
+    const unsigned Vs = Ks + L::BYTES;
+    float s[32], dp[32];
+    unsigned long long da[KS], db[KS];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      da[kk] = L::kmajor(smem_addr(Qs), kk);
+      db[kk] = L::kmajor(Ks, kk);
+    }
+    WgmmaSS<KS>::run(s, da, db);                       // S = Q . K^T
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      da[kk] = L::kmajor(smem_addr(dOs), kk);
+      db[kk] = L::kmajor(Vs, kk);
+    }
+    WgmmaSS<KS>::run(dp, da, db);                      // dP = dO . V^T
+    const int k0 = kt * kWgKeys;
+    if (k0 + kWgKeys > kend || (a.causal && k0 + kWgKeys - 1 > q0)) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + (lane & 3) * 2 + (e & 1);
+          if (key >= kend || (a.causal && key > (e < 2 ? qp0 : qp1)))
+            s[n * 4 + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {                     // dS = P o (dP - D)
+      const int h = (i >> 1) & 1;
+      s[i] = exp2f(fmaf(s[i], sl2, -Lr[h])) * (dp[i] - Dr[h]);
+    }
+    unsigned ds[8][4];
+    split_a(s, ds);
+    unsigned long long dk[4 * L::NP];
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int h = 0; h < L::NP; ++h) dk[t * L::NP + h] = L::nmajor(Ks, t, h);
+    WgmmaRS2<HD>::run(acc, ds, dk);                    // dQ += dS . K
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    if (r >= rows) continue;
+    bf16* dst = static_cast<bf16*>(a.dq) + row_off(r) + (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(acc[n * 4 + 2 * i] * a.scale,
+                                acc[n * 4 + 2 * i + 1] * a.scale);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads)
+flash_attention_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
+  using L = SwzTile<HD>;
+  constexpr int KS = HD / 16, NO = HD / 8;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* const Ks = wg_smem;
+  unsigned char* const Vs = Ks + L::BYTES;
+  unsigned char* const QO = Vs + L::BYTES;   // stage s: Q, dO at 2 s, 2 s + 1
+  float* const stats = reinterpret_cast<float*>(QO + 4 * L::BYTES);
+  // stats + 128 s: lse of stage s's 64 queries, then their D
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int G = a.G;
+  const int kvh = blockIdx.x % a.Hkv, b = blockIdx.x / a.Hkv;
+  const int kt = blockIdx.y, k0 = kt * kWgKeys;
+  const int nk = min(kWgKeys, a.Skv - k0);
+  const int n_qt = (a.Sq + kWgRows - 1) / kWgRows;
+  const int qt0 = a.causal ? kt : 0;         // queries >= k0 see key k0
+  const int per = max(0, n_qt - qt0);        // query tiles of each head
+  const int steps = G * per;
+  const size_t kv0 = (static_cast<size_t>(b) * a.Skv + k0) * a.Hkv * HD +
+                     kvh * HD;
+  L::load(Ks, nk, [&](int j) {
+    return static_cast<const bf16*>(a.k) + kv0 + j * a.Hkv * HD;
+  });
+  L::load(Vs, nk, [&](int j) {
+    return static_cast<const bf16*>(a.v) + kv0 + j * a.Hkv * HD;
+  });
+  // step w: head kvh G + w / per, query tile qt0 + w % per, into stage w & 1
+  auto load_step = [&](int w) {
+    const int h = kvh * G + w / per, q0 = (qt0 + w % per) * kWgRows;
+    const int nq = min(kWgRows, a.Sq - q0);
+    unsigned char* Qst = QO + (w & 1) * 2 * L::BYTES;
+    auto row = [&](int i) {
+      return ((static_cast<size_t>(b) * a.Sq + q0 + i) * a.H + h) * HD;
+    };
+    L::load(Qst, nq, [&](int i) {
+      return static_cast<const bf16*>(a.q) + row(i);
+    });
+    L::load(Qst + L::BYTES, nq, [&](int i) {
+      return static_cast<const bf16*>(a.dout) + row(i);
+    });
+    if (tid < kWgRows) {
+      const size_t st = (static_cast<size_t>(b) * a.H + h) * a.Sq + q0 +
+                        (tid < nq ? tid : 0);
+      float* dst = stats + 128 * (w & 1);
+      cp_async4(dst + tid, a.lse + st, tid < nq);
+      cp_async4(dst + 64 + tid, a.D + st, tid < nq);
+    }
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+
+  const float kLog2e = 1.4426950408889634f;
+  const float sl2 = a.scale * kLog2e;
+  const int j0 = warp * 16 + (lane >> 2);    // the thread's keys j0, j0 + 8
+  float dk[NO * 4], dv[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) dk[i] = dv[i] = 0.f;
+  for (int w = 0; w < steps; ++w) {
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (w + 1 < steps) load_step(w + 1);
+    cp_async_commit();
+    const int qt = qt0 + w % per, q0 = qt * kWgRows;
+    const unsigned Qa = smem_addr(QO) + (w & 1) * 2 * L::BYTES;
+    const unsigned dOa = Qa + L::BYTES;
+    const float* lse_s = stats + 128 * (w & 1);
+    const float* D_s = lse_s + 64;
+    float s[32], dp[32];
+    unsigned long long da[KS], db[KS];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      da[kk] = L::kmajor(smem_addr(Ks), kk);
+      db[kk] = L::kmajor(Qa, kk);
+    }
+    WgmmaSS<KS>::run(s, da, db);                       // S^T = K . Q^T
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      da[kk] = L::kmajor(smem_addr(Vs), kk);
+      db[kk] = L::kmajor(dOa, kk);
+    }
+    WgmmaSS<KS>::run(dp, da, db);                      // dP^T = V . dO^T
+    if ((a.causal && qt == kt) || q0 + kWgRows > a.Sq ||
+        k0 + kWgKeys > a.Skv) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = q0 + n * 8 + (lane & 3) * 2 + (e & 1);
+          const int key = k0 + j0 + (e < 2 ? 0 : 8);
+          if (qi >= a.Sq || key >= a.Skv || (a.causal && key > qi))
+            s[n * 4 + e] = -INFINITY;
+        }
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)                        // P^T, dS^T
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + (lane & 3) * 2 + (e & 1), i = n * 4 + e;
+        const float l = lse_s[c];
+        const float p = exp2f(
+            fmaf(s[i], sl2, l == -INFINITY ? -INFINITY : -l * kLog2e));
+        s[i] = p;
+        dp[i] = p * (dp[i] - D_s[c]);
+      }
+    unsigned pa[8][4];
+    unsigned long long dd[4 * L::NP];
+    split_a(s, pa);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int h = 0; h < L::NP; ++h) dd[t * L::NP + h] = L::nmajor(dOa, t, h);
+    WgmmaRS2<HD>::run(dv, pa, dd);                     // dV += P^T . dO
+    split_a(dp, pa);
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int h = 0; h < L::NP; ++h) dd[t * L::NP + h] = L::nmajor(Qa, t, h);
+    WgmmaRS2<HD>::run(dk, pa, dd);                     // dK += dS^T . Q
+  }
+
+  bf16* const dkp = static_cast<bf16*>(a.dk) + kv0 + (lane & 3) * 2;
+  bf16* const dvp = static_cast<bf16*>(a.dv) + kv0 + (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int j = j0 + 8 * i;
+    if (j >= nk) continue;
+    const size_t off = static_cast<size_t>(j) * a.Hkv * HD;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + off + n * 8) =
+          __floats2bfloat162_rn(dk[n * 4 + 2 * i] * a.scale,
+                                dk[n * 4 + 2 * i + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + off + n * 8) =
+          __floats2bfloat162_rn(dv[n * 4 + 2 * i], dv[n * 4 + 2 * i + 1]);
+    }
+  }
+}
+
+template <int HD>
+constexpr size_t bwd_mma_smem_bytes(bool dq) {
+  // six 64 x HD bf16 tiles (dQ: Q, dO and two stages of K, V; dK/dV: K, V
+  // and two stages of Q, dO), the dK/dV kernel's lse and D of two stages
+  return 6 * static_cast<size_t>(SwzTile<HD>::BYTES) +
+         (dq ? 0 : sizeof(float) * 2 * 2 * kWgRows);
+}
+
+template <int HD>
+int launch_bwd_mma(const BwdArgs& a, int B, bool dq, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_attention_bwd_dq_wgmma_kernel<HD>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bwd_mma_smem_bytes<HD>(true)));
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bwd_mma_smem_bytes<HD>(false)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attr_set = true;
+  }
+  if (dq) {
+    const int BQ = kWgRows / a.G;
+    const dim3 grid(B * a.Hkv, (a.Sq + BQ - 1) / BQ);
+    flash_attention_bwd_dq_wgmma_kernel<HD>
+        <<<grid, kWgThreads, bwd_mma_smem_bytes<HD>(true), stream>>>(a);
+  } else {
+    const dim3 grid(B * a.Hkv, (a.Skv + kWgKeys - 1) / kWgKeys);
+    flash_attention_bwd_dkdv_wgmma_kernel<HD>
+        <<<grid, kWgThreads, bwd_mma_smem_bytes<HD>(false), stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// one backward launch: dq (the dQ kernel, which writes D) or dk/dv, of
+// the f32 CUDA-core kernels (dtype 0) or the bf16 tensor-core ones (1)
 int bwd_launch(const void* q, const void* k, const void* v, const void* o,
                const void* dout, const float* lse, float* D, void* dq,
                void* dk, void* dv, int B, int Sq, int Skv, int H, int Hkv,
                int hd, int dtype, int causal, bool is_dq, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || Hkv <= 0 || H % Hkv != 0 ||
-      H / Hkv > 64 || (dtype != 0 && dtype != 1))
+      H / Hkv > 64 || (dtype != 0 && dtype != 1) ||
+      (hd != 16 && hd != 32 && hd != 64 && hd != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse; a.D = D;
@@ -1817,8 +2483,13 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* o,
   a.scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   if (B == 0 || (is_dq ? Sq : Skv) == 0) return 0;
   const auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? launch_bwd_hd<float>(a, B, hd, is_dq, s)
-                    : launch_bwd_hd<bf16>(a, B, hd, is_dq, s);
+  if (dtype == 0) return launch_bwd_hd(a, B, hd, is_dq, s);
+  switch (hd) {
+    case 16: return launch_bwd_mma<16>(a, B, is_dq, s);
+    case 32: return launch_bwd_mma<32>(a, B, is_dq, s);
+    case 64: return launch_bwd_mma<64>(a, B, is_dq, s);
+    default: return launch_bwd_mma<128>(a, B, is_dq, s);
+  }
 }
 
 // the checks and fields every launch shares; false: invalid arguments
@@ -1955,12 +2626,14 @@ int flash_attention_combine_launch(const float* m, const float* l,
 // the dK/dV kernel, which reads it.  q, k, v, o, dout, dq, dk, dv
 // contiguous, 16-byte aligned, of dtype `dtype`; lse [B, H, Sq] f32 from
 // the forward.
+// the f32 CUDA-core kernels (dtype 0 only)
 int flash_attention_bwd_dq_launch(const void* q, const void* k,
                                   const void* v, const void* o,
                                   const void* dout, const float* lse,
                                   float* D, void* dq, int B, int Sq, int Skv,
                                   int H, int Hkv, int hd, int dtype,
                                   int causal, void* stream) {
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   return bwd_launch(q, k, v, o, dout, lse, D, dq, nullptr, nullptr, B, Sq,
                     Skv, H, Hkv, hd, dtype, causal, true, stream);
 }
@@ -1971,6 +2644,32 @@ int flash_attention_bwd_dkdv_launch(const void* q, const void* k,
                                     void* dk, void* dv, int B, int Sq,
                                     int Skv, int H, int Hkv, int hd,
                                     int dtype, int causal, void* stream) {
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_launch(q, k, v, nullptr, dout, lse, const_cast<float*>(D),
+                    nullptr, dk, dv, B, Sq, Skv, H, Hkv, hd, dtype, causal,
+                    false, stream);
+}
+
+// the bf16 tensor-core (wgmma) kernels (dtype 1 only)
+int flash_attention_bwd_dq_wgmma_launch(const void* q, const void* k,
+                                        const void* v, const void* o,
+                                        const void* dout, const float* lse,
+                                        float* D, void* dq, int B, int Sq,
+                                        int Skv, int H, int Hkv, int hd,
+                                        int dtype, int causal, void* stream) {
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  return bwd_launch(q, k, v, o, dout, lse, D, dq, nullptr, nullptr, B, Sq,
+                    Skv, H, Hkv, hd, dtype, causal, true, stream);
+}
+
+int flash_attention_bwd_dkdv_wgmma_launch(const void* q, const void* k,
+                                          const void* v, const void* dout,
+                                          const float* lse, const float* D,
+                                          void* dk, void* dv, int B, int Sq,
+                                          int Skv, int H, int Hkv, int hd,
+                                          int dtype, int causal,
+                                          void* stream) {
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   return bwd_launch(q, k, v, nullptr, dout, lse, const_cast<float*>(D),
                     nullptr, dk, dv, B, Sq, Skv, H, Hkv, hd, dtype, causal,
                     false, stream);

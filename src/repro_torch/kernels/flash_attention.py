@@ -34,15 +34,20 @@ not bit for bit.
 Training (q_offset 0, every key valid) goes through
 :class:`FlashAttentionFn`: its forward asks the prefill kernel for each
 row's log-sum-exp (``with_lse``), its backward,
-:func:`flash_attention_backward_cuda`, launches the two backward kernels
-(``dq``, which also writes D = rowsum(dO∘O), then ``dkdv``), counted in
+:func:`flash_attention_backward_cuda`, launches two backward kernels
+chosen by dtype alone (:func:`bwd_variant_of`): the dQ kernel, which also
+writes D = rowsum(dO∘O), then the dK/dV kernel — bf16 ``dq_mma`` +
+``dkdv_mma`` on the tensor cores (``wgmma``; P and dS carried as two bf16
+terms each), f32 ``dq_f32`` + ``dkdv_f32`` on the CUDA cores — counted in
 ``flash_attention_backward_cuda.launches_by``.  Their plain version is
 :func:`attention_backward`; :func:`attention_backward_tiles` replays
-their walk over the tiles.  Gradients are held against the plain version
-by :func:`grad_error_ratio`.
+either route's walk over the tiles (``bf16_products`` for the tensor-core
+one).  Gradients are held against the plain version by
+:func:`grad_error_ratio`.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -57,7 +62,13 @@ SPLIT_ALIGN = 64                  # keys: a split range starts at a multiple
 SPLIT_CTAS_PER_SM = 4             # split CTAs in flight the planner aims at
 H100_SMS = 132                    # SMs decode_splits plans for by default
 VARIANTS = ("prefill_mma", "tiled_f32", "decode_split", "decode_combine")
-BWD_KERNELS = ("dq", "dkdv")      # the backward's two kernels, in launch order
+# the backward's kernels by route, each pair in launch order: bf16 on the
+# tensor cores, f32 on the CUDA cores
+BWD_VARIANTS = ("dq_mma", "dkdv_mma", "dq_f32", "dkdv_f32")
+BWD_ENTRY = {"dq_mma": "flash_attention_bwd_dq_wgmma_launch",
+             "dkdv_mma": "flash_attention_bwd_dkdv_wgmma_launch",
+             "dq_f32": "flash_attention_bwd_dq_launch",
+             "dkdv_f32": "flash_attention_bwd_dkdv_launch"}
 
 
 def _valid(Skv: int, kv_len) -> int:
@@ -104,20 +115,41 @@ def attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
 # the backward (training): its plain versions
 # ---------------------------------------------------------------------------
 BWD_TILE = 64                     # queries / keys of the backward kernels' tiles
+BF16_TERMS = 2                    # bf16 terms of P and dS in the tensor-core route
 
 
-def _bwd_tile(q, k, v, do, lse, D, b, h, kvh, qa, qe, ka, ke, causal, scale):
-    """One (query tile, key tile) pair of one head: (P, dS) f32 [nq, nk]
-    with P = exp(S - lse) where the key is visible, else 0."""
-    qs = q[b, qa:qe, h].float() * scale
-    s = qs @ k[b, ka:ke, kvh].float().T
-    dp = do[b, qa:qe, h].float() @ v[b, ka:ke, kvh].float().T
-    L = lse[b, h, qa:qe]
+def _bwd_tile(q, k, v, do, lse, D, b, rows, kvh, ka, ke, causal, scale):
+    """One tile of query rows (``rows`` = (positions, heads), two index
+    tensors) against one key tile [ka, ke) of kv head kvh: (P, dS) f32
+    [rows, keys] with P = exp(S - lse) where the key is visible, else 0."""
+    pos, heads = rows
+    s = (q[b, pos, heads].float() * scale) @ k[b, ka:ke, kvh].float().T
+    dp = do[b, pos, heads].float() @ v[b, ka:ke, kvh].float().T
+    L = lse[b, heads, pos]
     ok = torch.isfinite(L)[:, None].expand_as(s)
     if causal:
-        ok = ok & (torch.arange(ka, ke)[None, :] <= torch.arange(qa, qe)[:, None])
+        ok = ok & (torch.arange(ka, ke)[None, :] <= pos[:, None])
     p = torch.where(ok, torch.exp(s - torch.where(ok, L[:, None], 0.0)), 0.0)
-    return p, p * (dp - D[b, h, qa:qe, None]), qs
+    return p, p * (dp - D[b, heads, pos, None])
+
+
+def bf16_terms(x: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """x (f32) as the sum of ``n`` bf16 terms, each the bf16 rounding of
+    what the terms before it left over (``n = 1``: x rounded to bf16);
+    returned in f32.  Two terms carry x to within 2^-16 relative."""
+    out = torch.zeros_like(x)
+    for _ in range(n):
+        out += (x - out).bfloat16().float()
+    return out
+
+
+def _row_tiles(Sq, heads, per):
+    """The query rows of ``heads`` in tiles of ``per`` positions, rows r =
+    i * len(heads) + g (position-major, as the kernels pack a kv head's
+    G heads): a list of (positions, heads) index pairs."""
+    hs = torch.as_tensor(heads)
+    return [(torch.arange(qa, min(Sq, qa + per)).repeat_interleave(len(hs)),
+             hs.repeat(min(Sq, qa + per) - qa)) for qa in range(0, Sq, per)]
 
 
 def attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
@@ -163,46 +195,72 @@ def attention_backward(q, k, v, o, lse, do, *, causal: bool = True):
 
 
 def attention_backward_tiles(q, k, v, o, lse, do, *, causal: bool = True,
-                             tile: int = BWD_TILE):
+                             tile: int = BWD_TILE,
+                             bf16_products: bool = False,
+                             terms: int = BF16_TERMS):
     """The backward kernels' walk, replayed tile by tile in plain PyTorch
-    (for the tests, on small inputs): the dQ kernel's CTA per (query tile,
-    head) over the key tiles its queries see, then the dK/dV kernel's CTA
-    per (key tile, kv head) over each of its G heads' query tiles that see
-    its keys (from the key tile's own under the causal mask), with D from
-    the first pass.  f32 sums tile by tile in the kernels' order; returns
-    (dq, dk, dv) in q's dtype, as :func:`attention_backward` does."""
+    (for the tests, on small inputs): the dQ kernel's CTA per query tile
+    over the key tiles its queries see, then the dK/dV kernel's CTA per
+    (key tile, kv head) over each of its G heads' query tiles that see its
+    keys (from the key tile's own under the causal mask), with D from the
+    first pass.  f32 sums tile by tile in the kernels' order; returns (dq,
+    dk, dv) in q's dtype, as :func:`attention_backward` does.
+
+    ``bf16_products=False`` replays the f32 kernels (``dq_f32``,
+    ``dkdv_f32``): a dQ tile is ``tile`` queries of one head, and dK sums
+    dS^T (Q hd^-½), as the dK/dV kernel stages Q scaled.
+    ``bf16_products=True`` replays the tensor-core kernels (``dq_mma``,
+    ``dkdv_mma``): a dQ tile is ``tile`` rows r = i * G + g of one kv head
+    (``tile // G`` queries of its G heads), dK sums dS^T Q and is scaled
+    at the end, and P and dS enter the products that take them (P^T dO,
+    dS K, dS^T Q) as ``terms`` bf16 terms each (:func:`bf16_terms`), as
+    the kernels split them into their A operands (``BF16_TERMS``;
+    ``terms=1``, which only ``scripts/attn_bwd_rounding.py`` asks for,
+    rounds them once).  Both routes scale dQ at the end."""
     B, Sq, H, hd = q.shape
     _, Skv, Hkv, _ = k.shape
     G = H // Hkv
     scale = 1.0 / math.sqrt(hd)
-    n_qt, n_kt = -(-Sq // tile), -(-Skv // tile)
+    rnd = functools.partial(bf16_terms, n=terms) if bf16_products \
+        else (lambda x: x)
+    q_scale, dk_scale = (1.0, scale) if bf16_products else (scale, 1.0)
+    if bf16_products:
+        dq_tiles = [(kvh, t) for kvh in range(Hkv) for t in reversed(
+            _row_tiles(Sq, range(kvh * G, (kvh + 1) * G), tile // G))]
+    else:
+        dq_tiles = [(h // G, t) for h in range(H)
+                    for t in reversed(_row_tiles(Sq, [h], tile))]
     D = torch.zeros((B, H, Sq), dtype=torch.float32)
     dq = torch.zeros((B, Sq, H, hd), dtype=torch.float32)
     dk = torch.zeros((B, Skv, Hkv, hd), dtype=torch.float32)
     dv = torch.zeros_like(dk)
     for b in range(B):
-        for h in range(H):
-            for qt in reversed(range(n_qt)):           # heaviest first
-                qa, qe = qt * tile, min(Sq, (qt + 1) * tile)
-                D[b, h, qa:qe] = (do[b, qa:qe, h].float()
-                                  * o[b, qa:qe, h].float()).sum(-1)
-                kend = min(Skv, qe) if causal else Skv
-                for kt in range(-(-kend // tile)):
-                    ka, ke = kt * tile, min(Skv, (kt + 1) * tile)
-                    _, ds, _ = _bwd_tile(q, k, v, do, lse, D, b, h, h // G,
-                                         qa, qe, ka, ke, causal, scale)
-                    dq[b, qa:qe, h] += ds @ k[b, ka:ke, h // G].float()
+        for kvh, rows in dq_tiles:                     # heaviest first
+            pos, heads = rows
+            D[b, heads, pos] = (do[b, pos, heads].float()
+                                * o[b, pos, heads].float()).sum(-1)
+            kend = min(Skv, int(pos[-1]) + 1) if causal else Skv
+            acc = torch.zeros((len(pos), hd))
+            for kt in range(-(-kend // tile)):
+                ka, ke = kt * tile, min(Skv, (kt + 1) * tile)
+                _, ds = _bwd_tile(q, k, v, do, lse, D, b, rows, kvh, ka, ke,
+                                  causal, scale)
+                acc += rnd(ds) @ k[b, ka:ke, kvh].float()
+            dq[b, pos, heads] = acc
         for kvh in range(Hkv):
-            for kt in range(n_kt):
+            for kt in range(-(-Skv // tile)):
                 ka, ke = kt * tile, min(Skv, (kt + 1) * tile)
                 for h in range(kvh * G, (kvh + 1) * G):
-                    for qt in range(kt if causal else 0, n_qt):
-                        qa, qe = qt * tile, min(Sq, (qt + 1) * tile)
-                        p, ds, qs = _bwd_tile(q, k, v, do, lse, D, b, h, kvh,
-                                              qa, qe, ka, ke, causal, scale)
-                        dv[b, ka:ke, kvh] += p.T @ do[b, qa:qe, h].float()
-                        dk[b, ka:ke, kvh] += ds.T @ qs
-    return (dq.mul_(scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+                    for rows in _row_tiles(Sq, [h], tile)[
+                            kt if causal else 0:]:
+                        pos = rows[0]
+                        p, ds = _bwd_tile(q, k, v, do, lse, D, b, rows, kvh,
+                                          ka, ke, causal, scale)
+                        dv[b, ka:ke, kvh] += rnd(p).T @ do[b, pos, h].float()
+                        dk[b, ka:ke, kvh] += rnd(ds).T @ (
+                            q[b, pos, h].float() * q_scale)
+    return (dq.mul_(scale).to(q.dtype), dk.mul_(dk_scale).to(k.dtype),
+            dv.to(v.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -541,17 +599,26 @@ flash_attention_cuda.launches = 0
 flash_attention_cuda.launches_by = dict.fromkeys(VARIANTS, 0)
 
 
+def bwd_variant_of(q) -> tuple[str, str]:
+    """The backward kernels :func:`flash_attention_backward_cuda` launches
+    for q's dtype, in launch order: bf16 ``("dq_mma", "dkdv_mma")``, f32
+    ``("dq_f32", "dkdv_f32")``."""
+    return ("dq_mma", "dkdv_mma") if q.dtype == torch.bfloat16 \
+        else ("dq_f32", "dkdv_f32")
+
+
 def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
                                   causal: bool = True):
     """(dq, dk, dv) of ``o = attention(q, k, v, causal=causal)`` at q_offset
     0 over every key, from the forward's row log-sum-exp ``lse`` [B, H, Sq]
     f32 (:func:`flash_attention_cuda` ``with_lse``) and the output's
     gradient ``do``.  CUDA tensors launch the dQ kernel (which also writes
-    D = rowsum(do o o)) and then the dK/dV kernel, counted in
-    ``flash_attention_backward_cuda.launches_by`` (``dq``, ``dkdv``) and
-    ``.launches``; CPU tensors take :func:`attention_backward`.  Devices,
-    dtypes, shapes or layouts the kernels do not take raise, as does a
-    kernel that fails to launch."""
+    D = rowsum(do o o)) and then the dK/dV kernel of :func:`bwd_variant_of`,
+    each counted in ``flash_attention_backward_cuda.launches_by[variant]``
+    and ``.launches``; CPU tensors take :func:`attention_backward`.
+    Devices, dtypes, shapes or layouts the kernels do not take raise, as
+    does a kernel that fails to launch (a bf16 call never falls back to the
+    f32 kernels)."""
     if {x.device.type for x in (q, k, v, o, lse, do)} == {"cpu"}:
         return attention_backward(q, k, v, o, lse, do, causal=causal)
     _check(q, k, v)
@@ -573,22 +640,21 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
     shape = (B, Sq, Skv, H, Hkv, hd, DTYPE_CODES[q.dtype], int(bool(causal)))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for kernel, ptrs in (
-                ("dq", (q, k, v, o, do, lse, D, dq)),
-                ("dkdv", (q, k, v, do, lse, D, dk, dv))):
-            err = getattr(lib, f"flash_attention_bwd_{kernel}_launch")(
+        for variant, ptrs in zip(bwd_variant_of(q), (
+                (q, k, v, o, do, lse, D, dq), (q, k, v, do, lse, D, dk, dv))):
+            err = getattr(lib, BWD_ENTRY[variant])(
                 *(x.data_ptr() for x in ptrs), *shape, stream)
             if err:
                 raise RuntimeError(
-                    f"flash_attention backward {kernel} kernel launch failed: "
-                    + lib.fire_block_error_string(err).decode())
-            flash_attention_backward_cuda.launches_by[kernel] += 1
+                    f"flash_attention backward {variant} kernel launch "
+                    "failed: " + lib.fire_block_error_string(err).decode())
+            flash_attention_backward_cuda.launches_by[variant] += 1
             flash_attention_backward_cuda.launches += 1
     return dq, dk, dv
 
 
 flash_attention_backward_cuda.launches = 0
-flash_attention_backward_cuda.launches_by = dict.fromkeys(BWD_KERNELS, 0)
+flash_attention_backward_cuda.launches_by = dict.fromkeys(BWD_VARIANTS, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):

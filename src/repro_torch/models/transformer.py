@@ -200,7 +200,9 @@ def loss_fn(cfg, params, batch):
     Returns (loss, {"nll", "tokens", "aux"}) as the JAX package does: the
     cross-entropy is taken ``cfg.loss_chunk`` positions at a time (f32
     logits of one chunk at a time), its sum and count added chunk by
-    chunk."""
+    chunk.  A label at or past the vocabulary takes a NaN target logit
+    (JAX's ``take_along_axis`` fills out-of-range picks with NaN), so the
+    loss is NaN; the gather itself never indexes past the row."""
     h, aux = forward(cfg, params, batch)
     labels = torch.as_tensor(batch["labels"], device=h.device).long()
     B, S, d = h.shape
@@ -215,7 +217,9 @@ def loss_fn(cfg, params, batch):
         ls = labels[:, c0:c0 + ck]
         logits = (h[:, c0:c0 + ck] @ w).float()
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, ls.clamp(min=0)[..., None])[..., 0]
+        V = logits.shape[-1]
+        tgt = logits.gather(-1, ls.clamp(0, V - 1)[..., None])[..., 0]
+        tgt = torch.where(ls >= V, float("nan"), tgt)
         mask = (ls >= 0).float()
         tot = tot + ((lse - tgt) * mask).sum()
         cnt = cnt + mask.sum()

@@ -14,6 +14,8 @@ allclose at 1e-5; in bf16 dx at 2e-2 (one bf16 step of the inputs moves
 it by 2^-8 relative) and dw as a relative Frobenius error of 1e-2 (JAX
 forms dy a in bf16 before it sums, the port in f32).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,9 +50,11 @@ def _t2n(t):
     return t.float().numpy()
 
 
-@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ATTN_CASES)
-def test_attention_backward_matches_jax_grad(case, dtn):
+def _hold_against_jax_grad(case, dtn, backward, jax_dtype=None):
+    """``backward(q, k, v, out, lse, do, causal=)`` on the plain forward's
+    output and lse against ``jax.grad`` of the JAX package's jnp
+    attention (on the same values, taken in ``jax_dtype``, by default
+    ``dtn``), by ``grad_error_ratio`` at ``dtn``'s tolerance."""
     B, Sq, Skv, H, Hkv, hd, causal = case
     (jq, jk, jv, jdo), (q, k, v, do) = _inputs(
         sum(case), [(B, Sq, H, hd), (B, Skv, Hkv, hd), (B, Skv, Hkv, hd),
@@ -60,15 +64,52 @@ def test_attention_backward_matches_jax_grad(case, dtn):
         o = jlayers.flash_attention(q, k, v, causal=causal, q_block=64,
                                     kv_block=64)
         return jnp.sum(o.astype(jnp.float32) * jdo.astype(jnp.float32))
-    want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    want = jax.grad(f, argnums=(0, 1, 2))(
+        *(x.astype(JDT[jax_dtype or dtn]) for x in (jq, jk, jv)))
     out, lse = fa.attention(q, k, v, causal=causal, with_lse=True)
-    got = fa.attention_backward(q, k, v, out, lse, do, causal=causal)
+    got = backward(q, k, v, out, lse, do, causal=causal)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == TDT[dtn] and g.shape == tuple(w.shape)
         r = fa.grad_error_ratio(torch.from_numpy(_t2n(g)),
                                 torch.from_numpy(np.array(
                                     w.astype(jnp.float32))), ATTN_TOL[dtn])
         assert r <= 1, (name, r)
+
+
+@pytest.mark.parametrize("dtn", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_backward_matches_jax_grad(case, dtn):
+    _hold_against_jax_grad(case, dtn, fa.attention_backward)
+
+
+@pytest.mark.parametrize("case", ATTN_CASES + [
+    (1, 1024, 1024, 4, 2, 128, True),     # rounding adds up over many keys
+    (1, 100, 100, 6, 2, 32, True)])       # G = 3: 21 queries, 63 rows a tile
+def test_bf16_tile_walk_matches_jax_grad(case):
+    """The tensor-core kernels' walk (dQ tiles of 64 rows packed over a kv
+    head's G heads) with P and dS as the kernels carry them into their
+    products (two bf16 terms each), on bf16 inputs, against jax.grad at
+    the bf16 tolerance.  jax.grad is taken in f32 on the same bf16
+    values, the exact gradient of what the kernels see: JAX's own bf16
+    autodiff rounds its intermediates to bf16 and, at 1024 keys, lies
+    1.39 of the tolerance from that gradient (dk), as far as the f32
+    plain backward does."""
+    _hold_against_jax_grad(case, "bfloat16", functools.partial(
+        fa.attention_backward_tiles, bf16_products=True),
+        jax_dtype="float32")
+
+
+def test_bf16_terms_carry_p_and_ds_to_f32():
+    """The two bf16 terms the tensor-core kernels split P and dS into
+    (hi = bf16(x), lo = bf16(x - hi)) carry x to 2^-16 relative; one term
+    is x rounded to bf16."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy((rng.standard_normal(10000) * np.exp(
+        rng.uniform(-20, 5, 10000))).astype(np.float32))
+    assert torch.equal(fa.bf16_terms(x, 1), x.bfloat16().float())
+    one, two = fa.bf16_terms(x, 1), fa.bf16_terms(x, fa.BF16_TERMS)
+    assert float(((one - x).abs() / x.abs()).max()) > 2.0 ** -10
+    assert float(((two - x).abs() / x.abs()).max()) <= 2.0 ** -16
 
 
 @pytest.mark.parametrize("case", ATTN_CASES + [(1, 100, 60, 2, 1, 16, True),

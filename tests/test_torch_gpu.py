@@ -1186,6 +1186,32 @@ def test_out_of_vocabulary_prompt_on_the_card(cuda):
         np.testing.assert_array_equal(g.tokens, w.tokens)
 
 
+def test_label_past_the_vocabulary_on_the_card(cuda):
+    """A label >= V (ROADMAP C10) makes the loss NaN on the card, as the
+    JAX package's does, without a device assert: the next kernel launch
+    on the same context succeeds and the in-range loss is finite."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tfm
+    cfg = get_arch("internlm2-1.8b").reduced()
+    params = tfm.init_params(cfg, seed=0, device=cuda)
+    batch = SyntheticLM(cfg.vocab, 64, 2, seed=0).batch_for_step(0)
+    for label, finite in ((cfg.vocab, False), (3 * cfg.vocab, False),
+                          (cfg.vocab - 1, True)):
+        batch["labels"][1, 7] = label
+        with torch.no_grad():
+            loss, aux = tfm.loss_fn(cfg, params, batch)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(loss)) == finite, (label, float(loss))
+        assert float(aux["tokens"]) == 2 * 64
+    q, k, v = _attn_inputs(cuda, 1, 64, 64, 2, 2, 64, torch.bfloat16)
+    out = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.error_ratio(out, fa.attention(q, k, v),
+                          ATTN_TOL[torch.bfloat16]) <= 1
+
+
 def test_reduced_serve_engine_cuda_matches_cpu(cuda):
     """internlm2-1.8b reduced (f32) served on the card through both
     kernels answers as the plain versions on the CPU do: prefill logits
@@ -1500,8 +1526,13 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, hd, G, causal):
     got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
                                            causal=causal)
     torch.cuda.synchronize()
+    want_by = dict.fromkeys(fa.BWD_VARIANTS, 0)
+    want_by.update(dict.fromkeys(fa.bwd_variant_of(q), 1))
+    assert fa.bwd_variant_of(q) == (("dq_mma", "dkdv_mma")
+                                    if dtype == torch.bfloat16
+                                    else ("dq_f32", "dkdv_f32"))
     assert {x: fa.flash_attention_backward_cuda.launches_by[x] - n0[x]
-            for x in n0} == {"dq": 1, "dkdv": 1}
+            for x in n0} == want_by
     want = fa.attention_backward(q, k, v, out, lse, do, causal=causal)
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
@@ -1509,6 +1540,46 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, hd, G, causal):
     again = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
                                              causal=causal)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Skv,causal", [(100, 260, True),
+                                           (100, 260, False),
+                                           (197, 70, True), (64, 3, False)])
+def test_attention_backward_kernels_unequal_lengths(cuda, dtype, Sq, Skv,
+                                                     causal):
+    """Sq != Skv and ragged tails: causal with more keys than queries
+    (the keys past the last query get dK = dV = 0), with fewer keys, three
+    keys; both routes against the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 2, Sq, Skv, 2, 2, 64, dtype, seed=Sq + Skv)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(2), device=cuda).to(dtype)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                       with_lse=True)
+    got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                           causal=causal)
+    want = fa.attention_backward(q, k, v, out, lse, do, causal=causal)
+    for g, w in zip(got, want):
+        assert fa.grad_error_ratio(g, w, ATTN_TOL[dtype]) <= 1
+    if causal and Skv > Sq:
+        assert not got[1][:, Sq:].any() and not got[2][:, Sq:].any()
+
+
+def test_bf16_backward_launches_no_f32_kernel(cuda):
+    """bf16 training through FlashAttentionFn runs the tensor-core backward
+    alone: no f32 CUDA-core kernel is launched."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = (x.requires_grad_() for x in _attn_inputs(
+        cuda, 1, 200, 200, 4, 2, 128, torch.bfloat16))
+    n0 = dict(fa.flash_attention_backward_cuda.launches_by)
+    fa.FlashAttentionFn.apply(q, k, v, True).float().square().sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert {x: fa.flash_attention_backward_cuda.launches_by[x] - n0[x]
+            for x in n0} == {"dq_mma": 1, "dkdv_mma": 1, "dq_f32": 0,
+                             "dkdv_f32": 0}
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
 
 
 def test_attention_backward_rejects_bad_arguments(cuda):
@@ -1585,11 +1656,15 @@ def test_training_step_on_card_matches_cpu(cuda):
     card2 = pytree.tree_map(torch.clone, card)
     step = train_loop.make_train_step(cfg, ocfg)
     n0 = (fa.flash_attention_backward_cuda.launches,
-          rn.rmsnorm_backward_cuda.launches)
+          rn.rmsnorm_backward_cuda.launches,
+          dict(fa.flash_attention_backward_cuda.launches_by))
     card, m = step(card, batch)
     torch.cuda.synchronize()
     assert fa.flash_attention_backward_cuda.launches - n0[0] == 2 * 2
     assert rn.rmsnorm_backward_cuda.launches - n0[1] == 2 * 2 + 1
+    assert {x: fa.flash_attention_backward_cuda.launches_by[x] - n0[2][x]
+            for x in n0[2]} == {"dq_f32": 2, "dkdv_f32": 2, "dq_mma": 0,
+                                "dkdv_mma": 0}     # f32: the CUDA cores
     cpu, mc = step(cpu, batch)
     assert float(m["loss"]) == pytest.approx(float(mc["loss"]), rel=1e-4)
     for a, b in zip(pytree.leaves(card[0]), pytree.leaves(cpu[0])):
