@@ -146,18 +146,20 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
 5d. sharded serving — phase 5's dot_prod deployment (1024 slots, K =
              64, the same 2048 requests) with ``partition=2`` and ``4``,
              dense and optimized+profiled: each block one launch of the
-             sharded block kernel (``mf_block_cuda``, one CTA per stream,
-             one warp per region), every request equal to phase 5's solo
-             result of the same uid in every field (outputs, counts,
+             sharded block kernel (``mf_block_cuda``, its warp variant:
+             a stream's regions in one warp), every request equal to
+             phase 5's solo result of the same uid in every field (outputs, counts,
              cycles, fired, dispatches, node_fires, the node and arc
              counters, every metric), the channel counters within their
              bounds and each channel's pushes equal to its producer's
              firings; walls, requests/s, blocks, launches and
              ``reset_slots`` seconds beside phase 5's.  After the counts
-             are read: the kernel against its plain version bit for bit on
-             the slot state each run had after 8 heartbeats (B = 1, 8 and
-             1024; K = 1, 16, 64 and 65; counters off and on), its device
-             ms a block at each full state beside its bound, and one
+             are read: each kernel variant (warp, CTA) against the plain
+             version bit for bit on the slot state each run had after 8
+             heartbeats (B = 1, 8 and 1024; K = 1, 16, 64 and 65; counters
+             off and on), each variant's device ms a block at each full
+             state (B = 1024) and on one stream alone (B = 1, the latency
+             floor) beside its bound and row 3's µs a cycle, and one
              partitioned ``"torch"`` ``run_batch`` in float32 (8 streams of
              64 edge tokens) against ``run_reference``;
 6. trace   — the optimized, profiled dot_prod serving runs again under
@@ -213,7 +215,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              (b)'s shape and odd lengths, hd 16-128, RMSNorm at three
              shapes, f32 and bf16; two calls byte-equal) and its device
              time beside its bound, the plain version's and the library's
-             backward, and the f32 route's time at (b)'s shape;
+             backward, and the f32 route's time at (b)'s shape (RMSNorm
+             also at (a)'s 512 rows, and its rows kernel at other
+             shapes);
 9. summary — the ``kernels`` JSON line (Pallas rows 1-10; row 11, the
              sharded block kernel, which replaces the JAX package's jnp
              block ``MultiFabric._core_fn``; rows 12-14, the backward
@@ -359,7 +363,8 @@ def launch_counts() -> dict:
             "rmsnorm_bwd": rn.rmsnorm_backward_cuda.launches,
             "rmsnorm_bwd_by": dict(rn.rmsnorm_backward_cuda.launches_by),
             "mf_block": kmf.mf_block_cuda.launches,
-            "mf_block_prof": kmf.mf_block_cuda.prof_launches}
+            "mf_block_prof": kmf.mf_block_cuda.prof_launches,
+            "mf_block_by": dict(kmf.mf_block_cuda.launches_by)}
 
 
 def reset_counts() -> None:
@@ -369,6 +374,7 @@ def reset_counts() -> None:
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import schedule_fire as ksf
     kmf.mf_block_cuda.launches = kmf.mf_block_cuda.prof_launches = 0
+    kmf.mf_block_cuda.launches_by = dict.fromkeys(kmf.VARIANTS, 0)
     for w in (df.fire_block_cuda, df.fire_block_batched_cuda):
         w.launches = w.prof_launches = w.spec_launches = 0
         w.launches_by = dict.fromkeys(df.VARIANTS, 0)
@@ -3040,29 +3046,32 @@ def mf_counters(c, seed):
 
 
 def mf_pair(c, rows, K, prof):
-    """One uncounted kernel launch and its plain version on copies of the
-    captured state's ``rows``: both results, (fired, last_prog, state,
-    channels, counters), and the pointers before."""
+    """Uncounted launches of each kernel variant and the plain version on
+    copies of the captured state's ``rows``: {"plain" or the variant:
+    (fired, last_prog, state, channels, counters)}."""
+    from functools import partial
     from repro_torch.kernels import multifabric as kmf
     sub = lambda x: x[rows].contiguous()          # noqa: E731
     fv, fl, act = sub(c["fv"]), sub(c["fl"]), sub(c["active"])
-    outs = []
-    for fn in (kmf.launch_mf, kmf.mf_block):
+    outs = {}
+    for what, fn in (*((v, partial(kmf.launch_mf, variant=v))
+                       for v in kmf.VARIANTS), ("plain", kmf.mf_block)):
         x = [sub(t).clone() for t in c["state"]]
         ch = [sub(t).clone() for t in c["ch"]]
         pr = None if prof is None else [sub(t).clone() for t in prof]
         f, lp = fn(c["tabs"], fv, fl, *x, *ch, n_cycles=K, active=act,
                    prof=None if pr is None else pr[:5],
                    chprof=None if pr is None else pr[5:])
-        outs.append([f, lp, *x, *ch, *(pr or [])])
+        outs[what] = [f, lp, *x, *ch, *(pr or [])]
     return outs
 
 
 def hold_mf(caps) -> tuple[int, int]:
-    """The kernel against its plain version, bit for bit, on every
-    captured sharded serving state (P = 2 and 4, optimize off and on): B
-    = 1 (the first active slot), 8 and 1024; K = 1, 16, 64 and 65; with
-    and without counters.  Returns the largest error and the cases."""
+    """Each kernel variant (warp, CTA) against the plain version, bit for
+    bit, on every captured sharded serving state (P = 2 and 4, optimize
+    off and on): B = 1 (the first active slot), 8 and 1024; K = 1, 16,
+    64 and 65; with and without counters.  Returns the largest error and
+    the cases (a case: every variant against one plain run)."""
     import torch
     err = n = 0
     for (P, opt), c in sorted(caps.items()):
@@ -3071,14 +3080,16 @@ def hold_mf(caps) -> tuple[int, int]:
         for rows in (slice(one, one + 1), slice(0, 8), slice(None)):
             for K in (1, 16, 64, 65):
                 for prof in (None, counters):
-                    got, want = mf_pair(c, rows, K, prof)
+                    outs = mf_pair(c, rows, K, prof)
                     torch.cuda.synchronize()
-                    e = max_abs_err(got, want)
-                    err = max(err, e)
+                    want = outs.pop("plain")
                     n += 1
-                    check(e == 0, f"mf_block P={P} optimize={opt} "
-                          f"rows={rows} K={K} prof={prof is not None}: "
-                          f"kernel != plain (max |err| {e})")
+                    for v, got in outs.items():
+                        e = max_abs_err(got, want)
+                        err = max(err, e)
+                        check(e == 0, f"mf_block {v} P={P} optimize={opt} "
+                              f"rows={rows} K={K} prof={prof is not None}: "
+                              f"kernel != plain (max |err| {e})")
                     if rows == slice(None) and K >= 16:
                         check(int(want[0].sum()) > 0,
                               "nothing fired in the captured state")
@@ -3112,32 +3123,49 @@ def mf_bound(c, K, prof, tokens) -> dict:
 
 
 def time_mf(c, K=64) -> dict:
-    """Device ms per block of the kernel (profiler) on fresh copies of a
-    captured full serving state (B = 1024), its µs per cycle, the plain
-    version's ms per call (CUDA events) and the bound."""
+    """Device ms per block of each kernel variant (profiler) on fresh
+    copies of a captured full serving state (B = 1024) and on its first
+    active stream alone (B = 1: the latency floor), µs per cycle, the
+    plain version's ms per call (CUDA events) and the bound.  The tables'
+    own variant's numbers are the row's."""
+    from functools import partial
     from repro_torch.kernels import multifabric as kmf
-    prof = c["prof"]
+    tabs = c["tabs"]
+    one = int(c["active"].nonzero()[0])
 
-    def run(fn):
-        x = [t.clone() for t in c["state"]]
-        ch = [t.clone() for t in c["ch"]]
-        pr = None if prof is None else [t.clone() for t in prof]
-        return fn(c["tabs"], c["fv"], c["fl"], *x, *ch, n_cycles=K,
-                  active=c["active"], prof=None if pr is None else pr[:5],
+    def run(fn, rows=slice(None)):
+        sub = lambda x: x[rows].contiguous()      # noqa: E731
+        x = [sub(t).clone() for t in c["state"]]
+        ch = [sub(t).clone() for t in c["ch"]]
+        pr = None if c["prof"] is None else [sub(t).clone()
+                                             for t in c["prof"]]
+        return fn(tabs, sub(c["fv"]), sub(c["fl"]), *x, *ch, n_cycles=K,
+                  active=sub(c["active"]),
+                  prof=None if pr is None else pr[:5],
                   chprof=None if pr is None else pr[5:]), x
 
     _, x = run(kmf.launch_mf)
     tokens = int((x[2] - c["state"][2]).sum())
-    ms = device_ms(lambda: run(kmf.launch_mf), 20, "mf_block_kernel")
+    by = {}
+    for v in kmf.VARIANTS:
+        fn = partial(kmf.launch_mf, variant=v)
+        ms = device_ms(lambda: run(fn), 20, "mf_block_kernel")
+        floor = device_ms(lambda: run(fn, slice(one, one + 1)), 20,
+                          "mf_block_kernel")
+        by[v] = dict(ms=ms, us_per_cycle=ms * 1e3 / K, floor_ms=floor,
+                     floor_us_per_cycle=floor * 1e3 / K)
     plain_ms = cuda_ms(lambda: run(kmf.mf_block), 2, warmup=1)
-    tabs = c["tabs"]
-    return dict(ms=ms, ms_from="profiler", us_per_cycle=ms * 1e3 / K,
-                plain_ms=plain_ms, **mf_bound(c, K, prof, tokens),
+    own = by[tabs.variant]
+    return dict(variant=tabs.variant, ms=own["ms"], ms_from="profiler",
+                us_per_cycle=own["us_per_cycle"], floor_ms=own["floor_ms"],
+                floor_us_per_cycle=own["floor_us_per_cycle"],
+                by_variant=by, plain_ms=plain_ms,
+                **mf_bound(c, K, c["prof"], tokens),
                 shape=f"B={c['fv'].shape[0]} slots "
                 f"({int(c['active'].sum())} active), K={K}, "
                 f"L={c['fv'].shape[2]}, P={tabs.P}, N2m={tabs.N2m}, "
                 f"A2m={tabs.A2m}, C={tabs.C}"
-                + (", counters" if prof is not None else ""))
+                + (", counters" if c["prof"] is not None else ""))
 
 
 def sharded_torch_float(dev) -> dict:
@@ -3173,16 +3201,21 @@ def check_phase_sharded(dev, out, caps) -> dict:
     state, and the float32 ``"torch"`` run.  Returns row 11's fields."""
     t0 = time.perf_counter()
     err, n = hold_mf(caps)
-    log(f"  mf_block == mf_block (plain) bit for bit in {n} cases "
-        "(P = 2, 4; optimize off, on; B = 1, 8, 1024; K = 1, 16, 64, 65; "
-        "counters off, on)")
+    log(f"  mf_block (warp and CTA variants) == mf_block (plain) bit for "
+        f"bit in {n} cases (P = 2, 4; optimize off, on; B = 1, 8, 1024; "
+        "K = 1, 16, 64, 65; counters off, on)")
     out["times"] = {f"P{P}/opt={opt}": time_mf(c)
                     for (P, opt), c in sorted(caps.items())}
     for k, t in out["times"].items():
-        log(f"  mf_block {k}: {t['ms']:.4f} ms a block ("
-            f"{t['us_per_cycle']:.3f} µs/cycle), plain {t['plain_ms']:.2f} "
+        log(f"  mf_block {k} ({t['variant']}): {t['ms']:.4f} ms a block ("
+            f"{t['us_per_cycle']:.3f} µs/cycle; B = 1 floor "
+            f"{t['floor_us_per_cycle']:.3f}), plain {t['plain_ms']:.2f} "
             f"ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}); "
             f"{t['shape']}")
+        for v, b in t["by_variant"].items():
+            log(f"    {v:4s}: {b['ms']:.4f} ms ({b['us_per_cycle']:.3f} "
+                f"µs/cycle), B = 1 {b['floor_ms']:.4f} ms "
+                f"({b['floor_us_per_cycle']:.3f} µs/cycle)")
     out["torch_float32"] = sharded_torch_float(dev)
     log(f"  partitioned torch run_batch in float32 == run_reference: "
         f"{json.dumps(out['torch_float32'])}")
@@ -3191,8 +3224,12 @@ def check_phase_sharded(dev, out, caps) -> dict:
     main = out["times"]["P2/opt=False"]
     return dict(max_abs_err=err, ms=main["ms"], plain_ms=main["plain_ms"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
-                us_per_cycle=main["us_per_cycle"], shape=main["shape"],
-                times=out["times"])
+                us_per_cycle=main["us_per_cycle"], variant=main["variant"],
+                floor_ms=main["floor_ms"],
+                floor_us_per_cycle=main["floor_us_per_cycle"],
+                cta_ms=main["by_variant"]["cta"]["ms"],
+                cta_us_per_cycle=main["by_variant"]["cta"]["us_per_cycle"],
+                shape=main["shape"], times=out["times"], cases_held=n)
 
 
 # ---------------------------------------------------------------------------
@@ -4277,33 +4314,85 @@ def attn_bwd_alone(q, k, v, o, lse, do, causal) -> dict:
     return {"dq": lambda: launch(dq_v), "dkdv": lambda: launch(dkdv_v)}
 
 
-def rmsnorm_bwd_alone(x, w, dy) -> dict:
-    """``""`` and ``"reduce_"`` -> a callable that launches the RMSNorm
-    backward kernel (its ``vec`` variant), or the reduction of its
-    partials, and nothing else (the wrapper's entry points and
+def rmsnorm_bwd_alone(x, w, dy, vpl=None, wpr=None) -> dict:
+    """The RMSNorm backward's plan at these inputs (the wrapper's, or the
+    rows kernel forced to ``vpl`` vectors a lane and ``wpr`` warps a row)
+    and, under the profiler name of each of its kernels, a callable that
+    launches that kernel and nothing else (the wrapper's entry points and
     arguments, on buffers of its own)."""
-    import ctypes
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import rmsnorm as rn
     lib = _build.load()
     d = x.shape[-1]
-    rows = x.numel() // d
-    n_cta, per = rn.bwd_plan(rows)
     w32, dx = w.float().contiguous(), torch.empty_like(x)
-    part = torch.empty((n_cta, d), dtype=torch.float32, device=x.device)
+    plan = rn.card_plan(x, dx, dy, vpl, wpr)
+    part = torch.empty((plan.n_cta, d), dtype=torch.float32, device=x.device)
     dw = torch.empty((d,), dtype=torch.float32, device=x.device)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
 
-    def run(err, what):
-        check(err == 0, f"the RMSNorm backward {what} did not launch")
-    return {"": lambda: run(lib.rmsnorm_bwd_launch(
-                x.data_ptr(), w32.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                part.data_ptr(), rows, d, rn.DTYPE_CODES[x.dtype],
-                rn.BWD_VARIANTS.index("vec"), per, 1e-5, stream), "kernel"),
-            "reduce_": lambda: run(lib.rmsnorm_bwd_reduce_launch(
-                part.data_ptr(), dw.data_ptr(), n_cta, d, stream),
-                "reduction")}
+    def reduce():
+        err = lib.rmsnorm_bwd_reduce_launch(part.data_ptr(), dw.data_ptr(),
+                                            plan.n_cta, d, stream)
+        check(err == 0, "the RMSNorm backward reduction did not launch")
+    name = "rmsnorm_bwd_rows_kernel" if plan.variant == "rows" \
+        else "rmsnorm_bwd_kernel"
+    return plan, {name: lambda: rn.launch_backward(plan, x, w32, dy, dx,
+                                                   part, None, 1e-5),
+                  "rmsnorm_bwd_reduce_kernel": reduce}
+
+
+def time_rmsnorm_bwd(x, w, dy, shapes=()) -> dict:
+    """Row 14 at x's shape: device ms of the backward kernel and of its
+    reduction, each under its own profiler name (one launch each a call),
+    a wrapper call, the plain version, the backward of ``F.rms_norm``
+    (CUDA-graph replay) and the bound; and the rows kernel at each forced
+    (vectors a lane, warps a row) of ``shapes``, by CUDA events around
+    lone launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    rows, d = x.shape
+    es = x.element_size()
+
+    def rms_norm_backward():
+        xl = x.detach().requires_grad_()
+        wl = w.to(x.dtype).detach().requires_grad_()
+        y_lib = F.rms_norm(xl, (d,), wl, eps=1e-5)
+        return lambda: torch.autograd.grad(y_lib, (xl, wl), dy,
+                                           retain_graph=True)
+    run_k = lambda: rn.rmsnorm_backward_cuda(x, w, dy)      # noqa: E731
+    nbytes = 3 * rows * d * es + 2 * 4 * d
+    ops_n = 8 * rows * d
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
+    bound = dict(bound_ms=max(t_b, t_o) * 1e3,
+                 bound_by="bytes" if t_b >= t_o else "operations",
+                 bytes=nbytes, flops=ops_n)
+    lib_ms, lib_from = library_ms(rms_norm_backward, 20, bound)
+    plan, alone = rmsnorm_bwd_alone(x, w, dy)
+    (bwd_name, bwd_fn), (_, red_fn) = alone.items()
+    bwd_ms, bwd_from = kernel_ms(run_k, 20, bwd_name, bwd_fn)
+    reduce_ms, reduce_from = kernel_ms(run_k, 20,
+                                       "rmsnorm_bwd_reduce_kernel", red_fn)
+    forced = {}
+    for vpl, wpr in shapes:
+        p, fns = rmsnorm_bwd_alone(x, w, dy, vpl, wpr)
+        name, fn = next(iter(fns.items()))
+        ms, ms_from = kernel_ms(fn, 20, name, fn)
+        forced[f"vpl={vpl} wpr={wpr}"] = dict(
+            ms=ms, ms_from=ms_from, n_cta=p.n_cta)
+    return dict(
+        ms=bwd_ms + reduce_ms, ms_from=f"the backward kernel ({bwd_from}) "
+        f"and its reduction ({reduce_from}), each under its own name",
+        bwd_kernel_ms=bwd_ms, reduce_kernel_ms=reduce_ms,
+        variant=plan.variant, plan=plan._asdict(),
+        call_ms=cuda_ms(run_k, 20), call_of="one wrapper call",
+        plain_ms=cuda_ms(lambda: rn.rmsnorm_backward(x, w, dy, model=True),
+                         5, warmup=1),
+        plain_of="rmsnorm_backward", library_ms=lib_ms,
+        library_from=lib_from, library_of="the backward of F.rms_norm",
+        forced_shapes_ms=forced,
+        shape=f"[{rows}, {d}] model rounding, {str(x.dtype)[6:]}", **bound)
 
 
 def kernel_ms(fn, reps: int, kernel: str, alone) -> tuple[float, str]:
@@ -4405,15 +4494,20 @@ def phase_train_kernels(dev, cfg) -> tuple:
             x, dy = rnd((rows, d), dt, 3.0), rnd((rows, d), dt)
             w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
             dx, dw = rn.rmsnorm_backward_cuda(x, w, dy)
-            pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
+            again = rn.rmsnorm_backward_cuda(x, w, dy)
             what = f"[{rows}, {d}]"
+            check(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
+                  f"rmsnorm backward {dtn} {what}: two calls differ")
+            pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
             rx = float(((dx.float() - pdx.float()).abs()
                         / (tol * (1 + pdx.float().abs()))).max())
             rw = float(((dw - pdw).abs()
                         / (NORM_DW_TOL[dtn] * (1 + pdw.abs()))).max())
             note(dtn, "rmsnorm_bwd", dx, pdx, rx, what)
             note(dtn, "rmsnorm_bwd", dw, pdw, rw, what)
-            log(f"  rmsnorm backward {dtn:8s} {what}: dx {rx:.3f} of "
+            log(f"  rmsnorm backward {dtn:8s} {what} "
+                f"({rn.rmsnorm_backward_cuda.last_plan.variant}, byte-equal "
+                f"twice): dx {rx:.3f} of "
                 f"rtol = atol = {tol:g}, dw {rw:.3f} of rtol = atol = "
                 f"{NORM_DW_TOL[dtn]:g}")
     torch.cuda.empty_cache()
@@ -4471,39 +4565,16 @@ def phase_train_kernels(dev, cfg) -> tuple:
         times[row].update(f32_ms=ms, f32_of=f"{name}, the f32 route at the "
                           f"same shape in float32 ({ms_from})")
     del q, k, v, do, out, lse, alone
-    x, dy = rnd((B * S, d), bf, 3.0), rnd((B * S, d), bf)
-    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
-
-    def rms_norm_backward():
-        xl = x.detach().requires_grad_()
-        wl = w.to(bf).detach().requires_grad_()
-        y_lib = F.rms_norm(xl, (d,), wl, eps=1e-5)
-        return lambda: torch.autograd.grad(y_lib, (xl, wl), dy,
-                                           retain_graph=True)
-    run_k = lambda: rn.rmsnorm_backward_cuda(x, w, dy)
-    nbytes = 3 * B * S * d * 2 + 2 * 4 * d
-    ops_n = 8 * B * S * d
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops_n / SCALAR_OPS_PER_S
-    bound = dict(bound_ms=max(t_b, t_o) * 1e3,
-                 bound_by="bytes" if t_b >= t_o else "operations",
-                 bytes=nbytes, flops=ops_n)
-    lib_ms, lib_from = library_ms(rms_norm_backward, 20, bound)
-    # each kernel under its own filter (one launch a call), so a launch
-    # record the profiler loses is seen and made up for
-    alone = rmsnorm_bwd_alone(x, w, dy)
-    (bwd_ms, bwd_from), (reduce_ms, reduce_from) = (
-        kernel_ms(run_k, 20, f"rmsnorm_bwd_{name}kernel", alone[name])
-        for name in ("", "reduce_"))
-    times["rmsnorm_bwd"] = dict(
-        ms=bwd_ms + reduce_ms, ms_from=f"the backward kernel ({bwd_from}) "
-        f"and its reduction ({reduce_from}), each under its own name",
-        bwd_kernel_ms=bwd_ms,
-        reduce_kernel_ms=reduce_ms, call_ms=cuda_ms(run_k, 20),
-        call_of="one wrapper call", plain_ms=cuda_ms(
-            lambda: rn.rmsnorm_backward(x, w, dy, model=True), 5, warmup=1),
-        plain_of="rmsnorm_backward", library_ms=lib_ms,
-        library_from=lib_from, library_of="the backward of F.rms_norm",
-        shape=f"[{B * S}, {d}] model rounding, bfloat16", **bound)
+    # row 14 at (b)'s rows and at (a)'s (batch 4 x seq 128), bf16; at (b)'s
+    # the rows kernel also at other (vectors a lane, warps a row)
+    for tag, rows in (("", B * S), ("_a", TRAIN_SHAPES["a"][0]
+                                    * TRAIN_SHAPES["a"][1])):
+        x, dy = rnd((rows, d), bf, 3.0), rnd((rows, d), bf)
+        w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
+        times[f"rmsnorm_bwd{tag}"] = time_rmsnorm_bwd(
+            x, w, dy, ((2, 8), (4, 8)) if not tag else ())
+        del x, dy
+    times["rmsnorm_bwd"]["at_a"] = times.pop("rmsnorm_bwd_a")
     torch.cuda.empty_cache()
     for k, t in times.items():
         if "f32_ms" in t:
@@ -4514,6 +4585,13 @@ def phase_train_kernels(dev, cfg) -> tuple:
             f"({t['library_from']})  "
             f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {t['bytes']} B,"
             f" {t['flops']:.4g} flops)  [{t['shape']}]")
+    t = times["rmsnorm_bwd"]
+    a = t["at_a"]
+    log(f"  rmsnorm_bwd at (a)'s rows: {a['ms']:.4f} ms ({a['bwd_kernel_ms']:.4f}"
+        f" + {a['reduce_kernel_ms']:.4f}), {a['call_ms']:.4f} per call, "
+        f"library {a['library_ms']:.4f} ms, bound {a['bound_ms']:.5f} ms "
+        f"[{a['shape']}]; plans {t['plan']}, {a['plan']}; rows kernel at "
+        f"other shapes {json.dumps(t['forced_shapes_ms'])}")
     return errs, times
 
 
@@ -4793,6 +4871,8 @@ def main() -> int:
         f" {launches['mf_block_prof']} profiled")
     for k in ("mf_block", "mf_block_prof"):
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    check(launches["mf_block_by"]["warp"] == mf_launches, "mf_block: a "
+          "sharded block of phase 5d did not run the warp variant")
     check(mf_launches == sum(v["launches"] for k, v in sharded.items()
                              if k.startswith("P")),
           "a sharded block was not one mf_block launch")
@@ -4880,6 +4960,8 @@ def main() -> int:
     for k in TRAIN_ROWS:
         check(train_launches[k] > 0, f"{k} was never launched on the main "
               "path")
+    check(train_launches["rmsnorm_bwd_by"]["rows"] > 0, "training never "
+          "launched the RMSNorm backward's rows variant")
     for k in ("prefill_mma", "tiled_f32"):
         check(train_launches["flash_attention_by"][k] > 0, f"training never "
               f"launched attention variant {k} (with its lse)")
@@ -4919,13 +5001,17 @@ def main() -> int:
         pallas="none: MultiFabric._core_fn, a jnp program (vmap or "
         "shard_map, lax.psum a cycle) that XLA fuses into one dispatch a "
         "block", launches=mf_launches,
-        launches_by={"unprofiled": launches["mf_block"],
-                     "profiled": launches["mf_block_prof"]},
+        launches_by=launches["mf_block_by"],
+        launches_unprofiled=launches["mf_block"],
+        launches_profiled=launches["mf_block_prof"],
         max_abs_err=mf_row["max_abs_err"], tolerance=0, library_ms=None,
         matches_plain=mf_row["max_abs_err"] == 0, ms=mf_row["ms"],
         ms_from="profiler", plain_ms=mf_row["plain_ms"],
         bound_ms=mf_row["bound_ms"], bound_by=mf_row["bound_by"],
-        us_per_cycle=mf_row["us_per_cycle"], shape=mf_row["shape"],
+        **{f: mf_row[f] for f in (
+            "us_per_cycle", "variant", "floor_ms", "floor_us_per_cycle",
+            "cta_ms", "cta_us_per_cycle", "shape", "cases_held")},
+        row3_us_per_cycle=times["fire_block_batched"]["us_per_cycle"],
         by_state=mf_row["times"]))
     kernels += lm_rows(lm_errs, lm_times, lm_launches, norm_variants)
     kernels += train_rows(train_errs, train_times, train_launches)

@@ -25,9 +25,9 @@ Placement.  The JAX package runs the regions under ``shard_map`` on a
 device mesh or under ``vmap`` on one device.  Here the regions are
 stacked on one device (``placement="auto"`` or ``"vmap"``): on the
 ``"cuda"`` backend a block is one launch of the sharded block kernel
-(:func:`repro_torch.kernels.multifabric.mf_block_cuda`, one CTA per
-stream and one warp per region; its plain PyTorch version with
-``device="cpu"``), on ``"torch"`` it is
+(:func:`repro_torch.kernels.multifabric.mf_block_cuda`: a stream's
+regions in one warp, or one CTA per stream and one warp per region for
+larger regions; its plain PyTorch version with ``device="cpu"``), on ``"torch"`` it is
 :func:`~repro_torch.kernels.multifabric.mf_block` in the token dtype.
 Placement across several cards (``"shard_map"``) is ROADMAP Queue A 10b.
 

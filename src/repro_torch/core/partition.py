@@ -4,7 +4,7 @@ package's, node for node, for every graph and P).
 
 Splits one :class:`~repro_torch.core.graph.Graph` into P *regions* so
 that :mod:`repro_torch.core.multifabric` can run each region as an
-independent fabric (a warp of one CTA per stream on the card), with
+independent fabric (lanes of a stream's warp on the card), with
 every inter-region arc carried by a token channel (DESIGN.md §14).  The
 segmentation follows netlist partitioning practice (the connected-component / cost analysis used on
 the 6502 netlist in the related repos): weight every node by a

@@ -4,8 +4,8 @@
 fire-block kernel's two variants, the fire step's two and two latency
 probes; ``schedule_fire.cu``: the static-schedule kernels (the run
 kernel's two variants and the slot step's two), both including
-``csrc/alu.cuh``; ``multifabric.cu``: the sharded block kernel, which
-includes it too; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
+``csrc/alu.cuh``; ``multifabric.cu``: the sharded block kernel's two
+variants, which include it too; ``flash_attention.cu`` and ``rmsnorm.cu``: the LM
 kernels, forward and backward) for Hopper (``sm_90a``), one compiler per source, all started
 together, and links
 the objects into one shared library with a plain C interface.  It is
@@ -64,7 +64,7 @@ def _bind(lib: ctypes.CDLL) -> None:
                                ("sched_run_warp_launch", 9, 15),
                                ("sched_slot_step_launch", 25, 7),
                                ("sched_slot_warp_launch", 18, 9),
-                               ("mf_block_launch", 22, 10),
+                               ("mf_block_launch", 22, 14),
                                ("flash_attention_tiled_launch", 5, 10),
                                ("flash_attention_wgmma_launch", 5, 10),
                                ("flash_attention_bwd_dq_launch", 8, 8),
@@ -82,16 +82,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     # and variant int, eps float
     lib.rmsnorm_launch.argtypes = [vp] * 3 + [ci] * 5 + [ctypes.c_float, vp]
     lib.rmsnorm_launch.restype = ci
-    lib.rmsnorm_bwd_launch.argtypes = [vp] * 5 + [ci] * 5 + [ctypes.c_float,
+    lib.rmsnorm_bwd_launch.argtypes = [vp] * 5 + [ci] * 8 + [ctypes.c_float,
                                                             vp]
     lib.rmsnorm_bwd_launch.restype = ci
+    lib.rmsnorm_bwd_rows_occupancy.argtypes = [ci] * 4
+    lib.rmsnorm_bwd_rows_occupancy.restype = ci
     lib.fire_block_smem_bytes.argtypes = [ci] * 6
     lib.fire_block_smem_bytes.restype = ci
     lib.sched_warp_plan.argtypes = [ci] * 10 + [vp]
     lib.sched_warp_plan.restype = ci
     lib.sched_slot_plan.argtypes = [ci] * 7 + [vp]
     lib.sched_slot_plan.restype = ci
-    lib.mf_block_smem_bytes.argtypes = [ci] * 7
+    lib.mf_block_smem_bytes.argtypes = [ci] * 6
     lib.mf_block_smem_bytes.restype = ci
     lib.fire_block_smem_limit.argtypes = [ci]
     lib.fire_block_smem_limit.restype = ci

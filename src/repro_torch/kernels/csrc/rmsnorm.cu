@@ -34,8 +34,9 @@
 // (and, in the split variant, the warps' sums added in warp order); the
 // plain replay of the split order is rmsnorm.rmsnorm_split_order.
 //
-// The backward (training) -- rmsnorm_bwd_kernel and the reduction of its
-// partials, rmsnorm_bwd_reduce_kernel -- is described where it is defined.
+// The backward (training) -- rmsnorm_bwd_rows_kernel ("rows"),
+// rmsnorm_bwd_kernel ("generic") and the reduction of their partials,
+// rmsnorm_bwd_reduce_kernel -- is described where it is defined.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -253,28 +254,182 @@ int launch_typed(const void* xv, const float* w, void* outv, int rows, int d,
 //   dw = sum over rows of dy a,  a = x^ rounded to T, f32
 // (the gradient of the model's rounding; the Pallas kernel's rounding has
 // no backward here, since nothing trains through it).
-// Bound by bytes: x and dy are read (twice: the second pass from L1/L2),
-// dx written, w read and dw written once.
-// rmsnorm_bwd_kernel<T, VEC>: CTA c (256 threads) takes the rows
-// [c R, (c + 1) R).  Per row, one pass sums x^2 and g x (per-thread
-// partials in element order, warp shuffles, the warps' sums in warp
-// order), a second writes dx and adds each column's dy a to the CTA's
-// partial of dw in shared memory (a column belongs to one thread: no
-// atomics).  The partials [n_cta, d] f32 go to a workspace, and
-// rmsnorm_bwd_reduce_kernel sums each column's partials in CTA order (one
-// thread a column): deterministic.  VEC: 16-byte vectors of T where d and
-// the pointers allow ("vec"), else one element ("generic").
+//
+// Bound by bytes: x and dy read once, dx written once, w read and dw
+// written once (50.3 MB at [4096, 2048] bf16, 15 µs at 3.35 TB/s).  What
+// the design does about it (rmsnorm_bwd_rows_kernel, the "rows" variant):
+//   * a group of WPR warps owns a whole row, each lane VPL 16-byte vectors
+//     of it (rmsnorm.rows_shape: 2 a lane, 4 warps a row at d = 2048 in
+//     bf16), x and dy read once into registers, and the group's next row
+//     loaded while this one is worked (two rows in flight a group); few
+//     vectors a lane leave registers for 16 warps an SM;
+//   * g = dy w, exact in T, kept in registers between the two passes;
+//   * both sums (sum x^2, sum g x) by warp shuffles; a group of several
+//     warps adds its warps' sums in warp order after a named barrier of
+//     the group (sums double-buffered by row parity), never a CTA barrier;
+//   * w, rounded to T, staged once a CTA in shared memory;
+//   * the grid is sized to the card (the wrapper: SMs x resident CTAs,
+//     at most a row per group), each group strides over the rows in a
+//     fixed assignment (row = CTA G + group + k gridDim G), and each lane
+//     keeps its columns' sum of dy a in registers across its rows (a
+//     product rounded, then added: no fused multiply-add, so the sum is
+//     replayed exactly);
+//   * at the end the CTA's groups add their sums into shared memory in
+//     group order, one f32 partial [d] a CTA; rmsnorm_bwd_reduce_kernel
+//     sums the partials over many CTAs (32 columns and 8 slices of the
+//     partials a CTA, each slice in order, then a fixed tree over the
+//     slices).  No atomics: two calls are byte-equal.  The plain replays
+//     are rmsnorm.rmsnorm_backward_partials and rmsnorm.reduce_partials.
+// rmsnorm_bwd_kernel<T> (the "generic" variant: d up to kBwdMaxD that is
+// not whole 16-byte vectors, or unaligned, or wider than 8 warps hold in 4
+// vectors a lane) keeps the first design: CTA c (256 threads) takes the
+// rows [c R, (c + 1) R) one after the other, two passes over each row
+// under two CTA barriers, a column of the CTA's partial of dw per thread
+// in shared memory, one element a thread.
 constexpr int kBwdThreads = 256;
-// the partial of dw (dynamic) and red (static) share 48 KB of shared memory
+// the generic variant's partial of dw (dynamic) and red (static) share
+// 48 KB of shared memory
 constexpr int kBwdRedBytes = 2 * (kBwdThreads / 32) * sizeof(float);
 constexpr int kBwdMaxD = (48 * 1024 - kBwdRedBytes) / sizeof(float);  // 12272
+constexpr int kRowsWarps = 8;             // warps of a rows CTA
+constexpr int kReduceSlices = 8;          // rows of a reduction CTA
 
 template <typename T>
 __device__ __forceinline__ float grad_in(float dyf, float wf) {
   return round_to<T>(dyf * round_to<T>(wf));
 }
 
-template <typename T, int VEC>
+// A barrier of the `threads` threads of named barrier `id` (1 .. 15).
+__device__ __forceinline__ void group_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <typename T, int VPL, int WPR>
+__global__ void __launch_bounds__(32 * kRowsWarps)
+rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                        const T* __restrict__ dy, T* __restrict__ dx,
+                        float* __restrict__ part, int rows, int d,
+                        float eps) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int G = kRowsWarps / WPR;       // groups (rows in flight)
+  using V = Vec<T, VEC>;
+  extern __shared__ __align__(16) float ws[];   // d: w in T, then dw
+  __shared__ float red[2][kRowsWarps][2];
+  const int nv = d / VEC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = warp / WPR, gl = (warp % WPR) * 32 + lane;
+  for (int i = threadIdx.x; i < d; i += blockDim.x)
+    ws[i] = round_to<T>(w[i]);
+  __syncthreads();
+  float acc[VPL][VEC];
+#pragma unroll
+  for (int k = 0; k < VPL; ++k)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
+  auto load = [&](int row, V (&a)[VPL], V (&b)[VPL]) {
+    const V* xr = reinterpret_cast<const V*>(x + static_cast<size_t>(row) * d);
+    const V* gr = reinterpret_cast<const V*>(dy + static_cast<size_t>(row) * d);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = gl + 32 * WPR * k;
+      if (i < nv) {
+        a[k] = xr[i];
+        b[k] = gr[i];
+      }
+    }
+  };
+  const int stride = gridDim.x * G;
+  int par = 0;
+  int row = blockIdx.x * G + grp;
+  V a[VPL], b[VPL];
+  if (row < rows) load(row, a, b);
+  for (; row < rows; row += stride) {
+    V an[VPL], bn[VPL], gv[VPL];
+    if (row + stride < rows) load(row + stride, an, bn);
+    float ss = 0.f, sg = 0.f;
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = gl + 32 * WPR * k;
+      if (i < nv) {
+        const float4* w4 = reinterpret_cast<const float4*>(ws + i * VEC);
+#pragma unroll
+        for (int q = 0; q < VEC / 4; ++q) {
+          const float4 f = w4[q];
+          const float wq[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 4 * q + u;
+            const float xf = to_f32<T>(a[k].v[e]);
+            gv[k].v[e] = from_f32<T>(to_f32<T>(b[k].v[e]) * wq[u]);
+            const float g = to_f32<T>(gv[k].v[e]);
+            ss += xf * xf;
+            sg += g * xf;
+          }
+        }
+      }
+    }
+    ss = warp_sum(ss);
+    sg = warp_sum(sg);
+    if (WPR > 1) {
+      if (lane == 0) {
+        red[par][warp][0] = ss;
+        red[par][warp][1] = sg;
+      }
+      group_sync(1 + grp, 32 * WPR);
+      ss = sg = 0.f;
+#pragma unroll
+      for (int j = 0; j < WPR; ++j) {
+        ss += red[par][grp * WPR + j][0];
+        sg += red[par][grp * WPR + j][1];
+      }
+      par ^= 1;
+    }
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    const float mean = sg * r / static_cast<float>(d);    // mean(g x^)
+    V* dxr = reinterpret_cast<V*>(dx + static_cast<size_t>(row) * d);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      const int i = gl + 32 * WPR * k;
+      if (i < nv) {
+        V out;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const float dyf = to_f32<T>(b[k].v[e]);
+          const float xh = to_f32<T>(a[k].v[e]) * r;
+          out.v[e] = from_f32<T>(r * (to_f32<T>(gv[k].v[e]) - xh * mean));
+          acc[k][e] = __fadd_rn(acc[k][e], __fmul_rn(dyf, round_to<T>(xh)));
+        }
+        dxr[i] = out;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+      a[k] = an[k];
+      b[k] = bn[k];
+    }
+  }
+  // the groups' sums into the CTA's partial, in group order
+  __syncthreads();                          // w is read no more
+  for (int j = 0; j < G; ++j) {
+    if (grp == j) {
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const int i = gl + 32 * WPR * k;
+        if (i < nv) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            ws[i * VEC + e] = j == 0 ? acc[k][e]
+                                     : __fadd_rn(ws[i * VEC + e], acc[k][e]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* pr = part + static_cast<size_t>(blockIdx.x) * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) pr[c] = ws[c];
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kBwdThreads)
 rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    const T* __restrict__ dy, T* __restrict__ dx,
@@ -282,27 +437,19 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
                    int rows_per_cta, float eps) {
   extern __shared__ float dw_s[];           // d floats: this CTA's partial
   __shared__ float red[2][kBwdThreads / 32];
-  using V = Vec<T, VEC>;
-  const int nv = d / VEC;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  for (int i = tid; i < nv; i += kBwdThreads)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) dw_s[i * VEC + e] = 0.f;
+  for (int i = tid; i < d; i += kBwdThreads) dw_s[i] = 0.f;
   const int r0 = blockIdx.x * rows_per_cta;
   const int r1 = min(rows, r0 + rows_per_cta);
   for (int row = r0; row < r1; ++row) {
-    const V* xr = reinterpret_cast<const V*>(x + static_cast<size_t>(row) * d);
-    const V* gr = reinterpret_cast<const V*>(dy + static_cast<size_t>(row) * d);
+    const T* xr = x + static_cast<size_t>(row) * d;
+    const T* gr = dy + static_cast<size_t>(row) * d;
     float ss = 0.f, sg = 0.f;
-    for (int i = tid; i < nv; i += kBwdThreads) {
-      const V a = xr[i], b = gr[i];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float xf = to_f32<T>(a.v[e]);
-        const float g = grad_in<T>(to_f32<T>(b.v[e]), w[i * VEC + e]);
-        ss += xf * xf;
-        sg += g * xf;
-      }
+    for (int i = tid; i < d; i += kBwdThreads) {
+      const float xf = to_f32<T>(xr[i]);
+      const float g = grad_in<T>(to_f32<T>(gr[i]), w[i]);
+      ss += xf * xf;
+      sg += g * xf;
     }
     ss = warp_sum(ss);
     sg = warp_sum(sg);
@@ -319,61 +466,87 @@ rmsnorm_bwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
     __syncthreads();                        // red is the next row's
     const float r = rsqrtf(tss / static_cast<float>(d) + eps);
     const float mean = tsg * r / static_cast<float>(d);   // mean(g x^)
-    V* dxr = reinterpret_cast<V*>(dx + static_cast<size_t>(row) * d);
-    for (int i = tid; i < nv; i += kBwdThreads) {
-      const V a = xr[i], b = gr[i];
-      V out;
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) {
-        const float dyf = to_f32<T>(b.v[e]);
-        const float g = grad_in<T>(dyf, w[i * VEC + e]);
-        const float xh = to_f32<T>(a.v[e]) * r;
-        out.v[e] = from_f32<T>(r * (g - xh * mean));
-        dw_s[i * VEC + e] += dyf * round_to<T>(xh);
-      }
-      dxr[i] = out;
+    T* dxr = dx + static_cast<size_t>(row) * d;
+    for (int i = tid; i < d; i += kBwdThreads) {
+      const float dyf = to_f32<T>(gr[i]);
+      const float g = grad_in<T>(dyf, w[i]);
+      const float xh = to_f32<T>(xr[i]) * r;
+      dxr[i] = from_f32<T>(r * (g - xh * mean));
+      dw_s[i] = __fadd_rn(dw_s[i], __fmul_rn(dyf, round_to<T>(xh)));
     }
   }
   float* pr = part + static_cast<size_t>(blockIdx.x) * d;
-  for (int i = tid; i < nv; i += kBwdThreads)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) pr[i * VEC + e] = dw_s[i * VEC + e];
+  for (int i = tid; i < d; i += kBwdThreads) pr[i] = dw_s[i];
 }
 
-__global__ void __launch_bounds__(256)
+// dw[c] = the partials' column c summed: slice s of the CTA's 8 sums rows
+// s, s + 8, ... in order, then ((s0 + s1) + (s2 + s3)) + ((s4 + s5) + (s6
+// + s7)).  A CTA takes 32 columns (a warp reads 128 contiguous bytes a row).
+__global__ void __launch_bounds__(32 * kReduceSlices)
 rmsnorm_bwd_reduce_kernel(const float* __restrict__ part,
                           float* __restrict__ dw, int n_cta, int d) {
-  const int c = blockIdx.x * 256 + threadIdx.x;
-  if (c >= d) return;
-  float s = 0.f;
-  for (int j = 0; j < n_cta; ++j) s += part[static_cast<size_t>(j) * d + c];
-  dw[c] = s;
+  __shared__ float s[kReduceSlices][32];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + tx;
+  float acc = 0.f;
+  if (c < d)
+    for (int j = ty; j < n_cta; j += kReduceSlices)
+      acc += part[static_cast<size_t>(j) * d + c];
+  s[ty][tx] = acc;
+#pragma unroll
+  for (int h = 1; h < kReduceSlices; h <<= 1) {
+    __syncthreads();
+    if (ty % (2 * h) == 0) s[ty][tx] += s[ty + h][tx];
+  }
+  if (ty == 0 && c < d) dw[c] = s[0][tx];
 }
 
-template <typename T>
-int launch_bwd_typed(const void* xv, const float* w, const void* dyv,
-                     void* dxv, float* part, int rows, int d, int variant,
-                     int rows_per_cta, float eps, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const T* x = static_cast<const T*>(xv);
-  const T* dy = static_cast<const T*>(dyv);
-  T* dx = static_cast<T*>(dxv);
-  const int n_cta = (rows + rows_per_cta - 1) / rows_per_cta;
+// The rows kernel of (VPL, WPR) as a function of T: its launch, or (launch
+// == false) the CTAs of it an SM holds (its shared memory, 4 d bytes, is
+// at most 32 KB: no opt-in).
+template <typename T, int VPL, int WPR>
+int rows_entry(bool launch, const void* x, const float* w, const void* dy,
+               void* dx, float* part, int rows, int d, int n_cta, float eps,
+               cudaStream_t stream) {
+  auto kernel = rmsnorm_bwd_rows_kernel<T, VPL, WPR>;
   const size_t smem = sizeof(float) * d;
-  if (variant == 0) {                     // vec
-    if (d % kVec != 0 || reinterpret_cast<size_t>(x) % 16 != 0 ||
-        reinterpret_cast<size_t>(dy) % 16 != 0 ||
-        reinterpret_cast<size_t>(dx) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    rmsnorm_bwd_kernel<T, kVec><<<n_cta, kBwdThreads, smem, stream>>>(
-        x, w, dy, dx, part, rows, d, rows_per_cta, eps);
-  } else if (variant == 1) {              // generic
-    rmsnorm_bwd_kernel<T, 1><<<n_cta, kBwdThreads, smem, stream>>>(
-        x, w, dy, dx, part, rows, d, rows_per_cta, eps);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!launch) {
+    int n = 0;
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kernel, 32 * kRowsWarps, smem);
+    return e == cudaSuccess ? n : -static_cast<int>(e);
   }
+  kernel<<<n_cta, 32 * kRowsWarps, smem, stream>>>(
+      static_cast<const T*>(x), w, static_cast<const T*>(dy),
+      static_cast<T*>(dx), part, rows, d, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The (VPL, WPR) instantiations: the shapes rmsnorm.rows_shape picks (at
+// most 2 vectors a lane where 8 warps hold the row that way, else 4).
+#define RMS_ROWS_SHAPES(X) X(1, 1) X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(4, 8)
+
+template <typename T>
+int rows_dispatch(bool launch, int vpl, int wpr, const void* x,
+                  const float* w, const void* dy, void* dx, float* part,
+                  int rows, int d, int n_cta, float eps,
+                  cudaStream_t stream) {
+#define RMS_ROWS(V, W)                                                 \
+  if (vpl == V && wpr == W)                                            \
+    return rows_entry<T, V, W>(launch, x, w, dy, dx, part, rows, d,    \
+                               n_cta, eps, stream);
+  RMS_ROWS_SHAPES(RMS_ROWS)
+#undef RMS_ROWS
+  return launch ? static_cast<int>(cudaErrorInvalidValue)
+                : -static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool valid_rows_plan(int d, int vec, int vpl, int wpr) {
+  bool shape = false;
+#define RMS_IS(V, W) shape |= vpl == V && wpr == W;
+  RMS_ROWS_SHAPES(RMS_IS)
+#undef RMS_IS
+  return shape && d % vec == 0 && d / vec <= 32 * vpl * wpr;
 }
 
 }  // namespace
@@ -407,33 +580,75 @@ int rmsnorm_launch(const void* x, const void* w, void* out, int rows, int d,
 }
 
 // The backward of the model's rounding: dx [rows, d] (dtype code of x) and
-// this call's partials of dw, part [ceil(rows / rows_per_cta), d] f32; x,
-// dy, dx contiguous, w float32 [d]; variant 0 ("vec", 16-byte vectors) or 1
-// ("generic").  d at most kBwdMaxD (12272).
+// this call's partials of dw, part [n_cta, d] f32; x, dy, dx contiguous, w
+// float32 [d].  variant 0 ("rows"): n_cta CTAs of rmsnorm_bwd_rows_kernel,
+// vpl 16-byte vectors a lane and wpr warps a row (each 1, 2, 4 or 8; d a
+// whole number of vectors, at most 32 vpl wpr of them, x, dy and dx
+// 16-byte aligned; one of the instantiated shapes); variant 1
+// ("generic"): rmsnorm_bwd_kernel, CTA c taking the rows
+// [c rows_per_cta, (c + 1) rows_per_cta), d at most kBwdMaxD (12272).  A
+// shape, plan or alignment the variant does not take returns
+// cudaErrorInvalidValue.
 int rmsnorm_bwd_launch(const void* x, const void* w, const void* dy,
                        void* dx, float* part, int rows, int d, int dtype,
-                       int variant, int rows_per_cta, float eps,
-                       void* stream) {
+                       int variant, int n_cta, int rows_per_cta, int vpl,
+                       int wpr, float eps, void* stream) {
   if (rows <= 0) return 0;
-  if (d <= 0 || d > kBwdMaxD || rows_per_cta <= 0)
+  if (d <= 0 || n_cta <= 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* wf = static_cast<const float*>(w);
+  if (variant == 0) {
+    const int vec = dtype == 0 ? 4 : 8;
+    const bool aligned = reinterpret_cast<size_t>(x) % 16 == 0 &&
+                         reinterpret_cast<size_t>(dy) % 16 == 0 &&
+                         reinterpret_cast<size_t>(dx) % 16 == 0;
+    if (!aligned || !valid_rows_plan(d, vec, vpl, wpr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return dtype == 0
+               ? rows_dispatch<float>(true, vpl, wpr, x, wf, dy, dx, part,
+                                      rows, d, n_cta, eps, s)
+               : rows_dispatch<__nv_bfloat16>(true, vpl, wpr, x, wf, dy, dx,
+                                              part, rows, d, n_cta, eps, s);
+  }
+  if (variant != 1 || d > kBwdMaxD || rows_per_cta <= 0 ||
+      static_cast<long long>(n_cta) * rows_per_cta < rows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * d;
   if (dtype == 0)
-    return launch_bwd_typed<float>(x, wf, dy, dx, part, rows, d, variant,
-                                   rows_per_cta, eps, s);
-  if (dtype == 1)
-    return launch_bwd_typed<__nv_bfloat16>(x, wf, dy, dx, part, rows, d,
-                                           variant, rows_per_cta, eps, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+    rmsnorm_bwd_kernel<float><<<n_cta, kBwdThreads, smem, s>>>(
+        static_cast<const float*>(x), wf, static_cast<const float*>(dy),
+        static_cast<float*>(dx), part, rows, d, rows_per_cta, eps);
+  else
+    rmsnorm_bwd_kernel<__nv_bfloat16><<<n_cta, kBwdThreads, smem, s>>>(
+        static_cast<const __nv_bfloat16*>(x), wf,
+        static_cast<const __nv_bfloat16*>(dy),
+        static_cast<__nv_bfloat16*>(dx), part, rows, d, rows_per_cta, eps);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// dw[d] = the n_cta partials [n_cta, d] summed in order, column by column
+// CTAs of the rows kernel of (dtype code, vpl, wpr) one SM holds at width
+// d (its dynamic shared memory), or minus a CUDA error code.
+int rmsnorm_bwd_rows_occupancy(int dtype, int d, int vpl, int wpr) {
+  if (d <= 0 || (dtype != 0 && dtype != 1) ||
+      !valid_rows_plan(d, dtype == 0 ? 4 : 8, vpl, wpr))
+    return -static_cast<int>(cudaErrorInvalidValue);
+  return dtype == 0
+             ? rows_dispatch<float>(false, vpl, wpr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, 0, d, 0, 0.f,
+                                    nullptr)
+             : rows_dispatch<__nv_bfloat16>(false, vpl, wpr, nullptr,
+                                            nullptr, nullptr, nullptr,
+                                            nullptr, 0, d, 0, 0.f, nullptr);
+}
+
+// dw[d] = the n_cta partials [n_cta, d] summed column by column in the
+// order of rmsnorm_bwd_reduce_kernel
 int rmsnorm_bwd_reduce_launch(const float* part, float* dw, int n_cta, int d,
                               void* stream) {
   if (d <= 0) return 0;
   if (n_cta < 0) return static_cast<int>(cudaErrorInvalidValue);
-  rmsnorm_bwd_reduce_kernel<<<(d + 255) / 256, 256, 0,
+  rmsnorm_bwd_reduce_kernel<<<(d + 31) / 32, 32 * kReduceSlices, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       part, dw, n_cta, d);
   return static_cast<int>(cudaGetLastError());

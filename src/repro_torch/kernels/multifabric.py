@@ -17,10 +17,13 @@ token channels of the cut arcs.  No Pallas kernel is involved.  Here:
   ``"torch"`` backend (int32, uint32 in its int64 carrier, float32): it is
   that backend's block program and, on int32, the kernel's plain version;
 * :func:`mf_block_cuda` — the wrapper: on CUDA tensors it launches the
-  hand-written kernel of ``csrc/multifabric.cu`` (one CTA per stream, one
-  warp per region; built at first use by :mod:`repro_torch.kernels._build`)
-  and counts the launch; on CPU tensors it computes :func:`mf_block`.
-  :func:`launch_mf` launches the kernel uncounted (tests, ``chip_smoke.py``).
+  hand-written kernel of ``csrc/multifabric.cu`` (built at first use by
+  :mod:`repro_torch.kernels._build`) in the variant :func:`mf_variant`
+  picks from the table sizes — ``"warp"`` (a stream's every region in one
+  warp's lanes, 4 streams a CTA) or ``"cta"`` (one CTA per stream, one
+  warp per region) — and counts the launch; on CPU tensors it computes
+  :func:`mf_block`.  :func:`launch_mf` launches either variant uncounted
+  (tests, ``chip_smoke.py``).
 
 Both update the state in place and return (fired[B], last_prog[B]).
 The tables come from :class:`repro_torch.core.multifabric.MultiFabric`
@@ -51,15 +54,20 @@ import torch
 
 from repro_torch.core.engine import _alu_op, _node_inputs_ready
 from repro_torch.core.graph import Op
-from repro_torch.kernels.dataflow_fire import (_check_tensors, _on_cpu,
-                                               _smem_limit, _vp)
+from repro_torch.kernels.dataflow_fire import (STAGE_CYCLES, _check_tensors,
+                                               _on_cpu, _smem_limit, _vp,
+                                               window_ints)
 
 TABLE_KEYS = ("opcode", "in_idx", "out_idx", "prod_node", "prod_slot",
               "cons_node", "cons_slot", "const_mask", "occ_mask", "in_slot",
               "out_slot", "ch_in", "ch_out")
-# the kernel's limits (csrc kMaxRegions, 32 * kRows)
+VARIANTS = ("warp", "cta")
+# the kernel's limits (csrc kMaxRegions, 32 * kMaxRows, kMaxStreams): the
+# warp variant takes P N2m and P A2m up to WARP_ROWS, the CTA variant up
+# to MAX_REGIONS regions of REGION_ROWS node rows and arc slots
 MAX_REGIONS = 32
-REGION_ROWS = 32 * 8
+REGION_ROWS = WARP_ROWS = 32 * 8
+MAX_STREAMS = 4
 # an arc slot's flag word (csrc kConst ... kDrained); bits 16-31 hold its
 # feed row, output row or channel
 K_CONST, K_OCC, K_CH_IN, K_CH_OUT, K_FED, K_DRAINED = (1 << k for k in
@@ -72,15 +80,29 @@ class MfTables(dict):
     """Device copies of the :data:`TABLE_KEYS` tables, with ``P``,
     ``N2m``, ``A2m`` and ``C`` as attributes, ``present`` (the value
     opcodes some node has: the ALU selects among them), ``ops`` (bit k
-    set when some node row has opcode k), and ``words`` (the kernel's
-    packed tables, :func:`kernel_words`; None for tables past the
-    kernel's limits, named by ``too_large``)."""
+    set when some node row has opcode k), ``variant`` (the kernel's,
+    :func:`mf_variant`) and ``words`` (the kernel's packed tables,
+    :func:`kernel_words`; None for tables past the kernel's limits, named
+    by ``too_large``)."""
     P = N2m = A2m = C = 0
     present = ()
     ops = 0
+    variant = None
     words = None
     too_large = None
     index_tables = None     # the plain version's int64 / bool copies
+
+
+def mf_variant(P: int, N2m: int, A2m: int) -> str | None:
+    """The kernel's variant for P regions of N2m node rows and A2m arc
+    slots: ``"warp"`` when the flat tables (P N2m rows, P A2m slots) fit
+    one warp's :data:`WARP_ROWS`, ``"cta"`` for up to :data:`MAX_REGIONS`
+    regions of :data:`REGION_ROWS` each, else None (no kernel)."""
+    if P * max(N2m, A2m) <= WARP_ROWS:
+        return "warp"
+    if P <= MAX_REGIONS and max(N2m, A2m) <= REGION_ROWS:
+        return "cta"
+    return None
 
 
 def kernel_words(t) -> dict:
@@ -88,12 +110,24 @@ def kernel_words(t) -> dict:
     node (``in0 | in1 << 16``, ``in2 | out0 << 16``, ``out1 | opcode <<
     16``) and of 2 words an arc slot (``prod_node | cons_node << 16``, the
     flag word: ``8 << prod_slot | 1 << cons_slot``, :data:`K_CONST` ...,
-    and the slot's feed row, output row or channel in bits 16-31)."""
+    and the slot's feed row, output row or channel in bits 16-31).  Both
+    copies of a channel name the channel's real producer (the out-copy's)
+    and real consumer (the in-copy's), so the kernel updates each copy as
+    an uncut arc: that is the merge."""
     i, o = t["in_idx"].astype(np.int64), t["out_idx"].astype(np.int64)
     node = np.stack([i[:, 0] | i[:, 1] << 16, i[:, 2] | o[:, 0] << 16,
                      o[:, 1] | t["opcode"].astype(np.int64) << 16], 1)
-    flag = (8 << t["prod_slot"].astype(np.int64)) \
-        | (1 << t["cons_slot"].astype(np.int64))
+    prod_node = t["prod_node"].astype(np.int64)
+    prod_slot = t["prod_slot"].astype(np.int64)
+    cons_node = t["cons_node"].astype(np.int64)
+    cons_slot = t["cons_slot"].astype(np.int64)
+    ch_in, ch_out = t["ch_in"], t["ch_out"]
+    for copies in (ch_in, ch_out):
+        prod_node[copies] = t["prod_node"][ch_out]
+        prod_slot[copies] = t["prod_slot"][ch_out]
+        cons_node[copies] = t["cons_node"][ch_in]
+        cons_slot[copies] = t["cons_slot"][ch_in]
+    flag = (8 << prod_slot) | (1 << cons_slot)
     flag |= np.where(t["const_mask"] > 0, K_CONST, 0)
     flag |= np.where(t["occ_mask"] > 0, K_OCC, 0)
     aux = np.zeros_like(flag)
@@ -107,9 +141,7 @@ def kernel_words(t) -> dict:
                 raise ValueError(f"arc slot {s} has two roles")
             flag[s] |= bit
             aux[s] = k
-    arc = np.stack([t["prod_node"].astype(np.int64)
-                    | t["cons_node"].astype(np.int64) << 16,
-                    flag | aux << 16], 1)
+    arc = np.stack([prod_node | cons_node << 16, flag | aux << 16], 1)
     # int32 bit patterns
     return dict(node=node.astype(np.uint32).view(np.int32),
                 arc=arc.astype(np.uint32).view(np.int32))
@@ -118,9 +150,8 @@ def kernel_words(t) -> dict:
 def device_tables(tables, device) -> MfTables:
     """int32 tensors on ``device`` from ``MultiFabric.tables`` (numpy),
     after checking every index against the table sizes, with the
-    kernel's packed words when the tables are within its limits
-    (:data:`MAX_REGIONS` regions, :data:`REGION_ROWS` node rows and arc
-    slots a region)."""
+    kernel's variant and packed words when the tables are within its
+    limits (:func:`mf_variant`)."""
     P, N2m, A2m = (int(tables[k]) for k in ("P", "N2m", "A2m"))
     PN, PA = P * N2m, P * A2m
     t = {k: np.asarray(tables[k], np.int32) for k in TABLE_KEYS}
@@ -142,9 +173,10 @@ def device_tables(tables, device) -> MfTables:
     present = {int(o) for o in t["opcode"]}
     out.present = tuple(op for op in _VALUE_OPS if int(op) in present)
     out.ops = int(np.bitwise_or.reduce(1 << t["opcode"].astype(np.int64)))
-    if P > MAX_REGIONS:
+    out.variant = mf_variant(P, N2m, A2m)
+    if out.variant is None and P > MAX_REGIONS:
         out.too_large = f"{P} regions (the kernel takes {MAX_REGIONS})"
-    elif max(N2m, A2m) > REGION_ROWS:
+    elif out.variant is None:
         out.too_large = (f"a region of {N2m} node rows and {A2m} arc slots "
                          f"(the kernel takes {REGION_ROWS} of each)")
     else:
@@ -337,19 +369,53 @@ def _check(tabs, fv, fl, state, active, prof, chprof):
         raise ValueError("the kernel needs B >= 1 and L >= 1")
 
 
+def mf_plan(variant, P, N2m, A2m, n_in, B, n_cycles, smem_bytes,
+            smem_limit):
+    """How a launch runs: (chunk, window ints per staged row, streams per
+    CTA).  The chunk is :data:`STAGE_CYCLES` cycles (at most the block's),
+    halved until a stream's shared memory fits the card's ``smem_limit``;
+    the warp variant packs up to :data:`MAX_STREAMS` streams into a CTA
+    while two such CTAs fit an SM (``dataflow_fire.launch_plan``'s rule).
+    ``smem_bytes`` is the library's ``mf_block_smem_bytes``."""
+    code = VARIANTS.index(variant)
+    chunk = max(1, min(STAGE_CYCLES, n_cycles))
+    while True:
+        window = window_ints(chunk)
+        per = smem_bytes(P, N2m, A2m, n_in, code, window)
+        if per <= smem_limit or chunk == 1:
+            break
+        chunk = (chunk + 1) // 2
+    if per > smem_limit:
+        raise ValueError(f"the sharded block needs {per} B of shared memory "
+                         f"per stream; the card gives {smem_limit}")
+    streams = 1
+    if variant == "warp":
+        streams = max(1, min(MAX_STREAMS, B, smem_limit // 2 // per))
+    return chunk, window, streams
+
+
 def launch_mf(tabs, fv, fl, full, val, ptr, out_last, out_count, chf, chv,
-              *, n_cycles: int, active=None, prof=None, chprof=None):
+              *, n_cycles: int, active=None, prof=None, chprof=None,
+              variant=None, chunk=None):
     """One launch of the sharded block kernel on CUDA tensors, counted
-    nowhere (the tests and ``chip_smoke.py`` hold it against
-    :func:`mf_block` with it).  Arguments and results as
-    :func:`mf_block_cuda`; a failed build or launch raises, and tables
-    past the kernel's limits raise ``ValueError`` naming the limit."""
+    nowhere (the tests and ``chip_smoke.py`` hold each variant against
+    :func:`mf_block` with it): ``variant`` (default the tables' own;
+    ``"warp"`` only for tables that take it) with feed windows staged
+    every ``chunk`` cycles (default :func:`mf_plan`'s).  Arguments and
+    results as :func:`mf_block_cuda`; a failed build or launch raises, and
+    tables past the kernel's limits raise ``ValueError`` naming the
+    limit."""
     from repro_torch.kernels import _build
     if not isinstance(tabs, MfTables):
         raise TypeError("the kernel takes tables from device_tables() only")
     if tabs.words is None:
         raise ValueError("the sharded block kernel cannot run "
                          f"{tabs.too_large}")
+    variant = tabs.variant if variant is None else variant
+    if variant not in VARIANTS or (variant == "warp"
+                                   and tabs.variant != "warp"):
+        raise ValueError(f"variant {variant!r} cannot run these tables "
+                         f"(they take {tabs.variant!r})")
     if n_cycles < 0:
         raise ValueError(f"n_cycles must be >= 0, got {n_cycles}")
     state = (full, val, ptr, out_last, out_count, chf, chv)
@@ -359,13 +425,14 @@ def launch_mf(tabs, fv, fl, full, val, ptr, out_last, out_count, chf, chv,
     lib = _build.load()
     index = dev.index if dev.index is not None \
         else torch.cuda.current_device()
-    smem = lib.mf_block_smem_bytes(tabs.P, tabs.N2m, tabs.A2m, n_in,
-                                   out_last.shape[1], chf.shape[1],
-                                   int(prof is not None))
-    if smem > _smem_limit(index):
-        raise ValueError(f"the sharded block needs {smem} B of shared "
-                         f"memory per CTA; the card gives "
-                         f"{_smem_limit(index)}")
+    plan_chunk, window, streams = mf_plan(
+        variant, tabs.P, tabs.N2m, tabs.A2m, n_in, B, n_cycles,
+        lib.mf_block_smem_bytes, _smem_limit(index))
+    if chunk is not None:
+        if not 1 <= chunk <= plan_chunk:
+            raise ValueError(f"chunk must be in [1, {plan_chunk}], got "
+                             f"{chunk}")
+        window = window_ints(chunk)
     with torch.cuda.device(index):
         fired = torch.empty((B,), dtype=torch.int32, device=dev)
         last_prog = torch.empty_like(fired)
@@ -376,10 +443,12 @@ def launch_mf(tabs, fv, fl, full, val, ptr, out_last, out_count, chf, chv,
                                *(chprof or [None] * 3))),
             _vp(fired), _vp(last_prog), B, tabs.P, tabs.N2m, tabs.A2m,
             n_in, out_last.shape[1], L, chf.shape[1], int(n_cycles),
-            tabs.ops,
+            tabs.ops, VARIANTS.index(variant), chunk or plan_chunk, window,
+            streams,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if err:
-        raise RuntimeError("mf_block kernel launch failed: "
+        raise RuntimeError(f"mf_block kernel launch failed ({variant} "
+                           "variant): "
                            + lib.fire_block_error_string(err).decode())
     return fired, last_prog
 
@@ -389,10 +458,10 @@ def mf_block_cuda(tabs, fv, fl, full, val, ptr, out_last, out_count, chf,
                   chprof=None):
     """The sharded block on int32 tokens (the port's counterpart of XLA's
     fused ``MultiFabric._core_fn`` block), updating the state in place and
-    returning (fired[B], last_prog[B]).  CUDA tensors launch the kernel
-    (one CTA per stream, one warp per region) and count the launch in
-    ``launches`` (unprofiled) or ``prof_launches``; CPU tensors take
-    :func:`mf_block`."""
+    returning (fired[B], last_prog[B]).  CUDA tensors launch the kernel in
+    the tables' variant and count the launch in ``launches`` (unprofiled)
+    or ``prof_launches``, and by variant in ``launches_by``; CPU tensors
+    take :func:`mf_block`."""
     if _on_cpu(fv, full, chf, active):
         return mf_block(tabs, fv, fl, full, val, ptr, out_last, out_count,
                         chf, chv, n_cycles=n_cycles, active=active,
@@ -404,7 +473,9 @@ def mf_block_cuda(tabs, fv, fl, full, val, ptr, out_last, out_count, chf,
         mf_block_cuda.launches += 1
     else:
         mf_block_cuda.prof_launches += 1
+    mf_block_cuda.launches_by[tabs.variant] += 1
     return out
 
 
 mf_block_cuda.launches = mf_block_cuda.prof_launches = 0
+mf_block_cuda.launches_by = dict.fromkeys(VARIANTS, 0)

@@ -235,13 +235,81 @@ def test_rmsnorm_backward_and_partials_match_autograd(dtype, model):
             torch.testing.assert_close(dw, gw, rtol=1e-5, atol=1e-5)
         dw = rn.rmsnorm_backward(x, w, dy, model=True)[1]
         part = rn.rmsnorm_backward_partials(x, w, dy)
-        n, per = rn.bwd_plan(rows)
-        assert part.shape == (n, 48) and n <= rn.BWD_CTAS
-        assert (n - 1) * per < rows <= n * per
+        plan = rn.bwd_plan(rows, 48, x.element_size())
+        assert plan.variant == "rows" and part.shape == (plan.n_cta, 48)
+        assert plan.n_cta <= rn.H100_SMS
         total = torch.zeros(48)
-        for c in range(n):
+        for c in range(plan.n_cta):
             total += part[c]
         torch.testing.assert_close(total, dw, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(rn.reduce_partials(part), dw, rtol=1e-5,
+                                   atol=1e-5)
+
+
+ROW_CASES = [(rows, d, dt) for rows, d in (
+    (1, 2048), (9, 130), (64, 4608), (257, 2048), (300, 96), (1000, 133),
+    (300, 8192)) for dt in ("float32", "bfloat16")] + [(33, 7168,
+                                                        "bfloat16")]
+
+
+@pytest.mark.parametrize("max_ctas", [16, 132])
+@pytest.mark.parametrize("rows,d,dtn", ROW_CASES)
+def test_rmsnorm_backward_replay_matches_plain_dw(rows, d, dtn, max_ctas):
+    """The kernels' walk replayed (the backward's plan and partials, the
+    reduction's slices and tree) against the plain dw within 1e-5, at row
+    counts that leave groups idle or stride several rows, odd d (the
+    generic variant) and the widths of the configs (4608, 7168 and 8192:
+    a row over 8 warps; 8192 in f32 the generic variant)."""
+    dtype = getattr(torch, dtn)
+    rng = np.random.default_rng(rows + d)
+    x = torch.from_numpy(3 * rng.standard_normal((rows, d)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy(1 + 0.3 * rng.standard_normal(d).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((rows, d)).astype(
+        np.float32)).to(dtype)
+    es = x.element_size()
+    variant = rn.bwd_variant(d, es)
+    assert variant == ("rows" if d % (16 // es) == 0
+                       and d // (16 // es) <= rn.ROWS_MAX_VECTORS
+                       else "generic")
+    plan = rn.bwd_plan(rows, d, es, variant, max_ctas=max_ctas)
+    part = rn.rmsnorm_backward_partials(x, w, dy, plan=plan)
+    assert part.shape == (plan.n_cta, d)
+    if variant == "rows":
+        groups = rn.ROWS_WARPS // plan.wpr
+        assert plan.n_cta == min(max_ctas, -(-rows // groups))
+        assert d // (16 // es) <= 32 * plan.vpl * plan.wpr
+    dw = rn.rmsnorm_backward(x, w, dy, model=True)[1]
+    torch.testing.assert_close(rn.reduce_partials(part), dw, rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("d,itemsize,aligned,want", [
+    (2048, 2, True, ("rows", 2, 4)), (2048, 4, True, ("rows", 2, 8)),
+    (128, 2, True, ("rows", 1, 1)), (512, 2, True, ("rows", 2, 1)),
+    (1024, 2, True, ("rows", 2, 2)), (4608, 2, True, ("rows", 4, 8)),
+    (8192, 2, True, ("rows", 4, 8)), (8192, 4, True, ("generic", 0, 0)),
+    (2048, 2, False, ("generic", 0, 0)),
+    (130, 2, True, ("generic", 0, 0))])
+def test_rmsnorm_backward_variant_rule(d, itemsize, aligned, want):
+    """The rule picks the variant from d, the element size and the
+    pointers' alignment before any launch; the rows shape is the fewest
+    warps a row that hold it in 2 vectors a lane (4 for the widest rows),
+    then the fewest vectors a lane, always a shape the kernel is built
+    for."""
+    got = rn.bwd_variant(d, itemsize, aligned)
+    shape = rn.rows_shape(d, itemsize) if got == "rows" else (0, 0)
+    assert (got, *shape) == want
+    assert got == "generic" or shape in rn.ROWS_SHAPES
+
+
+def test_rmsnorm_backward_rejects_rows_no_variant_takes():
+    with pytest.raises(ValueError, match=f"d <= {rn.BWD_MAX_D}"):
+        rn.bwd_variant(rn.BWD_MAX_D + 4, 2, aligned=False)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        rn.bwd_variant(rn.BWD_MAX_D + 4, 4)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        rn.bwd_variant(12288, 2)            # command-r-plus: no variant
 
 
 def test_autograd_functions_on_cpu_use_the_plain_versions(monkeypatch):

@@ -1451,12 +1451,23 @@ def _mf_served_state(cuda, name, P, opt, slots=16, blocks=2):
 @pytest.mark.parametrize("name", ["dot_prod", "bubble_sort", "fibonacci",
                                   "pop_count"])
 def test_multifabric_kernel_matches_plain(cuda, name, P):
+    """Each variant of the sharded block kernel (the warp variant these
+    tables take, the CTA variant forced; feed windows restaged every 2
+    cycles too) against the plain block, bit for bit, on served states."""
+    from functools import partial
     for opt in (False, True):
         tabs, st, kmf = _mf_served_state(cuda, name, P, opt)
+        assert tabs.variant == "warp"
+        launches = {v: partial(kmf.launch_mf, variant=v)
+                    for v in kmf.VARIANTS}
+        launches["warp, chunk 2"] = partial(kmf.launch_mf, variant="warp",
+                                            chunk=2)
         for K in (1, 16, 65):
             for prof in (False, True):
-                runs = []
-                for fn in (kmf.launch_mf, kmf.mf_block):
+                runs = {}
+                for what, fn in (*launches.items(), ("plain", kmf.mf_block)):
+                    if what.endswith("chunk 2") and K < 2:
+                        continue
                     x = [getattr(st, k).clone() for k in MF_STATE]
                     ch = [st.mf[k].clone() for k in ("chf", "chv")]
                     pr = [v.clone() for v in (*st.prof, *st.mf["chprof"])]
@@ -1465,9 +1476,35 @@ def test_multifabric_kernel_matches_plain(cuda, name, P):
                                prof=pr[:5] if prof else None,
                                chprof=pr[5:] if prof else None)
                     torch.cuda.synchronize()
-                    runs.append([f, lp, *x, *ch, *(pr if prof else [])])
-                for a, b in zip(*runs):
-                    assert torch.equal(a, b), (name, P, opt, K, prof)
+                    runs[what] = [f, lp, *x, *ch, *(pr if prof else [])]
+                want = runs.pop("plain")
+                for what, got in runs.items():
+                    for a, b in zip(got, want):
+                        assert torch.equal(a, b), (name, P, opt, K, prof,
+                                                   what)
+
+
+def test_multifabric_launches_by_counts_the_variant_that_ran(cuda):
+    """The wrapper launches the tables' variant and counts it: dot_prod's
+    regions fit one warp, a 150-node random fabric's take a CTA; both
+    runs equal the numpy oracle."""
+    from repro_torch.kernels import multifabric as kmf
+    from repro_torch.testing import edge_feeds
+    rng = np.random.default_rng(11)
+    for g, want in ((library.dot_product_graph(32).graph, "warp"),
+                    (random_graph(5, nodes=150), "cta")):
+        feeds = [edge_feeds(g, np.int32, k, rng) for k in (3, 1, 6)]
+        eng = DataflowEngine(g, block_cycles=16, device=cuda, partition=2,
+                             profile=True)
+        assert eng._mf.tabs.variant == want
+        by0 = dict(kmf.mf_block_cuda.launches_by)
+        got = eng.run_batch(feeds)
+        torch.cuda.synchronize()
+        assert kmf.mf_block_cuda.launches_by == dict(
+            by0, **{want: by0[want] + got[0].dispatches})
+        for r, f in zip(got, feeds):
+            ref = run_reference(g, f, profile=True)
+            assert_same_result(r, ref, (g.name, want), dispatches=False)
 
 
 def test_multifabric_engine_and_server_on_card(cuda):
@@ -1608,13 +1645,14 @@ def test_rmsnorm_backward_kernels_match_plain(cuda, dtype, rows, d):
     x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(dtype)
     w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
     dy = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
-    variant = "vec" if d % (16 // x.element_size()) == 0 else "generic"
+    variant = rn.bwd_variant(d, x.element_size())
     n0 = dict(rn.rmsnorm_backward_cuda.launches_by)
     dx, dw = rn.rmsnorm_backward_cuda(x, w, dy)
     torch.cuda.synchronize()
     assert {v: rn.rmsnorm_backward_cuda.launches_by[v] - n0[v] for v in n0} \
-        == {"vec": variant == "vec", "generic": variant == "generic",
+        == {"rows": variant == "rows", "generic": variant == "generic",
             "reduce": 1}
+    assert rn.rmsnorm_backward_cuda.last_plan.variant == variant
     pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
     tol = NORM_TOL[dtype]
     torch.testing.assert_close(dx.float(), pdx.float(), rtol=tol, atol=tol)
@@ -1626,6 +1664,82 @@ def test_rmsnorm_backward_kernels_match_plain(cuda, dtype, rows, d):
     torch.testing.assert_close(dw, pdw, rtol=dw_tol, atol=dw_tol)
     dx2, dw2 = rn.rmsnorm_backward_cuda(x, w, dy)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)     # no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4096, 2048), (512, 2048), (3, 130),
+                                    (300, 96), (33, 8192)])
+def test_rmsnorm_backward_partials_equal_the_replay(cuda, dtype, rows, d):
+    """The backward kernel's partials against the plain replay of its walk
+    (within the dw tolerance: the card's rsqrt may put the row factor an
+    f32 step off the replay's, and the bf16 rounding of x r then flips),
+    its reduction bit for bit the replay of the reduction on the same
+    partials, and two launches byte-equal."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=cuda).manual_seed(rows * d)
+    x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(dtype)
+    w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
+    dy = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+    dx = torch.empty_like(x)
+    plan = rn.card_plan(x, dx, dy)
+    outs = []
+    for _ in range(2):
+        part = torch.empty((plan.n_cta, d), device=cuda)
+        dw = torch.empty((d,), device=cuda)
+        rn.launch_backward(plan, x, w, dy, dx, part, dw, 1e-5)
+        torch.cuda.synchronize()
+        outs.append((dx.clone(), part, dw))
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    _, part, dw = outs[0]
+    assert torch.equal(dw.cpu(), rn.reduce_partials(part.cpu()))
+    want = rn.rmsnorm_backward_partials(x.cpu(), w.cpu(), dy.cpu(),
+                                        plan=plan)
+    tol = 1e-5 if dtype == torch.float32 else NORM_TOL[dtype]
+    torch.testing.assert_close(part.cpu(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_variants_match_plain(cuda, dtype):
+    """Every variant and rows shape the backward has, at the LM's widths:
+    the rows kernel at each built (vectors a lane, warps a row) that holds
+    the row, the generic kernel on the same aligned rows and on a row
+    shifted off 16 bytes (which the rule sends to it)."""
+    from repro_torch.kernels import rmsnorm as rn
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for rows, d in ((512, 2048), (37, 128)):
+        x = (3 * torch.randn((rows, d), generator=gen, device=cuda)).to(
+            dtype)
+        w = 1 + 0.3 * torch.randn((d,), generator=gen, device=cuda)
+        dy = torch.randn((rows, d), generator=gen, device=cuda).to(dtype)
+        pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
+        nv = d // (16 // x.element_size())
+        plans = [rn.card_plan(x, x, dy, vpl, wpr)
+                 for vpl, wpr in rn.ROWS_SHAPES if nv <= 32 * vpl * wpr]
+        plans.append(rn.bwd_plan(rows, d, x.element_size(), "generic"))
+        for plan in plans:
+            dx = torch.empty_like(x)
+            part = torch.empty((plan.n_cta, d), device=cuda)
+            dw = torch.empty((d,), device=cuda)
+            rn.launch_backward(plan, x, w, dy, dx, part, dw, 1e-5)
+            torch.cuda.synchronize()
+            tol = NORM_TOL[dtype]
+            torch.testing.assert_close(dx.float(), pdx.float(), rtol=tol,
+                                       atol=tol, msg=str(plan))
+            dw_tol = 1e-4 if dtype == torch.float32 else tol
+            torch.testing.assert_close(dw, pdw, rtol=dw_tol, atol=dw_tol,
+                                       msg=str(plan))
+    buf = torch.empty(64 * 2048 + 1, device=cuda).to(dtype)
+    off = buf[1:].view(64, 2048)
+    off.copy_(torch.randn((64, 2048), generator=gen, device=cuda))
+    w = torch.ones((2048,), device=cuda)
+    n0 = dict(rn.rmsnorm_backward_cuda.launches_by)
+    dx, dw = rn.rmsnorm_backward_cuda(off, w, off)
+    torch.cuda.synchronize()
+    assert rn.rmsnorm_backward_cuda.launches_by["generic"] == \
+        n0["generic"] + 1
+    pdx, pdw = rn.rmsnorm_backward(off, w, off, model=True)
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=NORM_TOL[dtype],
+                               atol=NORM_TOL[dtype])
 
 
 def test_rmsnorm_backward_rejects_rows_past_its_limit(cuda):

@@ -130,11 +130,20 @@ def test_kernel_words_decode_to_the_tables():
             np.testing.assert_array_equal(
                 np.stack([hi[:, 1], lo[:, 2]], 1), t["out_idx"])
             np.testing.assert_array_equal(hi[:, 2], t["opcode"])
-            np.testing.assert_array_equal(arc[:, 0] & 0xFFFF, t["prod_node"])
-            np.testing.assert_array_equal(arc[:, 0] >> 16, t["cons_node"])
+            # both copies of a channel name its producer (the out-copy's)
+            # and its consumer (the in-copy's): the merge as an uncut arc
+            prod, pslot = t["prod_node"].copy(), t["prod_slot"].copy()
+            cons, cslot = t["cons_node"].copy(), t["cons_slot"].copy()
+            for copies in (t["ch_in"], t["ch_out"]):
+                prod[copies] = t["prod_node"][t["ch_out"]]
+                pslot[copies] = t["prod_slot"][t["ch_out"]]
+                cons[copies] = t["cons_node"][t["ch_in"]]
+                cslot[copies] = t["cons_slot"][t["ch_in"]]
+            np.testing.assert_array_equal(arc[:, 0] & 0xFFFF, prod)
+            np.testing.assert_array_equal(arc[:, 0] >> 16, cons)
             flag = arc[:, 1]
-            np.testing.assert_array_equal(flag & 0x18, 8 << t["prod_slot"])
-            np.testing.assert_array_equal(flag & 7, 1 << t["cons_slot"])
+            np.testing.assert_array_equal(flag & 0x18, 8 << pslot)
+            np.testing.assert_array_equal(flag & 7, 1 << cslot)
             for key, bit in (("const_mask", kmf.K_CONST),
                              ("occ_mask", kmf.K_OCC)):
                 np.testing.assert_array_equal((flag & bit) > 0, t[key] > 0)
@@ -170,21 +179,42 @@ def _rule(op, x0, x1, x2, o0, o1):
     return (cons | prod << 3) if ready else 0, int(z), r_in
 
 
-def _kernel_replay(t, words, fv, fl, s, active, n_cycles, prof):
-    """The kernel's cycle order in numpy, one stream (CTA) at a time:
-    feed and publish, the node phase, the arc phase (deltas, counters,
-    drain; channel slots keep their register), the barrier, the merge on
-    both endpoint lanes.  ``s`` holds the state's numpy arrays and is
-    updated in place; returns (fired, last_prog) per stream."""
+_STALE = -1234567     # a window slot the kernel staged nothing into
+
+
+def _kernel_replay(t, words, fv, fl, s, active, n_cycles, prof, chunk=None,
+                   misalign=0):
+    """The kernel's cycle order in numpy, one stream at a time, the same
+    for both variants (they differ in which lane owns a row, not in what
+    a lane computes): every chunk stages its feed windows from the
+    pointers (16-byte pieces of the tokens placed ``misalign`` ints past a
+    16-byte boundary; a token outside them reads as stale) and feeds its
+    first cycle; a cycle is the node phase and the arc phase, in which
+    every slot takes its next state from its producer's and consumer's
+    (z, cp) pairs (a channel's copies too: their words name the channel's
+    real ends, the merge in the warp), samples the counters (a channel's
+    in its out-copy; a node's output stalls as the cycles less its
+    firings and input stalls), drains, and is fed for the next cycle (not
+    on a chunk's last).  ``s`` holds the state's numpy arrays and is updated
+    in place; returns (fired, last_prog) per stream."""
     P, N2m, A2m = t["P"], t["N2m"], t["A2m"]
     PA, PN = P * A2m, P * N2m
+    B, n_in, L = fv.shape
+    chunk = chunk or max(1, min(64, n_cycles))
+    W = kmf.window_ints(chunk)
     node = words["node"].view(np.uint32).astype(np.int64)
     arc = words["arc"].view(np.uint32).astype(np.int64)
     flag = arc[:, 1]
     ch = (flag & (kmf.K_CH_IN | kmf.K_CH_OUT)) > 0
+    cho = (flag & kmf.K_CH_OUT) > 0
+    occ = ((flag & kmf.K_OCC) > 0) & ~ch
     aux = flag >> 16
+    fed = np.nonzero(flag & kmf.K_FED)[0]
+    fv_flat = np.concatenate([np.full(misalign, _STALE, np.int64),
+                              fv.reshape(-1).astype(np.int64),
+                              np.full(W + 8, _STALE, np.int64)])
     fired_all, lp_all = [], []
-    for b in range(fv.shape[0]):
+    for b in range(B):
         if active[b] == 0:
             fired_all.append(0)
             lp_all.append(0)
@@ -193,74 +223,97 @@ def _kernel_replay(t, words, fv, fl, s, active, n_cycles, prof):
         val = s["val"][b].astype(np.int64)
         full[ch] = s["chf"][b][aux[ch]]
         val[ch] = s["chv"][b][aux[ch]]
-        ptr, got = s["ptr"][b], np.zeros_like(s["out_count"][b])
+        ptr = s["ptr"][b]
+        got = np.zeros_like(s["out_count"][b])
+        cnt = dict(ab=s["ab"][b].copy(), ahw=s["ahw"][b].copy()) if prof \
+            else None
+        if prof:
+            cnt["ab"][cho] = s["cb"][b][aux[cho]]
+            cnt["ahw"][cho] = s["chw"][b][aux[cho]]
+        pushes = s["cpu"][b].copy() if prof else None
+        win = np.full(n_in * W, _STALE, np.int64)
+        wofs = np.zeros(n_in, np.int64)
+
+        def token(k):
+            slot = wofs[k] + min(max(int(ptr[k]), 0), L - 1)
+            return win[min(max(slot, 0), n_in * W - 1)]
+
+        def feed(i, f, v, lp, at):
+            k = aux[i]
+            if f == 0 and ptr[k] < fl[b, k]:
+                v, f = token(k), 1
+                ptr[k] += 1
+                lp = at
+            return f, v, lp
+
         fired = lp = 0
-        for cyc in range(n_cycles):
-            prog = False
-            push, pushv, consd = {}, {}, {}
-            for i in range(PA):
-                if flag[i] & kmf.K_FED:
-                    k = aux[i]
-                    if full[i] == 0 and ptr[k] < fl[b, k]:
-                        val[i] = fv[b, k, ptr[k]]
-                        full[i] = 1
-                        ptr[k] += 1
-                        prog = True
-            regs = np.stack([full, val], 1)
-            zc = np.zeros((PN, 2), np.int64)
-            for n in range(PN):
-                w = node[n]
-                cp, z, ir = _rule(w[2] >> 16, regs[w[0] & 0xFFFF],
-                                  regs[w[0] >> 16], regs[w[1] & 0xFFFF],
-                                  regs[w[1] >> 16][0], regs[w[2] & 0xFFFF][0])
-                zc[n] = (z, cp)
-                fired += cp != 0
-                prog |= cp != 0
-                if prof:
-                    s["nf"][b, n] += cp != 0
-                    s["si"][b, n] += not ir
-                    s["so"][b, n] += ir and cp == 0
-            for i in range(PA):
-                fw = flag[i]
-                pz = zc[arc[i, 0] & 0xFFFF]
-                produced = (pz[1] & fw & 0x18) != 0
-                consumed = (zc[arc[i, 0] >> 16][1] & fw & 7) != 0
-                f = int((full[i] > 0 and not consumed) or produced
-                        or (fw & kmf.K_CONST) > 0)
-                v = pz[0] if produced else val[i]
-                c = aux[i]
-                if fw & kmf.K_CH_OUT:
-                    push[c], pushv[c] = int(full[i] == 0 and f), v
-                elif fw & kmf.K_CH_IN:
-                    consd[c] = int(full[i] != 0 and not f)
-                else:
-                    if prof and fw & kmf.K_OCC:
-                        s["ab"][b, i] += f
-                        s["ahw"][b, i] = max(s["ahw"][b, i], f)
+        if prof:        # output stalls: the cycles less firings and input
+            nf0, si0 = s["nf"][b].copy(), s["si"][b].copy()     # stalls
+        for c0 in range(0, n_cycles, chunk):
+            c1 = min(c0 + chunk, n_cycles)
+            for k in aux[fed]:                 # stage the chunk's windows
+                p = int(ptr[k])
+                hi = min(p + chunk, int(fl[b, k]))
+                wofs[k] = k * W
+                if hi <= p:
+                    continue
+                a, e = min(max(p, 0), L - 1), min(max(hi - 1, 0), L - 1)
+                row = misalign + (b * n_in + k) * L
+                start = (row + a) & ~3
+                n = 4 * (((row + e - start) >> 2) + 1)
+                win[k * W:k * W + n] = fv_flat[start:start + n]
+                wofs[k] = k * W + (row + a - start) - a
+            for i in fed:
+                full[i], val[i], lp = feed(i, full[i], val[i], lp, c0 + 1)
+            for cyc in range(c0, c1):
+                regs = np.stack([full, val], 1)
+                zc = np.zeros((PN, 2), np.int64)
+                for n in range(PN):
+                    w = node[n]
+                    cp, z, ir = _rule(w[2] >> 16, regs[w[0] & 0xFFFF],
+                                      regs[w[0] >> 16], regs[w[1] & 0xFFFF],
+                                      regs[w[1] >> 16][0],
+                                      regs[w[2] & 0xFFFF][0])
+                    zc[n] = (z, cp)
+                    fired += cp != 0
+                    lp = cyc + 1 if cp != 0 else lp
+                    if prof:
+                        s["nf"][b, n] += cp != 0
+                        s["si"][b, n] += not ir
+                for i in range(PA):
+                    fw = flag[i]
+                    pz = zc[arc[i, 0] & 0xFFFF]
+                    produced = (pz[1] & fw & 0x18) != 0
+                    consumed = (zc[arc[i, 0] >> 16][1] & fw & 7) != 0
+                    f = int((full[i] > 0 and not consumed) or produced
+                            or (fw & kmf.K_CONST) > 0)
+                    v = pz[0] if produced else val[i]
+                    if prof and (cho[i] or occ[i]):
+                        cnt["ab"][i] += f
+                        cnt["ahw"][i] = max(cnt["ahw"][i], f)
+                        if cho[i]:
+                            pushes[aux[i]] += full[i] == 0 and f
                     if fw & kmf.K_DRAINED:
                         if f:
-                            got[c] += 1
-                            s["out_last"][b, c] = v
-                            prog = True
+                            got[aux[i]] += 1
+                            s["out_last"][b, aux[i]] = v
+                            lp = max(lp, cyc + 1)
                         f = 0
+                    if fw & kmf.K_FED and cyc + 1 < c1:
+                        f, v, lp = feed(i, f, v, lp, cyc + 2)
                     full[i], val[i] = f, v
-            if prog:
-                lp = cyc + 1
-            for i in np.nonzero(ch)[0]:
-                c = aux[i]
-                f2 = int((full[i] != 0 and not consd[c]) or push[c])
-                if push[c]:
-                    val[i] = pushv[c]
-                full[i] = f2
-                if prof and flag[i] & kmf.K_CH_OUT:
-                    s["cb"][b, c] += f2
-                    s["chw"][b, c] = max(s["chw"][b, c], f2)
-                    s["cpu"][b, c] += push[c]
         s["full"][b] = full
         s["val"][b] = val.astype(np.int32)
-        for i in np.nonzero(flag & kmf.K_CH_OUT)[0]:
+        for i in np.nonzero(cho)[0]:
             s["chf"][b, aux[i]] = full[i]
             s["chv"][b, aux[i]] = s["val"][b, i]
+        if prof:
+            s["so"][b] += n_cycles - (s["nf"][b] - nf0) - (s["si"][b] - si0)
+            s["ab"][b][occ] = cnt["ab"][occ]
+            s["ahw"][b][occ] = cnt["ahw"][occ]
+            s["cb"][b][aux[cho]] = cnt["ab"][cho]
+            s["chw"][b][aux[cho]] = cnt["ahw"][cho]
+            s["cpu"][b] = pushes
         s["out_count"][b] += got
         fired_all.append(fired)
         lp_all.append(lp)
@@ -287,11 +340,11 @@ def _captured_state(name, P, opt, seed=0, slots=3, K=4, blocks=2):
     return eng, st
 
 
-@pytest.mark.parametrize("name,P,opt", [("dot_prod", 2, True),
-                                        ("fibonacci", 2, False),
-                                        ("bubble_sort", 4, False),
-                                        ("pop_count", 4, True)])
-def test_kernel_cycle_order_replay_equals_plain(name, P, opt):
+REPLAY_CASES = [("dot_prod", 2, True), ("fibonacci", 2, False),
+                ("bubble_sort", 4, False), ("pop_count", 4, True)]
+
+
+def _replay_against_plain(name, P, opt, chunk=None, misalign=0):
     eng, st = _captured_state(name, P, opt)
     mf = eng._mf
     tensors = dict(zip(STATE, (st.full, st.val, st.ptr, st.out_last,
@@ -309,12 +362,28 @@ def test_kernel_cycle_order_replay_equals_plain(name, P, opt):
             words = {k: v.numpy() for k, v in mf.tabs.words.items()}
             rf, rlp = _kernel_replay(mf.tables, words,
                 st.fv.numpy(), st.fl.numpy(), rep, st.active_dev.numpy(),
-                K, prof)
+                K, prof, chunk=chunk, misalign=misalign)
             np.testing.assert_array_equal(f.numpy(), rf)
             np.testing.assert_array_equal(lp.numpy(), rlp)
             for k in STATE + (PROF if prof else ()):
                 np.testing.assert_array_equal(plain[k].numpy(), rep[k],
                                               err_msg=f"{name} K={K} {k}")
+
+
+@pytest.mark.parametrize("name,P,opt", REPLAY_CASES)
+def test_kernel_cycle_order_replay_equals_plain(name, P, opt):
+    """The kernel's cycle order (the merge folded into the arc phase, the
+    feed strobed a cycle early from windows staged once a block) equals
+    the plain block bit for bit."""
+    _replay_against_plain(name, P, opt)
+
+
+@pytest.mark.parametrize("name,P,opt", REPLAY_CASES)
+def test_kernel_replay_with_restaged_windows_equals_plain(name, P, opt):
+    """The same with the feed windows staged again every 2 cycles, from
+    tokens 3 ints past a 16-byte boundary: a token read outside its
+    window would come back stale."""
+    _replay_against_plain(name, P, opt, chunk=2, misalign=3)
 
 
 def test_tables_past_the_kernel_limits_are_named():
@@ -332,3 +401,45 @@ def test_tables_past_the_kernel_limits_are_named():
         assert mf.tabs.words is None and limit in mf.tabs.too_large
         with pytest.raises(ValueError, match="cannot run"):
             kmf.launch_mf(mf.tabs, z[None], *[z] * 8, n_cycles=1)
+
+
+@pytest.mark.parametrize("P,N2m,A2m,want", [
+    (2, 33, 67, "warp"), (4, 18, 37, "warp"), (8, 32, 32, "warp"),
+    (256, 1, 1, "warp"), (2, 129, 100, "cta"), (4, 20, 65, "cta"),
+    (32, 256, 256, "cta"), (33, 8, 8, None), (2, 100, 257, None)])
+def test_mf_variant_rule(P, N2m, A2m, want):
+    """The variant is decided from the table sizes before any launch: the
+    warp variant while the flat tables fit one warp's rows, the CTA
+    variant up to 32 regions of 256 rows, else no kernel."""
+    assert kmf.mf_variant(P, N2m, A2m) == want
+
+
+@pytest.mark.parametrize("name,P,want", [("dot_prod", 2, "warp"),
+                                         ("dot_prod", 4, "warp"),
+                                         ("random150", 2, "cta")])
+def test_tables_carry_their_variant(name, P, want):
+    g = random_graph(5, nodes=150) if name == "random150" \
+        else tlib.dot_product_graph(32).graph
+    mf = MultiFabric(g, partition_graph(g, P), device="cpu")
+    assert mf.tabs.variant == want == kmf.mf_variant(P, mf.N2m, mf.A2m)
+    assert mf.tabs.words is not None and mf.tabs.too_large is None
+
+
+def test_mf_plan_fits_the_card():
+    """The launch plan: the chunk halves until a stream's shared memory
+    fits, and the warp variant packs up to 4 streams while two CTAs fit
+    an SM (bytes from the kernel's own layout, here the formula)."""
+    def nbytes(P, N2m, A2m, n_in, variant, window):
+        pad = lambda x: -(-x // 16) * 16        # noqa: E731
+        return pad(8 * P * A2m) + (1 + variant) * pad(8 * P * N2m) \
+            + 4 * n_in * window
+    assert kmf.mf_plan("warp", 2, 33, 67, 64, 1024, 64, nbytes,
+                       232448) == (64, kmf.window_ints(64), 4)
+    chunk, window, streams = kmf.mf_plan("warp", 2, 33, 67, 64, 1024, 64,
+                                         nbytes, 16000)
+    assert chunk < 64 and nbytes(2, 33, 67, 64, 0, window) <= 16000
+    assert streams == 1
+    assert kmf.mf_plan("cta", 4, 20, 65, 8, 3, 5, nbytes, 232448) == (
+        5, kmf.window_ints(5), 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        kmf.mf_plan("warp", 2, 33, 67, 64, 1, 64, nbytes, 1000)
