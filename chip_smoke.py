@@ -218,6 +218,32 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              backward, and the f32 route's time at (b)'s shape (RMSNorm
              also at (a)'s 512 rows, and its rows kernel at other
              shapes);
+8c. LM families — the slice's families at full width and depth, random
+             parameters from seed 0: (a) stablelm-1.6b (LayerNorm, SwiGLU,
+             32 heads over 32, hd 64) through ``launch.serve --full`` with
+             the launcher's defaults, every step's logits teacher-forced
+             against the same engine on the plain versions (phase 8's
+             rule), then ``make_train_step`` for 10 steps of batch 4 x seq
+             128 (every loss finite, the mean of the last 5 below the
+             first 5's, only ``dq_mma`` and ``dkdv_mma`` launched for the
+             backward); (b) starcoder2-7b (LayerNorm, GELU, biases, 36
+             heads over 4: G = 9, hd 128) served the same way, its peak
+             memory under 80 GB (the launcher frees the f32 tree once the
+             engine holds its bf16 copy, which the plain replay shares);
+             (c) rwkv6-1.6b served the same way, then one wave of 4
+             prompts of 480-512 tokens left-padded to 512 (16 chunks with
+             the state carried) and 32 new tokens, the last logits of a
+             prefill over 512 tokens against a prefill over 480 and 32
+             teacher-forced decode steps, in f32 compute within 2e-4 (the
+             CPU tests' f32 tolerance; the served bf16 paths each against
+             the f32 logits, the split one no farther than twice the
+             other), and 3 training steps of batch 4 x seq 128, every
+             loss finite; each family finds at most 2 GB allocated when
+             it starts; tokens/s, prefill and decode ms per step, peak
+             memory and launches by variant for each; then row 9 at
+             stablelm's and starcoder2's prefill shapes (the launcher's
+             wave and a 4096-token prefill) against its plain version,
+             timed beside ``F.scaled_dot_product_attention`` (timed only);
 9. summary — the ``kernels`` JSON line (Pallas rows 1-10; row 11, the
              sharded block kernel, which replaces the JAX package's jnp
              block ``MultiFabric._core_fn``; rows 12-14, the backward
@@ -235,12 +261,17 @@ before phase 8 and read after the long wave, before its plain replay
 (the LM's rows 9-10, and rows 9's and 10's launches per variant;
 rows 1-8's per variant come from phases 4-5c), and once more just before
 phase 8b and read after its training runs (a), (b) and (e), before its
-comparisons (c) and (d) (rows 12-14).  The
+comparisons (c) and (d) (rows 12-14), and once more just before phase
+8c and read after its
+families' runs, before row 9 is timed at their shapes (printed by
+variant on a line of its own; the ``kernels`` line keeps phases 4-8b's
+counts).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -3805,12 +3836,17 @@ class plain_kernels:
         return False
 
 
-def trace_decode(dev, eng, reqs, steps=4) -> dict:
+def trace_decode(dev, eng, reqs, steps=4,
+                 want=("flash_attention_split_kernel",
+                       "flash_attention_combine_kernel")) -> dict:
     """The long wave's prefill again, then ``steps`` decode steps under
     torch.profiler (CPU and CUDA): wall and device busy time per step,
-    the card's idle share, device time by kernel name.  Run after the
-    main path's counts are read."""
+    the card's idle share, device operations per step and per layer,
+    device time by kernel name; each of ``want`` must be among the
+    kernels.  Run after the main path's counts are read, or subtract
+    its launches."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import pad_wave
@@ -3834,7 +3870,12 @@ def trace_decode(dev, eng, reqs, steps=4) -> dict:
             wall = time.perf_counter() - t0
     busy_us, per = device_busy_us(prof)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-    out = dict(steps=steps, traced_ms_per_step=wall * 1e3 / steps,
+    ops = sum(getattr(e, "device_type", None) == DeviceType.CUDA
+              for e in prof.events()) / steps
+    out = dict(steps=steps, batch=toks.shape[0], prompt=toks.shape[1],
+               traced_ms_per_step=wall * 1e3 / steps,
+               device_ops_per_step=ops,
+               device_ops_per_layer=ops / eng.cfg.n_layers,
                device_busy_ms_per_step=busy_us / 1e3 / steps,
                attention_ms_per_step=sum(
                    v for k, v in per.items() if "flash_attention" in k)
@@ -3843,8 +3884,7 @@ def trace_decode(dev, eng, reqs, steps=4) -> dict:
                device_ms_per_step_by_name={k[:80]: v / 1e3 / steps
                                            for k, v in top})
     log(f"  decode trace: {json.dumps(out)}")
-    for kern in ("flash_attention_split_kernel",
-                 "flash_attention_combine_kernel"):
+    for kern in want:
         check(any(kern in name for name in per),
               f"the decode trace shows no {kern}")
     return out
@@ -3875,18 +3915,30 @@ def serve_out_of_vocab(dev, eng) -> dict:
 def check_long_wave(dev, eng, reqs, results, rec) -> dict:
     """The long wave through the same engine's model on the plain
     versions, on the same card, teacher-forced with the kernel path's
-    tokens: the logits at every step against the kernel path's.  A
-    greedy token may differ from the plain path's only where the kernel
-    path's top-2 margin is below twice the largest logit difference."""
+    tokens: the logits at every step against the kernel path's
+    (:func:`hold_wave`)."""
+    wave = sorted(reqs, key=lambda r: len(r.prompt))    # the engine's order
+    out = hold_wave(dev, eng, wave, results, rec.logits)
+    log(f"  long wave vs the plain versions (teacher-forced, {out['steps']} "
+        f"steps): {json.dumps(out)}")
+    return out
+
+
+def hold_wave(dev, eng, wave, results, logits) -> dict:
+    """One wave (requests in the engine's order) through the same engine's
+    model on the plain versions, on the same card, teacher-forced with the
+    kernel path's tokens: the logits at every step (``logits``, recorded
+    on the kernel path) against the plain path's.  A greedy token may
+    differ from the plain path's only where the kernel path's top-2 margin
+    is below twice the largest logit difference."""
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import pad_wave
-    wave = sorted(reqs, key=lambda r: len(r.prompt))    # the engine's order
     by_uid = {r.uid: r for r in results}
     gen = np.stack([by_uid[r.uid].tokens for r in wave]).astype(np.int64)
     T = gen.shape[1]
-    check(len(rec.logits) == T, f"{len(rec.logits)} recorded steps, want {T}")
-    for t, lk in enumerate(rec.logits):
+    check(len(logits) == T, f"{len(logits)} recorded steps, want {T}")
+    for t, lk in enumerate(logits):
         check(bool(torch.isfinite(lk).all()), f"step {t}: non-finite logits")
         check(np.array_equal(lk.argmax(-1).numpy(), gen[:, t]),
               f"step {t}: the engine's tokens are not its logits' argmax")
@@ -3905,10 +3957,10 @@ def check_long_wave(dev, eng, reqs, results, rec) -> dict:
             plain.append(lp.cpu())
     torch.cuda.synchronize(dev)
     check(launch_counts() == n0, "the plain replay launched a kernel")
-    diffs = [float((k - p).abs().max()) for k, p in zip(rec.logits, plain)]
+    diffs = [float((k - p).abs().max()) for k, p in zip(logits, plain)]
     worst = max(diffs)
     differ = []
-    for t, (lk, lp) in enumerate(zip(rec.logits, plain)):
+    for t, (lk, lp) in enumerate(zip(logits, plain)):
         top2 = lk.topk(2, dim=-1).values
         margin = (top2[:, 0] - top2[:, 1]).numpy()
         for b in np.nonzero(lp.argmax(-1).numpy() != gen[:, t])[0]:
@@ -3916,14 +3968,11 @@ def check_long_wave(dev, eng, reqs, results, rec) -> dict:
             check(margin[b] < 2 * worst, f"step {t} row {b}: the plain path's "
                   f"greedy token differs at a top-2 margin {margin[b]} >= "
                   f"2 x {worst}")
-    out = dict(steps=T, max_abs_logit_diff=worst,
-               logit_diff_by_step=[round(x, 5) for x in diffs],
-               logit_scale=float(max(lk.abs().max() for lk in rec.logits)),
-               greedy_tokens_differing=len(differ), differing=differ,
-               plain_replay_s=time.perf_counter() - t0)
-    log(f"  long wave vs the plain versions (teacher-forced, {T} steps): "
-        f"{json.dumps(out)}")
-    return out
+    return dict(steps=T, max_abs_logit_diff=worst,
+                logit_diff_by_step=[round(x, 5) for x in diffs],
+                logit_scale=float(max(lk.abs().max() for lk in logits)),
+                greedy_tokens_differing=len(differ), differing=differ,
+                plain_replay_s=time.perf_counter() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3973,10 +4022,11 @@ F32_BWD = {"attention_bwd_dkdv": "flash_attention_bwd_dkdv_kernel",
            "attention_bwd_dq": "flash_attention_bwd_dq_kernel"}
 
 
-def count_delta(before, after) -> dict:
-    """The training kernels' launches between two ``launch_counts()``."""
+def count_delta(before, after, keys=TRAIN_LAUNCH_KEYS) -> dict:
+    """The launches of ``keys`` (by default the training kernels') between
+    two ``launch_counts()``."""
     out = {}
-    for k in TRAIN_LAUNCH_KEYS:
+    for k in keys:
         a, b = before[k], after[k]
         out[k] = {x: b[x] - a[x] for x in b} if isinstance(b, dict) \
             else b - a
@@ -4192,10 +4242,12 @@ class plain_training:
         return False
 
 
-def phase_train_vs_plain(dev, cfg, S=TRAIN_SHAPES["b"][1]) -> dict:
-    """Phase 8b (c): at full width and 2 layers, batch 1 x seq 4096, the
-    loss and every gradient leaf through the kernels against the plain
-    path (autograd of the plain versions) on the same card."""
+def phase_train_vs_plain(dev, cfg, S=TRAIN_SHAPES["b"][1],
+                         tag="8b (c)") -> dict:
+    """Phase 8b (c), and 8c's for its attention families: at full width
+    and 2 layers, batch 1 x seq 4096, the loss and every gradient leaf
+    through the kernels against the plain path (autograd of the plain
+    versions) on the same card."""
     import dataclasses
     import torch
     from repro_torch import pytree
@@ -4214,24 +4266,26 @@ def phase_train_vs_plain(dev, cfg, S=TRAIN_SHAPES["b"][1]) -> dict:
     n0 = launch_counts()
     lk, gk = loss_and_grads()
     used = count_delta(n0, launch_counts())
+    norms = 2 * cfg2.n_layers + 1 if cfg2.norm == "rmsnorm" else 0
     check(used["attention_bwd_dkdv"] == used["attention_bwd_dq"] == 2 and
-          used["rmsnorm_bwd"] == 5, f"8b (c): the kernel path launched "
+          used["rmsnorm_bwd"] == norms, f"{tag}: the kernel path launched "
           f"{json.dumps(used)}")
     n1 = launch_counts()
     with plain_training():
         lp, gp = loss_and_grads()
-    check(launch_counts() == n1, "8b (c): the plain path launched a kernel")
+    check(launch_counts() == n1, f"{tag}: the plain path launched a kernel")
     rel = [float((a.float() - b.float()).norm() / b.float().norm())
            for a, b in zip(gk, gp)]
-    out = dict(n_layers=2, seq=S, loss_kernel=lk, loss_plain=lp,
+    out = dict(arch=cfg.name, n_layers=2, seq=S, loss_kernel=lk,
+               loss_plain=lp,
                loss_rel_err=abs(lk - lp) / abs(lp), grad_rel_err=rel,
                max_grad_rel_err=max(rel), loss_tol=TRAIN_LOSS_TOL,
                grad_tol=TRAIN_GRAD_TOL,
                leaf_shapes=[list(p.shape) for p in flat])
-    log(f"  8b (c) kernel vs plain path: {json.dumps(out)}")
-    check(out["loss_rel_err"] <= TRAIN_LOSS_TOL, f"8b (c): loss {lk} vs "
+    log(f"  {tag} kernel vs plain path: {json.dumps(out)}")
+    check(out["loss_rel_err"] <= TRAIN_LOSS_TOL, f"{tag}: loss {lk} vs "
           f"plain {lp}")
-    check(out["max_grad_rel_err"] <= TRAIN_GRAD_TOL, f"8b (c): a gradient "
+    check(out["max_grad_rel_err"] <= TRAIN_GRAD_TOL, f"{tag}: a gradient "
           f"leaf is {max(rel)} off the plain path's")
     del params, gk, gp
     torch.cuda.empty_cache()
@@ -4412,7 +4466,9 @@ def kernel_ms(fn, reps: int, kernel: str, alone) -> tuple[float, str]:
 def phase_train_kernels(dev, cfg) -> tuple:
     """Phase 8b (d): each backward kernel against its plain version on the
     card — attention at (a) and (b)'s shapes (bf16: the tensor-core
-    kernels, :data:`TRAIN_SHAPES`), at
+    kernels, :data:`TRAIN_SHAPES`), at phase 8c's attention families'
+    training shapes (:data:`FAMILY_TRAIN`: stablelm's 32/32 heads at hd
+    64), at
     (e)'s shapes (the reduced width's heads, head dim and dtype, f32: the
     CUDA-core kernels, :data:`LOOP_SHAPES`) and at odd lengths (333; hd 64
     and 128 in f32 and bf16, hd 16 and 32 in bf16; causal and not, G = 1
@@ -4425,6 +4481,7 @@ def phase_train_kernels(dev, cfg) -> tuple:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.configs.base import get_arch
     from repro_torch.kernels import rmsnorm as rn
     gen = torch.Generator(device=dev).manual_seed(25)
     errs = {dtn: {k: dict(max_abs_err=0.0, tol_ratio=0.0)
@@ -4444,6 +4501,10 @@ def phase_train_kernels(dev, cfg) -> tuple:
     rcfg = cfg.reduced()
     cases = [(B, Sq, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True,
               (cfg.compute_dtype,)) for B, Sq, _ in TRAIN_SHAPES.values()] + [
+        (B, Sq, fc.n_heads, fc.n_kv_heads, fc.head_dim, True,
+         (fc.compute_dtype,))
+        for fc, (B, Sq, _) in ((get_arch(n), v) for n, v in
+                               FAMILY_TRAIN.items()) if not fc.rwkv] + [
         (B, Sq, rcfg.n_heads, rcfg.n_kv_heads, rcfg.head_dim, True,
          (rcfg.compute_dtype,)) for B, Sq in LOOP_SHAPES.values()] + [
         (1, 333, 2 * G, 2, hd, causal, ("float32", "bfloat16") if hd >= 64
@@ -4593,6 +4654,370 @@ def phase_train_kernels(dev, cfg) -> tuple:
         f"[{a['shape']}]; plans {t['plan']}, {a['plan']}; rows kernel at "
         f"other shapes {json.dumps(t['forced_shapes_ms'])}")
     return errs, times
+
+
+# ---------------------------------------------------------------------------
+# phase 8c: the LM families of the slice (LayerNorm, GELU, RWKV6)
+# ---------------------------------------------------------------------------
+FAMILY_ARCHS = ("stablelm-1.6b", "starcoder2-7b", "rwkv6-1.6b")
+# (batch, seq, steps) of each family's training at full width and depth,
+# at FAMILY_LR (warm-up over 2 steps): at phase 8b's 3e-4 the 10 losses of
+# a first card run moved within the batches' spread (11.93-12.04) and the
+# last 5 did not fall below the first 5
+FAMILY_TRAIN = {"stablelm-1.6b": (4, 128, 10), "rwkv6-1.6b": (4, 128, 3)}
+FAMILY_LR = 1e-3
+# rwkv6's long wave: 4 prompts left-padded to 512 (16 chunks of 32 with
+# the state carried), 32 new tokens; its state check prefills the first
+# RWKV_SPLIT tokens and decodes the rest teacher-forced
+RWKV_WAVE_LENS = (480, 493, 506, 512)
+RWKV_SPLIT = 480
+RWKV_NEW_TOKENS = 32
+# the state check in f32 compute (the CPU tests' f32 logit tolerance):
+# at 24 layers the two bf16 paths lie 0.42 apart on the card, beyond the
+# CPU tests' 0.125, and the JAX package's own do too (0.16 at d 128 on the
+# CPU, tests/rwkv_bf16_depth.py); the bf16 paths are held to the f32 one
+# instead, the split path no farther than RWKV_BF16_RATIO x the
+# one-prefill path.  That ratio reads 1.03-1.08 in both packages there and
+# 1.17 on the card; the token shift lost at the boundary reads 3.6-4.2
+RWKV_STATE_TOL = 2e-4
+RWKV_BF16_RATIO = 1.5
+# memory a family may find allocated when it starts (what an earlier one
+# left behind)
+FAMILY_LEFT_BYTES = 2e9
+CARD_BYTES = 80e9               # starcoder2-7b's serving must fit under it
+# row 9 at each attention family's prefill shapes, beside SDPA:
+# (batch, queries, cache) — the launcher's second wave (27 tokens into
+# its cache of 256) and a long prefill
+FAMILY_ATTN_SHAPES = {"launcher": (4, 27, 256), "long": (4, 4096, 4096)}
+FAMILY_LAUNCH_KEYS = ("flash_attention", "flash_attention_by",
+                      "attention_bwd_by", "rmsnorm", "rmsnorm_bwd")
+
+
+def serve_family(dev, cfg) -> tuple[dict, object, list]:
+    """``launch.serve --arch <family> --full`` with the launcher's
+    defaults, each prefill and decode step recorded (ms, logits); then
+    each of its waves teacher-forced through the same engine on the plain
+    versions (:func:`hold_wave`).  Returns the stats, the engine and the
+    requests."""
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tfm
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0 = launch_counts()
+    rec = StepRecorder(tfm, dev)
+    try:
+        t0 = time.perf_counter()
+        out = launch_serve.main(["--arch", cfg.name, "--full"])
+        call_s = time.perf_counter() - t0
+    finally:
+        rec.close()
+    check(not out["reduced"] and out["requests"] == 8, f"{cfg.name}: the "
+          "launcher's run is not the full-width default run")
+    check_tokens(out["results"], 16, cfg.vocab, f"{cfg.name} launcher request")
+    eng, reqs = out["engine"], out["reqs"]
+    dec = rec.ms["decode"]
+    stats = dict(arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                 heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+                 head_dim=cfg.head_dim, vocab=cfg.vocab,
+                 n_params=tfm.count_params(eng.params),
+                 requests=out["requests"], tokens=out["tokens"],
+                 wall_s=out["wall_s"], tokens_per_s=out["tokens_per_s"],
+                 call_s=call_s, prefill_ms=rec.ms["prefill"],
+                 decode_steps=len(dec), decode_ms_mean=float(np.mean(dec)),
+                 decode_ms_p50=float(np.median(dec)),
+                 decode_host_ms_mean=float(np.mean(rec.host_ms["decode"])),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                 launches=count_delta(n0, launch_counts(),
+                                      FAMILY_LAUNCH_KEYS))
+    order = sorted(reqs, key=lambda r: len(r.prompt))      # the engine's
+    waves = [order[i:i + eng.batch_size]
+             for i in range(0, len(order), eng.batch_size)]
+    stats["wave_lens"] = [max(len(r.prompt) for r in w) for w in waves]
+    logits, stats["vs_plain"] = list(rec.logits), []
+    for w in waves:
+        T = max(len(r.tokens) for r in out["results"] if r.uid in
+                {x.uid for x in w})
+        stats["vs_plain"].append(hold_wave(dev, eng, w, out["results"],
+                                           logits[:T]))
+        logits = logits[T:]
+    check(not logits, f"{cfg.name}: {len(logits)} recorded steps left over")
+    worst = max(v["max_abs_logit_diff"] for v in stats["vs_plain"])
+    log(f"  8c {cfg.name}: served {stats['requests']} requests, "
+        f"{stats['tokens']} tokens at {stats['tokens_per_s']:.1f} tokens/s; "
+        f"prefill {[round(x, 2) for x in stats['prefill_ms']]} ms (waves of "
+        f"{stats['wave_lens']} tokens), decode {stats['decode_ms_mean']:.2f} "
+        f"ms/step (mean of {len(dec)}; the host enqueuing "
+        f"{stats['decode_host_ms_mean']:.2f} of it); peak memory "
+        f"{stats['peak_memory_bytes']} B; logits vs the plain versions "
+        f"(teacher-forced, every step): max |diff| {worst:.4g}")
+    log(f"    launches: {json.dumps(stats['launches'])}")
+    return stats, eng, reqs
+
+
+def train_family(dev, cfg) -> dict:
+    """``train.loop.make_train_step`` at full width and depth (f32
+    parameters, bf16 compute, remat) for :data:`FAMILY_TRAIN`'s steps
+    from ``SyntheticLM(seed=0)``: every loss finite; peak memory, ms per
+    step, tokens/s and the launches by variant."""
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    B, S, n = FAMILY_TRAIN[cfg.name]
+    check(cfg.remat and cfg.param_dtype == "float32" and
+          cfg.compute_dtype == "bfloat16", f"{cfg.name}: not f32 parameters, "
+          "bf16 compute, remat")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0 = launch_counts()
+    state = train_loop.init_state(cfg, seed=0, device=dev)
+    step = train_loop.make_train_step(
+        cfg, adamw.OptConfig(lr=FAMILY_LR, warmup_steps=2, total_steps=n))
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
+    state, rec = train_steps(dev, step, state, src, n)
+    steady = rec["ms"][1:]
+    rec.update(batch=B, seq=S, steps=n, first_step_ms=rec["ms"][0],
+               ms_per_step=float(np.median(steady)),
+               tokens_per_s=B * S / float(np.median(steady)) * 1e3,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=count_delta(n0, launch_counts(),
+                                    FAMILY_LAUNCH_KEYS))
+    del state, step
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(rec["losses"])), f"8c {cfg.name}: a training "
+          f"loss is not finite: {rec['losses']}")
+    log(f"  8c {cfg.name} training, batch {B} x seq {S}, {n} steps: "
+        f"{rec['ms_per_step']:.1f} ms/step (median after the first; first "
+        f"{rec['first_step_ms']:.0f} ms), {rec['tokens_per_s']:.0f} tokens/s,"
+        f" peak memory {rec['peak_memory_bytes']} B; losses "
+        f"{[round(x, 4) for x in rec['losses']]}")
+    return rec
+
+
+def rwkv_split_and_full(cfg, params, toks, shift_lost=False) -> tuple:
+    """The last logits of ``prefill`` over the first :data:`RWKV_SPLIT`
+    tokens and teacher-forced ``decode_step``s over the rest, and of one
+    ``prefill`` over all of ``toks``.  ``shift_lost`` zeroes the token
+    shift's carried tokens at the boundary (a fault, to read what the bf16
+    check separates)."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    with torch.inference_mode():
+        full, _ = tfm.prefill(cfg, params, {"tokens": toks}, max_len=0)
+        got, cache = tfm.prefill(cfg, params,
+                                 {"tokens": toks[:, :RWKV_SPLIT]}, max_len=0)
+        if shift_lost:
+            cache["x_tm"].zero_()
+            cache["x_cm"].zero_()
+        for t in range(RWKV_SPLIT, toks.shape[1]):
+            got, cache = tfm.decode_step(cfg, params, toks[:, t:t + 1],
+                                         cache)
+    return got, full
+
+
+def rwkv_long_wave(dev, eng) -> dict:
+    """rwkv6's long wave through the launcher's engine: 4 prompts
+    left-padded to 512 tokens (16 chunks, the state carried), 32 new
+    tokens, recorded; then the state across the prefill/decode boundary:
+    the last logits of ``prefill`` over the 512 tokens against ``prefill``
+    over the first 480 and 32 teacher-forced ``decode_step``s, in f32
+    compute (the launcher's seed-0 parameters at f32) within
+    :data:`RWKV_STATE_TOL`; the served bf16 paths against the f32 logits
+    (:data:`RWKV_BF16_RATIO`)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, pad_wave
+    cfg = eng.cfg
+    rng = np.random.default_rng(13)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (n,))
+                    .astype(np.int32), max_new_tokens=RWKV_NEW_TOKENS)
+            for i, n in enumerate(RWKV_WAVE_LENS)]
+    wave = sorted(reqs, key=lambda r: len(r.prompt))
+    toks = torch.from_numpy(pad_wave(wave)).to(dev)
+    check(toks.shape == (4, 512), f"the rwkv6 wave is {tuple(toks.shape)}")
+    rec = StepRecorder(tfm, dev)
+    try:
+        t0 = time.perf_counter()
+        results = eng.run(reqs)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+    check_tokens(results, RWKV_NEW_TOKENS, cfg.vocab,
+                 "rwkv6 long-wave request")
+    total = sum(len(r.tokens) for r in results)
+    dec = rec.ms["decode"]
+    out = dict(prompt_lens=list(RWKV_WAVE_LENS), padded_to=512,
+               chunks=512 // 32, new_tokens=RWKV_NEW_TOKENS, tokens=total,
+               wall_s=wall, tokens_per_s=total / wall,
+               prefill_ms=rec.ms["prefill"][0],
+               prefill_tokens_per_s=4 * 512 / rec.ms["prefill"][0] * 1e3,
+               decode_ms_mean=float(np.mean(dec)),
+               decode_ms_p50=float(np.median(dec)))
+    t0 = time.perf_counter()
+    got_b, full_b = rwkv_split_and_full(cfg, eng.params, toks)
+    fault_b, _ = rwkv_split_and_full(cfg, eng.params, toks, shift_lost=True)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tfm.init_params(cfg, seed=0, device=dev)   # the launcher's
+    check(torch.equal(p32["embed"].to(eng.params["embed"].dtype),
+                      eng.params["embed"]), "rwkv6: seed 0 did not give the "
+          "launcher's parameters")
+    got_f, full_f = rwkv_split_and_full(cfg32, p32, toks)
+    del p32
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+
+    def dmax(a, b):
+        return float((a - b).abs().max())
+    st = dict(prefill=512, split=RWKV_SPLIT, decode_steps=512 - RWKV_SPLIT,
+              f32_max_abs_logit_diff=dmax(got_f, full_f),
+              f32_tolerance=RWKV_STATE_TOL,
+              bf16_max_abs_logit_diff=dmax(got_b, full_b),
+              bf16_prefill_vs_f32=dmax(full_b, full_f),
+              bf16_split_vs_f32=dmax(got_b, full_f),
+              bf16_ratio=dmax(got_b, full_f) / dmax(full_b, full_f),
+              bf16_ratio_limit=RWKV_BF16_RATIO,
+              fault_shift_lost_ratio=dmax(fault_b, full_f)
+              / dmax(full_b, full_f),
+              logit_scale=float(full_f.abs().max()),
+              same_argmax_f32=bool(torch.equal(got_f.argmax(-1),
+                                               full_f.argmax(-1))),
+              seconds=time.perf_counter() - t0)
+    out["state_check"] = st
+    log(f"  8c rwkv6 long wave: {json.dumps(out)}")
+    check(bool(torch.isfinite(got_b).all()) and bool(torch.isfinite(
+        got_f).all()), "rwkv6: non-finite logits in the state check")
+    check(bool(torch.allclose(got_f, full_f, rtol=RWKV_STATE_TOL,
+                              atol=RWKV_STATE_TOL)),
+          f"rwkv6 (f32): prefill over {RWKV_SPLIT} tokens and "
+          f"{512 - RWKV_SPLIT} decode steps disagree with one prefill over "
+          f"512 by {st['f32_max_abs_logit_diff']} (rtol = atol = "
+          f"{RWKV_STATE_TOL})")
+    check(st["bf16_split_vs_f32"] <= RWKV_BF16_RATIO *
+          st["bf16_prefill_vs_f32"], f"rwkv6 (bf16): the split path lies "
+          f"{st['bf16_split_vs_f32']} from the f32 logits, more than "
+          f"{RWKV_BF16_RATIO} x the one-prefill path's "
+          f"{st['bf16_prefill_vs_f32']}")
+    return out
+
+
+def family_attention_times(dev, cfg) -> dict:
+    """Row 9 at the family's prefill shapes (:data:`FAMILY_ATTN_SHAPES`,
+    bf16, causal, the cache filled to the queries): against its plain
+    version at the main path's tolerance, and its device time beside the
+    plain version's, SDPA's (timed only) and the bound."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(17)
+    tol = LM_TOL["bfloat16"]["flash_attention"]
+    out = {}
+    for key, (B, S, max_len) in FAMILY_ATTN_SHAPES.items():
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((B, max_len, Hkv, hd), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        c = dict(B=B, Sq=S, Skv=max_len, causal=True, q_offset=0, kv_len=S)
+        kw = dict(causal=True, q_offset=0, kv_len=S)
+        variant = fa.variant_of(q, k)
+        check(variant == "prefill_mma", f"{cfg.name} {key}: the dispatch "
+              f"rule names {variant}, not prefill_mma")
+        run_k = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa: E731
+        run_p = lambda: fa.attention(q, k, v, **kw)             # noqa: E731
+        got, want = run_k(), run_p()
+        ratio = fa.error_ratio(got, want, tol)
+        err = float((got.float() - want.float()).abs().max())
+        check(ratio <= 1, f"{cfg.name} {key}: row 9 disagrees with its plain "
+              f"version ({ratio} of {ATTN_RULE.format(tol)})")
+        shape = (f"B={B}, Sq={S}, Skv={max_len}, H={H}/{Hkv}, hd={hd}, "
+                 f"kv_len={S}, bfloat16")
+        out[key] = dict(**time_lm(run_k, run_p, sdpa_call(q, k, v, c), 5,
+                                  "flash_attention",
+                                  attention_bound(q, k, c), shape),
+                        max_abs_err=err, tol_ratio=ratio, variant=variant)
+        log(f"  8c row 9 at {cfg.name}'s {key} prefill ({shape}): "
+            f"{out[key]['ms']:.4f} ms ({out[key]['ms_from']}), SDPA "
+            f"{out[key]['library_ms']:.4f} ms, plain "
+            f"{out[key]['plain_ms']:.3f} ms, bound "
+            f"{out[key]['bound_ms']:.4f} ms ({out[key]['bound_by']}); "
+            f"{ratio:.3f} of the tolerance")
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families(dev) -> dict:
+    """Phase 8c: stablelm-1.6b served and trained, starcoder2-7b served,
+    rwkv6-1.6b served (its long wave and state check) and trained, each at
+    full width and depth; the launches of the main path (the counts set
+    to 0 by the caller just before) read after the runs; then row 9 timed
+    at the attention families' prefill shapes."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False    # as phase 7 sets it
+    t0 = time.perf_counter()
+    fam, traced = {}, []
+    for name in FAMILY_ARCHS:
+        cfg = get_arch(name)
+        t1 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev)
+        check(left < FAMILY_LEFT_BYTES, f"8c {name}: {left} B still "
+              "allocated when it starts")
+        fam[name], eng, reqs = serve_family(dev, cfg)
+        fam[name]["allocated_at_start_bytes"] = left
+        if cfg.name == "starcoder2-7b":
+            check(fam[name]["peak_memory_bytes"] < CARD_BYTES, f"{name}: "
+                  f"peak memory {fam[name]['peak_memory_bytes']} B, not "
+                  f"under {CARD_BYTES:.0f}")
+        if cfg.rwkv:
+            fam[name]["long_wave"] = rwkv_long_wave(dev, eng)
+        n_t = launch_counts()          # one decode wave traced, not counted
+        fam[name]["decode_trace"] = trace_decode(     # the longest wave
+            dev, eng, sorted(reqs, key=lambda r: len(r.prompt))
+            [-eng.batch_size:],
+            want=() if cfg.rwkv else ("flash_attention",))
+        traced.append(count_delta(n_t, launch_counts(), FAMILY_LAUNCH_KEYS))
+        del eng, reqs
+        torch.cuda.empty_cache()
+        if name in FAMILY_TRAIN:
+            fam[name]["train"] = train_family(dev, cfg)
+        fam[name]["seconds"] = time.perf_counter() - t1
+    launches = {k: v for k, v in launch_counts().items()
+                if k in FAMILY_LAUNCH_KEYS}
+    for d in traced:
+        launches = count_delta(d, launches, FAMILY_LAUNCH_KEYS)
+    fam["launches"] = launches
+    log(f"  main-path launches (phase 8c; the traced decode steps taken "
+        f"out): {json.dumps(fam['launches'])}")
+    for name in ("stablelm-1.6b", "starcoder2-7b"):
+        by = fam[name]["launches"]["flash_attention_by"]
+        for k in MAIN_ATTENTION_VARIANTS:
+            check(by[k] > 0, f"8c {name}: attention variant {k} was never "
+                  "launched")
+    check(fam["rwkv6-1.6b"]["launches"]["flash_attention"] == 0,
+          "8c rwkv6-1.6b launched the attention kernel")
+    st = fam["stablelm-1.6b"]["train"]
+    by = st["launches"]["attention_bwd_by"]
+    check(by["dq_mma"] == by["dkdv_mma"] > 0 and by["dq_f32"] ==
+          by["dkdv_f32"] == 0, f"8c stablelm-1.6b training launched the "
+          f"backward kernels {json.dumps(by)}, want only dq_mma and dkdv_mma")
+    first, last = (float(np.mean(st["losses"][:5])),
+                   float(np.mean(st["losses"][-5:])))
+    st.update(mean_first_5=first, mean_last_5=last)
+    check(last < first, f"8c stablelm-1.6b: the loss did not fall ({first} "
+          f"-> {last})")
+    fam["main_path_s"] = time.perf_counter() - t0
+    fam["stablelm-1.6b"]["train"]["vs_plain"] = phase_train_vs_plain(
+        dev, get_arch("stablelm-1.6b"), tag="8c stablelm-1.6b")
+    fam["attention_times"] = {name: family_attention_times(dev,
+                                                           get_arch(name))
+                              for name in ("stablelm-1.6b", "starcoder2-7b")}
+    fam["seconds"] = time.perf_counter() - t0
+    return fam
 
 
 def train_rows(errs, times, launches) -> list:
@@ -4974,6 +5399,14 @@ def main() -> int:
     log(f"  phase 8b done at {time.perf_counter() - t_start:.1f} s "
         f"({train['seconds']:.1f} s)")
 
+    log("== phase 8c: LM families at full width (main path: counts from "
+        "here on)")
+    reset_counts()
+    families = phase_families(dev)
+    log(f"  phase 8c done at {time.perf_counter() - t_start:.1f} s "
+        f"({families['seconds']:.1f} s; its main path "
+        f"{families['main_path_s']:.1f} s)")
+
     log("== phase 9: summary")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=ROWS[k][0], pallas=ROWS[k][1],
@@ -5027,6 +5460,7 @@ def main() -> int:
     log(json.dumps({"lm_serving": lm_stats}, default=str))
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"lm_training": train}))
+    log(json.dumps({"lm_families": families}))
     log(json.dumps({"table1_us_per_cycle": table1}))
     log(json.dumps({"compile": compiled}))
     log(json.dumps({"sched_vs_fire_block": versus}))

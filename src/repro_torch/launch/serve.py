@@ -1,13 +1,15 @@
 """Serving launcher:
-``python -m repro_torch.launch.serve --arch internlm2-1.8b [--full|--reduced]
-[--device cpu]``.
+``python -m repro_torch.launch.serve --arch <id> [--full|--reduced]
+[--device cpu]``, ``<id>`` one of the configs the port runs
+(internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b,
+rwkv6-1.6b; the others raise ``NotImplementedError``).
 
 The port of the JAX package's ``repro/launch/serve.py``, with its
 defaults: random parameters from seed 0, 8 requests with prompts of 4-32
 random tokens (numpy seed 0), 16 new tokens each, waves of 4, a cache of
-256.  It runs on the card at full width unless asked otherwise;
-``--device cpu`` runs the kernels' plain versions and defaults to the
-reduced config.
+256 (which RWKV6 ignores).  It runs on the card at full width unless
+asked otherwise; ``--device cpu`` runs the kernels' plain versions and
+defaults to the reduced config.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def main(argv=None) -> dict:
     """Serve the requests; print one summary line and return its numbers
-    (requests, tokens, wall seconds, tokens per second)."""
+    (requests, tokens, wall seconds, tokens per second), the results, the
+    requests served (``reqs``) and the engine (``engine``: its compute
+    copy of the parameters, for a caller that checks the run)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
     ap.add_argument("--requests", type=int, default=8)
@@ -66,7 +70,8 @@ def main(argv=None) -> dict:
           f"({total / wall:.1f} tokens/s)")
     return dict(arch=args.arch, reduced=reduced, device=str(dev),
                 requests=len(reqs), tokens=total, wall_s=wall,
-                tokens_per_s=total / wall, results=results)
+                tokens_per_s=total / wall, results=results, reqs=reqs,
+                engine=eng)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Training launcher:
-``python -m repro_torch.launch.train --arch internlm2-1.8b [--full|--reduced]
-[--device cpu]``.
+``python -m repro_torch.launch.train --arch <id> [--full|--reduced]
+[--device cpu]``, ``<id>`` one of the configs the port runs
+(internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b,
+rwkv6-1.6b).
 
 The port of the JAX package's ``repro/launch/train.py``, with its
 defaults: 100 steps of batch 4 x seq 128 from ``SyntheticLM(seed=0)``,

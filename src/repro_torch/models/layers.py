@@ -1,15 +1,17 @@
-"""Transformer building blocks of the dense family: RMSNorm, RoPE, GQA
-attention with a KV cache, the SwiGLU MLP.
+"""Transformer building blocks of the dense family: RMSNorm and
+LayerNorm, RoPE, GQA attention with a KV cache (optional q/k/v and output
+biases), the SwiGLU and GELU MLPs.
 
-The port of the JAX package's ``repro/models/layers.py`` for what the
-dense RMSNorm/SwiGLU path needs.  Attention and RMSNorm run one
-hand-written CUDA kernel each on the card
+The port of the JAX package's ``repro/models/layers.py``.  Attention and
+RMSNorm run one hand-written CUDA kernel each on the card
 (:func:`~repro_torch.kernels.flash_attention.flash_attention_cuda`,
 :func:`~repro_torch.kernels.rmsnorm.rmsnorm_cuda` with the model's
 rounding) and their plain PyTorch versions on the CPU; when a gradient is
 wanted (training), each goes through its ``torch.autograd.Function``,
-whose backward is hand-written kernels too.  The matrix
-products stay ``torch.matmul``, as the JAX package leaves them to XLA.
+whose backward is hand-written kernels too.  LayerNorm and GELU are
+plain PyTorch, as the JAX package has no Pallas kernel for them (a hand
+kernel is a later speed item).  The matrix products stay
+``torch.matmul``, as the JAX package leaves them to XLA.
 
 Numerics follow the JAX layers: every matrix product casts its weight to
 the activations' dtype (``x @ w.to(x.dtype)``; a weight already held in
@@ -34,8 +36,9 @@ UNSUPPORTED = "ROADMAP Queue A 11b"   # the rest of the LM stack
 def unsupported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet ({UNSUPPORTED}); the port serves and "
-        "trains the "
-        "dense RMSNorm/SwiGLU family (internlm2-1.8b)")
+        "trains the dense family with RMSNorm or LayerNorm and SwiGLU or "
+        "GELU (internlm2-1.8b, stablelm-1.6b, starcoder2-7b, "
+        "command-r-plus-104b) and RWKV6 (rwkv6-1.6b)")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -61,18 +64,36 @@ def rmsnorm(x, w, eps=1e-5):
     return rn.rmsnorm_cuda(x, w, eps, model=True)
 
 
+def layernorm(x, w, b, eps=1e-5):
+    """``((x32 - mean) * rsqrt(var + eps)).astype(x.dtype) * w.astype(
+    x.dtype) + b.astype(x.dtype)`` (the biased variance, in f32), step for
+    step as the JAX package rounds it: the affine part in x's dtype, not
+    in f32 as ``F.layer_norm`` applies it.  ``b`` None adds no bias."""
+    x32 = x.float()
+    xc = x32 - x32.mean(dim=-1, keepdim=True)
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    y = (xc * torch.rsqrt(var + eps)).to(x.dtype) * w.to(x.dtype)
+    return y + b.to(x.dtype) if b is not None else y
+
+
 def apply_norm(cfg, p, x):
-    if cfg.norm != "rmsnorm":
-        raise unsupported(f"norm={cfg.norm!r}")
-    return rmsnorm(x, p["w"])
+    if cfg.norm == "rmsnorm":
+        return rmsnorm(x, p["w"])
+    if cfg.norm == "layernorm":
+        return layernorm(x, p["w"], p.get("b"))
+    raise unsupported(f"norm={cfg.norm!r}")
 
 
 def init_norm(cfg, d, lead=(), device=None):
-    """Norm weights (ones); ``lead`` prepends stacking axes (layers)."""
-    if cfg.norm != "rmsnorm":
+    """Norm weights (ones; LayerNorm's bias ``b`` zeros); ``lead``
+    prepends stacking axes (layers)."""
+    if cfg.norm not in ("rmsnorm", "layernorm"):
         raise unsupported(f"norm={cfg.norm!r}")
-    return {"w": torch.ones((*lead, d), dtype=dtype_of(cfg.param_dtype),
-                            device=device)}
+    pdt = dtype_of(cfg.param_dtype)
+    p = {"w": torch.ones((*lead, d), dtype=pdt, device=device)}
+    if cfg.norm == "layernorm":
+        p["b"] = torch.zeros((*lead, d), dtype=pdt, device=device)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -210,20 +231,32 @@ def attn_block(cfg, p, x, pos, *, causal=True, cache: KVCache | None = None):
 # MLP
 # ---------------------------------------------------------------------------
 def init_mlp(cfg, gen, lead=(), device=None):
-    """SwiGLU weights drawn from ``gen`` at the JAX package's scales;
-    ``lead`` prepends stacking axes (layers)."""
+    """SwiGLU (w1, w3, w2) or GELU (fc1, b1, fc2, b2; biases zero)
+    weights drawn from ``gen`` at the JAX package's scales; ``lead``
+    prepends stacking axes (layers)."""
     d, ff = cfg.d_model, cfg.d_ff
-    if cfg.act != "swiglu":
-        raise unsupported(f"act={cfg.act!r}")
     pdt = dtype_of(cfg.param_dtype)
-    return {"w1": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
-            "w3": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
-            "w2": _normal((*lead, ff, d), ff ** -0.5, pdt, gen, device)}
+    if cfg.act == "swiglu":
+        return {"w1": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
+                "w3": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
+                "w2": _normal((*lead, ff, d), ff ** -0.5, pdt, gen, device)}
+    if cfg.act == "gelu":
+        return {"fc1": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
+                "b1": torch.zeros((*lead, ff), dtype=pdt, device=device),
+                "fc2": _normal((*lead, ff, d), ff ** -0.5, pdt, gen, device),
+                "b2": torch.zeros((*lead, d), dtype=pdt, device=device)}
+    raise unsupported(f"act={cfg.act!r}")
 
 
 def mlp_block(cfg, p, x):
-    if cfg.act != "swiglu":
-        raise unsupported(f"act={cfg.act!r}")
-    h = F.silu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
-    return h @ p["w2"].to(x.dtype)
+    """SwiGLU, or ``gelu(x @ fc1 + b1) @ fc2 + b2`` with GELU's tanh
+    form (``jax.nn.gelu``'s default, not torch's erf one)."""
+    if cfg.act == "swiglu":
+        h = F.silu(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+        return h @ p["w2"].to(x.dtype)
+    if cfg.act == "gelu":
+        h = F.gelu(x @ p["fc1"].to(x.dtype) + p["b1"].to(x.dtype),
+                   approximate="tanh")
+        return h @ p["fc2"].to(x.dtype) + p["b2"].to(x.dtype)
+    raise unsupported(f"act={cfg.act!r}")
 

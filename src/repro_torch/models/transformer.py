@@ -1,9 +1,13 @@
-"""The dense transformer LM: its training loss and its serving steps
-(prefill and decode).
+"""The LM of the dense and RWKV6 families: its training loss and its
+serving steps (prefill and decode).
 
-The port of the dense branch of the JAX package's
-``repro/models/transformer.py``: pre-norm layers (RMSNorm, GQA attention
-with RoPE, SwiGLU MLP), an embedding, a final norm and an unembedding.
+The port of the dense and RWKV branches of the JAX package's
+``repro/models/transformer.py``: an embedding, pre-norm layers, a final
+norm and an unembedding.  A dense layer is RMSNorm or LayerNorm, GQA
+attention with RoPE (and q/k/v and output biases where the config has
+them), a SwiGLU or GELU MLP; an RWKV6 layer is LayerNorm, the time-mix,
+LayerNorm, the channel-mix (:mod:`repro_torch.models.ssm`), and its
+decode state is the time-mix's f32 state and the two shifted tokens.
 Parameters are nested dicts of tensors with the JAX package's keys; the
 layers' weights are stacked along a leading ``[n_layers]`` axis, as the
 JAX package stacks them for ``lax.scan``, and walked in a Python loop
@@ -18,10 +22,11 @@ layers' gradients once), and with ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
 Serving casts them once (:func:`cast_params`).
 
-Only the dense RMSNorm/SwiGLU family runs here (internlm2-1.8b).  A
-config outside it (MoE, SSM, hybrid, encoder-decoder, frontends,
-layernorm, GELU) raises ``NotImplementedError`` naming the ROADMAP item;
-it never runs through a different path.
+The dense family (internlm2-1.8b, stablelm-1.6b, starcoder2-7b,
+command-r-plus-104b) and RWKV6 (rwkv6-1.6b) run here.  A config outside
+them (MoE, the Mamba2 hybrid, the encoder-decoder, frontends,
+``fused_qkv=False``) raises ``NotImplementedError`` naming the ROADMAP
+item; it never runs through a different path.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pytree
 from repro_torch.core.engine import resolve_device
+from repro_torch.models import ssm
 from repro_torch.models.layers import (KVCache, apply_norm, attn_block,
                                        dtype_of, init_attn, init_mlp,
                                        init_norm, mlp_block, unsupported)
@@ -37,14 +43,17 @@ from repro_torch.models.layers import (KVCache, apply_norm, attn_block,
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config outside the dense
-    RMSNorm/SwiGLU family."""
-    for bad, what in ((cfg.n_experts, "MoE"), (cfg.rwkv, "the RWKV SSM"),
+    family (RMSNorm or LayerNorm, SwiGLU or GELU) and RWKV6."""
+    for bad, what in ((cfg.n_experts, "MoE"),
                       (cfg.family == "hybrid", "the Mamba2 hybrid"),
                       (cfg.enc_dec, "the encoder-decoder"),
                       (cfg.frontend != "none", f"frontend={cfg.frontend!r}"),
-                      (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}"),
-                      (cfg.act != "swiglu", f"act={cfg.act!r}"),
-                      (not cfg.fused_qkv, "fused_qkv=False")):
+                      (cfg.norm not in ("rmsnorm", "layernorm"),
+                       f"norm={cfg.norm!r}"),
+                      (not cfg.rwkv and cfg.act not in ("swiglu", "gelu"),
+                       f"act={cfg.act!r}"),
+                      (not cfg.rwkv and not cfg.fused_qkv,
+                       "fused_qkv=False")):
         if bad:
             raise unsupported(f"{cfg.name}: {what}")
 
@@ -70,6 +79,11 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         p["head"] = torch.randn((d, V), generator=gen, device=dev) \
             .mul_(d ** -0.5).to(pdt)
     p["final_norm"] = init_norm(cfg, d, device=dev)
+    if cfg.rwkv:
+        p["layers"] = {"ln1": init_norm(cfg, d, (L,), dev),
+                       "tm": ssm.init_rwkv6(cfg, gen, (L,), dev),
+                       "ln2": init_norm(cfg, d, (L,), dev)}
+        return p
     p["layers"] = {"ln1": init_norm(cfg, d, (L,), dev),
                    "attn": init_attn(cfg, gen, (L,), dev),
                    "ln2": init_norm(cfg, d, (L,), dev),
@@ -80,21 +94,34 @@ def init_params(cfg, seed: int = 0, device="cuda"):
 def param_shapes(cfg) -> dict:
     """The parameter tree's structure: the shape of every tensor that
     :func:`init_params` makes (and the JAX package's ``init_params``
-    makes for a dense config), by the same keys."""
+    makes for the same config), by the same keys."""
     check_supported(cfg)
     L, d, V, ff = cfg.n_layers, cfg.d_model, cfg.vocab, cfg.d_ff
     hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    def norm(*lead):
+        if cfg.norm == "layernorm":
+            return {"w": (*lead, d), "b": (*lead, d)}
+        return {"w": (*lead, d)}
+
+    p = {"embed": (V, d), "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        p["head"] = (d, V)
+    if cfg.rwkv:
+        p["layers"] = {"ln1": norm(L), "tm": ssm.rwkv6_shapes(cfg, (L,)),
+                       "ln2": norm(L)}
+        return p
     attn = {"wqkv": (L, d, (H + 2 * Hkv) * hd), "wo": (L, H * hd, d)}
     if cfg.qkv_bias:
         attn["bqkv"] = (L, (H + 2 * Hkv) * hd)
     if cfg.attn_out_bias:
         attn["bo"] = (L, d)
-    p = {"embed": (V, d), "final_norm": {"w": (d,)},
-         "layers": {"ln1": {"w": (L, d)}, "attn": attn, "ln2": {"w": (L, d)},
-                    "mlp": {"w1": (L, d, ff), "w3": (L, d, ff),
-                            "w2": (L, ff, d)}}}
-    if not cfg.tie_embeddings:
-        p["head"] = (d, V)
+    if cfg.act == "swiglu":
+        mlp = {"w1": (L, d, ff), "w3": (L, d, ff), "w2": (L, ff, d)}
+    else:
+        mlp = {"fc1": (L, d, ff), "b1": (L, ff), "fc2": (L, ff, d),
+               "b2": (L, d)}
+    p["layers"] = {"ln1": norm(L), "attn": attn, "ln2": norm(L), "mlp": mlp}
     return p
 
 
@@ -110,13 +137,22 @@ def cast_params(cfg, params):
     Numerically the same as the JAX package's cast at every matrix
     product (``x @ w.astype(x.dtype)``), paid once at load instead.  The
     norm weights stay as they are: the RMSNorm kernel reads them in f32
-    and rounds them to the activations' dtype itself."""
+    and rounds them to the activations' dtype itself, LayerNorm casts its
+    weight and bias at use.  RWKV6's decay (``w0``, ``wA``, ``wB``), bonus
+    ``u`` and groupnorm ``ln_w`` stay too: the JAX package reads them in
+    f32, so a rounding at load would change the decay and the bonus."""
     cdt = dtype_of(cfg.compute_dtype)
-    out = pytree.tree_map(lambda t: t.to(cdt), params)
-    out["final_norm"] = params["final_norm"]
-    for k in ("ln1", "ln2"):
-        out["layers"][k] = params["layers"][k]
-    return out
+    keep = {("final_norm",), ("layers", "ln1"), ("layers", "ln2")}
+    if cfg.rwkv:
+        keep |= {("layers", "tm", k) for k in ssm.F32_LEAVES}
+
+    def cast(t, path):
+        if path in keep:
+            return t
+        if isinstance(t, dict):
+            return {k: cast(v, (*path, k)) for k, v in t.items()}
+        return t.to(cdt)
+    return cast(params, ())
 
 
 def layer(params, i: int):
@@ -156,6 +192,19 @@ def _dense_body(cfg, lp, x, pos, cache=None, causal=True):
     return x, new_cache
 
 
+def _rwkv_body(cfg, lp, x, state=None):
+    """One RWKV6 layer; returns x and the layer's new state (``S``,
+    ``x_tm``: the last token of the time-mix's normed input, ``x_cm``)."""
+    y, st_tm = ssm.rwkv6_timemix(cfg, lp["tm"],
+                                 apply_norm(cfg, lp["ln1"], x), state=state)
+    x = x + y
+    y, st_cm = ssm.rwkv6_channelmix(cfg, lp["tm"],
+                                    apply_norm(cfg, lp["ln2"], x),
+                                    state=state)
+    x = x + y
+    return x, {**st_tm, **st_cm}
+
+
 def unembed(cfg, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
     return h @ w.to(h.dtype)
@@ -175,14 +224,17 @@ def unstacked_layers(params) -> list[dict]:
 
 def forward(cfg, params, batch):
     """Full forward -> (final hidden states [B, S, d] after the final norm,
-    aux loss 0): the dense branch of the JAX package's ``forward``.
-    batch["tokens"] [B, S]; positions ``arange(S)``, causal, no cache."""
+    aux loss 0): the dense and RWKV branches of the JAX package's
+    ``forward``.  batch["tokens"] [B, S]; positions ``arange(S)``, causal,
+    no cache (RWKV: zero state)."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
 
     def body(x, lp):
+        if cfg.rwkv:
+            return _rwkv_body(cfg, lp, x)[0]
         return _dense_body(cfg, lp, x, pos)[0]
 
     for lp in unstacked_layers(params):
@@ -232,15 +284,35 @@ def loss_fn(cfg, params, batch):
 # ---------------------------------------------------------------------------
 def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     """Decode state (preallocated, compute dtype): k, v [n_layers, B,
-    max_len, Hkv, hd] and the wave's valid length ``len`` (a host int)."""
+    max_len, Hkv, hd] and the wave's valid length ``len`` (a host int);
+    for RWKV6 the time-mix state ``S`` (f32 [n_layers, B, H, P, P]) and
+    the shifted tokens ``x_tm``, ``x_cm`` [n_layers, B, 1, d], whatever
+    ``max_len``."""
     cdt = dtype_of(cfg.compute_dtype)
+    L = cfg.n_layers
+    if cfg.rwkv:
+        d, H, P = ssm.rwkv6_dims(cfg)
+        return {"S": torch.zeros((L, batch, H, P, P), dtype=torch.float32,
+                                 device=device),
+                "x_tm": torch.zeros((L, batch, 1, d), dtype=cdt,
+                                    device=device),
+                "x_cm": torch.zeros((L, batch, 1, d), dtype=cdt,
+                                    device=device)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device), "len": 0}
 
 
 def _layers(cfg, params, x, pos, cache):
-    """Every layer over x with its cache entries; returns x."""
+    """Every layer over x with its cache entries (written in place);
+    returns x."""
+    if cfg.rwkv:
+        for i in range(cfg.n_layers):
+            x, st = _rwkv_body(cfg, layer(params, i), x, state={
+                k: cache[k][i] for k in ("S", "x_tm", "x_cm")})
+            for k in ("S", "x_tm", "x_cm"):
+                cache[k][i].copy_(st[k])
+        return x
     ln = cache["len"]
     for i in range(cfg.n_layers):
         c = KVCache(cache["k"][i], cache["v"][i], ln)
@@ -257,22 +329,27 @@ def prefill(cfg, params, batch, max_len: int):
     """Process the prompt batch["tokens"] [B, S]; return (last-token
     logits [B, V] f32, cache).  Positions are ``arange(S)`` for every
     row; no padding mask (left padding is attended, as in the JAX
-    package)."""
+    package).  RWKV6 runs from a zero state (S must be a multiple of the
+    time-mix's chunk, or below it) and ignores ``max_len``."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, max_len, x.device)
-    pos = torch.arange(S, device=x.device).expand(B, S)
+    pos = None if cfg.rwkv else torch.arange(S, device=x.device).expand(B, S)
     x = _layers(cfg, params, x, pos, cache)
-    cache["len"] = S
+    if not cfg.rwkv:
+        cache["len"] = S
     return _logits(cfg, params, x[:, -1:]), cache
 
 
 def decode_step(cfg, params, tokens, cache):
     """One decode step. tokens: [B, 1] -> (logits [B, V], cache).  The
-    cache is updated in place and returned."""
+    cache (the RWKV6 state) is updated in place and returned."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, {"tokens": tokens})
+    if cfg.rwkv:
+        return _logits(cfg, params, _layers(cfg, params, x, None, cache)), \
+            cache
     B = x.shape[0]
     pos = torch.full((B, 1), cache["len"], device=x.device)
     x = _layers(cfg, params, x, pos, cache)

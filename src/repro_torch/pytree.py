@@ -40,7 +40,9 @@ def flatten(tree) -> tuple[list, Any]:
             return type(t)(walk(x) for x in t)
         leaves.append(t)
         return LEAF
-    return leaves, walk(tree)
+    treedef = walk(tree)
+    del walk        # a closure over itself: the cycle would hold the leaves
+    return leaves, treedef    # until the collector ran
 
 
 def unflatten(treedef, leaves) -> Any:
@@ -58,6 +60,7 @@ def unflatten(treedef, leaves) -> Any:
             return type(t)(*(walk(x) for x in t))
         return type(t)(walk(x) for x in t)
     out = walk(treedef)
+    del walk        # as in flatten: no cycle holds the leaves
     if next(it, LEAF) is not LEAF:
         raise ValueError("more leaves than the structure holds")
     return out

@@ -5,8 +5,9 @@ sorted by prompt length and grouped into waves of ``batch_size``; a wave
 is left-padded with token 0 to a common length of at least 8, prefilled
 once and decoded step by step until every member has hit its EOS or its
 token budget.  The KV cache is wave-synchronous (one length for the
-wave).  Every layer's attention and RMSNorm run the hand-written CUDA
-kernels on the card.
+wave); an RWKV6 model carries its recurrent state instead (no length, no
+``max_len``).  Every layer's attention and RMSNorm run the hand-written
+CUDA kernels on the card.
 """
 from __future__ import annotations
 

@@ -913,12 +913,12 @@ def _hold_attention(q, k, v, **kw):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128])
-@pytest.mark.parametrize("G", [1, 2, 3, 4, 12])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 9, 12])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, hd, G):
     """Odd lengths; the Pallas case (causal and not), prefill into a
     longer cache, a chunk at an offset, decode mid-cache and past it.  G
-    = 3 and 12 leave rows of a tile unused (64 = 3 * 21 + 1, 16 = 12 +
-    4)."""
+    = 3, 9 (starcoder2's 36 heads over 4) and 12 leave rows of a tile
+    unused (64 = 3 * 21 + 1 = 9 * 7 + 1, 16 = 12 + 4 = 9 + 7)."""
     q, k, v = _attn_inputs(cuda, 2, 33, 130, 2, G, hd, dtype, seed=hd + G)
     _hold_attention(q, k[:, :33].contiguous(), v[:, :33].contiguous(),
                     causal=True)
@@ -953,6 +953,7 @@ SPLIT_EDGES = [
     (1, 8, 130, 2, 2, 64, 60, 68),        # a split all masked for a row
     (2, 4, 300, 1, 4, 128, 200, 204),     # 16 rows: the largest tile
     (4, 1, 1100, 8, 2, 128, 1000, 1001),  # internlm2's heads, many splits
+    (4, 1, 300, 4, 9, 128, 200, 201),     # starcoder2's heads: G = 9
 ]
 
 
@@ -1240,6 +1241,36 @@ def test_reduced_serve_engine_cuda_matches_cpu(cuda):
     assert fa.flash_attention_cuda.launches > n0[0]
     assert rn.rmsnorm_cuda.launches > n0[1]
     want = ServeEngine(cfg, cpu, batch_size=4, max_len=24,
+                       device="cpu").run(reqs)
+    for g, w in zip(got, want):
+        assert g.uid == w.uid
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
+@pytest.mark.parametrize("name", ["stablelm-1.6b", "starcoder2-7b",
+                                  "rwkv6-1.6b", "command-r-plus-104b"])
+def test_reduced_families_served_on_card_match_cpu(cuda, name):
+    """Each family of the slice at its reduced width (f32) served on the
+    card answers as on the CPU: the same greedy tokens; the attention
+    families launch the attention kernel."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name).reduced()
+    cpu = tfm.init_params(cfg, seed=0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(2)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (n,))
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate([3, 9, 5, 12, 7, 20])]
+    n0 = fa.flash_attention_cuda.launches
+    got = ServeEngine(cfg, card, batch_size=3, max_len=32,
+                      device=cuda).run(reqs)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_cuda.launches > n0) != cfg.rwkv
+    want = ServeEngine(cfg, cpu, batch_size=3, max_len=32,
                        device="cpu").run(reqs)
     for g, w in zip(got, want):
         assert g.uid == w.uid
@@ -1601,6 +1632,24 @@ def test_attention_backward_kernels_unequal_lengths(cuda, dtype, Sq, Skv,
         assert fa.grad_error_ratio(g, w, ATTN_TOL[dtype]) <= 1
     if causal and Skv > Sq:
         assert not got[1][:, Sq:].any() and not got[2][:, Sq:].any()
+
+
+def test_attention_backward_stablelm_shape(cuda):
+    """stablelm-1.6b's heads (32 over 32, hd 64) at seq 256 in bf16: the
+    tensor-core backward against the plain one."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 2, 256, 256, 32, 1, 64, torch.bfloat16,
+                           seed=64)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(3), device=cuda).to(torch.bfloat16)
+    out, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    assert fa.bwd_variant_of(q) == ("dq_mma", "dkdv_mma")
+    got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                           causal=True)
+    want = fa.attention_backward(q, k, v, out, lse, do, causal=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert fa.grad_error_ratio(g, w, ATTN_TOL[torch.bfloat16]) <= 1
 
 
 def test_bf16_backward_launches_no_f32_kernel(cuda):
