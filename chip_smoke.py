@@ -244,6 +244,36 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              stablelm's and starcoder2's prefill shapes (the launcher's
              wave and a 4096-token prefill) against its plain version,
              timed beside ``F.scaled_dot_product_attention`` (timed only);
+8d. MoE     — llama4-scout-17b-a16e (16 experts top-1, a shared expert,
+             40 heads over 8, hd 128) and kimi-k2-1t-a32b (384 experts
+             top-8, a shared expert, its leading dense layer, 64 heads
+             over 8, hd 112; bf16 parameters): both trained 3 steps at
+             their reduced width in bf16 (hd 32; every loss finite, aux
+             above 0), then at full width, their depth cut to 2 layers,
+             random parameters from seed 0, through a ``ServeEngine``
+             built on the cut config: the launcher's default requests (8
+             prompts of 4-32 tokens, 16 new, waves of 4, cache 256), then
+             a long wave of 4 prompts of 4096 tokens (32 MoE groups of
+             512) into a cache of 4104, 8 new tokens; each wave served
+             with its routing recorded and every step's logits
+             teacher-forced against the plain versions, which record
+             their own routing and then route as the kernel path did:
+             every step held to 0.125, every token the plain path would
+             have routed otherwise a near tie (the gap between its k-th
+             and (k+1)-th router logit below 2^-4); then served again
+             with no routing recorder for tokens/s, prefill and decode
+             ms; peak memory (under 80 GB), dropped (token, choice)
+             pairs, launches by variant.  After the counts are read:
+             kimi-k2 served with planted faults in row 9 (dims 104-111
+             zeroed, which the limits must refuse; the last split lost)
+             and read against the same limits; the training's loss and
+             gradients held against the plain path, routed the same
+             way; row 10 at d 5120 and 7168 against its plain version;
+             row 9 at kimi-k2's prefill shapes (hd 112) against its
+             plain version, timed beside SDPA, and at its heads over
+             every case of phase 7 (caches 256 and 4104, f32 and bf16:
+             the split kernel's partials and combine, the planted lost
+             split), its decode at 4096 keys timed;
 9. summary — the ``kernels`` JSON line (Pallas rows 1-10; row 11, the
              sharded block kernel, which replaces the JAX package's jnp
              block ``MultiFabric._core_fn``; rows 12-14, the backward
@@ -265,12 +295,16 @@ comparisons (c) and (d) (rows 12-14), and once more just before phase
 8c and read after its
 families' runs, before row 9 is timed at their shapes (printed by
 variant on a line of its own; the ``kernels`` line keeps phases 4-8b's
-counts).  The
+counts), and once more just before phase 8d and read after its trained
+and served runs, before its planted faults, comparisons and timings (rows 9 and 10 of
+the ``kernels`` line list them per MoE model as ``launches_moe``, and
+row 9 kimi-k2's, all at hd 112, as ``variants_hd112_launches``).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -3266,14 +3300,16 @@ def check_phase_sharded(dev, out, caps) -> dict:
 # ---------------------------------------------------------------------------
 # phase 7: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
-def attention_cases(B, S, max_len) -> dict:
+def attention_cases(B, S, max_len, G=2) -> dict:
     """The attention calls of the main path (the long wave's prefill and a
     decode step mid-cache), the Pallas case (q_offset 0, every key valid;
     odd lengths, causal and not), and the split decode's edge cases: one
-    visible key, fewer keys than one split, kv_len past the cache, and 8
-    queries (16 rows) whose causal bounds leave the last split's keys all
-    masked for the first query's rows."""
+    visible key, fewer keys than one split, kv_len past the cache, and
+    16 // G queries (16 rows at G query heads a kv head) whose causal
+    bounds leave the last split's keys all masked for the first query's
+    rows (the first query before key 64, the first split's end)."""
     dec = dict(B=B, Sq=1, Skv=max_len, causal=True)
+    mq = 16 // G
     return {"prefill": dict(B=B, Sq=S, Skv=max_len, causal=True, q_offset=0,
                             kv_len=S),
             "decode": dict(dec, q_offset=S + 15, kv_len=S + 16),
@@ -3283,7 +3319,8 @@ def attention_cases(B, S, max_len) -> dict:
             "decode_below_one_split": dict(dec, q_offset=39, kv_len=40),
             "decode_past_cache": dict(dec, q_offset=max_len + 40,
                                       kv_len=max_len + 41),
-            "decode_masked_split": dict(dec, Sq=8, q_offset=60, kv_len=68)}
+            "decode_masked_split": dict(dec, Sq=mq, q_offset=64 - mq // 2,
+                                        kv_len=64 + mq - mq // 2)}
 
 
 def visible_pairs(Sq, kv, causal, q_offset) -> int:
@@ -3346,13 +3383,17 @@ def time_lm(run_k, run_p, run_lib, reps, kernel, bound, shape) -> dict:
     less than the bound (no cache lets the card do the arithmetic faster,
     so such a reading is a trace that lost events; a call bound by bytes
     may beat its bound when the previous repetition left part of its
-    inputs in the 50 MB L2)."""
-    def lost(ms):
-        return bound["bound_by"] == "operations" and ms < bound["bound_ms"]
+    inputs in the 50 MB L2) or less than half the call's CUDA-events time
+    (the device work of one long kernel is most of its call: a card run
+    read 1.66 ms from a window that kept 3 of 5 launches of row 9 at 4 x
+    4096, hd 112, against 3.53 per call; PERF.md)."""
+    def lost(ms, call_ms=float("inf")):
+        return bound["bound_by"] == "operations" and (
+            ms < bound["bound_ms"] or 2 * ms < call_ms)
     t = timed(run_k, run_p, reps, kernel, plain_reps=2)
-    if t["ms_from"] == "profiler" and lost(t["ms"]):
+    if t["ms_from"] == "profiler" and lost(t["ms"], t["call_ms"]):
         t.update(ms=t["call_ms"], ms_from=f"cuda events (the profiler read "
-                 f"{t['ms']:.4f} ms, below the bound)")
+                 f"{t['ms']:.4f} ms, below the bound or half the call)")
     lib = profiled_ms(run_lib, reps)
     lib_from = "profiler"
     if not lib or lost(lib):
@@ -3496,6 +3537,161 @@ def time_norm_decode(dev, B, d, dt, gen, flush, copies=4) -> dict:
                 bytes=nbytes, shape=f"[{B}, 1, {d}] model rounding")
 
 
+def lm_errs() -> dict:
+    """Largest |error| and share of the tolerance, per dtype and per LM
+    kernel or attention variant, all 0 (filled by :func:`hold_lm`)."""
+    from repro_torch.kernels import flash_attention as fa
+    return {dt: {k: dict(max_abs_err=0.0, tol_ratio=0.0)
+                 for k in (*LM_ROWS, *fa.VARIANTS)} for dt in LM_TOL}
+
+
+def hold_lm(errs, dtn, name, got, want, what, keys=(), partial=False):
+    """got within the tolerance of want (recorded in ``errs[dtn]`` under
+    name and keys): attention outputs by ``fa.error_ratio``, the f32
+    partials and RMSNorm as allclose (the largest |got - want| over tol *
+    (1 + |want|) at most 1)."""
+    from repro_torch.kernels import flash_attention as fa
+    tol = LM_TOL["float32" if partial else dtn][name]
+    diff = (got.float() - want.float()).abs()
+    e = float(diff.max()) if diff.numel() else 0.0
+    if name == "flash_attention" and not partial:
+        ratio = fa.error_ratio(got, want, tol)
+        rule = ATTN_RULE.format("tol")
+    else:
+        ratio = float((diff / (tol * (1 + want.float().abs()))).max()) \
+            if diff.numel() else 0.0
+        rule = "rtol = atol = tol"
+    for key in (name, *keys):
+        rec = errs[dtn][key]
+        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        rec["tol_ratio"] = max(rec["tol_ratio"], ratio)
+    log(f"  {'/'.join((name, *keys)):30s} {dtn:8s} {what}: max |kernel - "
+        f"plain| {e:.3g}, {ratio:.3f} of the tolerance ({rule}, tol = "
+        f"{tol:g})")
+    check(ratio <= 1, f"{name} {keys} {dtn} {what}: kernel != plain "
+          f"({ratio} of {rule}, tol = {tol})")
+
+
+def hold_split(errs, sms, dtn, q, k, v, kw, what, whole, planted):
+    """The split kernel's partials and the combine pass, each against its
+    plain version (:func:`hold_lm`); with ``planted``, the kernel's
+    partials merged without their last split must be refused against
+    ``whole`` (the plain version of the call): the check can see a lost
+    split.  Returns the plan, the partials' -inf count and, with
+    ``planted``, that reading's share of the tolerance."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    Sq, Hkv = q.shape[1], k.shape[2]
+    vis = fa.visible_keys(Sq, k.shape[1], **kw)
+    ranges = fa.decode_splits(vis, q.shape[0] * Hkv, sms)
+    m, l, acc = fa.decode_partials_cuda(q, k, v, ranges, **kw)
+    pm, pl, pacc = fa.attention_partials(q, k, v, ranges, **kw)
+    inf = torch.isinf(pm)
+    check(torch.equal(torch.isinf(m), inf), f"{what}: the split kernel's "
+          "masked partials (m = -inf) differ from the plain version's")
+    for got, want, part in ((m.masked_fill(inf, 0), pm.masked_fill(
+            inf, 0), "m"), (l, pl, "l"), (acc, pacc, "acc")):
+        hold_lm(errs, dtn, "flash_attention", got, want,
+                f"{what} partial {part}", keys=("decode_split",),
+                partial=True)
+    out = fa.combine_cuda(pm, pl, pacc, torch.empty_like(q))
+    want = fa.rows_to_heads(fa.combine_partials(pm, pl, pacc), Sq)
+    hold_lm(errs, dtn, "flash_attention", out, want.to(q.dtype),
+            f"{what} combine of the plain partials",
+            keys=("decode_combine",))
+    r = None
+    if planted:
+        cut = fa.rows_to_heads(fa.combine_partials(
+            m[:, :, :-1], l[:, :, :-1], acc[:, :, :-1]), Sq).to(q.dtype)
+        tol = LM_TOL[dtn]["flash_attention"]
+        r = fa.error_ratio(cut, whole, tol)
+        d = (cut.float() - whole.float()).abs()
+        r_flat = float((d / (tol * (1 + whole.float().abs()))).max())
+        log(f"  planted fault, {dtn} {what}: the last of {len(ranges)} "
+            f"splits dropped gives {r:.3f} of the tolerance ("
+            f"{ATTN_RULE.format('tol')}"
+            f", tol = {tol:g}; max |error| {float(d.max()):.3g}); an "
+            f"allclose with rtol = atol = {tol:g} would give "
+            f"{r_flat:.3f}")
+        check(r > 1, f"{what}: a decode without its last split passes "
+              f"the check ({r} of the tolerance)")
+    return ranges, int(inf.sum()), r
+
+
+def attention_holds(dev, gen, sms, errs, dtn, H, Hkv, hd, cases,
+                    timed=()) -> dict:
+    """Row 9 in ``dtn`` at ``cases`` (:func:`attention_cases`) with H/Hkv
+    heads of ``hd``: the wrapper against the plain version, the dispatch
+    rule's variant and no other launched; a split decode's partials and
+    combine on their own (:func:`hold_split`, the last split planted as
+    lost in the case ``decode``).  The cases in ``timed`` ("prefill",
+    "decode") are timed beside SDPA and their bound; a timed decode must
+    launch more split CTAs than the card has SMs.  Returns the times and
+    the planted readings."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    dt = torch.float32 if dtn == "float32" else torch.bfloat16
+    times, planted = {}, {}
+    for case, c in cases.items():
+        q = torch.randn((c["B"], c["Sq"], H, hd), generator=gen,
+                        device=dev).to(dt)
+        k, v = (torch.randn((c["B"], c["Skv"], Hkv, hd), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        kw = {x: c[x] for x in ("causal", "q_offset", "kv_len") if x in c}
+        kwf = dict(kw, q_offset=c.get("q_offset", 0))
+        variant = fa.variant_of(q, k)
+        if case.startswith("pallas"):
+            run_k = lambda: ops.flash_attention(q, k, v,  # noqa: E731
+                                                causal=c["causal"])
+        else:
+            run_k = lambda: fa.flash_attention_cuda(q, k, v,  # noqa: E731
+                                                    **kw)
+        run_p = lambda: fa.attention(q, k, v, **kw)  # noqa: E731
+        want = run_p()
+        n0 = dict(fa.flash_attention_cuda.launches_by)
+        what = (f"{case} {dict(kw, B=c['B'], Sq=c['Sq'], Skv=c['Skv'])} "
+                f"H={H}/{Hkv} hd={hd}")
+        hold_lm(errs, dtn, "flash_attention", run_k(), want, what,
+                keys=(variant,) if variant != "decode_split" else
+                ("decode_split", "decode_combine"))
+        ran = {x for x, n in fa.flash_attention_cuda.launches_by.items()
+               if n > n0[x]}
+        check(ran == ({"decode_split", "decode_combine"} if variant ==
+                      "decode_split" else {variant}),
+              f"{what}: ran {sorted(ran)}, the dispatch rule names "
+              f"{variant}")
+        split = None
+        if variant == "decode_split":
+            split, n_inf, r = hold_split(errs, sms, dtn, q, k, v, kwf, what,
+                                         want, planted=case == "decode")
+            if r is not None:
+                planted[case] = dict(n_split=len(split), tol_ratio=r)
+            check(case != "decode_masked_split" or n_inf > 0,
+                  f"{what}: no split had every key masked for a row")
+            ctas = len(split) * Hkv * c["B"]
+            check(case not in timed or case != "decode" or ctas > sms,
+                  f"{what}: {ctas} split CTAs, not more than the card's "
+                  f"{sms} SMs")
+        if case in timed:
+            lib = sdpa_call(q, k, v, c)
+            e_lib = float((lib().float() - want.float()).abs().max())
+            shape = (f"B={c['B']}, Sq={c['Sq']}, Skv={c['Skv']}, "
+                     f"H={H}/{Hkv}, hd={hd}, q_offset={c['q_offset']}, "
+                     f"kv_len={c['kv_len']}, {dtn}")
+            if case == "prefill":
+                t = dict(**time_lm(run_k, run_p, lib, 5, "flash_attention",
+                                   attention_bound(q, k, c), shape),
+                         library_vs_plain=e_lib, variant=variant)
+            else:
+                t = dict(**time_decode(q, k, v, c, kwf, split, H, Hkv,
+                                       shape, gen),
+                         library_vs_plain=e_lib, variant=variant)
+            times[f"flash_attention {case} {dtn}"] = t
+        del q, k, v, want
+    return times, planted
+
+
 def phase_lm_kernels(dev, cfg, B, S, max_len):
     """Both LM kernels against their plain versions on the card, in f32
     and bf16, at the main path's shapes, the Pallas case and the split
@@ -3507,142 +3703,26 @@ def phase_lm_kernels(dev, cfg, B, S, max_len):
     times."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
     H, Hkv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
     gen = torch.Generator(device=dev).manual_seed(7)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    names = (*LM_ROWS, *fa.VARIANTS)
-    errs = {dt: {k: dict(max_abs_err=0.0, tol_ratio=0.0) for k in names}
-            for dt in LM_TOL}
-    times = {}
-
-    def hold(dtn, name, got, want, what, keys=(), partial=False):
-        """got within the tolerance of want (recorded under name and
-        keys): attention outputs by ``fa.error_ratio``, the f32 partials
-        and RMSNorm as allclose (the largest |got - want| over tol * (1 +
-        |want|) at most 1)."""
-        tol = LM_TOL["float32" if partial else dtn][name]
-        diff = (got.float() - want.float()).abs()
-        e = float(diff.max()) if diff.numel() else 0.0
-        if name == "flash_attention" and not partial:
-            ratio = fa.error_ratio(got, want, tol)
-            rule = ATTN_RULE.format("tol")
-        else:
-            ratio = float((diff / (tol * (1 + want.float().abs()))).max()) \
-                if diff.numel() else 0.0
-            rule = "rtol = atol = tol"
-        for key in (name, *keys):
-            rec = errs[dtn][key]
-            rec["max_abs_err"] = max(rec["max_abs_err"], e)
-            rec["tol_ratio"] = max(rec["tol_ratio"], ratio)
-        log(f"  {'/'.join((name, *keys)):30s} {dtn:8s} {what}: max |kernel - "
-            f"plain| {e:.3g}, {ratio:.3f} of the tolerance ({rule}, tol = "
-            f"{tol:g})")
-        check(ratio <= 1, f"{name} {keys} {dtn} {what}: kernel != plain "
-              f"({ratio} of {rule}, tol = {tol})")
-
-    def hold_split(dtn, q, k, v, kw, what, whole, planted):
-        """The split kernel's partials and the combine pass, each against
-        its plain version; with ``planted``, the kernel's partials merged
-        without their last split must be refused against ``whole`` (the
-        plain version of the call): the check can see a lost split.
-        Returns the plan and the partials' -inf count."""
-        Sq = q.shape[1]
-        vis = fa.visible_keys(Sq, k.shape[1], **kw)
-        ranges = fa.decode_splits(vis, q.shape[0] * Hkv, sms)
-        m, l, acc = fa.decode_partials_cuda(q, k, v, ranges, **kw)
-        pm, pl, pacc = fa.attention_partials(q, k, v, ranges, **kw)
-        inf = torch.isinf(pm)
-        check(torch.equal(torch.isinf(m), inf), f"{what}: the split kernel's "
-              "masked partials (m = -inf) differ from the plain version's")
-        for got, want, part in ((m.masked_fill(inf, 0), pm.masked_fill(
-                inf, 0), "m"), (l, pl, "l"), (acc, pacc, "acc")):
-            hold(dtn, "flash_attention", got, want, f"{what} partial {part}",
-                 keys=("decode_split",), partial=True)
-        out = fa.combine_cuda(pm, pl, pacc, torch.empty_like(q))
-        want = fa.rows_to_heads(fa.combine_partials(pm, pl, pacc), Sq)
-        hold(dtn, "flash_attention", out, want.to(q.dtype),
-             f"{what} combine of the plain partials",
-             keys=("decode_combine",))
-        if planted:
-            cut = fa.rows_to_heads(fa.combine_partials(
-                m[:, :, :-1], l[:, :, :-1], acc[:, :, :-1]), Sq).to(q.dtype)
-            tol = LM_TOL[dtn]["flash_attention"]
-            r = fa.error_ratio(cut, whole, tol)
-            d = (cut.float() - whole.float()).abs()
-            r_flat = float((d / (tol * (1 + whole.float().abs()))).max())
-            log(f"  planted fault, {dtn} {what}: the last of {len(ranges)} "
-                f"splits dropped gives {r:.3f} of the tolerance ("
-                f"{ATTN_RULE.format('tol')}"
-                f", tol = {tol:g}; max |error| {float(d.max()):.3g}); an "
-                f"allclose with rtol = atol = {tol:g} would give "
-                f"{r_flat:.3f}")
-            check(r > 1, f"{what}: a decode without its last split passes "
-                  f"the check ({r} of the tolerance)")
-        return ranges, int(inf.sum())
-
+    errs, times = lm_errs(), {}
     for dtn, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        for case, c in attention_cases(B, S, max_len).items():
-            q = torch.randn((c["B"], c["Sq"], H, hd), generator=gen,
-                            device=dev).to(dt)
-            k, v = (torch.randn((c["B"], c["Skv"], Hkv, hd), generator=gen,
-                                device=dev).to(dt) for _ in range(2))
-            kw = {x: c[x] for x in ("causal", "q_offset", "kv_len") if x in c}
-            kwf = dict(kw, q_offset=c.get("q_offset", 0))
-            variant = fa.variant_of(q, k)
-            if case.startswith("pallas"):
-                run_k = lambda: ops.flash_attention(q, k, v,
-                                                    causal=c["causal"])
-            else:
-                run_k = lambda: fa.flash_attention_cuda(q, k, v, **kw)
-            run_p = lambda: fa.attention(q, k, v, **kw)
-            want = run_p()
-            n0 = dict(fa.flash_attention_cuda.launches_by)
-            what = f"{case} {dict(kw, B=c['B'], Sq=c['Sq'], Skv=c['Skv'])}"
-            hold(dtn, "flash_attention", run_k(), want, what,
-                 keys=(variant,) if variant != "decode_split" else
-                 ("decode_split", "decode_combine"))
-            ran = {x for x, n in fa.flash_attention_cuda.launches_by.items()
-                   if n > n0[x]}
-            check(ran == ({"decode_split", "decode_combine"} if variant ==
-                          "decode_split" else {variant}),
-                  f"{what}: ran {sorted(ran)}, the dispatch rule names "
-                  f"{variant}")
-            split = None
-            if variant == "decode_split":
-                split, n_inf = hold_split(dtn, q, k, v, kwf, what, want,
-                                          planted=case == "decode")
-                check(case != "decode_masked_split" or n_inf > 0,
-                      f"{what}: no split had every key masked for a row")
-                ctas = len(split) * Hkv * c["B"]
-                check(case != "decode" or ctas > 132, f"{what}: {ctas} "
-                      "split CTAs, not more than the card's 132 SMs")
-            lib = sdpa_call(q, k, v, c)
-            e_lib = float((lib().float() - want.float()).abs().max())
-            if case in ("prefill", "decode"):
-                shape = (f"B={c['B']}, Sq={c['Sq']}, Skv={c['Skv']}, "
-                         f"H={H}/{Hkv}, hd={hd}, q_offset={c['q_offset']}, "
-                         f"kv_len={c['kv_len']}, {dtn}")
-                if case == "prefill":
-                    t = dict(**time_lm(run_k, run_p, lib, 5, "flash_attention",
-                                       attention_bound(q, k, c), shape),
-                             library_vs_plain=e_lib, variant=variant)
-                else:
-                    t = dict(**time_decode(q, k, v, c, kwf, split, H, Hkv,
-                                           shape, gen),
-                             library_vs_plain=e_lib, variant=variant)
-                times[f"flash_attention {case} {dtn}"] = t
-            del q, k, v, want
+        times.update(attention_holds(
+            dev, gen, sms, errs, dtn, H, Hkv, hd,
+            attention_cases(B, S, max_len, H // Hkv),
+            timed=("prefill", "decode"))[0])
         x = (3 * torch.randn((B * S, d), generator=gen, device=dev)).to(dt)
         w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
         for model in (False, True):
             run_k = (lambda: rn.rmsnorm_cuda(x, w, model=True)) if model \
                 else (lambda: ops.rmsnorm(x, w))
             run_p = lambda: rn.rmsnorm(x, w, model=model)
-            hold(dtn, "rmsnorm", run_k(), run_p(),
-                 f"[{B * S}, {d}] {'model' if model else 'pallas'} rounding")
+            hold_lm(errs, dtn, "rmsnorm", run_k(), run_p(),
+                    f"[{B * S}, {d}] {'model' if model else 'pallas'} "
+                    "rounding")
         wc = w.to(dt)
         run_k = lambda: rn.rmsnorm_cuda(x, w, model=True)
         run_p = lambda: rn.rmsnorm(x, w, model=True)
@@ -3924,13 +4004,19 @@ def check_long_wave(dev, eng, reqs, results, rec) -> dict:
     return out
 
 
-def hold_wave(dev, eng, wave, results, logits) -> dict:
+def hold_wave(dev, eng, wave, results, logits, routes=None) -> dict:
     """One wave (requests in the engine's order) through the same engine's
     model on the plain versions, on the same card, teacher-forced with the
     kernel path's tokens: the logits at every step (``logits``, recorded
     on the kernel path) against the plain path's.  A greedy token may
     differ from the plain path's only where the kernel path's top-2 margin
-    is below twice the largest logit difference."""
+    is below twice the largest logit difference.  An MoE model's wave
+    passes the kernel path's routing (``routes``: its
+    :class:`RouteRecorder`'s calls): the plain path records its own
+    decisions and routes as the kernel path did, every step's logits are
+    held to :data:`MOE_LOGIT_TOL` and every decision the plain path would
+    have taken otherwise must be a near tie (:func:`compare_routes`)."""
+    import contextlib
     import torch
     from repro_torch.models import transformer as tfm
     from repro_torch.serve.engine import pad_wave
@@ -3942,10 +4028,16 @@ def hold_wave(dev, eng, wave, results, logits) -> dict:
         check(bool(torch.isfinite(lk).all()), f"step {t}: non-finite logits")
         check(np.array_equal(lk.argmax(-1).numpy(), gen[:, t]),
               f"step {t}: the engine's tokens are not its logits' argmax")
+    if routes is not None:
+        n_moe = eng.cfg.n_layers - eng.cfg.n_dense_layers
+        check(len(routes) == T * n_moe, f"{len(routes)} routed calls, want "
+              f"{T} x {n_moe}")
     n0 = launch_counts()
     t0 = time.perf_counter()
     plain = []
-    with plain_kernels(), torch.inference_mode():
+    rec = contextlib.nullcontext() if routes is None else \
+        RouteRecorder(force=routes)
+    with rec, plain_kernels(), torch.inference_mode():
         lp, cache = tfm.prefill(eng.cfg, eng.params,
                                 {"tokens": torch.from_numpy(pad_wave(wave))
                                  .to(dev)}, max_len=eng.max_len)
@@ -3959,6 +4051,14 @@ def hold_wave(dev, eng, wave, results, logits) -> dict:
     check(launch_counts() == n0, "the plain replay launched a kernel")
     diffs = [float((k - p).abs().max()) for k, p in zip(logits, plain)]
     worst = max(diffs)
+    extra = {}
+    if routes is not None:
+        kern = on_host(routes)
+        extra = dict(routing=compare_routes(kern, on_host(rec.calls),
+                                            "the plain replay"),
+                     dropped=[int((~c["keep"]).sum()) for c in kern])
+        check(worst <= MOE_LOGIT_TOL, f"logits differ from the plain "
+              f"path's by {worst} > {MOE_LOGIT_TOL}")
     differ = []
     for t, (lk, lp) in enumerate(zip(logits, plain)):
         top2 = lk.topk(2, dim=-1).values
@@ -3972,7 +4072,7 @@ def hold_wave(dev, eng, wave, results, logits) -> dict:
                 logit_diff_by_step=[round(x, 5) for x in diffs],
                 logit_scale=float(max(lk.abs().max() for lk in logits)),
                 greedy_tokens_differing=len(differ), differing=differ,
-                plain_replay_s=time.perf_counter() - t0)
+                plain_replay_s=time.perf_counter() - t0, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -4903,7 +5003,7 @@ def rwkv_long_wave(dev, eng) -> dict:
     return out
 
 
-def family_attention_times(dev, cfg) -> dict:
+def family_attention_times(dev, cfg, tag="8c") -> dict:
     """Row 9 at the family's prefill shapes (:data:`FAMILY_ATTN_SHAPES`,
     bf16, causal, the cache filled to the queries): against its plain
     version at the main path's tolerance, and its device time beside the
@@ -4937,7 +5037,7 @@ def family_attention_times(dev, cfg) -> dict:
                                   "flash_attention",
                                   attention_bound(q, k, c), shape),
                         max_abs_err=err, tol_ratio=ratio, variant=variant)
-        log(f"  8c row 9 at {cfg.name}'s {key} prefill ({shape}): "
+        log(f"  {tag} row 9 at {cfg.name}'s {key} prefill ({shape}): "
             f"{out[key]['ms']:.4f} ms ({out[key]['ms_from']}), SDPA "
             f"{out[key]['library_ms']:.4f} ms, plain "
             f"{out[key]['plain_ms']:.3f} ms, bound "
@@ -5018,6 +5118,669 @@ def phase_families(dev) -> dict:
                               for name in ("stablelm-1.6b", "starcoder2-7b")}
     fam["seconds"] = time.perf_counter() - t0
     return fam
+
+
+# ---------------------------------------------------------------------------
+# phase 8d: MoE at full width (llama4-scout, kimi-k2), the depth cut
+# ---------------------------------------------------------------------------
+MOE_ARCHS = ("llama4-scout-17b-a16e", "kimi-k2-1t-a32b")
+MOE_LAYERS = 2               # from 48 and 61: llama4's 2 MoE layers, kimi's
+#                              dense layer and its first MoE layer
+# kimi-k2's 2 layers hold 1.99e10 parameters: 79.7 GB at f32, 39.9 in bf16
+MOE_PARAM_DTYPE = {"kimi-k2-1t-a32b": "bfloat16"}
+# the long wave: 4 prompts of 4096 tokens (T = 16384: 32 MoE groups of
+# 512) into a cache of 4104, 8 new tokens
+MOE_LONG = dict(prompts=4, tokens=4096, cache=4104, new_tokens=8)
+# teacher-forced against the plain path, routing taken into account: the
+# plain replay records each MoE layer's own decisions and then follows the
+# kernel path's (its top-k experts; gates renormalised from its own
+# probabilities, queue places and capacity mask recomputed), so a near
+# tie decided otherwise on the two paths does not carry into later
+# layers and steps.  Every step's logits are then held to the CPU tests'
+# bf16 tolerance, and every token whose expert set the plain path would
+# have chosen otherwise must be a near tie: the gap between its k-th and
+# (k+1)-th router logit on the kernel path below ROUTE_MARGIN (16 bf16
+# steps of 2^-8: the two paths' router inputs differ in their last bits,
+# and on the card that gap moved by at most 0.044 between them over 33k
+# routed tokens, by 0.034 at the 99.9th percentile: PERF.md, phase 8d).
+# What the two limits refuse is read from planted faults of row 9
+# (moe_fault_readings): on the card kimi-k2 with dims 104-111 zeroed
+# moved the logits by 2.44 and was routed otherwise at margins up to
+# 0.22; with the long wave's last split lost, by 0.32 (margins below
+# 0.05)
+MOE_LOGIT_TOL = 0.125
+ROUTE_MARGIN = 2 ** -4
+MOE_TRAIN = (4, 128, 3)      # batch, seq, steps at reduced() in bf16
+MOE_LAUNCH_KEYS = (*FAMILY_LAUNCH_KEYS, "rmsnorm_by")
+
+
+class RouteRecorder:
+    """Wraps ``moe.route`` (which ``moe.moe_block`` calls) while open and
+    records each call's own decisions: the top-k experts (as chosen, and
+    sorted) and the capacity mask (in the sorted order), each token's
+    margin (the gap between its k-th and (k+1)-th router logit, ``log p_k
+    - log p_k+1``), the two experts at that gap and the log-probabilities,
+    on the card, in ``calls``.  ``force`` (another run's ``calls``) makes
+    call i route as that run's call i did: ``moe.decide`` on this call's
+    probabilities and that call's experts, in its order."""
+
+    def __init__(self, force=None):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe.route, []
+
+        def call(cfg, p, xg):
+            r = self.real(cfg, p, xg)
+            k = cfg.top_k
+            logp = r.probs.detach().reshape(-1, cfg.n_experts).log()
+            top = logp.topk(k + 1, dim=-1)
+            idx, order = r.idx.reshape(-1, k).sort(dim=-1)
+            self.calls.append(dict(
+                chosen=r.idx, idx=idx,
+                keep=r.keep.reshape(-1, k).gather(-1, order),
+                margin=top.values[:, k - 1] - top.values[:, k],
+                pair=top.indices[:, k - 1:k + 1], logp=logp, C=r.C))
+            if force is None:
+                return r
+            idx = force[len(self.calls) - 1]["chosen"]
+            check(idx.shape == r.idx.shape, f"forced routing "
+                  f"{tuple(idx.shape)} for a call of {tuple(r.idx.shape)}")
+            return moe.decide(cfg, r.probs, idx)
+        moe.route = call
+
+    def close(self):
+        self.moe.route = self.real
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def on_host(calls) -> list:
+    """A :class:`RouteRecorder`'s calls copied to the host."""
+    return [{k: v.cpu() if hasattr(v, "cpu") else v for k, v in c.items()
+             if k != "chosen"} for c in calls]
+
+
+class AuxRecorder:
+    """Wraps ``moe.moe_block`` while open: each call's aux loss (on the
+    card)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.aux = moe, moe.moe_block, []
+
+        def call(cfg, p, x):
+            y, aux = self.real(cfg, p, x)
+            self.aux.append(aux.detach())
+            return y, aux
+        moe.moe_block = call
+
+    def close(self):
+        self.moe.moe_block = self.real
+
+
+def compare_routes(kern, plain, tag) -> dict:
+    """The kernel path's recorded decisions against the plain path's own
+    (that run forced to the kernel path's), call by call: every token
+    whose expert set differs must have a kernel-side margin below
+    :data:`ROUTE_MARGIN`; a call whose sets all agree must have equal
+    capacity masks (the mask follows from the sets).  Returns the calls
+    and tokens that differ, their margins, and how far the margin's gap
+    moved between the two paths (the largest over every token, and its
+    99.9th percentile)."""
+    import torch
+    check(len(kern) == len(plain), f"{tag}: {len(kern)} routed calls on "
+          f"the kernel path, {len(plain)} on the plain path")
+    flips, moved = [], []
+    for c, (a, b) in enumerate(zip(kern, plain)):
+        check(a["C"] == b["C"] and a["idx"].shape == b["idx"].shape,
+              f"{tag}, call {c}: capacity {a['C']} / {b['C']}, shapes "
+              f"{tuple(a['idx'].shape)} / {tuple(b['idx'].shape)}")
+        la, lb = (x["logp"].gather(-1, a["pair"]) for x in (a, b))
+        moved.append(((la[:, 0] - la[:, 1]) - (lb[:, 0] - lb[:, 1])).abs())
+        rows = (a["idx"] != b["idx"]).any(-1)
+        if bool(rows.any()):
+            flips += [(c, int(t), float(a["margin"][t])) for t in
+                      torch.nonzero(rows).flatten()]
+        else:
+            check(torch.equal(a["keep"], b["keep"]), f"{tag}, call {c}: "
+                  "every expert set agrees with the plain path's but the "
+                  "capacity masks differ")
+    for c, t, m in flips:
+        check(m < ROUTE_MARGIN, f"{tag}, call {c}, token {t}: the expert "
+              f"set differs from the plain path's at a margin {m} >= "
+              f"{ROUTE_MARGIN}")
+    moved = torch.cat(moved) if moved else torch.zeros(1)
+    return dict(calls=len(kern), tokens=int(moved.numel()),
+                calls_differing=len({c for c, _, _ in flips}),
+                tokens_differing=len(flips),
+                margins=[round(m, 6) for _, _, m in flips][:40],
+                max_margin=max((m for _, _, m in flips), default=None),
+                gap_moved_max=float(moved.max()),
+                gap_moved_p999=float(torch.quantile(moved.float(), 0.999))
+                if moved.numel() <= 1 << 24 else None,
+                margin_limit=ROUTE_MARGIN)
+
+
+def serve_moe_wave(dev, eng, reqs, routed=True) -> tuple:
+    """``eng.run(reqs)`` with each step (ms, logits) and, ``routed``, each
+    MoE layer's routing recorded; returns the results, the wall seconds,
+    the step recorder and the routing recorder's calls (None unrouted)."""
+    import contextlib
+    import torch
+    from repro_torch.models import transformer as tfm
+    rec = StepRecorder(tfm, dev)
+    try:
+        with RouteRecorder() if routed else contextlib.nullcontext() as rr:
+            t0 = time.perf_counter()
+            results = eng.run(reqs)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+    return results, wall, rec, rr.calls if routed else None
+
+
+def timed_moe_wave(dev, eng, reqs, results) -> dict:
+    """``eng.run(reqs)`` again with no routing recorder (the step
+    recorder's synchronisation before and after each step, as phase 8c
+    times its families): wall seconds, tokens/s, prefill and decode ms a
+    step and the host's share; whether its tokens equal ``results``'s
+    (the recorded run's)."""
+    again, wall, rec, _ = serve_moe_wave(dev, eng, reqs, routed=False)
+    total = sum(len(r.tokens) for r in again)
+    dec = rec.ms["decode"]
+    return dict(wall_s=wall, tokens=total, tokens_per_s=total / wall,
+                prefill_ms=rec.ms["prefill"], decode_steps=len(dec),
+                decode_ms_mean=float(np.mean(dec)),
+                decode_ms_p50=float(np.median(dec)),
+                decode_host_ms_mean=float(np.mean(rec.host_ms["decode"])),
+                tokens_equal_recorded=all(
+                    np.array_equal(a.tokens, b.tokens)
+                    for a, b in zip(again, results)))
+
+
+def serve_moe(dev, name, keep=False) -> tuple[dict, dict | None]:
+    """One MoE config at full width and :data:`MOE_LAYERS` layers (random
+    parameters from seed 0): the launcher's default requests through a
+    ``ServeEngine`` (8 prompts of 4-32 tokens, numpy seed 0, 16 new
+    tokens, waves of 4, cache 256), then the long wave (:data:`MOE_LONG`)
+    through an engine with its cache; every wave served twice, first
+    with its routing recorded and teacher-forced against the plain
+    versions (:func:`hold_wave`), then timed with no routing recorder
+    (:func:`timed_moe_wave`).  Tokens/s, prefill and decode ms (of the
+    timed runs; the recorded runs' beside), peak memory, dropped (token,
+    choice) pairs and the launches of the served runs (the replays
+    launch nothing).  With ``keep``, also the config, the engine's
+    parameters and both sets of requests (for :func:`moe_fault_readings`);
+    else None."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine
+    base = get_arch(name)
+    cfg = dataclasses.replace(base, n_layers=MOE_LAYERS,
+                              param_dtype=MOE_PARAM_DTYPE.get(
+                                  name, base.param_dtype))
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    check(left < FAMILY_LEFT_BYTES, f"8d {name}: {left} B still allocated "
+          "when it starts")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    st = dict(arch=name, n_layers=cfg.n_layers, cut_from=base.n_layers,
+              n_dense_layers=cfg.n_dense_layers, d_model=cfg.d_model,
+              heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+              head_dim=cfg.head_dim, experts=cfg.n_experts, top_k=cfg.top_k,
+              moe_d_ff=cfg.moe_d_ff, shared_expert=cfg.shared_expert,
+              param_dtype=cfg.param_dtype, n_params=tfm.count_params(params),
+              init_s=time.perf_counter() - t0,
+              allocated_at_start_bytes=left)
+    eng = ServeEngine(cfg, params, batch_size=4, max_len=256, device=dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)                 # the launcher's requests
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (int(
+        rng.integers(4, 32)),)).astype(np.int32), max_new_tokens=16)
+        for i in range(8)]
+    n0 = launch_counts()          # the replays between the runs launch none
+    results, wall, rec, routes = serve_moe_wave(dev, eng, reqs)
+    st["dropped_launcher"] = sum(int((~c["keep"]).sum()) for c in routes)
+    check_tokens(results, 16, cfg.vocab, f"8d {name} request")
+    total = sum(len(r.tokens) for r in results)
+    dec = rec.ms["decode"]
+    st["recorded"] = dict(
+        wall_s=wall, tokens_per_s=total / wall, prefill_ms=rec.ms["prefill"],
+        decode_ms_mean=float(np.mean(dec)),
+        decode_host_ms_mean=float(np.mean(rec.host_ms["decode"])))
+    st.update(requests=len(reqs), **timed_moe_wave(dev, eng, reqs, results))
+    order = sorted(reqs, key=lambda r: len(r.prompt))      # the engine's
+    waves = [order[i:i + 4] for i in range(0, len(order), 4)]
+    st["wave_lens"] = [max(len(r.prompt) for r in w) for w in waves]
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    logits, st["vs_plain"] = list(rec.logits), []
+    for w in waves:
+        T = max(len(r.tokens) for r in results if r.uid in
+                {x.uid for x in w})
+        st["vs_plain"].append(hold_wave(dev, eng, w, results, logits[:T],
+                                        routes[:T * n_moe]))
+        logits, routes = logits[T:], routes[T * n_moe:]
+    check(not logits and not routes, f"8d {name}: recorded steps left over")
+    # the long wave
+    L = MOE_LONG
+    rng = np.random.default_rng(13)
+    long_reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (
+        L["tokens"],)).astype(np.int32), max_new_tokens=L["new_tokens"])
+        for i in range(L["prompts"])]
+    eng_long = ServeEngine(cfg, eng.params, batch_size=L["prompts"],
+                           max_len=L["cache"], device=dev)
+    del eng
+    results, wall, rec, routes = serve_moe_wave(dev, eng_long, long_reqs)
+    check_tokens(results, L["new_tokens"], cfg.vocab, f"8d {name} long-wave "
+                 "request")
+    total = sum(len(r.tokens) for r in results)
+    pre = routes[:n_moe]
+    tokens = L["prompts"] * L["tokens"]
+    dropped = [int((~c["keep"]).sum()) for c in pre]
+    dec = rec.ms["decode"]
+    timed = timed_moe_wave(dev, eng_long, long_reqs, results)
+    launches = count_delta(n0, launch_counts(), MOE_LAUNCH_KEYS)
+    st["long_wave"] = dict(
+        **L, tokens_served=timed["tokens"], wall_s=timed["wall_s"],
+        tokens_per_s=timed["tokens_per_s"], prefill_ms=timed["prefill_ms"][0],
+        prefill_tokens_per_s=tokens / timed["prefill_ms"][0] * 1e3,
+        decode_steps=timed["decode_steps"],
+        decode_ms_mean=timed["decode_ms_mean"],
+        decode_ms_p50=timed["decode_ms_p50"],
+        decode_host_ms_mean=timed["decode_host_ms_mean"],
+        tokens_equal_recorded=timed["tokens_equal_recorded"],
+        recorded=dict(wall_s=wall, tokens_per_s=total / wall,
+                      prefill_ms=rec.ms["prefill"][0],
+                      decode_ms_mean=float(np.mean(dec))),
+        groups=tokens // min(cfg.moe_group_size, tokens),
+        capacity=pre[0]["C"], choices=tokens * cfg.top_k,
+        dropped_by_moe_layer=dropped,
+        dropped_decode=sum(int((~c["keep"]).sum()) for c in routes[n_moe:]))
+    st["long_wave"]["vs_plain"] = hold_wave(
+        dev, eng_long, sorted(long_reqs, key=lambda r: len(r.prompt)),
+        results, rec.logits, routes)
+    st["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    st["launches"] = launches
+    kept = dict(cfg=cfg, params=eng_long.params, reqs=reqs,
+                long_reqs=long_reqs) if keep else None
+    del eng_long, rec, routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(st["peak_memory_bytes"] < CARD_BYTES, f"8d {name}: peak memory "
+          f"{st['peak_memory_bytes']} B, not under {CARD_BYTES:.0f}")
+    vp = [*st["vs_plain"], st["long_wave"]["vs_plain"]]
+    log(f"  8d {name} ({cfg.n_layers} of {base.n_layers} layers, "
+        f"{st['n_params']} {cfg.param_dtype} parameters, init "
+        f"{st['init_s']:.1f} s): served {st['requests']} requests, "
+        f"{st['tokens']} tokens at {st['tokens_per_s']:.1f} tokens/s; "
+        f"prefill {[round(x, 2) for x in st['prefill_ms']]} ms (waves of "
+        f"{st['wave_lens']} tokens), decode {st['decode_ms_mean']:.2f} "
+        f"ms/step; long wave prefill {st['long_wave']['prefill_ms']:.1f} ms, "
+        f"decode {st['long_wave']['decode_ms_mean']:.2f} ms/step, dropped "
+        f"{dropped} of {tokens * cfg.top_k} choices a layer (C = "
+        f"{pre[0]['C']}); peak memory {st['peak_memory_bytes']} B (timed "
+        "with no routing recorder; the recorded runs: "
+        f"{st['recorded']['tokens_per_s']:.1f} tokens/s, decode "
+        f"{st['recorded']['decode_ms_mean']:.2f} ms/step, long wave prefill "
+        f"{st['long_wave']['recorded']['prefill_ms']:.1f} ms, decode "
+        f"{st['long_wave']['recorded']['decode_ms_mean']:.2f} ms/step; tokens "
+        f"equal {st['tokens_equal_recorded']}, "
+        f"{st['long_wave']['tokens_equal_recorded']})")
+    log(f"    vs the plain versions (teacher-forced and routed as the kernel "
+        f"path, every step): max |diff| "
+        f"{[round(v['max_abs_logit_diff'], 5) for v in vp]} (limit "
+        f"{MOE_LOGIT_TOL}); tokens the plain path routes otherwise "
+        f"{[v['routing']['tokens_differing'] for v in vp]} at margins "
+        f"{[v['routing']['margins'] for v in vp]} (limit {ROUTE_MARGIN}); "
+        f"the margin's gap moved by at most "
+        f"{[round(v['routing']['gap_moved_max'], 5) for v in vp]}")
+    log(f"    launches: {json.dumps(launches)}")
+    return st, kept
+
+
+def train_moe(dev, name) -> dict:
+    """:data:`MOE_TRAIN`'s steps of ``train.loop.make_train_step`` at the
+    config's reduced width in bf16 compute (hd 32; f32 parameters,
+    remat), from ``SyntheticLM(seed=0)``: every loss finite, every step's
+    aux loss (the MoE layers' sum, recorded in the step's forward) above
+    0; ms per step, peak memory, launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    cfg = dataclasses.replace(get_arch(name).reduced(),
+                              compute_dtype="bfloat16")
+    B, S, n = MOE_TRAIN
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0 = launch_counts()
+    state = train_loop.init_state(cfg, seed=0, device=dev)
+    step = train_loop.make_train_step(
+        cfg, adamw.OptConfig(lr=FAMILY_LR, warmup_steps=2, total_steps=n))
+    src = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=0)
+    rec = AuxRecorder()
+    try:
+        state, out = train_steps(dev, step, state, src, n)
+    finally:
+        rec.close()
+    # a step's forward records its n_moe aux values first; the remat
+    # recompute in its backward stops early, before the block returns
+    per = len(rec.aux) // n
+    check(per in (n_moe, 2 * n_moe) and per * n == len(rec.aux),
+          f"8d {name} training: {len(rec.aux)} MoE calls in {n} steps")
+    out.update(batch=B, seq=S, steps=n, head_dim=cfg.head_dim,
+               aux=[float(sum(rec.aux[i * per:i * per + n_moe]))
+                    for i in range(n)],
+               ms_per_step=float(np.median(out["ms"][1:])),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               launches=count_delta(n0, launch_counts(), MOE_LAUNCH_KEYS))
+    del state, step
+    torch.cuda.empty_cache()
+    check(all(np.isfinite(out["losses"])), f"8d {name} training: a loss is "
+          f"not finite: {out['losses']}")
+    check(all(a > 0 for a in out["aux"]), f"8d {name} training: aux "
+          f"{out['aux']}, want > 0")
+    log(f"  8d {name} training at reduced() in bf16 (hd {cfg.head_dim}), "
+        f"batch {B} x seq {S}: losses {[round(x, 4) for x in out['losses']]}"
+        f", aux {[round(x, 4) for x in out['aux']]}, "
+        f"{out['ms_per_step']:.1f} ms/step, peak {out['peak_memory_bytes']} B")
+    return out
+
+
+def train_moe_vs_plain(dev, name) -> dict:
+    """At the config's reduced width in bf16 (seed 1, batch 0 of
+    :data:`MOE_TRAIN`'s shape): the loss and every gradient leaf through
+    the kernels against the plain path, each run's routing recorded (the
+    forward and the remat recompute), the plain path routed as the kernel
+    path was (:class:`RouteRecorder`'s ``force``): the loss and leaves
+    held to phase 8b's tolerances, every decision the plain path would
+    have taken otherwise a near tie (:func:`compare_routes`)."""
+    import dataclasses
+    import torch
+    from repro_torch import pytree
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_arch(name).reduced(),
+                              compute_dtype="bfloat16")
+    B, S, _ = MOE_TRAIN
+    params = tfm.init_params(cfg, seed=1, device=dev)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                        seed=0).batch_for_step(0)
+    flat, treedef = pytree.flatten(params)
+
+    def loss_and_grads(force=None):
+        with RouteRecorder(force) as rec:
+            leaves = [p.detach().requires_grad_(True) for p in flat]
+            loss, m = tfm.loss_fn(cfg, pytree.unflatten(treedef, leaves),
+                                  batch)
+            grads = torch.autograd.grad(loss, leaves)
+        return float(loss.detach()), float(m["aux"].detach()), grads, \
+            rec.calls
+    n0 = launch_counts()
+    lk, ak, gk, rk = loss_and_grads()
+    used = count_delta(n0, launch_counts())
+    check(used["attention_bwd_dkdv"] == used["attention_bwd_dq"] ==
+          cfg.n_layers and used["rmsnorm_bwd"] == 2 * cfg.n_layers + 1,
+          f"8d {name}: the kernel path launched {json.dumps(used)}")
+    n1 = launch_counts()
+    with plain_training():
+        lp, ap, gp, rp = loss_and_grads(force=rk)
+    check(launch_counts() == n1, f"8d {name}: the plain path launched a "
+          "kernel")
+    route = compare_routes(on_host(rk), on_host(rp), f"8d {name} training")
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(gk, gp)]
+    out = dict(arch=name, reduced=True, head_dim=cfg.head_dim, batch=B,
+               seq=S, loss_kernel=lk, loss_plain=lp,
+               loss_rel_err=abs(lk - lp) / abs(lp), aux_kernel=ak,
+               aux_plain=ap, max_grad_rel_err=max(rel), routing=route,
+               loss_tol=TRAIN_LOSS_TOL, grad_tol=TRAIN_GRAD_TOL)
+    log(f"  8d {name} gradients, kernels vs plain (reduced, bf16): "
+        f"{json.dumps(out)}")
+    check(out["loss_rel_err"] <= TRAIN_LOSS_TOL, f"8d {name}: loss {lk} vs "
+          f"plain {lp}")
+    check(out["max_grad_rel_err"] <= TRAIN_GRAD_TOL, f"8d {name}: a "
+          f"gradient leaf is {max(rel)} off the plain path's")
+    del params, gk, gp
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def refusals():
+    """While open, :func:`check` notes each failing check's message in the
+    list it yields instead of raising: what the checks refuse in a run
+    with a planted fault."""
+    global check
+    real, seen = check, []
+
+    def note(ok, what):
+        if not ok:
+            seen.append(what)
+    check = note
+    try:
+        yield seen
+    finally:
+        check = real
+
+
+def faulty_attention(fault, sms):
+    """A stand-in for ``layers.flash_attention`` (which ``layers.attention``
+    calls) that runs the kernels with a planted fault: ``"dims"`` zeroes
+    output dims 104-111 of every call at hd 112 (the last 8 of the split
+    kernel's 28-dim score quarter and of the padded prefill tile's stored
+    columns); ``"split"`` merges a split decode's kernel partials without
+    their last split (the most recent keys lost)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+    real = layers.flash_attention
+
+    def call(q, k, v, *, causal, q_offset=0, kv_len=None):
+        if fault == "dims":
+            o = real(q, k, v, causal=causal, q_offset=q_offset,
+                     kv_len=kv_len)
+            dims = torch.arange(o.shape[-1], device=o.device)
+            return o.masked_fill((dims >= 104) & (dims < 112), 0)
+        if fa.variant_of(q, k) != "decode_split":
+            return real(q, k, v, causal=causal, q_offset=q_offset,
+                        kv_len=kv_len)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        kw = dict(causal=causal, q_offset=q_offset, kv_len=kv_len)
+        ranges = fa.decode_splits(fa.visible_keys(q.shape[1], k.shape[1],
+                                                  **kw),
+                                  q.shape[0] * k.shape[2], sms)
+        m, l, acc = fa.decode_partials_cuda(q, k, v, ranges, **kw)
+        return fa.rows_to_heads(fa.combine_partials(
+            m[:, :, :-1], l[:, :, :-1], acc[:, :, :-1]), q.shape[1]).to(
+                q.dtype)
+    return call
+
+
+# planted faults read against phase 8d's model-level checks: (fault, wave)
+MOE_FAULTS = (("dims", "launcher"), ("split", "long"))
+
+
+def moe_fault_readings(dev, kept) -> list:
+    """kimi-k2 served with a planted fault in row 9 (:func:`faulty_attention`:
+    dims 104-111 zeroed over the launcher's first wave, the last split lost
+    over the long wave), each wave teacher-forced against the plain
+    versions as the served waves are (:func:`hold_wave`) with the checks'
+    refusals noted (:func:`refusals`): the largest logit difference
+    against :data:`MOE_LOGIT_TOL`, the tokens the plain path routes
+    otherwise and their largest margin against :data:`ROUTE_MARGIN`.  The
+    zeroed dims must be refused by the logit or the routing limit.  Run
+    after the main path's counts are read (these runs launch row 9)."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ServeEngine
+    cfg, params = kept["cfg"], kept["params"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = {"launcher": (256, sorted(kept["reqs"], key=lambda r: len(
+        r.prompt))[:4]), "long": (MOE_LONG["cache"], kept["long_reqs"])}
+    out = []
+    for fault, key in MOE_FAULTS:
+        max_len, wave = waves[key]
+        eng = ServeEngine(cfg, params, batch_size=4, max_len=max_len,
+                          device=dev)
+        real = layers.flash_attention
+        layers.flash_attention = faulty_attention(fault, sms)
+        try:
+            results, _, rec, routes = serve_moe_wave(dev, eng, wave)
+        finally:
+            layers.flash_attention = real
+        with refusals() as seen:
+            v = hold_wave(dev, eng, sorted(wave, key=lambda r: len(r.prompt)),
+                          results, rec.logits, routes)
+        m = v["routing"]["max_margin"]
+        by = [x for x, hit in (
+            ("logits", v["max_abs_logit_diff"] > MOE_LOGIT_TOL),
+            ("routing", m is not None and m >= ROUTE_MARGIN)) if hit]
+        r = dict(fault=fault, wave=key, steps=v["steps"],
+                 max_abs_logit_diff=v["max_abs_logit_diff"],
+                 logit_limit=MOE_LOGIT_TOL,
+                 tokens_routed_otherwise=v["routing"]["tokens_differing"],
+                 max_margin=m, margin_limit=ROUTE_MARGIN, refused_by=by,
+                 refusals=len(seen), first_refusals=seen[:3])
+        out.append(r)
+        log(f"  8d planted fault in row 9 ({fault}, {key} wave of "
+            f"{len(wave)} requests, {v['steps']} steps): max |diff| "
+            f"{v['max_abs_logit_diff']:.5f} (limit {MOE_LOGIT_TOL}), "
+            f"{r['tokens_routed_otherwise']} tokens routed otherwise, "
+            f"largest margin {m} (limit {ROUTE_MARGIN}); refused by "
+            f"{by or 'neither limit'}; {len(seen)} checks failed: "
+            f"{seen[:2]}")
+        del eng, rec, routes, results
+    check(out[0]["refused_by"], "8d: kimi-k2 served with row 9's dims "
+          "104-111 zeroed passes the logit and routing limits")
+    return out
+
+
+# row 9 at kimi-k2's heads (64/8, hd 112): the launcher's cache of 256
+# (every case of attention_cases at B = 4, S = 27) and the long wave's
+# 4104 (its decode cases; S = 4080 puts the case "decode" at 4096 keys,
+# 16 splits of 256, and "decode_past_cache" reads all 4104; the long
+# prefill is timed in family_attention_times), f32 and bf16
+MOE_ATTN_CASES = {256: (4, 27), MOE_LONG["cache"]: (4, 4080)}
+
+
+def moe_attention_holds(dev, cfg) -> dict:
+    """Row 9 at ``cfg``'s heads and head dim against its plain version
+    (:func:`attention_holds`) at :data:`MOE_ATTN_CASES`: the wrapper, the
+    split kernel's partials and the combine pass alone and the planted
+    lost split (case ``decode``) at both caches, the bf16 decode mid the
+    long cache timed beside SDPA and its bound.  Returns the errors by
+    dtype and variant, that time and the planted readings."""
+    import torch
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(19)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    errs, times, planted = lm_errs(), {}, {}
+    for max_len, (B, S) in MOE_ATTN_CASES.items():
+        cases = attention_cases(B, S, max_len, H // Hkv)
+        if max_len != 256:
+            cases = {k: c for k, c in cases.items() if k.startswith("decode")}
+        for dtn in LM_TOL:
+            long_bf16 = max_len != 256 and dtn == "bfloat16"
+            t, pl = attention_holds(dev, gen, sms, errs, dtn, H, Hkv, hd,
+                                    cases, ("decode",) if long_bf16 else ())
+            times.update(t)
+            planted.update({f"{dtn} cache {max_len}": x
+                            for x in pl.values()})
+    torch.cuda.empty_cache()
+    out = dict(errors={dtn: {k: errs[dtn][k] for k in (
+        "flash_attention", "decode_split", "decode_combine", "prefill_mma",
+        "tiled_f32")} for dtn in errs},
+        decode=times["flash_attention decode bfloat16"], planted=planted)
+    d = out["decode"]
+    log(f"  8d row 9 at {cfg.name}'s decode ({d['shape']}): {d['ms']:.4f} ms "
+        f"({d['ms_from']}), SDPA {d['library_ms']:.4f} ms, plain "
+        f"{d['plain_ms']:.3f} ms, bound {d['bound_ms']:.5f} ms "
+        f"({d['bound_by']}); {d['n_split']} splits; errors "
+        f"{json.dumps(out['errors'])}; planted lost split "
+        f"{json.dumps(planted)}")
+    return out
+
+
+def moe_norm_widths(dev) -> list:
+    """Row 10 at the MoE models' widths, d 5120 and 7168 (the decode
+    step's 4 rows, a wave's 128, the long wave's 16384), every variant
+    that takes them against the plain version (:func:`phase_norm_variants`;
+    bf16 takes ``split``)."""
+    from repro_torch.kernels import rmsnorm as rn
+    for d in (5120, 7168):
+        check(rn.norm_variant(d, 2) == "split", f"rmsnorm at d {d} bf16 "
+              f"takes {rn.norm_variant(d, 2)}, not split")
+    return phase_norm_variants(dev, rows_list=(4, 128, 16384),
+                               ds=(5120, 7168))
+
+
+def phase_moe(dev) -> dict:
+    """Phase 8d: llama4-scout and kimi-k2 trained at their reduced width
+    in bf16 (:func:`train_moe`), then served at full width and 2 layers
+    (:func:`serve_moe`); the launches of the main path (the counts set to
+    0 by the caller just before) read after them; then kimi-k2 served with
+    planted faults (:func:`moe_fault_readings`), the training's kernels
+    against the plain path, row 10 at the models' widths and row 9 at
+    kimi-k2's shapes (hd 112): timed at its prefills, held at its cases
+    (:func:`moe_attention_holds`)."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False    # as phase 7 sets it
+    t0 = time.perf_counter()
+    out, kept, trained = {}, None, {}
+    for name in MOE_ARCHS:
+        trained[name] = train_moe(dev, name)
+    for name in MOE_ARCHS:
+        t1 = time.perf_counter()
+        out[name], k = serve_moe(dev, name, keep=name == MOE_ARCHS[-1])
+        kept = k or kept
+        out[name]["seconds"] = time.perf_counter() - t1
+        out[name]["train"] = trained[name]
+    launches = {k: v for k, v in launch_counts().items()
+                if k in MOE_LAUNCH_KEYS}
+    out["launches"] = launches
+    out["main_path_s"] = time.perf_counter() - t0
+    log(f"  main-path launches (phase 8d): {json.dumps(launches)}")
+    out["faults"] = moe_fault_readings(dev, kept)
+    del kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name in MOE_ARCHS:
+        by = out[name]["launches"]["flash_attention_by"]
+        for k in MAIN_ATTENTION_VARIANTS:
+            check(by[k] > 0, f"8d {name}: attention variant {k} was never "
+                  "launched")
+        check(out[name]["launches"]["rmsnorm_by"]["split"] > 0, f"8d {name}:"
+              " rmsnorm's split variant was never launched")
+        by = out[name]["train"]["launches"]["attention_bwd_by"]
+        check(by["dq_mma"] == by["dkdv_mma"] > 0, f"8d {name} training "
+              f"launched the backward kernels {json.dumps(by)}")
+    for name in MOE_ARCHS:
+        out[name]["train"]["vs_plain"] = train_moe_vs_plain(dev, name)
+    out["norm_widths"] = moe_norm_widths(dev)
+    kimi = get_arch("kimi-k2-1t-a32b")
+    check(kimi.head_dim == 112, f"kimi-k2's head dim is {kimi.head_dim}")
+    out["attention_times"] = family_attention_times(dev, kimi, tag="8d")
+    out["attention_hd112"] = moe_attention_holds(dev, kimi)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def train_rows(errs, times, launches) -> list:
@@ -5407,6 +6170,13 @@ def main() -> int:
         f"({families['seconds']:.1f} s; its main path "
         f"{families['main_path_s']:.1f} s)")
 
+    log("== phase 8d: MoE at full width (main path: counts from here on)")
+    reset_counts()
+    moe_out = phase_moe(dev)
+    log(f"  phase 8d done at {time.perf_counter() - t_start:.1f} s "
+        f"({moe_out['seconds']:.1f} s; its main path "
+        f"{moe_out['main_path_s']:.1f} s)")
+
     log("== phase 9: summary")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=ROWS[k][0], pallas=ROWS[k][1],
@@ -5447,6 +6217,28 @@ def main() -> int:
         row3_us_per_cycle=times["fire_block_batched"]["us_per_cycle"],
         by_state=mf_row["times"]))
     kernels += lm_rows(lm_errs, lm_times, lm_launches, norm_variants)
+    for k in kernels:                  # phase 8d's MoE models beside
+        if k["name"] in LM_ROWS:
+            k["launches_moe"] = {
+                name: dict(head_dim=moe_out[name]["head_dim"],
+                           d_model=moe_out[name]["d_model"],
+                           launches=moe_out[name]["launches"][k["name"]],
+                           launches_by=moe_out[name]["launches"][
+                               f"{k['name']}_by"])
+                for name in MOE_ARCHS}
+        if k["name"] == "flash_attention":
+            k["hd112"] = {key: {f: t[f] for f in (
+                "ms", "ms_from", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "tol_ratio", "shape")}
+                for key, t in moe_out["attention_times"].items()}
+            k["variants_hd112_launches"] = moe_out["kimi-k2-1t-a32b"][
+                "launches"]["flash_attention_by"]
+            h = moe_out["attention_hd112"]
+            k["hd112"]["decode"] = {f: h["decode"][f] for f in (
+                "ms", "ms_from", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")}
+            k["hd112_errors"] = h["errors"]
+            k["hd112_planted_lost_split"] = h["planted"]
     kernels += train_rows(train_errs, train_times, train_launches)
     for k in kernels:       # rows 1-8 and 11 bit for bit, 9-10, 12-14 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
@@ -5461,6 +6253,7 @@ def main() -> int:
     log(json.dumps({"lm_kernel_times": lm_times}))
     log(json.dumps({"lm_training": train}))
     log(json.dumps({"lm_families": families}))
+    log(json.dumps({"moe": moe_out}))
     log(json.dumps({"table1_us_per_cycle": table1}))
     log(json.dumps({"compile": compiled}))
     log(json.dumps({"sched_vs_fire_block": versus}))

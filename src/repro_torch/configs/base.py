@@ -5,10 +5,11 @@ One :class:`ArchConfig` per assigned architecture (exact numbers from the
 assignment table).  Every config is selectable via ``--arch <id>`` in the
 launchers (``python -m repro_torch.launch.serve``, ``.train``).  The port
 runs the dense family (RMSNorm or LayerNorm, SwiGLU or GELU:
-internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b) and
-the attention-free RWKV6 (rwkv6-1.6b); the other configs are kept so that
-names and reduced sizes agree with the JAX package, and the model refuses
-them (``NotImplementedError``).
+internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b), MoE
+(llama4-scout-17b-a16e, kimi-k2-1t-a32b) and the attention-free RWKV6
+(rwkv6-1.6b); the other configs are kept so that names and reduced sizes
+agree with the JAX package, and the model refuses them
+(``NotImplementedError``).
 
 Shape sets (assignment): each architecture is paired with
   train_4k     seq=4096,   global_batch=256   -> train_step

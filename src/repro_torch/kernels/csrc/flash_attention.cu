@@ -52,6 +52,13 @@
 //    were m64n64k16, nvcc placed P's bf16 fragments in the registers
 //    that hold Q's, which the next key tile still reads (the SASS loads
 //    Q once and never again), so from the second tile on S was P.K^T.
+//    hd 112 (kimi-k2's 7168 / 64) runs the hd 128 instantiation's shared
+//    layout and products (flash_attention_wgmma_kernel<128, 112>): each
+//    row's 112 dims land in a 128-wide swizzled tile whose dims 112-127
+//    are zero-filled (cp.async with a zero source size), the 128-wide
+//    Q.K^T (the zeros add nothing) and P.V run as at hd 128, and 112
+//    dims are stored (P.V's last 16 are dropped): 128/112 = 1.14x the
+//    products for the same bytes.
 // 2. flash_attention_kernel<HD> (f32, G * Sq > 16): the CUDA-core kernel
 //    (TF32 would not hold the f32 tolerance), described below.
 // 3. flash_attention_split_kernel<T, HD, RB> + flash_attention_combine_
@@ -68,7 +75,10 @@
 //    workspace.  The combine kernel (one warp per row) merges them:
 //    m* = max m_s, l* = sum l_s e^(m_s - m*), o = sum acc_s e^(m_s - m*) /
 //    l*, 0 where l* = 0; a split whose keys are all masked (m_s = -inf)
-//    adds exactly 0.
+//    adds exactly 0.  At hd 112 the split kernel's P.V runs on 112 of its
+//    128 threads (one output dim each) and a warp's quarter of the score
+//    dims (28) is read 8 bytes at a time; the f32 kernel (2.) reads V by
+//    twos (14 dims a thread).
 // 4. flash_attention_bwd_dq_kernel<HD> + flash_attention_bwd_dkdv_
 //    kernel<HD> (training, f32): the gradient of the prefill kernels'
 //    function at q_offset 0 over every key, from their row log-sum-exp
@@ -613,11 +623,18 @@ __device__ __forceinline__ void load_f32(const T* p, float* o) {
       }
     }
   } else {
-    static_assert(N == 4, "4 bf16 per 8-byte read");
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-    const float2 f0 = __bfloat1622float2(h[0]), f1 = __bfloat1622float2(h[1]);
-    o[0] = f0.x; o[1] = f0.y; o[2] = f1.x; o[3] = f1.y;
+    // 4 bf16 per 8-byte read (hd 16: N = 4; hd 112: N = 28, and only 8-byte
+    // alignment, the warps' quarters starting 56 bytes apart)
+    static_assert(N % 4 == 0, "4 bf16 per 8-byte read");
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+      const float2 f0 = __bfloat1622float2(h[0]);
+      const float2 f1 = __bfloat1622float2(h[1]);
+      o[4 * i] = f0.x; o[4 * i + 1] = f0.y; o[4 * i + 2] = f1.x;
+      o[4 * i + 3] = f1.y;
+    }
   }
 }
 
@@ -700,14 +717,19 @@ struct SwzTile {
   }
 };
 
-template <int HD>
+// HD: the tiles' and products' width; HDG <= HD: the tensors' head dim
+// (dims HDG..HD-1 of every tile zero-filled, never stored)
+template <int HD, int HDG = HD>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_wgmma_kernel(const Args a) {
   constexpr int KS = HD / 16;       // 16-dim steps of Q.K^T
   constexpr int NO = HD / 8;        // 8-dim tiles of the output
+  constexpr int NOG = HDG / 8;      // ... of them stored
   constexpr int NS = kWgKeys / 8;   // 8-key tiles of S
   using L = SwzTile<HD>;             // the K and V tiles' layout
   constexpr int CPR = L::CPR;
+  constexpr int CPG = HDG / 8;      // 16-byte chunks a row of the tensors
+  static_assert(HDG <= HD && HDG % 8 == 0, "the stored dims fit the tile");
   constexpr int NP = L::NP;         // B descriptors per P.V step
   constexpr int TILE = kWgKeys * HD;
   constexpr int QLD = HD + kQPad;   // Q rows padded: ldmatrix conflict-free
@@ -733,10 +755,10 @@ flash_attention_wgmma_kernel(const Args a) {
 
   for (int e = tid; e < kWgRows * CPR; e += kWgThreads) {
     const int r = e / CPR, c = e % CPR;
-    const bool ok = r < rows;
+    const bool ok = r < rows && c < CPG;
     const bf16* src =
         ok ? q + ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H +
-                  kvh * G + r % G) * HD + c * 8
+                  kvh * G + r % G) * HDG + c * 8
            : q;
     cp_async16(Qs + r * QLD + c * 8, src, ok);
   }
@@ -748,10 +770,10 @@ flash_attention_wgmma_kernel(const Args a) {
     const int k0 = kt * kWgKeys;
     for (int e = tid; e < kWgKeys * CPR; e += kWgThreads) {
       const int j = e / CPR, c = e % CPR;
-      const bool ok = k0 + j < kend;
+      const bool ok = k0 + j < kend && c < CPG;
       const size_t off =
           ok ? ((static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv + kvh) *
-                   HD + c * 8
+                   HDG + c * 8
              : 0;
       cp_async16(Ks + L::off(j, c), k + off, ok);
       cp_async16(Vs + L::off(j, c), v + off, ok);
@@ -869,29 +891,30 @@ flash_attention_wgmma_kernel(const Args a) {
             r / G] = l_r[i] == 0.f ? -INFINITY
                                    : (m_r[i] + log2f(l_r[i])) * kLn2;
     bf16* dst = o + ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H +
-                     kvh * G + r % G) * HD + (lane & 3) * 2;
+                     kvh * G + r % G) * HDG + (lane & 3) * 2;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < NOG; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
           __floats2bfloat162_rn(acc[n * 4 + 2 * i] * inv,
                                 acc[n * 4 + 2 * i + 1] * inv);
   }
 }
 
-template <int HD>
+template <int HD, int HDG = HD>
 int launch_wgmma(Args a, int B, cudaStream_t stream) {
   constexpr size_t smem = wgmma_smem_bytes<HD>();
   static bool attr_set = false;
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_wgmma_kernel<HD>,
+        flash_attention_wgmma_kernel<HD, HDG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   a.BQ = kWgRows / a.G;
   const dim3 grid((a.Sq + a.BQ - 1) / a.BQ, a.Hkv, B);
-  flash_attention_wgmma_kernel<HD><<<grid, kWgThreads, smem, stream>>>(a);
+  flash_attention_wgmma_kernel<HD, HDG>
+      <<<grid, kWgThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -953,7 +976,10 @@ flash_attention_kernel(const Args a) {
   constexpr int QS = HD + kPad;    // shared row strides, in floats
   constexpr int PS = R + kPad;
   constexpr int DN = HD / kTX;     // output dims per thread
-  constexpr int VD = DN < 4 ? DN : 4;
+  // dims per shared read of V: 4 where they divide DN (hd 112: DN = 14,
+  // read by twos)
+  constexpr int VD = DN % 4 == 0 ? 4 : DN % 2 == 0 ? 2 : 1;
+  static_assert(DN * kTX == HD, "kTX groups cover the head dims");
   constexpr int NC = HD / 8;       // 8-element chunks per row
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
@@ -1194,6 +1220,8 @@ flash_attention_split_kernel(const SplitArgs a) {
   constexpr int KPG = kSplitKeys / KG;      // keys per group
   static_assert(RB * HD <= 4 * RB * kSplitKeys,
                 "the final reduction fits the score parts");
+  static_assert(KG == 1 || KG * HD == kSplitThreads,
+                "key groups of whole threads");
   extern __shared__ float4 smem4[];
   T* const kvs = reinterpret_cast<T*>(smem4);
   float* const Qs =
@@ -1252,6 +1280,8 @@ flash_attention_split_kernel(const SplitArgs a) {
     l_r[i] = 0.f;
   }
   const int dcol = tid % HD, kg = tid / HD;   // output dim, key group
+  // hd 112: one key group of 112 threads; the last 16 sit out P.V
+  const bool pv = tid < KG * HD;
   float acc[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) acc[r] = 0.f;
@@ -1318,17 +1348,19 @@ flash_attention_split_kernel(const SplitArgs a) {
     // acc = acc * corr + P . V over this thread's keys, at dim dcol
 #pragma unroll
     for (int r = 0; r < RB; ++r) acc[r] *= Cs[r];
+    if (pv) {
 #pragma unroll
-    for (int j4 = 0; j4 < KPG; j4 += 4) {
-      const int j = kg * KPG + j4;
-      float vj[4];
+      for (int j4 = 0; j4 < KPG; j4 += 4) {
+        const int j = kg * KPG + j4;
+        float vj[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) vj[e] = as_f32(Vs[(j + e) * LD + dcol]);
+        for (int e = 0; e < 4; ++e) vj[e] = as_f32(Vs[(j + e) * LD + dcol]);
 #pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        const float4 p =
-            *reinterpret_cast<const float4*>(Ps + r * kSplitKeys + j);
-        acc[r] += p.x * vj[0] + p.y * vj[1] + p.z * vj[2] + p.w * vj[3];
+        for (int r = 0; r < RB; ++r) {
+          const float4 p =
+              *reinterpret_cast<const float4*>(Ps + r * kSplitKeys + j);
+          acc[r] += p.x * vj[0] + p.y * vj[1] + p.z * vj[2] + p.w * vj[3];
+        }
       }
     }
   }
@@ -1347,7 +1379,7 @@ flash_attention_split_kernel(const SplitArgs a) {
   if constexpr (KG == 1) {
 #pragma unroll
     for (int r = 0; r < RB; ++r)
-      if (r < R) a.acc[(p0 + r) * HD + dcol] = acc[r];
+      if (r < R && pv) a.acc[(p0 + r) * HD + dcol] = acc[r];
   } else {
     // the score parts are free (last read before the last tile's second
     // barrier): [RB][HD], key groups added in order
@@ -1394,6 +1426,7 @@ int launch_split_hd(const SplitArgs& a, int B, int hd, cudaStream_t stream) {
     case 16: return launch_split_rows<T, 16>(a, B, stream);
     case 32: return launch_split_rows<T, 32>(a, B, stream);
     case 64: return launch_split_rows<T, 64>(a, B, stream);
+    case 112: return launch_split_rows<T, 112>(a, B, stream);
     case 128: return launch_split_rows<T, 128>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -2472,8 +2505,7 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* o,
                void* dk, void* dv, int B, int Sq, int Skv, int H, int Hkv,
                int hd, int dtype, int causal, bool is_dq, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || Hkv <= 0 || H % Hkv != 0 ||
-      H / Hkv > 64 || (dtype != 0 && dtype != 1) ||
-      (hd != 16 && hd != 32 && hd != 64 && hd != 128))
+      H / Hkv > 64 || (dtype != 0 && dtype != 1) || hd <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{};
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse; a.D = D;
@@ -2488,7 +2520,8 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* o,
     case 16: return launch_bwd_mma<16>(a, B, is_dq, s);
     case 32: return launch_bwd_mma<32>(a, B, is_dq, s);
     case 64: return launch_bwd_mma<64>(a, B, is_dq, s);
-    default: return launch_bwd_mma<128>(a, B, is_dq, s);
+    case 128: return launch_bwd_mma<128>(a, B, is_dq, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -2497,8 +2530,7 @@ bool fill_args(Args& a, const void* q, const void* k, const void* v,
                void* o, int B, int Sq, int Skv, int H, int Hkv, int hd,
                int causal, int q_offset, int kv_len) {
   if (B < 0 || Sq < 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > 64 ||
-      Skv < 0 || q_offset < 0 ||
-      (hd != 16 && hd != 32 && hd != 64 && hd != 128))
+      Skv < 0 || q_offset < 0 || hd <= 0)
     return false;
   a = Args{};
   a.q = q; a.k = k; a.v = v; a.o = o;
@@ -2515,10 +2547,13 @@ bool fill_args(Args& a, const void* q, const void* k, const void* v,
 extern "C" {
 
 // o = attention(q, k, v) on `stream` (shapes and mask above); q, k, v, o
-// contiguous, 16-byte aligned; hd in {16, 32, 64, 128}; G = H / Hkv at
-// most 64; `dtype` 0 = float32, 1 = bfloat16.  Each returns
-// cudaGetLastError() (0 = ok); arguments a kernel does not take return
-// cudaErrorInvalidValue.  The two prefill kernels also write each row's
+// contiguous, 16-byte aligned; hd in {16, 32, 64, 112, 128} (the forward
+// kernels; the backward's {16, 32, 64, 128}); G = H / Hkv at most 64;
+// `dtype` 0 = float32, 1 = bfloat16.  Each returns cudaGetLastError() (0
+// = ok); arguments a kernel does not take return cudaErrorInvalidValue,
+// a head dim without an instantiation among them (each `switch (hd)`
+// names its widths, and its default launches nothing; an empty call
+// returns 0 before it).  The two prefill kernels also write each row's
 // log-sum-exp of its scaled scores, f32 [B, H, Sq] (-inf for a row that
 // sees no key), where `lse` is not null (training; serving passes null).
 
@@ -2539,7 +2574,9 @@ int flash_attention_tiled_launch(const void* q, const void* k, const void* v,
     case 16: return launch_tiled<16>(a, B, s);
     case 32: return launch_tiled<32>(a, B, s);
     case 64: return launch_tiled<64>(a, B, s);
-    default: return launch_tiled<128>(a, B, s);
+    case 112: return launch_tiled<112>(a, B, s);
+    case 128: return launch_tiled<128>(a, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -2560,7 +2597,9 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
     case 16: return launch_wgmma<16>(a, B, s);
     case 32: return launch_wgmma<32>(a, B, s);
     case 64: return launch_wgmma<64>(a, B, s);
-    default: return launch_wgmma<128>(a, B, s);
+    case 112: return launch_wgmma<128, 112>(a, B, s);   // zero-padded
+    case 128: return launch_wgmma<128>(a, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

@@ -22,6 +22,11 @@ The Pallas kernel is the case ``q_offset = 0``, ``kv_len = Skv``.
 * otherwise bf16: ``prefill_mma`` — the tensor cores (``wgmma``);
 * otherwise f32: ``tiled_f32`` — the CUDA cores.
 
+The forward kernels take the head dims :data:`FWD_HEAD_DIMS`; at hd 112
+(kimi-k2) ``prefill_mma`` runs the hd 128 tiles and products with dims
+112-127 zero-filled and stores 112, the others have instantiations of
+their own.  The backward kernels take :data:`BWD_HEAD_DIMS`.
+
 Each launch counts one in ``flash_attention_cuda.launches_by[variant]``
 and in the total ``flash_attention_cuda.launches``.  CPU tensors take the
 plain version :func:`attention` and nothing else.  :func:`attention_partials`
@@ -54,7 +59,11 @@ import torch
 
 from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
-HEAD_DIMS = (16, 32, 64, 128)     # head dims the kernels are built for
+# head dims the kernels are built for: the forward kernels (hd 112 runs
+# the hd 128 layout with the last 16 dims zero; the split and CUDA-core
+# kernels have their own instantiation) and the backward kernels
+FWD_HEAD_DIMS = (16, 32, 64, 112, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 64                    # query heads per kv head they take
 PLAIN_Q_CHUNK = 1024              # query rows per step of the plain version
 SPLIT_ROWS = 16                   # G * Sq up to which decode splits the keys
@@ -405,7 +414,7 @@ def grad_error_ratio(got, want, tol: float) -> float:
 # ---------------------------------------------------------------------------
 # the wrapper
 # ---------------------------------------------------------------------------
-def _check(q, k, v):
+def _check(q, k, v, head_dims=FWD_HEAD_DIMS, what="the kernel"):
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if q.dtype not in DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
@@ -420,8 +429,8 @@ def _check(q, k, v):
     if Bk != B or hdk != hd or Hkv < 1 or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} does not match k "
                          f"{tuple(k.shape)}")
-    if hd not in HEAD_DIMS or H // Hkv > MAX_GROUP:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS} and at most "
+    if hd not in head_dims or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{what} takes head dims {head_dims} and at most "
                          f"{MAX_GROUP} query heads per kv head, got hd={hd}, "
                          f"G={H // Hkv}")
     for name, x in (("q", q), ("k", k), ("v", v)):
@@ -519,7 +528,8 @@ def combine_cuda(m, l, acc, out: torch.Tensor) -> torch.Tensor:
     from repro_torch.kernels import _build
     B, Sq, H, hd = out.shape
     Bm, Hkv, n, R = m.shape
-    if Bm != B or H % Hkv or R != Sq * (H // Hkv) or hd > max(HEAD_DIMS) or \
+    if Bm != B or H % Hkv or R != Sq * (H // Hkv) or \
+            hd > max(FWD_HEAD_DIMS) or \
             l.shape != m.shape or acc.shape != (*m.shape, hd) or \
             not all(x.dtype == torch.float32 and x.is_contiguous() and
                     x.device == out.device for x in (m, l, acc)) or \
@@ -618,10 +628,12 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
     and ``.launches``; CPU tensors take :func:`attention_backward`.
     Devices, dtypes, shapes or layouts the kernels do not take raise, as
     does a kernel that fails to launch (a bf16 call never falls back to the
-    f32 kernels)."""
+    f32 kernels).  The backward kernels take the head dims
+    :data:`BWD_HEAD_DIMS`: hd 112, which the forward kernels take, raises
+    a ``ValueError`` on the card (no plain fall-back)."""
     if {x.device.type for x in (q, k, v, o, lse, do)} == {"cpu"}:
         return attention_backward(q, k, v, o, lse, do, causal=causal)
-    _check(q, k, v)
+    _check(q, k, v, BWD_HEAD_DIMS, "the attention backward")
     for name, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device \
                 or not x.is_contiguous() or x.data_ptr() % 16:

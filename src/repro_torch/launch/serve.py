@@ -2,7 +2,20 @@
 ``python -m repro_torch.launch.serve --arch <id> [--full|--reduced]
 [--device cpu]``, ``<id>`` one of the configs the port runs
 (internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b,
-rwkv6-1.6b; the others raise ``NotImplementedError``).
+llama4-scout-17b-a16e, kimi-k2-1t-a32b, rwkv6-1.6b; the others raise
+``NotImplementedError``).
+
+The MoE configs run as the JAX package's do, with its group rule: a wave
+of B x S tokens must split into MoE groups of ``min(moe_group_size, B *
+S)`` tokens, else ``ValueError`` (the JAX package asserts).  At
+``--reduced`` (groups of 64) the default waves of 4 do not (4 x 25 = 100
+tokens): serve them with ``--batch-size 2``.  At full width (groups of
+512) the default waves pass.  ``--full`` does not fit one card for
+llama4-scout-17b-a16e (48 layers, 1.08e11 parameters) or kimi-k2-1t-a32b
+(61 layers, 1.03e12), and the launcher has no depth flag, as the JAX
+one has none: a run of either on the card builds
+:class:`~repro_torch.serve.engine.ServeEngine` itself on
+``dataclasses.replace(cfg, n_layers=2)`` (``chip_smoke.py`` phase 8d).
 
 The port of the JAX package's ``repro/launch/serve.py``, with its
 defaults: random parameters from seed 0, 8 requests with prompts of 4-32

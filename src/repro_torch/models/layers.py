@@ -38,7 +38,8 @@ def unsupported(what: str) -> NotImplementedError:
         f"{what} is not ported yet ({UNSUPPORTED}); the port serves and "
         "trains the dense family with RMSNorm or LayerNorm and SwiGLU or "
         "GELU (internlm2-1.8b, stablelm-1.6b, starcoder2-7b, "
-        "command-r-plus-104b) and RWKV6 (rwkv6-1.6b)")
+        "command-r-plus-104b), MoE (llama4-scout-17b-a16e, "
+        "kimi-k2-1t-a32b) and RWKV6 (rwkv6-1.6b)")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -162,10 +163,18 @@ def init_attn(cfg, gen, lead=(), device=None):
 
 
 def _normal(shape, std, dtype, gen, device):
-    """Normal(0, std²) draws from ``gen``, made in f32 and cast (one
-    tensor of f32 at a time)."""
-    return torch.randn(shape, generator=gen, device=device,
-                       dtype=torch.float32).mul_(std).to(dtype)
+    """Normal(0, std²) draws from ``gen``, made in f32 and cast.  A tensor
+    of another dtype than f32 with more than two axes is drawn one
+    trailing matrix at a time, so that no f32 copy of the whole tensor
+    lives beside it (kimi-k2's bf16 experts: 22.5 GB of f32 a stack)."""
+    if dtype == torch.float32 or len(shape) <= 2:
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.float32).mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for m in out.view(-1, *shape[-2:]):
+        m.copy_(torch.randn(shape[-2:], generator=gen, device=device,
+                            dtype=torch.float32).mul_(std))
+    return out
 
 
 def qkv_proj(cfg, p, x):
@@ -230,11 +239,13 @@ def attn_block(cfg, p, x, pos, *, causal=True, cache: KVCache | None = None):
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
-def init_mlp(cfg, gen, lead=(), device=None):
+def init_mlp(cfg, gen, lead=(), device=None, d=None, ff=None):
     """SwiGLU (w1, w3, w2) or GELU (fc1, b1, fc2, b2; biases zero)
     weights drawn from ``gen`` at the JAX package's scales; ``lead``
-    prepends stacking axes (layers)."""
-    d, ff = cfg.d_model, cfg.d_ff
+    prepends stacking axes (layers); ``d`` and ``ff`` default to the
+    config's ``d_model`` and ``d_ff`` (the MoE shared expert is
+    ``ff=moe_d_ff``)."""
+    d, ff = d or cfg.d_model, ff or cfg.d_ff
     pdt = dtype_of(cfg.param_dtype)
     if cfg.act == "swiglu":
         return {"w1": _normal((*lead, d, ff), d ** -0.5, pdt, gen, device),
@@ -246,6 +257,16 @@ def init_mlp(cfg, gen, lead=(), device=None):
                 "fc2": _normal((*lead, ff, d), ff ** -0.5, pdt, gen, device),
                 "b2": torch.zeros((*lead, d), dtype=pdt, device=device)}
     raise unsupported(f"act={cfg.act!r}")
+
+
+def mlp_shapes(cfg, lead=(), d=None, ff=None) -> dict:
+    """The shapes of :func:`init_mlp`'s tree."""
+    d, ff = d or cfg.d_model, ff or cfg.d_ff
+    if cfg.act == "swiglu":
+        return {"w1": (*lead, d, ff), "w3": (*lead, d, ff),
+                "w2": (*lead, ff, d)}
+    return {"fc1": (*lead, d, ff), "b1": (*lead, ff), "fc2": (*lead, ff, d),
+            "b2": (*lead, d)}
 
 
 def mlp_block(cfg, p, x):

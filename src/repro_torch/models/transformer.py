@@ -1,18 +1,21 @@
-"""The LM of the dense and RWKV6 families: its training loss and its
-serving steps (prefill and decode).
+"""The LM of the dense, MoE and RWKV6 families: its training loss and
+its serving steps (prefill and decode).
 
-The port of the dense and RWKV branches of the JAX package's
+The port of the dense, MoE and RWKV branches of the JAX package's
 ``repro/models/transformer.py``: an embedding, pre-norm layers, a final
 norm and an unembedding.  A dense layer is RMSNorm or LayerNorm, GQA
 attention with RoPE (and q/k/v and output biases where the config has
-them), a SwiGLU or GELU MLP; an RWKV6 layer is LayerNorm, the time-mix,
-LayerNorm, the channel-mix (:mod:`repro_torch.models.ssm`), and its
-decode state is the time-mix's f32 state and the two shifted tokens.
-Parameters are nested dicts of tensors with the JAX package's keys; the
-layers' weights are stacked along a leading ``[n_layers]`` axis, as the
-JAX package stacks them for ``lax.scan``, and walked in a Python loop
-(each layer a view, no copy).  The weights are held at the config's
-``param_dtype``.
+them), a SwiGLU or GELU MLP; an MoE layer has the MoE block
+(:mod:`repro_torch.models.moe`) in the MLP's place, and returns its aux
+loss; an RWKV6 layer is LayerNorm, the time-mix, LayerNorm, the
+channel-mix (:mod:`repro_torch.models.ssm`), and its decode state is the
+time-mix's f32 state and the two shifted tokens.  Parameters are nested
+dicts of tensors with the JAX package's keys; the layers' weights are
+stacked along a leading axis, as the JAX package stacks them for
+``lax.scan`` (an MoE model: its ``n_dense_layers`` leading dense layers
+under ``dense_layers`` [nd], its MoE layers under ``layers`` [L - nd]),
+and walked in a Python loop (each layer a view, no copy), the dense stack
+first.  The weights are held at the config's ``param_dtype``.
 
 Training (:func:`forward`, :func:`loss_fn`) keeps the parameters at
 their own dtype (f32) and casts each weight to the compute dtype at its
@@ -23,10 +26,11 @@ layers' gradients once), and with ``cfg.remat`` each layer runs under
 Serving casts them once (:func:`cast_params`).
 
 The dense family (internlm2-1.8b, stablelm-1.6b, starcoder2-7b,
-command-r-plus-104b) and RWKV6 (rwkv6-1.6b) run here.  A config outside
-them (MoE, the Mamba2 hybrid, the encoder-decoder, frontends,
-``fused_qkv=False``) raises ``NotImplementedError`` naming the ROADMAP
-item; it never runs through a different path.
+command-r-plus-104b), MoE (llama4-scout-17b-a16e, kimi-k2-1t-a32b) and
+RWKV6 (rwkv6-1.6b) run here.  A config outside them (the Mamba2 hybrid,
+the encoder-decoder, frontends, ``fused_qkv=False``) raises
+``NotImplementedError`` naming the ROADMAP item; it never runs through a
+different path.
 """
 from __future__ import annotations
 
@@ -35,17 +39,17 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import pytree
 from repro_torch.core.engine import resolve_device
-from repro_torch.models import ssm
+from repro_torch.models import moe, ssm
 from repro_torch.models.layers import (KVCache, apply_norm, attn_block,
                                        dtype_of, init_attn, init_mlp,
-                                       init_norm, mlp_block, unsupported)
+                                       init_norm, mlp_block, mlp_shapes,
+                                       unsupported)
 
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config outside the dense
-    family (RMSNorm or LayerNorm, SwiGLU or GELU) and RWKV6."""
-    for bad, what in ((cfg.n_experts, "MoE"),
-                      (cfg.family == "hybrid", "the Mamba2 hybrid"),
+    family (RMSNorm or LayerNorm, SwiGLU or GELU), MoE and RWKV6."""
+    for bad, what in ((cfg.family == "hybrid", "the Mamba2 hybrid"),
                       (cfg.enc_dec, "the encoder-decoder"),
                       (cfg.frontend != "none", f"frontend={cfg.frontend!r}"),
                       (cfg.norm not in ("rmsnorm", "layernorm"),
@@ -84,10 +88,19 @@ def init_params(cfg, seed: int = 0, device="cuda"):
                        "tm": ssm.init_rwkv6(cfg, gen, (L,), dev),
                        "ln2": init_norm(cfg, d, (L,), dev)}
         return p
-    p["layers"] = {"ln1": init_norm(cfg, d, (L,), dev),
-                   "attn": init_attn(cfg, gen, (L,), dev),
-                   "ln2": init_norm(cfg, d, (L,), dev),
-                   "mlp": init_mlp(cfg, gen, (L,), dev)}
+
+    def stack(n, ffn, init_ffn):
+        return {"ln1": init_norm(cfg, d, (n,), dev),
+                "attn": init_attn(cfg, gen, (n,), dev),
+                "ln2": init_norm(cfg, d, (n,), dev),
+                ffn: init_ffn(cfg, gen, (n,), dev)}
+    if cfg.n_experts:
+        nd = cfg.n_dense_layers
+        if nd:
+            p["dense_layers"] = stack(nd, "mlp", init_mlp)
+        p["layers"] = stack(L - nd, "moe", moe.init_moe)
+        return p
+    p["layers"] = stack(L, "mlp", init_mlp)
     return p
 
 
@@ -96,7 +109,7 @@ def param_shapes(cfg) -> dict:
     :func:`init_params` makes (and the JAX package's ``init_params``
     makes for the same config), by the same keys."""
     check_supported(cfg)
-    L, d, V, ff = cfg.n_layers, cfg.d_model, cfg.vocab, cfg.d_ff
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
     hd, H, Hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
 
     def norm(*lead):
@@ -111,17 +124,23 @@ def param_shapes(cfg) -> dict:
         p["layers"] = {"ln1": norm(L), "tm": ssm.rwkv6_shapes(cfg, (L,)),
                        "ln2": norm(L)}
         return p
-    attn = {"wqkv": (L, d, (H + 2 * Hkv) * hd), "wo": (L, H * hd, d)}
-    if cfg.qkv_bias:
-        attn["bqkv"] = (L, (H + 2 * Hkv) * hd)
-    if cfg.attn_out_bias:
-        attn["bo"] = (L, d)
-    if cfg.act == "swiglu":
-        mlp = {"w1": (L, d, ff), "w3": (L, d, ff), "w2": (L, ff, d)}
-    else:
-        mlp = {"fc1": (L, d, ff), "b1": (L, ff), "fc2": (L, ff, d),
-               "b2": (L, d)}
-    p["layers"] = {"ln1": norm(L), "attn": attn, "ln2": norm(L), "mlp": mlp}
+
+    def stack(n, moe_ffn=False):
+        attn = {"wqkv": (n, d, (H + 2 * Hkv) * hd), "wo": (n, H * hd, d)}
+        if cfg.qkv_bias:
+            attn["bqkv"] = (n, (H + 2 * Hkv) * hd)
+        if cfg.attn_out_bias:
+            attn["bo"] = (n, d)
+        ffn = {"moe": moe.moe_shapes(cfg, (n,))} if moe_ffn else \
+            {"mlp": mlp_shapes(cfg, (n,))}
+        return {"ln1": norm(n), "attn": attn, "ln2": norm(n), **ffn}
+    if cfg.n_experts:
+        nd = cfg.n_dense_layers
+        if nd:
+            p["dense_layers"] = stack(nd)
+        p["layers"] = stack(L - nd, moe_ffn=True)
+        return p
+    p["layers"] = stack(L)
     return p
 
 
@@ -140,9 +159,14 @@ def cast_params(cfg, params):
     and rounds them to the activations' dtype itself, LayerNorm casts its
     weight and bias at use.  RWKV6's decay (``w0``, ``wA``, ``wB``), bonus
     ``u`` and groupnorm ``ln_w`` stay too: the JAX package reads them in
-    f32, so a rounding at load would change the decay and the bonus."""
+    f32, so a rounding at load would change the decay and the bonus.  The
+    MoE router stays at the parameters' dtype: the JAX package computes
+    the router logits in f32 from it, so a rounding at load could change
+    which experts are chosen."""
     cdt = dtype_of(cfg.compute_dtype)
-    keep = {("final_norm",), ("layers", "ln1"), ("layers", "ln2")}
+    keep = {("final_norm",), ("layers", "ln1"), ("layers", "ln2"),
+            ("dense_layers", "ln1"), ("dense_layers", "ln2"),
+            ("layers", "moe", "router")}
     if cfg.rwkv:
         keep |= {("layers", "tm", k) for k in ssm.F32_LEAVES}
 
@@ -155,8 +179,18 @@ def cast_params(cfg, params):
     return cast(params, ())
 
 
+def _stack_len(stack) -> int:
+    return pytree.leaves(stack)[0].shape[0]
+
+
 def layer(params, i: int):
-    """Layer ``i``'s parameters: views into the stacked tensors."""
+    """Layer ``i``'s parameters (counted over the whole model: an MoE
+    model's dense layers first): views into the stacked tensors."""
+    if "dense_layers" in params:
+        nd = _stack_len(params["dense_layers"])
+        if i < nd:
+            return pytree.tree_map(lambda t: t[i], params["dense_layers"])
+        i -= nd
     return pytree.tree_map(lambda t: t[i], params["layers"])
 
 
@@ -192,6 +226,15 @@ def _dense_body(cfg, lp, x, pos, cache=None, causal=True):
     return x, new_cache
 
 
+def _moe_body(cfg, lp, x, pos, cache=None):
+    """One MoE layer; returns x, the layer's aux loss and its cache."""
+    a, new_cache = attn_block(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
+                              pos, causal=True, cache=cache)
+    x = x + a
+    y, aux = moe.moe_block(cfg, lp["moe"], apply_norm(cfg, lp["ln2"], x))
+    return x + y, aux, new_cache
+
+
 def _rwkv_body(cfg, lp, x, state=None):
     """One RWKV6 layer; returns x and the layer's new state (``S``,
     ``x_tm``: the last token of the time-mix's normed input, ``x_cm``)."""
@@ -214,19 +257,26 @@ def unembed(cfg, params, h):
 # forward (training) and the chunked-vocab loss
 # ---------------------------------------------------------------------------
 def unstacked_layers(params) -> list[dict]:
-    """Each layer's parameters as views of the stacked tensors, made by one
-    ``unbind`` per tensor (its gradient is one stack of the layers')."""
-    flat, treedef = pytree.flatten(params["layers"])
-    cols = [t.unbind(0) for t in flat]
-    return [pytree.unflatten(treedef, [c[i] for c in cols])
-            for i in range(len(cols[0]))]
+    """Each layer's parameters (an MoE model's dense layers first) as views
+    of the stacked tensors, made by one ``unbind`` per tensor (its
+    gradient is one stack of the layers')."""
+    out = []
+    for key in ("dense_layers", "layers"):
+        if key not in params:
+            continue
+        flat, treedef = pytree.flatten(params[key])
+        cols = [t.unbind(0) for t in flat]
+        out += [pytree.unflatten(treedef, [c[i] for c in cols])
+                for i in range(len(cols[0]))]
+    return out
 
 
 def forward(cfg, params, batch):
     """Full forward -> (final hidden states [B, S, d] after the final norm,
-    aux loss 0): the dense and RWKV branches of the JAX package's
-    ``forward``.  batch["tokens"] [B, S]; positions ``arange(S)``, causal,
-    no cache (RWKV: zero state)."""
+    aux loss): the dense, MoE and RWKV branches of the JAX package's
+    ``forward``; the aux loss is the sum of the MoE layers' (f32, 0
+    without them).  batch["tokens"] [B, S]; positions ``arange(S)``,
+    causal, no cache (RWKV: zero state)."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -234,21 +284,27 @@ def forward(cfg, params, batch):
 
     def body(x, lp):
         if cfg.rwkv:
-            return _rwkv_body(cfg, lp, x)[0]
-        return _dense_body(cfg, lp, x, pos)[0]
+            return _rwkv_body(cfg, lp, x)[0], None
+        if "moe" in lp:
+            x, a, _ = _moe_body(cfg, lp, x, pos)
+            return x, a
+        return _dense_body(cfg, lp, x, pos)[0], None
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in unstacked_layers(params):
         if cfg.remat:
-            x = checkpoint(body, x, lp, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(body, x, lp, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = body(x, lp)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = body(x, lp)
+        if a is not None:
+            aux = aux + a
     return apply_norm(cfg, params["final_norm"], x), aux
 
 
 def loss_fn(cfg, params, batch):
-    """Causal LM loss; batch["labels"] are next-token ids, -1 masked.
+    """Causal LM loss; batch["labels"] are next-token ids, -1 masked; an
+    MoE model adds ``0.01 * aux``.
     Returns (loss, {"nll", "tokens", "aux"}) as the JAX package does: the
     cross-entropy is taken ``cfg.loss_chunk`` positions at a time (f32
     logits of one chunk at a time), its sum and count added chunk by
@@ -276,6 +332,8 @@ def loss_fn(cfg, params, batch):
         tot = tot + ((lse - tgt) * mask).sum()
         cnt = cnt + mask.sum()
     loss = tot / torch.clamp(cnt, min=1.0)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
     return loss, {"nll": tot, "tokens": cnt, "aux": aux}
 
 
@@ -304,8 +362,9 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
 
 
 def _layers(cfg, params, x, pos, cache):
-    """Every layer over x with its cache entries (written in place);
-    returns x."""
+    """Every layer over x with its cache entries (written in place; an MoE
+    model's dense layers on ``cache[:nd]``, its MoE layers on
+    ``cache[nd:]``); returns x."""
     if cfg.rwkv:
         for i in range(cfg.n_layers):
             x, st = _rwkv_body(cfg, layer(params, i), x, state={
@@ -316,7 +375,11 @@ def _layers(cfg, params, x, pos, cache):
     ln = cache["len"]
     for i in range(cfg.n_layers):
         c = KVCache(cache["k"][i], cache["v"][i], ln)
-        x, _ = _dense_body(cfg, layer(params, i), x, pos, cache=c)
+        lp = layer(params, i)
+        if "moe" in lp:
+            x, _, _ = _moe_body(cfg, lp, x, pos, cache=c)
+        else:
+            x, _ = _dense_body(cfg, lp, x, pos, cache=c)
     return x
 
 

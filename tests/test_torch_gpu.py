@@ -1053,6 +1053,166 @@ def test_dispatch_launches_the_named_variant(cuda, dtype, Sq, G):
     _hold_attention(q, k, v, causal=True, q_offset=50, kv_len=50 + Sq)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 8])
+def test_flash_attention_hd112_matches_plain(cuda, dtype, G):
+    """Head dim 112 (kimi-k2): the prefill kernel of the dtype (bf16: the
+    tensor cores on the zero-padded hd 128 tiles; f32: the CUDA cores)
+    over odd lengths, into a longer cache and at an offset with an odd
+    kv_len, and through the training case's ``with_lse`` at 1 and 27
+    queries; decode steps through split and combine."""
+    from repro_torch.kernels import flash_attention as fa
+    Hkv = 1 if G == 8 else 2
+    q, k, v = _attn_inputs(cuda, 2, 27, 131, Hkv, G, 112, dtype,
+                           seed=112 + G)
+    want_prefill = "prefill_mma" if dtype == torch.bfloat16 else "tiled_f32"
+    assert fa.variant_of(q, k) == want_prefill
+    _hold_attention(q, k[:, :27].contiguous(), v[:, :27].contiguous(),
+                    causal=True)
+    _hold_attention(q, k, v, causal=False)
+    _hold_attention(q, k, v, causal=True, q_offset=0, kv_len=27)
+    _hold_attention(q, k, v, causal=True, q_offset=100, kv_len=127)
+    for off, kv_len in ((70, 71), (130, 131), (150, 151)):
+        assert fa.variant_of(q[:, :1], k) == "decode_split"
+        _hold_attention(q[:, :1].contiguous(), k, v, causal=True,
+                        q_offset=off, kv_len=kv_len)
+    for Sq in (1, 27):
+        qs, ks, vs = (x[:, :Sq].contiguous() for x in (q, k, v))
+        n0 = fa.flash_attention_cuda.launches_by[want_prefill]
+        out, lse = fa.flash_attention_cuda(qs, ks, vs, causal=True,
+                                           with_lse=True)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_cuda.launches_by[want_prefill] == n0 + 1
+        wo, wl = fa.attention(qs, ks, vs, causal=True, with_lse=True)
+        assert fa.error_ratio(out, wo, ATTN_TOL[dtype]) <= 1
+        torch.testing.assert_close(lse, wl, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attention_hd112_kimi_shapes(cuda):
+    """kimi-k2's attention (64 heads over 8, hd 112, bf16): prefills of
+    4095 and 4096 tokens into a 4104-entry cache (odd kv_len; the second
+    at an offset of 1), and decode steps of 4 rows over it, the last past
+    the cache."""
+    q, k, v = _attn_inputs(cuda, 1, 4096, 4104, 8, 8, 112, torch.bfloat16)
+    _hold_attention(q[:, :4095].contiguous(), k, v, causal=True, q_offset=0,
+                    kv_len=4095)
+    _hold_attention(q, k, v, causal=True, q_offset=1, kv_len=4097)
+    q, k, v = _attn_inputs(cuda, 4, 1, 4104, 8, 8, 112, torch.bfloat16,
+                           seed=1)
+    for off in (0, 2047, 4103, 4200):
+        _hold_attention(q, k, v, causal=True, q_offset=off, kv_len=off + 1)
+
+
+def test_attention_backward_hd112_raises(cuda):
+    """The backward kernels take no hd 112: the wrapper and the autograd
+    function raise ``ValueError`` and launch nothing (no plain
+    fall-back)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 1, 80, 80, 1, 8, 112, torch.bfloat16)
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    n0 = fa.flash_attention_backward_cuda.launches
+    with pytest.raises(ValueError, match=r"attention backward takes head "
+                       r"dims \(16, 32, 64, 128\).*hd=112"):
+        fa.flash_attention_backward_cuda(q, k, v, o, lse, o)
+    qg = q.detach().requires_grad_(True)
+    out = fa.FlashAttentionFn.apply(qg, k, v, True)
+    with pytest.raises(ValueError, match="hd=112"):
+        out.float().sum().backward()
+    assert fa.flash_attention_backward_cuda.launches == n0
+
+
+def test_attention_entry_points_refuse_hd96(cuda):
+    """Past the wrapper's check: each C entry point at a head dim it has
+    no instantiation for (hd 96) returns cudaErrorInvalidValue (1) from
+    its ``switch (hd)``'s default and launches nothing; the wrapper at hd
+    96 raises before it builds or launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    lib = _build.load()
+    s = torch.cuda.current_stream().cuda_stream
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        q, k, v = _attn_inputs(cuda, 1, 40, 40, 1, 2, 96, dtype)
+        o = torch.zeros_like(q)
+        lse = torch.empty((1, 2, 40), device=cuda)
+        p = [x.data_ptr() for x in (q, k, v, o)]
+        entry = (lib.flash_attention_tiled_launch if code == 0 else
+                 lib.flash_attention_wgmma_launch)
+        assert entry(*p, lse.data_ptr(), 1, 40, 40, 2, 1, 96, code, 1, 0,
+                     40, s) == 1
+        ws = torch.empty(2 * 2 * (2 + 96), device=cuda)
+        assert lib.flash_attention_split_launch(
+            *p[:3], ws.data_ptr(), ws.data_ptr(), ws.data_ptr(), 1, 1, 40,
+            2, 1, 96, code, 1, 39, 40, 1, 64, s) == 1
+        D = torch.empty_like(lse)
+        bwd = ((lib.flash_attention_bwd_dq_launch,
+                lib.flash_attention_bwd_dkdv_launch) if code == 0 else
+               (lib.flash_attention_bwd_dq_wgmma_launch,
+                lib.flash_attention_bwd_dkdv_wgmma_launch))
+        shape = (1, 40, 40, 2, 1, 96, code, 1, s)
+        assert bwd[0](*p, o.data_ptr(), lse.data_ptr(), D.data_ptr(),
+                      o.data_ptr(), *shape) == 1
+        assert bwd[1](*p[:3], o.data_ptr(), lse.data_ptr(), D.data_ptr(),
+                      o.data_ptr(), o.data_ptr(), *shape) == 1
+        torch.cuda.synchronize()
+        assert int(o.abs().max()) == 0
+        n0 = fa.flash_attention_cuda.launches
+        with pytest.raises(ValueError, match="hd=96"):
+            fa.flash_attention_cuda(q, k, v)
+        assert fa.flash_attention_cuda.launches == n0
+
+
+@pytest.mark.parametrize("name", ["llama4-scout-17b-a16e", "kimi-k2-1t-a32b"])
+def test_reduced_moe_on_card_matches_cpu(cuda, name):
+    """Each MoE config at its reduced width (f32) on the card: every MoE
+    layer's routing decisions (experts, capacity mask) and the logits of
+    a prefill equal the CPU's (logits at 1e-3: the attention kernel and
+    the card's products against the CPU's), and the engine's greedy
+    tokens (waves of 2) are the CPU's; the attention kernel ran."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(name).reduced()
+    cpu = tfm.init_params(cfg, seed=0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 32)).astype(np.int32))
+    real, seen = moe.moe_block, []
+
+    def recording(c, p, x):
+        r = moe.route(c, p, x.reshape(-1, moe.group_size(c, x.shape[0] *
+                                                         x.shape[1]),
+                                      x.shape[-1]))
+        seen.append((r.idx.cpu(), r.keep.cpu()))
+        return real(c, p, x)
+    moe.moe_block = recording
+    try:
+        lc, _ = tfm.prefill(cfg, cpu, {"tokens": toks}, max_len=40)
+        n0 = fa.flash_attention_cuda.launches
+        lg, _ = tfm.prefill(cfg, card, {"tokens": toks.to(cuda)}, max_len=40)
+        assert fa.flash_attention_cuda.launches > n0
+    finally:
+        moe.moe_block = real
+    n_moe = cfg.n_layers - cfg.n_dense_layers
+    assert len(seen) == 2 * n_moe
+    for (ic, kc), (ig, kg) in zip(seen[:n_moe], seen[n_moe:]):
+        assert torch.equal(ic, ig) and torch.equal(kc, kg)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-3, atol=1e-3)
+    rng = np.random.default_rng(1)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (n,))
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate([3, 9, 5, 12, 7, 20])]
+    got = ServeEngine(cfg, card, batch_size=2, max_len=32,
+                      device=cuda).run(reqs)
+    want = ServeEngine(cfg, cpu, batch_size=2, max_len=32,
+                       device="cpu").run(reqs)
+    for g, w in zip(got, want):
+        assert g.uid == w.uid
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+
+
 def test_split_wrappers_reject_bad_arguments(cuda):
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _attn_inputs(cuda, 2, 1, 300, 2, 2, 32, torch.float32)

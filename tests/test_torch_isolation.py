@@ -35,6 +35,7 @@ for name in names:
 bad = [m for m in sys.modules
        if m.startswith("jax.") or m == "repro" or m.startswith("repro.")]
 assert sys.modules["jax"] is None and not bad, bad
+print(" ".join(names))
 print(len(names))
 """
 
@@ -47,6 +48,10 @@ def test_port_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 18   # every module was imported
+    names = out.stdout.split()[:-1]
+    for m in ("models.moe", "configs.llama4_scout_17b_a16e",
+              "configs.kimi_k2_1t_a32b"):
+        assert f"repro_torch.{m}" in names, m
 
 
 _FORBIDDEN = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b"
