@@ -274,6 +274,33 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
              every case of phase 7 (caches 256 and 4104, f32 and bf16:
              the split kernel's partials and combine, the planted lost
              split), its decode at 4096 keys timed;
+8e. hybrid  — zamba2-7b (81 Mamba2 layers, one shared attention layer
+             at 13 sites, 32 heads over 32, hd 112; 6,751,130,832
+             parameters) at full width and depth: the launcher's default
+             run (``launch.serve --full``), each wave teacher-forced on
+             the plain versions (phase 8's rule), row 10's launches
+             counted by width (3584 and 7168); a long wave of 4 prompts
+             of 4096 tokens (16 SSD chunks of 256, the state carried)
+             into a cache of 4104, 8 new tokens, held the same way; one
+             traced decode step; the state across the prefill/decode
+             boundary in f32 (a prefill over 3840 tokens and 256
+             teacher-forced decode steps, every step against one forward
+             over 4096 at the same position, the last against one
+             prefill, within 5e-3; the conv tails and h zeroed at the
+             boundary must be refused within 8 steps) with bf16's drift
+             from f32 read beside; ``make_train_step`` at full width and
+             12 layers (2 sites) for 12 steps of batch 4 x seq 128 (the
+             mean of the last 4 losses below the first 4's; a run
+             stopped after 6 steps, its state taken to the host as a
+             checkpoint stores it and resumed, byte-equal to the straight
+             run); after the counts are read: the gradients at 12 layers
+             and 1 x 4096 against the plain path (each leaf no farther
+             from the f32 plain gradient than 1.5 x the bf16 plain
+             path's), row 10 at d 3584 and 7168 and row 14 at [4096, d]
+             against their plain versions, row 9 at zamba2's launcher
+             wave and at 4 x 4096 and rows 12-13 at 1 x 4096 (hd 112,
+             bf16 and f32) against theirs, byte-equal twice, timed beside
+             SDPA and the bound;
 9. summary — the ``kernels`` JSON line (Pallas rows 1-10; row 11, the
              sharded block kernel, which replaces the JAX package's jnp
              block ``MultiFabric._core_fn``; rows 12-14, the backward
@@ -298,7 +325,12 @@ variant on a line of its own; the ``kernels`` line keeps phases 4-8b's
 counts), and once more just before phase 8d and read after its trained
 and served runs, before its planted faults, comparisons and timings (rows 9 and 10 of
 the ``kernels`` line list them per MoE model as ``launches_moe``, and
-row 9 kimi-k2's, all at hd 112, as ``variants_hd112_launches``).  The
+row 9 kimi-k2's, all at hd 112, as ``variants_hd112_launches``), and
+once more just before phase 8e and read after its served and trained
+runs (its traced decode and state check taken out), before its
+comparisons and timings (rows 9, 10, 12-14 list them as
+``launches_zamba2``; row 10 its launches by width, rows 12-13 their
+times at hd 112 as ``hd112_zamba2``).  The
 script imports torch, numpy and the port;
 nothing of JAX.
 """
@@ -4004,14 +4036,17 @@ def check_long_wave(dev, eng, reqs, results, rec) -> dict:
     return out
 
 
-def hold_wave(dev, eng, wave, results, logits, routes=None) -> dict:
+def hold_wave(dev, eng, wave, results, logits, routes=None,
+              tol=None) -> dict:
     """One wave (requests in the engine's order) through the same engine's
     model on the plain versions, on the same card, teacher-forced with the
     kernel path's tokens: the logits at every step (``logits``, recorded
     on the kernel path) against the plain path's.  A greedy token may
     differ from the plain path's only where the kernel path's top-2 margin
-    is below twice the largest logit difference.  An MoE model's wave
-    passes the kernel path's routing (``routes``: its
+    is below twice the largest logit difference.  With ``tol`` every
+    step's logits are held to the plain path's within rtol = atol =
+    ``tol`` too (``tol_ratio``: the largest share of it).  An MoE
+    model's wave passes the kernel path's routing (``routes``: its
     :class:`RouteRecorder`'s calls): the plain path records its own
     decisions and routes as the kernel path did, every step's logits are
     held to :data:`MOE_LOGIT_TOL` and every decision the plain path would
@@ -4059,6 +4094,13 @@ def hold_wave(dev, eng, wave, results, logits, routes=None) -> dict:
                      dropped=[int((~c["keep"]).sum()) for c in kern])
         check(worst <= MOE_LOGIT_TOL, f"logits differ from the plain "
               f"path's by {worst} > {MOE_LOGIT_TOL}")
+    if tol is not None:
+        extra["tol"] = tol
+        extra["tol_ratio"] = max(
+            float(((k - p).abs() / (tol * (1 + p.abs()))).max())
+            for k, p in zip(logits, plain))
+        check(extra["tol_ratio"] <= 1, f"logits differ from the plain "
+              f"path's by {extra['tol_ratio']} of rtol = atol = {tol}")
     differ = []
     for t, (lk, lp) in enumerate(zip(logits, plain)):
         top2 = lk.topk(2, dim=-1).values
@@ -4343,17 +4385,20 @@ class plain_training:
 
 
 def phase_train_vs_plain(dev, cfg, S=TRAIN_SHAPES["b"][1],
-                         tag="8b (c)") -> dict:
-    """Phase 8b (c), and 8c's for its attention families: at full width
-    and 2 layers, batch 1 x seq 4096, the loss and every gradient leaf
-    through the kernels against the plain path (autograd of the plain
-    versions) on the same card."""
+                         tag="8b (c)", n_layers=2, planted=None) -> dict:
+    """Phase 8b (c), and 8c's and 8e's for their attention families: at
+    full width and ``n_layers`` layers, batch 1 x seq 4096, the loss and
+    every gradient leaf through the kernels against the plain path
+    (autograd of the plain versions) on the same card.  ``planted`` (a
+    context manager) plants a fault in the kernel path: its gradients,
+    taken again under it, must lie farther than :data:`TRAIN_GRAD_TOL`
+    from the plain path's."""
     import dataclasses
     import torch
     from repro_torch import pytree
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models import transformer as tfm
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     params = tfm.init_params(cfg2, seed=1, device=dev)
     batch = SyntheticLM(vocab=cfg2.vocab, seq_len=S, global_batch=1,
                         seed=0).batch_for_step(0)
@@ -4366,30 +4411,66 @@ def phase_train_vs_plain(dev, cfg, S=TRAIN_SHAPES["b"][1],
     n0 = launch_counts()
     lk, gk = loss_and_grads()
     used = count_delta(n0, launch_counts())
-    norms = 2 * cfg2.n_layers + 1 if cfg2.norm == "rmsnorm" else 0
-    check(used["attention_bwd_dkdv"] == used["attention_bwd_dq"] == 2 and
+    # a hybrid's attention layers are its shared layer's sites; its Mamba
+    # layers have two RMSNorms each (the layer's and the gated one)
+    attn = n_layers // cfg2.attn_every if cfg2.family == "hybrid" \
+        else n_layers
+    norms = 2 * (n_layers + attn) + 1 if cfg2.family == "hybrid" else \
+        2 * n_layers + 1 if cfg2.norm == "rmsnorm" else 0
+    check(used["attention_bwd_dkdv"] == used["attention_bwd_dq"] == attn and
           used["rmsnorm_bwd"] == norms, f"{tag}: the kernel path launched "
           f"{json.dumps(used)}")
     n1 = launch_counts()
     with plain_training():
         lp, gp = loss_and_grads()
     check(launch_counts() == n1, f"{tag}: the plain path launched a kernel")
-    rel = [float((a.float() - b.float()).norm() / b.float().norm())
-           for a, b in zip(gk, gp)]
-    out = dict(arch=cfg.name, n_layers=2, seq=S, loss_kernel=lk,
+
+    def rel_to(xs):
+        return [float((a.float() - b.float()).norm() / b.float().norm())
+                for a, b in zip(xs, gp)]
+    rel = rel_to(gk)
+    out = dict(arch=cfg.name, n_layers=n_layers, seq=S, loss_kernel=lk,
                loss_plain=lp,
                loss_rel_err=abs(lk - lp) / abs(lp), grad_rel_err=rel,
                max_grad_rel_err=max(rel), loss_tol=TRAIN_LOSS_TOL,
                grad_tol=TRAIN_GRAD_TOL,
                leaf_shapes=[list(p.shape) for p in flat])
+    if planted is not None:
+        del gk
+        with planted():
+            _, gk = loss_and_grads()
+        bad = rel_to(gk)
+        out["planted"] = dict(fault=planted.__doc__.strip(),
+                              grad_rel_err=bad, max_grad_rel_err=max(bad),
+                              refused=max(bad) > TRAIN_GRAD_TOL)
     log(f"  {tag} kernel vs plain path: {json.dumps(out)}")
     check(out["loss_rel_err"] <= TRAIN_LOSS_TOL, f"{tag}: loss {lk} vs "
           f"plain {lp}")
-    check(out["max_grad_rel_err"] <= TRAIN_GRAD_TOL, f"{tag}: a gradient "
-          f"leaf is {max(rel)} off the plain path's")
+    check(out["max_grad_rel_err"] <= TRAIN_GRAD_TOL, f"{tag}: a "
+          f"gradient leaf is {max(rel)} off the plain path's")
+    check(planted is None or out["planted"]["refused"], f"{tag}: the "
+          f"planted fault passes {TRAIN_GRAD_TOL}: {out.get('planted')}")
     del params, gk, gp
     torch.cuda.empty_cache()
     return out
+
+
+@contextlib.contextmanager
+def dq_dims_zeroed():
+    """dQ's dims 104-111 (the last 8 of hd 112) zeroed after rows 12-13."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    real = fa.FlashAttentionFn.backward
+
+    def backward(ctx, do):
+        dq, *rest = real(ctx, do)
+        dims = torch.arange(104, 112, device=dq.device)
+        return (dq.index_fill(-1, dims, 0), *rest)
+    fa.FlashAttentionFn.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fa.FlashAttentionFn.backward = staticmethod(real)
 
 
 def attn_bwd_bound(B, S, H, Hkv, hd, es, products, causal=True) -> dict:
@@ -4793,7 +4874,7 @@ FAMILY_LAUNCH_KEYS = ("flash_attention", "flash_attention_by",
                       "attention_bwd_by", "rmsnorm", "rmsnorm_bwd")
 
 
-def serve_family(dev, cfg) -> tuple[dict, object, list]:
+def serve_family(dev, cfg, tag="8c") -> tuple[dict, object, list]:
     """``launch.serve --arch <family> --full`` with the launcher's
     defaults, each prefill and decode step recorded (ms, logits); then
     each of its waves teacher-forced through the same engine on the plain
@@ -4842,7 +4923,7 @@ def serve_family(dev, cfg) -> tuple[dict, object, list]:
         logits = logits[T:]
     check(not logits, f"{cfg.name}: {len(logits)} recorded steps left over")
     worst = max(v["max_abs_logit_diff"] for v in stats["vs_plain"])
-    log(f"  8c {cfg.name}: served {stats['requests']} requests, "
+    log(f"  {tag} {cfg.name}: served {stats['requests']} requests, "
         f"{stats['tokens']} tokens at {stats['tokens_per_s']:.1f} tokens/s; "
         f"prefill {[round(x, 2) for x in stats['prefill_ms']]} ms (waves of "
         f"{stats['wave_lens']} tokens), decode {stats['decode_ms_mean']:.2f} "
@@ -5672,18 +5753,19 @@ def moe_fault_readings(dev, kept) -> list:
     return out
 
 
-# row 9 at kimi-k2's heads (64/8, hd 112): the launcher's cache of 256
-# (every case of attention_cases at B = 4, S = 27) and the long wave's
-# 4104 (its decode cases; S = 4080 puts the case "decode" at 4096 keys,
-# 16 splits of 256, and "decode_past_cache" reads all 4104; the long
-# prefill is timed in family_attention_times), f32 and bf16
-MOE_ATTN_CASES = {256: (4, 27), MOE_LONG["cache"]: (4, 4080)}
+# row 9 at a served model's heads (kimi-k2's 64/8 and zamba2's 32/32, hd
+# 112): the launcher's cache of 256 (every case of attention_cases at B =
+# 4, S = 27) and the long wave's 4104 (its decode cases; S = 4080 puts the
+# case "decode" at 4096 keys, 16 splits at kimi's 8 kv heads and 5 at
+# zamba2's 32, and "decode_past_cache" reads all 4104; the long prefill
+# is timed on its own), f32 and bf16
+SERVED_ATTN_CASES = {256: (4, 27), MOE_LONG["cache"]: (4, 4080)}
 
 
-def moe_attention_holds(dev, cfg) -> dict:
+def served_attention_holds(dev, cfg, tag) -> dict:
     """Row 9 at ``cfg``'s heads and head dim against its plain version
-    (:func:`attention_holds`) at :data:`MOE_ATTN_CASES`: the wrapper, the
-    split kernel's partials and the combine pass alone and the planted
+    (:func:`attention_holds`) at :data:`SERVED_ATTN_CASES`: the wrapper,
+    the split kernel's partials and the combine pass alone and the planted
     lost split (case ``decode``) at both caches, the bf16 decode mid the
     long cache timed beside SDPA and its bound.  Returns the errors by
     dtype and variant, that time and the planted readings."""
@@ -5692,7 +5774,7 @@ def moe_attention_holds(dev, cfg) -> dict:
     gen = torch.Generator(device=dev).manual_seed(19)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     errs, times, planted = lm_errs(), {}, {}
-    for max_len, (B, S) in MOE_ATTN_CASES.items():
+    for max_len, (B, S) in SERVED_ATTN_CASES.items():
         cases = attention_cases(B, S, max_len, H // Hkv)
         if max_len != 256:
             cases = {k: c for k, c in cases.items() if k.startswith("decode")}
@@ -5709,9 +5791,9 @@ def moe_attention_holds(dev, cfg) -> dict:
         "tiled_f32")} for dtn in errs},
         decode=times["flash_attention decode bfloat16"], planted=planted)
     d = out["decode"]
-    log(f"  8d row 9 at {cfg.name}'s decode ({d['shape']}): {d['ms']:.4f} ms "
-        f"({d['ms_from']}), SDPA {d['library_ms']:.4f} ms, plain "
-        f"{d['plain_ms']:.3f} ms, bound {d['bound_ms']:.5f} ms "
+    log(f"  {tag} row 9 at {cfg.name}'s decode ({d['shape']}): "
+        f"{d['ms']:.4f} ms ({d['ms_from']}), SDPA {d['library_ms']:.4f} ms, "
+        f"plain {d['plain_ms']:.3f} ms, bound {d['bound_ms']:.5f} ms "
         f"({d['bound_by']}); {d['n_split']} splits; errors "
         f"{json.dumps(out['errors'])}; planted lost split "
         f"{json.dumps(planted)}")
@@ -5739,7 +5821,7 @@ def phase_moe(dev) -> dict:
     planted faults (:func:`moe_fault_readings`), the training's kernels
     against the plain path, row 10 at the models' widths and row 9 at
     kimi-k2's shapes (hd 112): timed at its prefills, held at its cases
-    (:func:`moe_attention_holds`)."""
+    (:func:`served_attention_holds`)."""
     import torch
     from repro_torch.configs.base import get_arch
     torch.backends.cuda.matmul.allow_tf32 = False    # as phase 7 sets it
@@ -5778,7 +5860,672 @@ def phase_moe(dev) -> dict:
     kimi = get_arch("kimi-k2-1t-a32b")
     check(kimi.head_dim == 112, f"kimi-k2's head dim is {kimi.head_dim}")
     out["attention_times"] = family_attention_times(dev, kimi, tag="8d")
-    out["attention_hd112"] = moe_attention_holds(dev, kimi)
+    out["attention_hd112"] = served_attention_holds(dev, kimi, "8d")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8e: the Mamba2 hybrid (zamba2-7b) at full width and depth
+# ---------------------------------------------------------------------------
+HYBRID_ARCH = "zamba2-7b"
+# the long wave: 4 prompts of 4096 tokens (16 SSD chunks of 256, the state
+# carried) into a cache of 4104, 8 new tokens
+HYBRID_LONG = dict(prompts=4, tokens=4096, cache=4104, new_tokens=8)
+# the state across the prefill/decode boundary, on the long wave's first
+# prompt: a prefill over its first HYBRID_SPLIT tokens, then the rest
+# teacher-forced through decode steps, every step's logits against the
+# logits of one forward over the whole prompt at the same position (and
+# the last against one prefill over it), in f32 compute within
+# HYBRID_STATE_TOL (rtol = atol); bf16's drift (one bf16 forward against
+# the f32 one) is read beside it.  The tolerance is the f32 arithmetic's
+# at 81 layers, not RWKV6's 2e-4 at 24: on the card the prefill's own
+# last logits (no state handed over yet: a prefill over 3840 tokens
+# against one forward over 4096, at the same position) lay 2.4 x 2e-4
+# apart and the decode steps up to 9.3 x (2.0e-3 at a logit scale of
+# 5.3), while the planted faults (the conv tails or h zeroed at the
+# boundary) read 16,000-22,000 x 2e-4 and must be refused within
+# HYBRID_FAULT_STEPS decode steps: the random model's decays (A = -1, dt
+# ~ 0.7) forget a fault in h within some tens of tokens, so one read at
+# the prompt's end would not see it.  The first card reading is printed
+# each run as ``noise_floor_ratio`` (step 0)
+HYBRID_SPLIT = 3840
+HYBRID_STATE_TOL = 5e-3
+HYBRID_FAULT_STEPS = 8
+# training at full width, its depth cut to 12 layers (2 attention sites):
+# (batch, seq, steps) with a resume after HYBRID_RESUME_AT steps
+HYBRID_TRAIN_LAYERS = 12
+HYBRID_TRAIN = (4, 128, 12)
+HYBRID_RESUME_AT = 6
+# the kernels' gradients against the plain path's at batch 1 x seq 4096
+# within phase 8b's TRAIN_GRAD_TOL, at 6 layers (the first attention
+# site), with dQ's dims 104-111 zeroed refused: the two bf16 paths part
+# with depth, their largest leaf 1.9 % apart at 6 layers, 5.2 % at 12 and
+# 10.3 % at 18, while in f32 compute they lie 2.9e-5 / 4.9e-5 / 9.0e-5
+# apart (scripts/hybrid_grad_depth.py on an H100 80GB HBM3 at 700 W)
+HYBRID_GRAD_LAYERS = 6
+HYBRID_NORM_ROWS = (4, 128, 16384)
+
+
+class NormWidths:
+    """Wraps ``layers.rmsnorm`` (the model's RMSNorm, which the Mamba
+    block's gated norm also calls) while open and counts row 10's launches
+    by the rows' width (the launches each call made; a plain replay's
+    calls make none)."""
+
+    def __init__(self):
+        from repro_torch.kernels import rmsnorm as rn
+        from repro_torch.models import layers
+        self.layers, self.real, self.by = layers, layers.rmsnorm, {}
+        kernel = rn.rmsnorm_cuda
+
+        def call(x, w, eps=1e-5):
+            n0 = kernel.launches
+            y = self.real(x, w, eps)
+            d = int(x.shape[-1])
+            self.by[d] = self.by.get(d, 0) + kernel.launches - n0
+            return y
+        layers.rmsnorm = call
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.rmsnorm = self.real
+        return False
+
+
+def hybrid_forward_logits(cfg, params, toks, start):
+    """The logits of one forward over ``toks`` at positions start.. (the
+    final norm and the unembedding of each position), f32 on the host."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tfm
+    with torch.inference_mode():
+        h, _ = tfm.forward(dataclasses.replace(cfg, remat=False), params,
+                           {"tokens": toks})
+        return tfm.unembed(cfg, params, h[:, start:]).float().cpu()
+
+
+def hybrid_split(cfg, params, toks, faults=()):
+    """The logits of a prefill over ``toks[:, :HYBRID_SPLIT]`` (its last
+    position) and of each teacher-forced decode step after it, f32 on the
+    host [B, n, V]; and for each of ``faults`` (``"conv"``, ``"h"``) the
+    same from a copy of the prefill's cache with that part of every Mamba
+    layer's state zeroed, over :data:`HYBRID_FAULT_STEPS` steps."""
+    import torch
+    from repro_torch import pytree
+    from repro_torch.models import transformer as tfm
+
+    def walk(lg, cache, n):
+        out = [lg.cpu()]
+        for t in range(HYBRID_SPLIT, HYBRID_SPLIT + n):
+            lg, cache = tfm.decode_step(cfg, params, toks[:, t:t + 1], cache)
+            out.append(lg.cpu())
+        return torch.stack(out, dim=1)
+    with torch.inference_mode():
+        lg, cache = tfm.prefill(cfg, params,
+                                {"tokens": toks[:, :HYBRID_SPLIT]},
+                                max_len=toks.shape[1])
+        bad = {}
+        for f in faults:
+            c = pytree.tree_map(lambda t: t.clone() if hasattr(t, "clone")
+                                else t, cache)
+            c[f].zero_()
+            bad[f] = walk(lg, c, HYBRID_FAULT_STEPS)
+            del c
+        return walk(lg, cache, toks.shape[1] - HYBRID_SPLIT), bad
+
+
+def hybrid_f32_wave(dev, cfg32, p32, wave, max_len) -> dict:
+    """One of the launcher's waves served in f32 compute (its parameters
+    at f32) through the kernels, every step teacher-forced on the plain
+    versions (:func:`hold_wave`) within rtol = atol =
+    :data:`HYBRID_STATE_TOL`; then again with row 9's dims 104-111 zeroed
+    (:func:`faulty_attention`), which that limit must refuse.  In bf16
+    the two paths part by rounding over 81 layers (the launcher's waves
+    are held by the margin rule alone); in f32 they may part only by f32
+    rounding."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import ServeEngine
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    eng32 = ServeEngine(cfg32, p32, batch_size=len(wave), max_len=max_len,
+                        device=dev)
+    results, wall, rec, _ = serve_moe_wave(dev, eng32, wave, routed=False)
+    out = dict(hold_wave(dev, eng32, wave, results, rec.logits,
+                         tol=HYBRID_STATE_TOL), wall_s=wall)
+    real = layers.flash_attention
+    layers.flash_attention = faulty_attention("dims", sms)
+    try:
+        bad, _, rec, _ = serve_moe_wave(dev, eng32, wave, routed=False)
+    finally:
+        layers.flash_attention = real
+    with refusals() as seen:
+        v = hold_wave(dev, eng32, wave, bad, rec.logits,
+                      tol=HYBRID_STATE_TOL)
+    out["planted_dims_zeroed"] = dict(
+        max_abs_logit_diff=v["max_abs_logit_diff"], tol_ratio=v["tol_ratio"],
+        greedy_tokens_differing=v["greedy_tokens_differing"],
+        refusals=len(seen), first_refusals=seen[:2])
+    del out["differing"]
+    log(f"  8e f32 wave vs the plain versions ({out['steps']} steps, "
+        f"{len(wave)} requests): {json.dumps(out)}")
+    check(v["tol_ratio"] > 1, f"zamba2 (f32): row 9's dims 104-111 zeroed "
+          f"pass the f32 limit ({v['tol_ratio']} of it)")
+    return out
+
+
+def hybrid_state_check(dev, eng, toks, wave) -> dict:
+    """The state across the prefill/decode boundary on ``toks`` [1, S]:
+    in f32 compute (the launcher's seed-0 parameters at f32), every
+    step's logits of :func:`hybrid_split` against one forward's at the
+    same position and the last against one prefill's, within
+    :data:`HYBRID_STATE_TOL`; the conv tails, then ``h``, zeroed at the
+    boundary, read over :data:`HYBRID_FAULT_STEPS` steps against the same
+    limit (they must be refused); ``wave`` served in f32 against the
+    plain versions (:func:`hybrid_f32_wave`); bf16's drift read beside:
+    one forward on the served parameters against the f32 one."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tfm
+    t0 = time.perf_counter()
+    cfg = eng.cfg
+    S = toks.shape[1]
+    start = HYBRID_SPLIT - 1
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    p32 = tfm.init_params(cfg, seed=0, device=dev)       # the launcher's
+    check(torch.equal(p32["embed"].to(eng.params["embed"].dtype),
+                      eng.params["embed"]), "zamba2: seed 0 did not give the "
+          "launcher's parameters")
+    full32 = hybrid_forward_logits(cfg32, p32, toks, start)
+    with torch.inference_mode():
+        last32, _ = tfm.prefill(cfg32, p32, {"tokens": toks}, max_len=S)
+    split32, faults = hybrid_split(cfg32, p32, toks, ("conv", "h"))
+    f32_wave = hybrid_f32_wave(dev, cfg32, p32, wave, eng.max_len)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    full16 = hybrid_forward_logits(cfg, eng.params, toks, start)
+    torch.cuda.synchronize(dev)
+
+    def ratio(a, b):           # of the rule rtol = atol = HYBRID_STATE_TOL
+        return float(((a - b).abs() / (HYBRID_STATE_TOL * (1 + b.abs())))
+                     .max())
+
+    def dmax(a, b):
+        return float((a - b).abs().max())
+    by_step = [ratio(split32[:, i], full32[:, i])
+               for i in range(split32.shape[1])]
+    out = dict(prompt=S, split=HYBRID_SPLIT, decode_steps=S - HYBRID_SPLIT,
+               chunks_prefilled=HYBRID_SPLIT // min(cfg.ssm_chunk, S),
+               f32_tol=HYBRID_STATE_TOL, f32_tol_ratio=max(by_step),
+               noise_floor_ratio=by_step[0],
+               f32_max_abs_logit_diff=dmax(split32, full32),
+               f32_tol_ratio_by_step_max_of_16=[
+                   round(max(by_step[i:i + 16]), 4)
+                   for i in range(0, len(by_step), 16)],
+               f32_last_vs_prefill=ratio(split32[:, -1], last32.cpu()),
+               f32_forward_vs_prefill=ratio(full32[:, -1], last32.cpu()),
+               logit_scale=float(full32.abs().max()),
+               same_argmax_f32=bool(torch.equal(split32.argmax(-1),
+                                                full32.argmax(-1))),
+               faults={f: dict(tol_ratio_by_step=[
+                   round(ratio(x[:, i], full32[:, i]), 3)
+                   for i in range(x.shape[1])]) for f, x in faults.items()},
+               bf16_forward_vs_f32=dmax(full16, full32),
+               bf16_forward_vs_f32_by_16=[
+                   round(dmax(full16[:, i:i + 16], full32[:, i:i + 16]), 4)
+                   for i in range(0, full32.shape[1], 16)],
+               bf16_same_argmax_share=float(
+                   (full16.argmax(-1) == full32.argmax(-1)).float().mean()),
+               f32_wave=f32_wave, seconds=time.perf_counter() - t0)
+    for f, r in out["faults"].items():
+        r["refused"] = max(r["tol_ratio_by_step"]) > 1
+    log(f"  8e state across the boundary: {json.dumps(out)}")
+    check(all(bool(torch.isfinite(x).all()) for x in (split32, full16)),
+          "zamba2: non-finite logits in the state check")
+    check(out["f32_tol_ratio"] <= 1 and out["f32_last_vs_prefill"] <= 1,
+          f"zamba2 (f32): prefill over {HYBRID_SPLIT} tokens and "
+          f"{S - HYBRID_SPLIT} decode steps disagree with one forward over "
+          f"{S} by {out['f32_tol_ratio']} of rtol = atol = "
+          f"{HYBRID_STATE_TOL} (with one prefill: "
+          f"{out['f32_last_vs_prefill']})")
+    for f, r in out["faults"].items():
+        check(r["refused"], f"zamba2: the {f} state zeroed at the boundary "
+              f"passes the f32 limit ({r['tol_ratio_by_step']})")
+    return out
+
+
+def hybrid_long_wave(dev, eng) -> tuple[dict, object]:
+    """The long wave (:data:`HYBRID_LONG`) through an engine with its
+    cache on the launcher's parameters, each step recorded, then
+    teacher-forced on the plain versions (:func:`hold_wave`); returns its
+    stats and the wave's tokens [4, 4096] on the card."""
+    import torch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine, pad_wave
+    L = HYBRID_LONG
+    rng = np.random.default_rng(13)
+    reqs = [Request(uid=i, prompt=rng.integers(0, eng.cfg.vocab, (
+        L["tokens"],)).astype(np.int32), max_new_tokens=L["new_tokens"])
+        for i in range(L["prompts"])]
+    long_eng = ServeEngine(eng.cfg, eng.params, batch_size=L["prompts"],
+                           max_len=L["cache"], device=dev)
+    rec = StepRecorder(tfm, dev)
+    try:
+        t0 = time.perf_counter()
+        results = long_eng.run(reqs)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        rec.close()
+    check_tokens(results, L["new_tokens"], eng.cfg.vocab,
+                 "zamba2 long-wave request")
+    total = sum(len(r.tokens) for r in results)
+    dec = rec.ms["decode"]
+    tokens = L["prompts"] * L["tokens"]
+    out = dict(**L, chunks=L["tokens"] // eng.cfg.ssm_chunk,
+               tokens_served=total, wall_s=wall, tokens_per_s=total / wall,
+               prefill_ms=rec.ms["prefill"][0],
+               prefill_host_ms=rec.host_ms["prefill"][0],
+               prefill_tokens_per_s=tokens / rec.ms["prefill"][0] * 1e3,
+               decode_steps=len(dec), decode_ms_mean=float(np.mean(dec)),
+               decode_host_ms_mean=float(np.mean(rec.host_ms["decode"])))
+    wave = sorted(reqs, key=lambda r: len(r.prompt))
+    out["vs_plain"] = hold_wave(dev, long_eng, wave, results, rec.logits)
+    shown = {k: v for k, v in out.items() if k != "vs_plain"}
+    log(f"  8e long wave: {json.dumps(shown)}; "
+        f"vs the plain versions (teacher-forced, every step): max |diff| "
+        f"{out['vs_plain']['max_abs_logit_diff']:.5g}, greedy tokens "
+        f"differing {out['vs_plain']['greedy_tokens_differing']}")
+    toks = torch.from_numpy(pad_wave(wave)).to(dev)
+    del long_eng, rec
+    return out, toks
+
+
+def hybrid_prefill_trace(dev, eng, toks) -> dict:
+    """The long wave's prefill (``toks`` [4, 4096]) once under
+    torch.profiler: wall, device busy time, idle share, device ms by
+    kernel name; then one Mamba2 layer's block and its SSD scan alone at
+    the same shapes (layer 0's parameters): ms a call by CUDA events,
+    device ms (the profiler's, all kernels) and the host's enqueue ms, and
+    the scan's share of the prefill as 81 layers' calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    cfg = eng.cfg
+    with torch.inference_mode():
+        torch.cuda.synchronize(dev)
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tfm.prefill(cfg, eng.params, {"tokens": toks},
+                        max_len=toks.shape[1])
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+        busy_us, per = device_busy_us(prof)
+        del prof
+        gen = torch.Generator(device=dev).manual_seed(31)
+        x = torch.randn((*toks.shape, cfg.d_model), generator=gen,
+                        device=dev).to(eng.params["embed"].dtype)
+        lp = tfm.layer(eng.params, 0)["mamba"]
+        d_in, H, N, _ = ssm.mamba2_dims(cfg)
+        B, S = toks.shape
+        xdt = torch.randn((B, S, H, cfg.ssm_head_dim), generator=gen,
+                          device=dev)
+        bc = torch.randn((2, B, S, N), generator=gen, device=dev)
+        loga = -torch.rand((B, S, H), generator=gen, device=dev)
+        Q = min(cfg.ssm_chunk, S)
+        fns = {"block": lambda: ssm.mamba2_block(cfg, lp, x),
+               "scan": lambda: ssm._ssd_scan(xdt, bc[0], bc[1], loga, Q)}
+        alone = {}
+        for k, fn in fns.items():
+            ms = cuda_ms(fn, 3)
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            host = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize(dev)
+            alone[k] = dict(ms=ms, device_ms=profiled_ms(fn, 2),
+                            host_enqueue_ms=host)
+        del x, xdt, bc, loga
+    torch.cuda.empty_cache()
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:10]
+    L = cfg.n_layers
+    out = dict(shape=f"B={B}, S={S}, chunks of {Q}", wall_ms=wall * 1e3,
+               device_busy_ms=busy_us / 1e3,
+               idle_share=(1 - busy_us / 1e6 / wall) if busy_us else None,
+               device_ms_by_name={k[:80]: v / 1e3 for k, v in top},
+               one_layer=alone,
+               scan_share_of_prefill_wall=L * alone["scan"]["ms"]
+               / (wall * 1e3),
+               scan_share_of_prefill_device=L * alone["scan"]["device_ms"]
+               / (busy_us / 1e3) if busy_us else None,
+               block_share_of_prefill_wall=L * alone["block"]["ms"]
+               / (wall * 1e3))
+    log(f"  8e traced long-wave prefill and the SSD scan: {json.dumps(out)}")
+    return out
+
+
+def hybrid_attention(dev, cfg) -> dict:
+    """Row 9 at zamba2's heads (32/32, hd 112) at the launcher's wave and
+    at 4 x 4096 (:data:`FAMILY_ATTN_SHAPES`), bf16 and f32, against its
+    plain version, timed beside SDPA and the bound; rows 12-13 at 1 x
+    4096, causal, bf16 and f32, against the plain backward, two calls
+    byte-equal, timed beside SDPA's backward and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    check(hd == 112 and hd in fa.BWD_HEAD_DIMS, f"zamba2's head dim {hd}")
+    gen = torch.Generator(device=dev).manual_seed(23)
+    out = {"forward": {}, "backward": {}}
+
+    def rnd(shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+    for dtn in ("bfloat16", "float32"):
+        dt, tol = getattr(torch, dtn), LM_TOL[dtn]["flash_attention"]
+        for key, (B, S, max_len) in FAMILY_ATTN_SHAPES.items():
+            q = rnd((B, S, H, hd), dt)
+            k, v = rnd((B, max_len, Hkv, hd), dt), rnd((B, max_len, Hkv, hd),
+                                                       dt)
+            c = dict(B=B, Sq=S, Skv=max_len, causal=True, q_offset=0,
+                     kv_len=S)
+            kw = dict(causal=True, q_offset=0, kv_len=S)
+            run_k = lambda: fa.flash_attention_cuda(q, k, v, **kw)  # noqa
+            run_p = lambda: fa.attention(q, k, v, **kw)             # noqa
+            got, want = run_k(), run_p()
+            r = fa.error_ratio(got, want, tol)
+            check(r <= 1, f"8e row 9 {dtn} {key}: {r} of "
+                  f"{ATTN_RULE.format(tol)}")
+            shape = (f"B={B}, Sq={S}, Skv={max_len}, H={H}/{Hkv}, hd={hd}, "
+                     f"kv_len={S}, {dtn}")
+            t = time_lm(run_k, run_p, sdpa_call(q, k, v, c), 3,
+                        "flash_attention", attention_bound(q, k, c), shape)
+            out["forward"][f"{key} {dtn}"] = dict(
+                **t, max_abs_err=float((got.float() - want.float()).abs()
+                                       .max()), tol_ratio=r,
+                variant=fa.variant_of(q, k))
+            log(f"  8e row 9 at zamba2's {key} prefill ({shape}): "
+                f"{t['ms']:.4f} ms ({t['ms_from']}), SDPA "
+                f"{t['library_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}); {r:.3f} of "
+                "the tolerance")
+            del q, k, v, got, want
+        B, S = 1, 4096
+        q, do = rnd((B, S, H, hd), dt), rnd((B, S, H, hd), dt)
+        k, v = rnd((B, S, Hkv, hd), dt), rnd((B, S, Hkv, hd), dt)
+        o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+        run_k = lambda: fa.flash_attention_backward_cuda(  # noqa: E731
+            q, k, v, o, lse, do, causal=True)
+        got, again = run_k(), run_k()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"8e rows 12-13 {dtn}: two backward calls differ")
+        want = fa.attention_backward(q, k, v, o, lse, do, causal=True)
+        ratios = [fa.grad_error_ratio(g, w, tol) for g, w in zip(got, want)]
+        check(max(ratios) <= 1, f"8e rows 12-13 {dtn}: dq/dk/dv {ratios} of "
+              "the tolerance")
+        es = q.element_size()
+
+        def sdpa_backward():
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=True)
+            return lambda: torch.autograd.grad(o_lib, (qt, kt, vt),
+                                               do.transpose(1, 2),
+                                               retain_graph=True)
+        both = attn_bwd_bound(B, S, H, Hkv, hd, es, 5)
+        # SDPA's f32 backward may run on TF32 tensor cores, below the f32
+        # bound: timed in bf16 only, as phase 8b (d) times it
+        lib_ms, lib_from = library_ms(sdpa_backward, 5, both) \
+            if dtn == "bfloat16" else (None, "not timed in f32")
+        # CUDA events around lone launches: a profiler window that lost
+        # one of three dK/dV records read 0.4526 ms against 0.9608 on the
+        # card (PERF.md, §6)
+        alone = attn_bwd_alone(q, k, v, o, lse, do, True)
+        plain_ms = cuda_ms(lambda: fa.attention_backward(
+            q, k, v, o, lse, do, causal=True), 2, warmup=1)
+        shape = f"B={B}, S={S}, H={H}/{Hkv}, hd={hd}, causal, {dtn}"
+        for row, products in (("attention_bwd_dkdv", 4),
+                              ("attention_bwd_dq", 3)):
+            ms = cuda_ms(alone[row.split("_")[-1]], 5)
+            out["backward"][f"{row} {dtn}"] = dict(
+                ms=ms, ms_from="cuda events around launches of the kernel "
+                "alone", plain_ms=plain_ms,
+                plain_of="attention_backward (both)", library_ms=lib_ms,
+                library_from=lib_from, library_of="the backward of "
+                "F.scaled_dot_product_attention (dq, dk, dv together)",
+                tol_ratio=max(ratios), max_abs_err=max(
+                    float((g.float() - w.float()).abs().max())
+                    for g, w in zip(got, want)),
+                shape=shape, **attn_bwd_bound(B, S, H, Hkv, hd, es,
+                                              products))
+        kv_ms = out["backward"][f"attention_bwd_dkdv {dtn}"]["ms"]
+        q_ms = out["backward"][f"attention_bwd_dq {dtn}"]["ms"]
+        log(f"  8e rows 12-13 at zamba2's heads ({shape}): dq/dk/dv "
+            f"{[round(x, 3) for x in ratios]} of the tolerance, byte-equal "
+            f"twice; dkdv {kv_ms:.4f} ms, dq {q_ms:.4f} ms, SDPA backward "
+            f"{lib_ms} ms, plain {plain_ms:.2f} ms, "
+            f"bound {both['bound_ms']:.4f} ms (5 products)")
+        del q, k, v, do, o, lse, got, again, want, alone
+        torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_norms(dev, cfg) -> dict:
+    """Row 10 at zamba2's widths, d 3584 and 7168, against its plain
+    version (every variant that takes them, rows 4, 128 and 16384, f32
+    and bf16), and row 14 (the backward) at [4096, d], bf16 and f32:
+    against the plain version, two calls byte-equal, the variant named
+    (bf16 7168: ``rows``, 896 vectors; f32 7168: ``generic``)."""
+    import torch
+    from repro_torch.kernels import rmsnorm as rn
+    d_model, d_in = cfg.d_model, 2 * cfg.d_model
+    fwd = phase_norm_variants(dev, rows_list=HYBRID_NORM_ROWS,
+                              ds=(d_model, d_in))
+    gen = torch.Generator(device=dev).manual_seed(29)
+    bwd = []
+    for dtn in ("bfloat16", "float32"):
+        dt, tol = getattr(torch, dtn), LM_TOL[dtn]["rmsnorm"]
+        for d in (d_model, d_in):
+            x = (3 * torch.randn((4096, d), generator=gen, device=dev)).to(dt)
+            dy = torch.randn((4096, d), generator=gen, device=dev).to(dt)
+            w = 1 + 0.3 * torch.randn((d,), generator=gen, device=dev)
+            dx, dw = rn.rmsnorm_backward_cuda(x, w, dy)
+            variant = rn.rmsnorm_backward_cuda.last_plan.variant
+            again = rn.rmsnorm_backward_cuda(x, w, dy)
+            check(torch.equal(dx, again[0]) and torch.equal(dw, again[1]),
+                  f"8e rmsnorm backward {dtn} d {d}: two calls differ")
+            pdx, pdw = rn.rmsnorm_backward(x, w, dy, model=True)
+            rx = float(((dx.float() - pdx.float()).abs()
+                        / (tol * (1 + pdx.float().abs()))).max())
+            rw = float(((dw - pdw).abs()
+                        / (NORM_DW_TOL[dtn] * (1 + pdw.abs()))).max())
+            check(max(rx, rw) <= 1, f"8e rmsnorm backward {dtn} [4096, {d}]"
+                  f" ({variant}): dx {rx}, dw {rw} of the tolerance")
+            bwd.append(dict(dtype=dtn, d=d, rows=4096, variant=variant,
+                            dx_tol_ratio=rx, dw_tol_ratio=rw))
+            del x, dy, dx, dw, again, pdx, pdw
+    check([r["variant"] for r in bwd] == ["rows", "rows", "rows", "generic"],
+          f"8e rmsnorm backward variants {[r['variant'] for r in bwd]}")
+    log(f"  8e row 14 at zamba2's widths: {json.dumps(bwd)}")
+    torch.cuda.empty_cache()
+    return dict(forward=fwd, backward=bwd)
+
+
+def hybrid_train(dev, cfg) -> dict:
+    """``train.loop.make_train_step`` (the loop's step) at full width and
+    :data:`HYBRID_TRAIN_LAYERS` layers (f32 parameters, bf16 compute,
+    remat) for :data:`HYBRID_TRAIN`'s steps from ``SyntheticLM(seed=0)``:
+    every loss finite and the last 4 below the first 4 on average; then
+    the run again, stopped after :data:`HYBRID_RESUME_AT` steps, its state
+    taken to the host as a checkpoint stores it, dropped, restored onto
+    the card and resumed: every leaf and loss byte-equal to the straight
+    run's (a checkpoint of this state on disk would be 16.5 GB; the loop's
+    disk round trip is phase 8b (e)'s, at reduced width)."""
+    import dataclasses
+    import torch
+    from repro_torch import pytree
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import loop as train_loop
+    B, S, n = HYBRID_TRAIN
+    c12 = dataclasses.replace(cfg, n_layers=HYBRID_TRAIN_LAYERS)
+    check(c12.remat and c12.param_dtype == "float32" and
+          c12.compute_dtype == "bfloat16", "zamba2: not f32 parameters, bf16 "
+          "compute, remat")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n0 = launch_counts()
+    step = train_loop.make_train_step(
+        c12, adamw.OptConfig(lr=FAMILY_LR, warmup_steps=2, total_steps=n))
+    src = SyntheticLM(vocab=c12.vocab, seq_len=S, global_batch=B, seed=0)
+    with NormWidths() as widths:
+        state, rec = train_steps(dev, step, train_loop.init_state(
+            c12, seed=0, device=dev), src, n)
+    steady = rec["ms"][1:]
+    rec.update(n_layers=c12.n_layers, sites=c12.n_layers // c12.attn_every,
+               n_params=sum(x.numel() for x in pytree.leaves(state[0])),
+               batch=B, seq=S, steps=n, first_step_ms=rec["ms"][0],
+               ms_per_step=float(np.median(steady)),
+               tokens_per_s=B * S / float(np.median(steady)) * 1e3,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+               norm_calls_by_width=widths.by,
+               launches=count_delta(n0, launch_counts(), MOE_LAUNCH_KEYS))
+    t0 = time.perf_counter()
+    part, first = train_steps(dev, step, train_loop.init_state(
+        c12, seed=0, device=dev), src, HYBRID_RESUME_AT)
+    leaves, treedef = pytree.flatten(part)
+    snap = [ckpt._to_numpy(x) for x in leaves]   # as a checkpoint stores them
+    del part, leaves
+    gc.collect()
+    resumed = pytree.unflatten(treedef, [ckpt._from_numpy(a, name).to(dev)
+                                         for a, name in snap])
+    del snap
+    rest = []
+    for i in range(HYBRID_RESUME_AT, n):
+        resumed, m = step(resumed, src.batch_for_step(i))
+        rest.append(float(m["loss"]))
+    pairs = list(zip(pytree.leaves(resumed), pytree.leaves(state)))
+    same, n_leaves = sum(torch.equal(a, b) for a, b in pairs), len(pairs)
+    rec.update(resume=dict(at=HYBRID_RESUME_AT, leaves=n_leaves,
+                           leaves_equal=same,
+                           losses=first["losses"] + rest,
+                           seconds=time.perf_counter() - t0))
+    del state, resumed, step, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = rec["losses"]
+    first4, last4 = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    rec.update(mean_first_4=first4, mean_last_4=last4)
+    log(f"  8e training, zamba2 at {c12.n_layers} layers ({rec['sites']} "
+        f"sites, {rec['n_params']} parameters), batch {B} x seq {S}, {n} "
+        f"steps: {rec['ms_per_step']:.1f} ms/step (median after the first; "
+        f"first {rec['first_step_ms']:.0f} ms), {rec['tokens_per_s']:.0f} "
+        f"tokens/s, peak memory {rec['peak_memory_bytes']} B; losses "
+        f"{[round(x, 4) for x in losses]}; resumed after "
+        f"{HYBRID_RESUME_AT}: {same} of {n_leaves} leaves byte-equal, "
+        f"losses {[round(x, 4) for x in rec['resume']['losses']]}")
+    check(all(np.isfinite(losses)), f"8e zamba2: a training loss is not "
+          f"finite: {losses}")
+    check(last4 < first4, f"8e zamba2: the loss did not fall ({first4} -> "
+          f"{last4})")
+    check(same == n_leaves and rec["resume"]["losses"] == losses,
+          f"8e zamba2: the resumed run differs ({same} of {n_leaves} "
+          "leaves equal)")
+    return rec
+
+
+def hybrid_serve(dev, cfg) -> tuple[dict, object, list]:
+    """zamba2-7b at full width and depth through ``launch.serve --full``
+    (:func:`serve_family`, each wave held against the plain versions),
+    with row 10's calls counted by width."""
+    with NormWidths() as widths:
+        st, eng, reqs = serve_family(dev, cfg, tag="8e")
+    st["norm_calls_by_width"] = widths.by
+    check(st["n_params"] == 6_751_130_832, f"zamba2: {st['n_params']} "
+          "parameters, want the JAX init's 6,751,130,832")
+    check(st["peak_memory_bytes"] < CARD_BYTES, f"zamba2: peak memory "
+          f"{st['peak_memory_bytes']} B")
+    return st, eng, reqs
+
+
+def phase_hybrid(dev) -> dict:
+    """Phase 8e: zamba2-7b (81 Mamba2 layers, the shared attention layer
+    at 13 sites, hd 112) served at full width and depth (the launcher's
+    run, then the long wave, each held against the plain versions),
+    trained at full width and 12 layers (the loss falls, a resume is
+    byte-equal); the launches of the main path (the counts set to 0 by the
+    caller just before) read after them, less those of the checks between
+    them: the state across the prefill/decode boundary and the longest
+    wave against the plain versions, both in f32 with planted faults
+    (bf16's drift read beside), one traced decode step and one traced
+    long-wave prefill with the SSD scan timed alone.  Then row 10 at d
+    3584 and 7168, rows 9, 12 and 13 at zamba2's heads (row 9 also at the
+    served caches' shapes) and the training's gradients against the plain
+    path at 1 x 4096 and :data:`HYBRID_GRAD_LAYERS` layers, with dQ's
+    dims 104-111 zeroed refused."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False    # as phase 7 sets it
+    t0 = time.perf_counter()
+    cfg = get_arch(HYBRID_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated(dev)
+    check(left < FAMILY_LEFT_BYTES, f"8e: {left} B still allocated when it "
+          "starts")
+    out = {"allocated_at_start_bytes": left}
+    out["serve"], eng, reqs = hybrid_serve(dev, cfg)
+    t1 = time.perf_counter()
+    with NormWidths() as widths:
+        out["long_wave"], toks4 = hybrid_long_wave(dev, eng)
+    toks = toks4[:1]
+    out["long_wave"]["norm_calls_by_width"] = widths.by
+    out["long_wave"]["seconds"] = time.perf_counter() - t1
+    out["long_wave"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+        dev)
+    n_t = launch_counts()
+    out["serve"]["decode_trace"] = trace_decode(      # the longest wave
+        dev, eng, sorted(reqs, key=lambda r: len(r.prompt))[-eng.batch_size:],
+        want=("flash_attention",))
+    out["state_check"] = hybrid_state_check(      # and the longest wave
+        dev, eng, toks, sorted(reqs, key=lambda r: len(r.prompt))[
+            -eng.batch_size:])
+    out["long_wave"]["prefill_trace"] = hybrid_prefill_trace(dev, eng, toks4)
+    state_launches = count_delta(n_t, launch_counts(), MOE_LAUNCH_KEYS)
+    del eng, reqs, toks, toks4
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["train"] = hybrid_train(dev, cfg)
+    launches = count_delta(state_launches, {
+        k: v for k, v in launch_counts().items() if k in MOE_LAUNCH_KEYS},
+        MOE_LAUNCH_KEYS)
+    out["launches"] = launches
+    out["main_path_s"] = time.perf_counter() - t0
+    log(f"  main-path launches (phase 8e; the traced decode and the state "
+        f"check taken out): {json.dumps(launches)}")
+    by = launches["flash_attention_by"]
+    for k in MAIN_ATTENTION_VARIANTS:
+        check(by[k] > 0, f"8e: attention variant {k} was never launched")
+    check(launches["rmsnorm_by"]["split"] > 0, "8e: rmsnorm's split variant "
+          "was never launched")
+    by = launches["attention_bwd_by"]
+    check(by["dq_mma"] == by["dkdv_mma"] > 0 and by["dq_f32"] ==
+          by["dkdv_f32"] == 0, f"8e training launched the backward kernels "
+          f"{json.dumps(by)}, want only dq_mma and dkdv_mma")
+    check(launches["rmsnorm_bwd"] > 0, "8e: row 14 was never launched")
+    out["norms"] = hybrid_norms(dev, cfg)
+    out["attention"] = hybrid_attention(dev, cfg)
+    out["attention_served"] = served_attention_holds(dev, cfg, "8e")
+    out["train"]["vs_plain"] = phase_train_vs_plain(
+        dev, cfg, tag="8e zamba2", n_layers=HYBRID_GRAD_LAYERS,
+        planted=dq_dims_zeroed)
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -6177,6 +6924,14 @@ def main() -> int:
         f"({moe_out['seconds']:.1f} s; its main path "
         f"{moe_out['main_path_s']:.1f} s)")
 
+    log("== phase 8e: the Mamba2 hybrid at full width and depth (main path: "
+        "counts from here on)")
+    reset_counts()
+    hybrid = phase_hybrid(dev)
+    log(f"  phase 8e done at {time.perf_counter() - t_start:.1f} s "
+        f"({hybrid['seconds']:.1f} s; its main path "
+        f"{hybrid['main_path_s']:.1f} s)")
+
     log("== phase 9: summary")
     kernels = [dict(name=k, route="cuda", source=SOURCES[k],
                     replaces=ROWS[k][0], pallas=ROWS[k][1],
@@ -6239,7 +6994,39 @@ def main() -> int:
                 "library_ms", "shape")}
             k["hd112_errors"] = h["errors"]
             k["hd112_planted_lost_split"] = h["planted"]
+        if k["name"] in LM_ROWS:       # phase 8e's hybrid beside
+            k["launches_zamba2"] = dict(
+                head_dim=112, d_model=3584, d_in=7168,
+                launches=hybrid["launches"][k["name"]],
+                launches_by=hybrid["launches"][f"{k['name']}_by"])
+        if k["name"] == "flash_attention":
+            k["zamba2"] = {key: {f: t[f] for f in (
+                "ms", "ms_from", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "tol_ratio", "shape")}
+                for key, t in hybrid["attention"]["forward"].items()}
+            h = hybrid["attention_served"]
+            k["zamba2"]["decode"] = {f: h["decode"][f] for f in (
+                "ms", "ms_from", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")}
+            k["zamba2_errors"] = h["errors"]
+            k["zamba2_planted_lost_split"] = h["planted"]
+        if k["name"] == "rmsnorm":
+            k["zamba2_launches_by_width"] = {
+                part: hybrid[part]["norm_calls_by_width"]
+                for part in ("serve", "long_wave", "train")}
+            k["zamba2_widths"] = hybrid["norms"]["forward"]
     kernels += train_rows(train_errs, train_times, train_launches)
+    for k in kernels:                  # phase 8e's hybrid beside
+        if k["name"].startswith("attention_bwd"):
+            k["launches_zamba2"] = dict(
+                head_dim=112, launches_by=hybrid["launches"][
+                    "attention_bwd_by"])
+            k["hd112_zamba2"] = {key.split(" ")[1]: t for key, t in
+                                 hybrid["attention"]["backward"].items()
+                                 if key.startswith(k["name"] + " ")}
+        if k["name"] == "rmsnorm_bwd":
+            k["launches_zamba2"] = hybrid["launches"]["rmsnorm_bwd"]
+            k["zamba2_widths"] = hybrid["norms"]["backward"]
     for k in kernels:       # rows 1-8 and 11 bit for bit, 9-10, 12-14 allclose
         ok = k["max_abs_err"] == 0 if k["tolerance"] == 0 else \
             k["tol_ratio"] <= 1 and k["tol_ratio_f32"] <= 1 and all(
@@ -6254,6 +7041,7 @@ def main() -> int:
     log(json.dumps({"lm_training": train}))
     log(json.dumps({"lm_families": families}))
     log(json.dumps({"moe": moe_out}))
+    log(json.dumps({"hybrid": hybrid}))
     log(json.dumps({"table1_us_per_cycle": table1}))
     log(json.dumps({"compile": compiled}))
     log(json.dumps({"sched_vs_fire_block": versus}))

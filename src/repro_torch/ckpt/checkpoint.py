@@ -46,6 +46,13 @@ def _to_numpy(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
     return t.numpy(), name
 
 
+def _from_numpy(arr: np.ndarray, logical: str) -> torch.Tensor:
+    """The leaf :func:`_to_numpy` stored, on the CPU."""
+    if logical == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr).to(DTYPES[logical])
+
+
 def save(ckpt_dir: str, step: int, tree) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -103,12 +110,8 @@ def restore(ckpt_dir: str, like, step: int | None = None):
         expect = tuple(leaf.shape)
         assert tuple(arr.shape) == expect, \
             f"leaf {i}: ckpt {arr.shape} != model {expect}"
-        dtype = meta["leaves"][i]["dtype"]
-        if dtype == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-        else:
-            t = torch.from_numpy(arr).to(DTYPES[dtype])
-        out.append(t.to(leaf.device))
+        out.append(_from_numpy(arr, meta["leaves"][i]["dtype"]).to(
+            leaf.device))
     return step, pytree.unflatten(treedef, out)
 
 

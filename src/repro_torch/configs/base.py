@@ -6,8 +6,8 @@ assignment table).  Every config is selectable via ``--arch <id>`` in the
 launchers (``python -m repro_torch.launch.serve``, ``.train``).  The port
 runs the dense family (RMSNorm or LayerNorm, SwiGLU or GELU:
 internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b), MoE
-(llama4-scout-17b-a16e, kimi-k2-1t-a32b) and the attention-free RWKV6
-(rwkv6-1.6b); the other configs are kept so that names and reduced sizes
+(llama4-scout-17b-a16e, kimi-k2-1t-a32b), the attention-free RWKV6
+(rwkv6-1.6b) and the Mamba2 hybrid (zamba2-7b); the other configs are kept so that names and reduced sizes
 agree with the JAX package, and the model refuses them
 (``NotImplementedError``).
 

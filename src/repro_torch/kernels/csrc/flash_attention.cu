@@ -83,10 +83,12 @@
 //    kernel<HD> (training, f32): the gradient of the prefill kernels'
 //    function at q_offset 0 over every key, from their row log-sum-exp
 //    (which kernels 1 and 2 write when asked), on the CUDA cores;
-//    described below.
-// 5. flash_attention_bwd_dq_wgmma_kernel<HD> + flash_attention_bwd_dkdv_
-//    wgmma_kernel<HD> (training, bf16): the same gradient on the tensor
-//    cores; described below.  The wrapper picks 4 or 5 by dtype alone.
+//    described below.  hd 112 has an instantiation of its own (a thread's
+//    7 dims read one float at a time).
+// 5. flash_attention_bwd_dq_wgmma_kernel<HD, HDG> + flash_attention_bwd_
+//    dkdv_wgmma_kernel<HD, HDG> (training, bf16): the same gradient on the
+//    tensor cores; hd 112 on zero-padded hd 128 tiles, as kernel 1;
+//    described below.  The wrapper picks 4 or 5 by dtype alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -705,13 +707,15 @@ struct SwzTile {
     return smem_desc(base + h * kWgRows * W + t * 16 * W, kWgRows * W,
                      8 * W, kLayout);
   }
-  // rows [0, n) of the tile at dst from row_ptr(j), the rest zero-filled
-  template <typename F>
+  // rows [0, n) of the tile at dst from row_ptr(j), the rest zero-filled;
+  // of each row the first CPG chunks (CPG < CPR: a head dim below the
+  // tile's, dims 8 CPG.. zero-filled)
+  template <int CPG = CPR, typename F>
   static __device__ __forceinline__ void load(unsigned char* dst, int n,
                                               F row_ptr) {
     for (int e = threadIdx.x; e < kWgRows * CPR; e += kWgThreads) {
       const int j = e / CPR, c = e % CPR;
-      const bool ok = j < n;
+      const bool ok = j < n && c < CPG;
       cp_async16(dst + off(j, c), ok ? row_ptr(j) + c * 8 : row_ptr(0), ok);
     }
   }
@@ -1539,6 +1543,12 @@ struct BwdArgs {
   float scale;
 };
 
+// floats a thread reads at once of its DN = HD / 16 dims (tx + 16 m blocks
+// of VD): 4 where they divide DN, else 1 (hd 112: 7 dims, tx + 16 m)
+__host__ __device__ constexpr int bwd_vd(int dn) {
+  return dn < 4 ? dn : dn % 4 == 0 ? 4 : 1;
+}
+
 // four [64][HD + pad] f32 tiles, n_p [64][64 + pad] ones, lse and D
 template <int HD>
 constexpr size_t bwd_smem_bytes(int n_p) {
@@ -1628,7 +1638,7 @@ template <int HD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_attention_bwd_dq_kernel(const BwdArgs a) {
   constexpr int LD = HD + kPad, PLD = kBwTile + kPad;
-  constexpr int DN = HD / 16, VD = DN < 4 ? DN : 4;
+  constexpr int DN = HD / 16, VD = bwd_vd(DN);
   extern __shared__ float4 bw_smem4[];
   float* Qs = reinterpret_cast<float*>(bw_smem4);
   float* dOs = Qs + kBwTile * LD;
@@ -1733,7 +1743,7 @@ template <int HD>
 __global__ void __launch_bounds__(kBwThreads, 1)
 flash_attention_bwd_dkdv_kernel(const BwdArgs a) {
   constexpr int LD = HD + kPad, PLD = kBwTile + kPad;
-  constexpr int DN = HD / 16, VD = DN < 4 ? DN : 4;
+  constexpr int DN = HD / 16, VD = bwd_vd(DN);
   extern __shared__ float4 bw_smem4[];
   float* Ks = reinterpret_cast<float*>(bw_smem4);
   float* Vs = Ks + kBwTile * LD;
@@ -1860,6 +1870,7 @@ int launch_bwd_hd(const BwdArgs& a, int B, int hd, bool dq,
     case 16: return launch_bwd<16>(a, B, dq, stream);
     case 32: return launch_bwd<32>(a, B, dq, stream);
     case 64: return launch_bwd<64>(a, B, dq, stream);
+    case 112: return launch_bwd<112>(a, B, dq, stream);
     case 128: return launch_bwd<128>(a, B, dq, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1912,6 +1923,13 @@ int launch_bwd_hd(const BwdArgs& a, int B, int hd, bool dq,
 // Tiles wholly masked are never visited; only tiles that a bound (causal,
 // Sq, Skv) crosses are masked.  A row whose lse is -inf (none in the
 // training case unless Skv = 0) gets P = 0.
+// hd 112 (zamba2-7b's 3584 / 32) runs both kernels on the hd 128 tiles
+// (`<128, 112>`), as kernel 1 does: dims 112-127 of every Q, dO, K and V
+// tile are zero-filled by cp.async (and the dQ kernel's D reads 112), so
+// S, dP and every product over them are the hd 112 ones; dQ, dK and dV
+// come out with zero columns 112-127, which are not stored.  The padding
+// lives in shared memory only: no column mask in registers, so the
+// kernels keep the hd 128 instantiations' registers.
 
 // 4 bytes global -> shared, zero-filled when !ok
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -2177,11 +2195,15 @@ struct WgmmaRS2<128> {
   }
 };
 
-template <int HD>
+// HD: the tiles' and products' width; HDG <= HD: the tensors' head dim
+// (dims HDG..HD-1 of every tile zero-filled, never stored), as in kernel 1
+template <int HD, int HDG = HD>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
   using L = SwzTile<HD>;
-  constexpr int KS = HD / 16, NO = HD / 8;
+  constexpr int KS = HD / 16;
+  constexpr int CPG = HDG / 8, NOG = HDG / 8;   // chunks read, 8-dim tiles stored
+  static_assert(HDG <= HD && HDG % 8 == 0, "the stored dims fit the tile");
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   unsigned char* const Qs = wg_smem;
   unsigned char* const dOs = Qs + L::BYTES;
@@ -2202,24 +2224,25 @@ flash_attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
   // row r: query q0 + r / G of head kvh G + r % G
   auto row_off = [&](int r) {
     return ((static_cast<size_t>(b) * a.Sq + q0 + r / G) * a.H + kvh * G +
-            r % G) * HD;
+            r % G) * HDG;
   };
   auto row_stat = [&](int r) {          // its index in lse and D
     return (static_cast<size_t>(b) * a.H + kvh * G + r % G) * a.Sq + q0 +
            r / G;
   };
-  L::load(Qs, rows, [&](int r) { return q + row_off(r); });
-  L::load(dOs, rows, [&](int r) { return dout + row_off(r); });
+  L::template load<CPG>(Qs, rows, [&](int r) { return q + row_off(r); });
+  L::template load<CPG>(dOs, rows, [&](int r) { return dout + row_off(r); });
   cp_async_commit();
   auto load_tile = [&](int kt) {        // keys at or past kend zero-filled
     unsigned char* Ks = KV + (kt & 1) * 2 * L::BYTES;
     const int k0 = kt * kWgKeys;
     auto key = [&](int j) {
-      return (static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv * HD +
-             kvh * HD;
+      return (static_cast<size_t>(b) * a.Skv + k0 + j) * a.Hkv * HDG +
+             kvh * HDG;
     };
-    L::load(Ks, kend - k0, [&](int j) { return k + key(j); });
-    L::load(Ks + L::BYTES, kend - k0, [&](int j) { return v + key(j); });
+    L::template load<CPG>(Ks, kend - k0, [&](int j) { return k + key(j); });
+    L::template load<CPG>(Ks + L::BYTES, kend - k0,
+                          [&](int j) { return v + key(j); });
   };
   if (n_tiles > 0) load_tile(0);
   cp_async_commit();
@@ -2235,7 +2258,7 @@ flash_attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
     const int r = r0 + 8 * i;
     float acc = 0.f;
     if (r < rows) {
-      for (int c = lane & 3; c < L::CPR; c += 4) {
+      for (int c = lane & 3; c < CPG; c += 4) {
         float fo[8], fd[8];
         load_f32<bf16, 8>(o + row_off(r) + c * 8, fo);
         load_f32<bf16, 8>(dout + row_off(r) + c * 8, fd);
@@ -2253,9 +2276,9 @@ flash_attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
 
   const float sl2 = a.scale * kLog2e;
   const int qp0 = q0 + r0 / G, qp1 = q0 + (r0 + 8) / G;
-  float acc[NO * 4];
+  float acc[HD / 2];
 #pragma unroll
-  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
   for (int kt = 0; kt < n_tiles; ++kt) {
     cp_async_wait<0>();
     fence_proxy_async();
@@ -2312,18 +2335,20 @@ flash_attention_bwd_dq_wgmma_kernel(const BwdArgs a) {
     if (r >= rows) continue;
     bf16* dst = static_cast<bf16*>(a.dq) + row_off(r) + (lane & 3) * 2;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < NOG; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
           __floats2bfloat162_rn(acc[n * 4 + 2 * i] * a.scale,
                                 acc[n * 4 + 2 * i + 1] * a.scale);
   }
 }
 
-template <int HD>
+template <int HD, int HDG = HD>
 __global__ void __launch_bounds__(kWgThreads)
 flash_attention_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
   using L = SwzTile<HD>;
-  constexpr int KS = HD / 16, NO = HD / 8;
+  constexpr int KS = HD / 16;
+  constexpr int CPG = HDG / 8, NOG = HDG / 8;
+  static_assert(HDG <= HD && HDG % 8 == 0, "the stored dims fit the tile");
   extern __shared__ __align__(1024) unsigned char wg_smem[];
   unsigned char* const Ks = wg_smem;
   unsigned char* const Vs = Ks + L::BYTES;
@@ -2339,13 +2364,13 @@ flash_attention_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
   const int qt0 = a.causal ? kt : 0;         // queries >= k0 see key k0
   const int per = max(0, n_qt - qt0);        // query tiles of each head
   const int steps = G * per;
-  const size_t kv0 = (static_cast<size_t>(b) * a.Skv + k0) * a.Hkv * HD +
-                     kvh * HD;
-  L::load(Ks, nk, [&](int j) {
-    return static_cast<const bf16*>(a.k) + kv0 + j * a.Hkv * HD;
+  const size_t kv0 = (static_cast<size_t>(b) * a.Skv + k0) * a.Hkv * HDG +
+                     kvh * HDG;
+  L::template load<CPG>(Ks, nk, [&](int j) {
+    return static_cast<const bf16*>(a.k) + kv0 + j * a.Hkv * HDG;
   });
-  L::load(Vs, nk, [&](int j) {
-    return static_cast<const bf16*>(a.v) + kv0 + j * a.Hkv * HD;
+  L::template load<CPG>(Vs, nk, [&](int j) {
+    return static_cast<const bf16*>(a.v) + kv0 + j * a.Hkv * HDG;
   });
   // step w: head kvh G + w / per, query tile qt0 + w % per, into stage w & 1
   auto load_step = [&](int w) {
@@ -2353,12 +2378,12 @@ flash_attention_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
     const int nq = min(kWgRows, a.Sq - q0);
     unsigned char* Qst = QO + (w & 1) * 2 * L::BYTES;
     auto row = [&](int i) {
-      return ((static_cast<size_t>(b) * a.Sq + q0 + i) * a.H + h) * HD;
+      return ((static_cast<size_t>(b) * a.Sq + q0 + i) * a.H + h) * HDG;
     };
-    L::load(Qst, nq, [&](int i) {
+    L::template load<CPG>(Qst, nq, [&](int i) {
       return static_cast<const bf16*>(a.q) + row(i);
     });
-    L::load(Qst + L::BYTES, nq, [&](int i) {
+    L::template load<CPG>(Qst + L::BYTES, nq, [&](int i) {
       return static_cast<const bf16*>(a.dout) + row(i);
     });
     if (tid < kWgRows) {
@@ -2375,9 +2400,9 @@ flash_attention_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
   const float kLog2e = 1.4426950408889634f;
   const float sl2 = a.scale * kLog2e;
   const int j0 = warp * 16 + (lane >> 2);    // the thread's keys j0, j0 + 8
-  float dk[NO * 4], dv[NO * 4];
+  float dk[HD / 2], dv[HD / 2];
 #pragma unroll
-  for (int i = 0; i < NO * 4; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
   for (int w = 0; w < steps; ++w) {
     cp_async_wait<0>();
     fence_proxy_async();
@@ -2450,9 +2475,9 @@ flash_attention_bwd_dkdv_wgmma_kernel(const BwdArgs a) {
   for (int i = 0; i < 2; ++i) {
     const int j = j0 + 8 * i;
     if (j >= nk) continue;
-    const size_t off = static_cast<size_t>(j) * a.Hkv * HD;
+    const size_t off = static_cast<size_t>(j) * a.Hkv * HDG;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
+    for (int n = 0; n < NOG; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(dkp + off + n * 8) =
           __floats2bfloat162_rn(dk[n * 4 + 2 * i] * a.scale,
                                 dk[n * 4 + 2 * i + 1] * a.scale);
@@ -2470,16 +2495,16 @@ constexpr size_t bwd_mma_smem_bytes(bool dq) {
          (dq ? 0 : sizeof(float) * 2 * 2 * kWgRows);
 }
 
-template <int HD>
+template <int HD, int HDG = HD>
 int launch_bwd_mma(const BwdArgs& a, int B, bool dq, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_attention_bwd_dq_wgmma_kernel<HD>,
+        flash_attention_bwd_dq_wgmma_kernel<HD, HDG>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bwd_mma_smem_bytes<HD>(true)));
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<HD>,
+      e = cudaFuncSetAttribute(flash_attention_bwd_dkdv_wgmma_kernel<HD, HDG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bwd_mma_smem_bytes<HD>(false)));
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -2488,11 +2513,11 @@ int launch_bwd_mma(const BwdArgs& a, int B, bool dq, cudaStream_t stream) {
   if (dq) {
     const int BQ = kWgRows / a.G;
     const dim3 grid(B * a.Hkv, (a.Sq + BQ - 1) / BQ);
-    flash_attention_bwd_dq_wgmma_kernel<HD>
+    flash_attention_bwd_dq_wgmma_kernel<HD, HDG>
         <<<grid, kWgThreads, bwd_mma_smem_bytes<HD>(true), stream>>>(a);
   } else {
     const dim3 grid(B * a.Hkv, (a.Skv + kWgKeys - 1) / kWgKeys);
-    flash_attention_bwd_dkdv_wgmma_kernel<HD>
+    flash_attention_bwd_dkdv_wgmma_kernel<HD, HDG>
         <<<grid, kWgThreads, bwd_mma_smem_bytes<HD>(false), stream>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
@@ -2520,6 +2545,7 @@ int bwd_launch(const void* q, const void* k, const void* v, const void* o,
     case 16: return launch_bwd_mma<16>(a, B, is_dq, s);
     case 32: return launch_bwd_mma<32>(a, B, is_dq, s);
     case 64: return launch_bwd_mma<64>(a, B, is_dq, s);
+    case 112: return launch_bwd_mma<128, 112>(a, B, is_dq, s);   // zero-padded
     case 128: return launch_bwd_mma<128>(a, B, is_dq, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -23,9 +23,12 @@ The Pallas kernel is the case ``q_offset = 0``, ``kv_len = Skv``.
 * otherwise f32: ``tiled_f32`` — the CUDA cores.
 
 The forward kernels take the head dims :data:`FWD_HEAD_DIMS`; at hd 112
-(kimi-k2) ``prefill_mma`` runs the hd 128 tiles and products with dims
-112-127 zero-filled and stores 112, the others have instantiations of
-their own.  The backward kernels take :data:`BWD_HEAD_DIMS`.
+(kimi-k2, zamba2-7b) ``prefill_mma`` runs the hd 128 tiles and products
+with dims 112-127 zero-filled and stores 112, the others have
+instantiations of their own.  The backward kernels take
+:data:`BWD_HEAD_DIMS`, hd 112 too: ``dq_mma`` and ``dkdv_mma`` on the
+zero-filled hd 128 tiles, ``dq_f32`` and ``dkdv_f32`` with an
+instantiation of their own.
 
 Each launch counts one in ``flash_attention_cuda.launches_by[variant]``
 and in the total ``flash_attention_cuda.launches``.  CPU tensors take the
@@ -59,11 +62,11 @@ import torch
 
 from repro_torch.kernels.rmsnorm import DTYPE_CODES
 
-# head dims the kernels are built for: the forward kernels (hd 112 runs
-# the hd 128 layout with the last 16 dims zero; the split and CUDA-core
-# kernels have their own instantiation) and the backward kernels
+# head dims the kernels are built for, forward and backward (on the
+# tensor cores hd 112 runs the hd 128 layout with the last 16 dims zero;
+# the split and CUDA-core kernels have their own instantiation)
 FWD_HEAD_DIMS = (16, 32, 64, 112, 128)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 112, 128)
 MAX_GROUP = 64                    # query heads per kv head they take
 PLAIN_Q_CHUNK = 1024              # query rows per step of the plain version
 SPLIT_ROWS = 16                   # G * Sq up to which decode splits the keys
@@ -629,8 +632,8 @@ def flash_attention_backward_cuda(q, k, v, o, lse, do, *,
     Devices, dtypes, shapes or layouts the kernels do not take raise, as
     does a kernel that fails to launch (a bf16 call never falls back to the
     f32 kernels).  The backward kernels take the head dims
-    :data:`BWD_HEAD_DIMS`: hd 112, which the forward kernels take, raises
-    a ``ValueError`` on the card (no plain fall-back)."""
+    :data:`BWD_HEAD_DIMS`; another width raises a ``ValueError`` on the
+    card (no plain fall-back)."""
     if {x.device.type for x in (q, k, v, o, lse, do)} == {"cpu"}:
         return attention_backward(q, k, v, o, lse, do, causal=causal)
     _check(q, k, v, BWD_HEAD_DIMS, "the attention backward")

@@ -2,8 +2,10 @@
 ``python -m repro_torch.launch.serve --arch <id> [--full|--reduced]
 [--device cpu]``, ``<id>`` one of the configs the port runs
 (internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b,
-llama4-scout-17b-a16e, kimi-k2-1t-a32b, rwkv6-1.6b; the others raise
-``NotImplementedError``).
+llama4-scout-17b-a16e, kimi-k2-1t-a32b, rwkv6-1.6b, zamba2-7b; the
+others raise ``NotImplementedError``).  zamba2-7b (81 Mamba2 layers and
+one shared attention layer at 13 sites, 6.75e9 parameters) serves at
+full width and depth on one card.
 
 The MoE configs run as the JAX package's do, with its group rule: a wave
 of B x S tokens must split into MoE groups of ``min(moe_group_size, B *
@@ -20,7 +22,8 @@ one has none: a run of either on the card builds
 The port of the JAX package's ``repro/launch/serve.py``, with its
 defaults: random parameters from seed 0, 8 requests with prompts of 4-32
 random tokens (numpy seed 0), 16 new tokens each, waves of 4, a cache of
-256 (which RWKV6 ignores).  It runs on the card at full width unless
+256 (which RWKV6 ignores; zamba2-7b's shared layer keeps one of that
+length a site).  It runs on the card at full width unless
 asked otherwise; ``--device cpu`` runs the kernels' plain versions and
 defaults to the reduced config.
 """

@@ -2,10 +2,13 @@
 ``python -m repro_torch.launch.train --arch <id> [--full|--reduced]
 [--device cpu]``, ``<id>`` one of the configs the port runs
 (internlm2-1.8b, stablelm-1.6b, starcoder2-7b, command-r-plus-104b,
-llama4-scout-17b-a16e, kimi-k2-1t-a32b, rwkv6-1.6b).  An MoE model's loss
-adds ``0.01 x`` its layers' aux loss; no MoE config trains on one card at
-full width (kimi-k2's first 2 layers alone hold 1.99e10 parameters, 319
-GB of f32 AdamW state), so run them ``--reduced``.
+llama4-scout-17b-a16e, kimi-k2-1t-a32b, rwkv6-1.6b, zamba2-7b).  An MoE
+model's loss adds ``0.01 x`` its layers' aux loss; no MoE config trains
+on one card at full width (kimi-k2's first 2 layers alone hold 1.99e10
+parameters, 319 GB of f32 AdamW state), so run them ``--reduced``;
+neither does zamba2-7b at full depth (6.75e9 parameters, about 108 GB of
+f32 parameters, gradients and moments; ``chip_smoke.py`` trains its
+first 12 layers at full width).
 
 The port of the JAX package's ``repro/launch/train.py``, with its
 defaults: 100 steps of batch 4 x seq 128 from ``SyntheticLM(seed=0)``,

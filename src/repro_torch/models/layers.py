@@ -39,7 +39,8 @@ def unsupported(what: str) -> NotImplementedError:
         "trains the dense family with RMSNorm or LayerNorm and SwiGLU or "
         "GELU (internlm2-1.8b, stablelm-1.6b, starcoder2-7b, "
         "command-r-plus-104b), MoE (llama4-scout-17b-a16e, "
-        "kimi-k2-1t-a32b) and RWKV6 (rwkv6-1.6b)")
+        "kimi-k2-1t-a32b), RWKV6 (rwkv6-1.6b) and the Mamba2 hybrid "
+        "(zamba2-7b)")
 
 
 def dtype_of(name: str) -> torch.dtype:

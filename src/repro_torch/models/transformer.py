@@ -1,7 +1,7 @@
-"""The LM of the dense, MoE and RWKV6 families: its training loss and
-its serving steps (prefill and decode).
+"""The LM of the dense, MoE, RWKV6 and Mamba2-hybrid families: its
+training loss and its serving steps (prefill and decode).
 
-The port of the dense, MoE and RWKV branches of the JAX package's
+The port of the dense, MoE, RWKV and hybrid branches of the JAX package's
 ``repro/models/transformer.py``: an embedding, pre-norm layers, a final
 norm and an unembedding.  A dense layer is RMSNorm or LayerNorm, GQA
 attention with RoPE (and q/k/v and output biases where the config has
@@ -9,7 +9,13 @@ them), a SwiGLU or GELU MLP; an MoE layer has the MoE block
 (:mod:`repro_torch.models.moe`) in the MLP's place, and returns its aux
 loss; an RWKV6 layer is LayerNorm, the time-mix, LayerNorm, the
 channel-mix (:mod:`repro_torch.models.ssm`), and its decode state is the
-time-mix's f32 state and the two shifted tokens.  Parameters are nested
+time-mix's f32 state and the two shifted tokens.  The hybrid (zamba2)
+is a stack of Mamba2 layers (RMSNorm, then the block of
+:mod:`repro_torch.models.ssm`, residual) with ONE weight-shared dense
+layer (``shared``, not stacked) after every ``attn_every``-th: each of
+its sites has a KV cache of its own, and its gradient is the sum over
+the sites; the decode state is each Mamba layer's f32 ``h`` and conv
+tail beside the sites' caches.  Parameters are nested
 dicts of tensors with the JAX package's keys; the layers' weights are
 stacked along a leading axis, as the JAX package stacks them for
 ``lax.scan`` (an MoE model: its ``n_dense_layers`` leading dense layers
@@ -26,9 +32,9 @@ layers' gradients once), and with ``cfg.remat`` each layer runs under
 Serving casts them once (:func:`cast_params`).
 
 The dense family (internlm2-1.8b, stablelm-1.6b, starcoder2-7b,
-command-r-plus-104b), MoE (llama4-scout-17b-a16e, kimi-k2-1t-a32b) and
-RWKV6 (rwkv6-1.6b) run here.  A config outside them (the Mamba2 hybrid,
-the encoder-decoder, frontends, ``fused_qkv=False``) raises
+command-r-plus-104b), MoE (llama4-scout-17b-a16e, kimi-k2-1t-a32b), RWKV6
+(rwkv6-1.6b) and the Mamba2 hybrid (zamba2-7b) run here.  A config
+outside them (the encoder-decoder, frontends, ``fused_qkv=False``) raises
 ``NotImplementedError`` naming the ROADMAP item; it never runs through a
 different path.
 """
@@ -48,9 +54,9 @@ from repro_torch.models.layers import (KVCache, apply_norm, attn_block,
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for a config outside the dense
-    family (RMSNorm or LayerNorm, SwiGLU or GELU), MoE and RWKV6."""
-    for bad, what in ((cfg.family == "hybrid", "the Mamba2 hybrid"),
-                      (cfg.enc_dec, "the encoder-decoder"),
+    family (RMSNorm or LayerNorm, SwiGLU or GELU), MoE, RWKV6 and the
+    Mamba2 hybrid."""
+    for bad, what in ((cfg.enc_dec, "the encoder-decoder"),
                       (cfg.frontend != "none", f"frontend={cfg.frontend!r}"),
                       (cfg.norm not in ("rmsnorm", "layernorm"),
                        f"norm={cfg.norm!r}"),
@@ -90,10 +96,16 @@ def init_params(cfg, seed: int = 0, device="cuda"):
         return p
 
     def stack(n, ffn, init_ffn):
-        return {"ln1": init_norm(cfg, d, (n,), dev),
-                "attn": init_attn(cfg, gen, (n,), dev),
-                "ln2": init_norm(cfg, d, (n,), dev),
-                ffn: init_ffn(cfg, gen, (n,), dev)}
+        lead = () if n is None else (n,)
+        return {"ln1": init_norm(cfg, d, lead, dev),
+                "attn": init_attn(cfg, gen, lead, dev),
+                "ln2": init_norm(cfg, d, lead, dev),
+                ffn: init_ffn(cfg, gen, lead, dev)}
+    if cfg.family == "hybrid":
+        p["layers"] = {"ln": init_norm(cfg, d, (L,), dev),
+                       "mamba": ssm.init_mamba2(cfg, gen, (L,), dev)}
+        p["shared"] = stack(None, "mlp", init_mlp)     # ONE shared layer
+        return p
     if cfg.n_experts:
         nd = cfg.n_dense_layers
         if nd:
@@ -126,14 +138,20 @@ def param_shapes(cfg) -> dict:
         return p
 
     def stack(n, moe_ffn=False):
-        attn = {"wqkv": (n, d, (H + 2 * Hkv) * hd), "wo": (n, H * hd, d)}
+        lead = () if n is None else (n,)
+        attn = {"wqkv": (*lead, d, (H + 2 * Hkv) * hd),
+                "wo": (*lead, H * hd, d)}
         if cfg.qkv_bias:
-            attn["bqkv"] = (n, (H + 2 * Hkv) * hd)
+            attn["bqkv"] = (*lead, (H + 2 * Hkv) * hd)
         if cfg.attn_out_bias:
-            attn["bo"] = (n, d)
-        ffn = {"moe": moe.moe_shapes(cfg, (n,))} if moe_ffn else \
-            {"mlp": mlp_shapes(cfg, (n,))}
-        return {"ln1": norm(n), "attn": attn, "ln2": norm(n), **ffn}
+            attn["bo"] = (*lead, d)
+        ffn = {"moe": moe.moe_shapes(cfg, lead)} if moe_ffn else \
+            {"mlp": mlp_shapes(cfg, lead)}
+        return {"ln1": norm(*lead), "attn": attn, "ln2": norm(*lead), **ffn}
+    if cfg.family == "hybrid":
+        p["layers"] = {"ln": norm(L), "mamba": ssm.mamba2_shapes(cfg, (L,))}
+        p["shared"] = stack(None)
+        return p
     if cfg.n_experts:
         nd = cfg.n_dense_layers
         if nd:
@@ -162,13 +180,17 @@ def cast_params(cfg, params):
     f32, so a rounding at load would change the decay and the bonus.  The
     MoE router stays at the parameters' dtype: the JAX package computes
     the router logits in f32 from it, so a rounding at load could change
-    which experts are chosen."""
+    which experts are chosen.  Mamba2's ``A_log``, ``D``, ``dt_bias``
+    (read in f32) and its gated norm's ``norm_w`` stay too."""
     cdt = dtype_of(cfg.compute_dtype)
     keep = {("final_norm",), ("layers", "ln1"), ("layers", "ln2"),
             ("dense_layers", "ln1"), ("dense_layers", "ln2"),
-            ("layers", "moe", "router")}
+            ("layers", "moe", "router"), ("layers", "ln"), ("shared", "ln1"),
+            ("shared", "ln2")}
     if cfg.rwkv:
         keep |= {("layers", "tm", k) for k in ssm.F32_LEAVES}
+    if cfg.family == "hybrid":
+        keep |= {("layers", "mamba", k) for k in ssm.MAMBA_F32_LEAVES}
 
     def cast(t, path):
         if path in keep:
@@ -235,6 +257,13 @@ def _moe_body(cfg, lp, x, pos, cache=None):
     return x + y, aux, new_cache
 
 
+def _mamba_body(cfg, lp, x):
+    """One Mamba2 layer from a zero state; returns x and the layer's
+    carry (``h``, ``conv``) for decode."""
+    y, carry = ssm.mamba2_block(cfg, lp["mamba"], apply_norm(cfg, lp["ln"], x))
+    return x + y, carry
+
+
 def _rwkv_body(cfg, lp, x, state=None):
     """One RWKV6 layer; returns x and the layer's new state (``S``,
     ``x_tm``: the last token of the time-mix's normed input, ``x_cm``)."""
@@ -273,10 +302,12 @@ def unstacked_layers(params) -> list[dict]:
 
 def forward(cfg, params, batch):
     """Full forward -> (final hidden states [B, S, d] after the final norm,
-    aux loss): the dense, MoE and RWKV branches of the JAX package's
-    ``forward``; the aux loss is the sum of the MoE layers' (f32, 0
-    without them).  batch["tokens"] [B, S]; positions ``arange(S)``,
-    causal, no cache (RWKV: zero state)."""
+    aux loss): the dense, MoE, RWKV and hybrid branches of the JAX
+    package's ``forward``; the aux loss is the sum of the MoE layers' (f32,
+    0 without them).  batch["tokens"] [B, S]; positions ``arange(S)``,
+    causal, no cache (RWKV, Mamba2: zero state).  The hybrid runs Mamba
+    layer i, then the shared layer where ``(i + 1) % attn_every == 0``;
+    with ``cfg.remat`` each of them is a unit of its own."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -285,20 +316,26 @@ def forward(cfg, params, batch):
     def body(x, lp):
         if cfg.rwkv:
             return _rwkv_body(cfg, lp, x)[0], None
+        if "mamba" in lp:
+            return _mamba_body(cfg, lp, x)[0], None
         if "moe" in lp:
             x, a, _ = _moe_body(cfg, lp, x, pos)
             return x, a
         return _dense_body(cfg, lp, x, pos)[0], None
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in unstacked_layers(params):
+    def unit(x, lp):
         if cfg.remat:
-            x, a = checkpoint(body, x, lp, use_reentrant=False,
+            return checkpoint(body, x, lp, use_reentrant=False,
                               preserve_rng_state=False)
-        else:
-            x, a = body(x, lp)
+        return body(x, lp)
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(unstacked_layers(params)):
+        x, a = unit(x, lp)
         if a is not None:
             aux = aux + a
+        if "shared" in params and (i + 1) % cfg.attn_every == 0:
+            x, _ = unit(x, params["shared"])
     return apply_norm(cfg, params["final_norm"], x), aux
 
 
@@ -345,9 +382,23 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
     max_len, Hkv, hd] and the wave's valid length ``len`` (a host int);
     for RWKV6 the time-mix state ``S`` (f32 [n_layers, B, H, P, P]) and
     the shifted tokens ``x_tm``, ``x_cm`` [n_layers, B, 1, d], whatever
-    ``max_len``."""
+    ``max_len``; for the hybrid each Mamba layer's ``h`` (f32 [n_layers,
+    B, H, P, N]) and ``conv`` tail [n_layers, B, CONV_K - 1, conv_dim],
+    and ``attn``: k, v [n_sites, B, max_len, Hkv, hd] and ``len`` of the
+    shared layer's sites."""
     cdt = dtype_of(cfg.compute_dtype)
     L = cfg.n_layers
+    if cfg.family == "hybrid":
+        d_in, H, N, conv_dim = ssm.mamba2_dims(cfg)
+        kv = (L // cfg.attn_every, batch, max_len, cfg.n_kv_heads,
+              cfg.head_dim)
+        return {"h": torch.zeros((L, batch, H, cfg.ssm_head_dim, N),
+                                 dtype=torch.float32, device=device),
+                "conv": torch.zeros((L, batch, ssm.CONV_K - 1, conv_dim),
+                                    dtype=cdt, device=device),
+                "attn": {"k": torch.zeros(kv, dtype=cdt, device=device),
+                         "v": torch.zeros(kv, dtype=cdt, device=device),
+                         "len": 0}}
     if cfg.rwkv:
         d, H, P = ssm.rwkv6_dims(cfg)
         return {"S": torch.zeros((L, batch, H, P, P), dtype=torch.float32,
@@ -361,10 +412,42 @@ def init_cache(cfg, batch: int, max_len: int, device="cuda"):
             "v": torch.zeros(shape, dtype=cdt, device=device), "len": 0}
 
 
-def _layers(cfg, params, x, pos, cache):
+def _hybrid_layers(cfg, params, x, pos, cache, decode):
+    """The hybrid's layers over x: Mamba layer i (its block from a zero
+    state in a prefill, its step from the cached state in a decode step),
+    then where ``(i + 1) % attn_every == 0`` the shared layer on its site's
+    cache; every state written in place.  A prefill of S < CONV_K - 1
+    tokens leaves conv tails of S rows, as the JAX package's does."""
+    kv, shared = cache["attn"], params["shared"]
+    S = x.shape[1]
+    if not decode and S < ssm.CONV_K - 1:
+        cache["conv"] = cache["conv"][:, :, :S].clone()
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        if decode:
+            y, st = ssm.mamba2_step(cfg, lp["mamba"],
+                                    apply_norm(cfg, lp["ln"], x),
+                                    {"h": cache["h"][i],
+                                     "conv": cache["conv"][i]})
+            x = x + y
+        else:
+            x, st = _mamba_body(cfg, lp, x)
+        cache["h"][i].copy_(st["h"])
+        cache["conv"][i].copy_(st["conv"])
+        if (i + 1) % cfg.attn_every == 0:
+            site = (i + 1) // cfg.attn_every - 1
+            x, _ = _dense_body(cfg, shared, x, pos, cache=KVCache(
+                kv["k"][site], kv["v"][site], kv["len"]))
+    return x
+
+
+def _layers(cfg, params, x, pos, cache, decode=False):
     """Every layer over x with its cache entries (written in place; an MoE
     model's dense layers on ``cache[:nd]``, its MoE layers on
-    ``cache[nd:]``); returns x."""
+    ``cache[nd:]``); returns x.  ``decode``: x is one decode step's token
+    (the hybrid's Mamba layers step from their state)."""
+    if cfg.family == "hybrid":
+        return _hybrid_layers(cfg, params, x, pos, cache, decode)
     if cfg.rwkv:
         for i in range(cfg.n_layers):
             x, st = _rwkv_body(cfg, layer(params, i), x, state={
@@ -393,7 +476,9 @@ def prefill(cfg, params, batch, max_len: int):
     logits [B, V] f32, cache).  Positions are ``arange(S)`` for every
     row; no padding mask (left padding is attended, as in the JAX
     package).  RWKV6 runs from a zero state (S must be a multiple of the
-    time-mix's chunk, or below it) and ignores ``max_len``."""
+    time-mix's chunk, or below it) and ignores ``max_len``; the hybrid's
+    Mamba layers too (S a multiple of ``min(ssm_chunk, S)``, else
+    ``ValueError``)."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -401,20 +486,29 @@ def prefill(cfg, params, batch, max_len: int):
     pos = None if cfg.rwkv else torch.arange(S, device=x.device).expand(B, S)
     x = _layers(cfg, params, x, pos, cache)
     if not cfg.rwkv:
-        cache["len"] = S
+        _kv(cfg, cache)["len"] = S
     return _logits(cfg, params, x[:, -1:]), cache
+
+
+def _kv(cfg, cache) -> dict:
+    """The part of the cache that holds k, v and ``len``."""
+    return cache["attn"] if cfg.family == "hybrid" else cache
 
 
 def decode_step(cfg, params, tokens, cache):
     """One decode step. tokens: [B, 1] -> (logits [B, V], cache).  The
-    cache (the RWKV6 state) is updated in place and returned."""
+    cache (the RWKV6 state, the hybrid's Mamba states) is updated in place
+    and returned.  A hybrid's cache from a prefill of fewer than
+    ``CONV_K - 1`` tokens raises ``ValueError`` (the JAX package fails
+    there too)."""
     check_supported(cfg)
     x = embed_inputs(cfg, params, {"tokens": tokens})
     if cfg.rwkv:
         return _logits(cfg, params, _layers(cfg, params, x, None, cache)), \
             cache
     B = x.shape[0]
-    pos = torch.full((B, 1), cache["len"], device=x.device)
-    x = _layers(cfg, params, x, pos, cache)
-    cache["len"] += 1
+    kv = _kv(cfg, cache)
+    pos = torch.full((B, 1), kv["len"], device=x.device)
+    x = _layers(cfg, params, x, pos, cache, decode=True)
+    kv["len"] += 1
     return _logits(cfg, params, x), cache

@@ -6,7 +6,9 @@ is left-padded with token 0 to a common length of at least 8, prefilled
 once and decoded step by step until every member has hit its EOS or its
 token budget.  The KV cache is wave-synchronous (one length for the
 wave); an RWKV6 model carries its recurrent state instead (no length, no
-``max_len``).  Every layer's attention and RMSNorm run the hand-written
+``max_len``), the Mamba2 hybrid its layers' states beside its shared
+layer's caches.  A wave of at least 8 tokens meets the hybrid's chunk
+rule up to 256 tokens; a longer one must be a multiple of 256.  Every layer's attention and RMSNorm run the hand-written
 CUDA kernels on the card.
 """
 from __future__ import annotations

@@ -29,10 +29,11 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rmsnorm as rn  # noqa: E402
 
 ATTN_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
-# (B, Sq, Skv, H, Hkv, hd, causal): GQA and not, odd lengths, Sq != Skv
+# (B, Sq, Skv, H, Hkv, hd, causal): GQA and not, odd lengths, Sq != Skv,
+# every head dim the backward kernels take (hd 112: kimi-k2, zamba2-7b)
 ATTN_CASES = [(2, 150, 150, 4, 2, 16, True), (1, 333, 333, 4, 1, 32, True),
               (1, 70, 130, 2, 2, 64, False), (2, 65, 65, 4, 2, 128, False),
-              (1, 5, 5, 2, 1, 16, True)]
+              (1, 5, 5, 2, 1, 16, True), (1, 97, 97, 4, 2, 112, True)]
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -84,7 +85,8 @@ def test_attention_backward_matches_jax_grad(case, dtn):
 
 @pytest.mark.parametrize("case", ATTN_CASES + [
     (1, 1024, 1024, 4, 2, 128, True),     # rounding adds up over many keys
-    (1, 100, 100, 6, 2, 32, True)])       # G = 3: 21 queries, 63 rows a tile
+    (1, 100, 100, 6, 2, 32, True),        # G = 3: 21 queries, 63 rows a tile
+    (1, 130, 130, 4, 4, 112, False)])     # zamba2's G = 1 at hd 112
 def test_bf16_tile_walk_matches_jax_grad(case):
     """The tensor-core kernels' walk (dQ tiles of 64 rows packed over a kv
     head's G heads) with P and dS as the kernels carry them into their

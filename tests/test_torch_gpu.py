@@ -1103,22 +1103,29 @@ def test_flash_attention_hd112_kimi_shapes(cuda):
         _hold_attention(q, k, v, causal=True, q_offset=off, kv_len=off + 1)
 
 
-def test_attention_backward_hd112_raises(cuda):
-    """The backward kernels take no hd 112: the wrapper and the autograd
-    function raise ``ValueError`` and launch nothing (no plain
-    fall-back)."""
+def test_attention_backward_head_dims(cuda):
+    """The backward kernels take hd 112 (zamba2-7b); only widths outside
+    ``BWD_HEAD_DIMS`` raise: the wrapper at hd 96 raises
+    ``ValueError`` and launches nothing (no plain fall-back), while the
+    autograd function at hd 112 launches the tensor-core pair once each
+    and gives finite gradients."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v = _attn_inputs(cuda, 1, 80, 80, 1, 8, 112, torch.bfloat16)
-    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, with_lse=True)
+    q, k, v = _attn_inputs(cuda, 1, 80, 80, 1, 8, 96, torch.bfloat16)
+    lse = torch.zeros((1, 8, 80), device=cuda)
     n0 = fa.flash_attention_backward_cuda.launches
     with pytest.raises(ValueError, match=r"attention backward takes head "
-                       r"dims \(16, 32, 64, 128\).*hd=112"):
-        fa.flash_attention_backward_cuda(q, k, v, o, lse, o)
-    qg = q.detach().requires_grad_(True)
-    out = fa.FlashAttentionFn.apply(qg, k, v, True)
-    with pytest.raises(ValueError, match="hd=112"):
-        out.float().sum().backward()
+                       r"dims \(16, 32, 64, 112, 128\).*hd=96"):
+        fa.flash_attention_backward_cuda(q, k, v, q, lse, q)
     assert fa.flash_attention_backward_cuda.launches == n0
+    q, k, v = _attn_inputs(cuda, 1, 80, 80, 1, 8, 112, torch.bfloat16)
+    qg = q.detach().requires_grad_(True)
+    n0 = dict(fa.flash_attention_backward_cuda.launches_by)
+    fa.FlashAttentionFn.apply(qg, k, v, True).float().sum().backward()
+    torch.cuda.synchronize()
+    assert {x: fa.flash_attention_backward_cuda.launches_by[x] - n0[x]
+            for x in n0} == {"dq_mma": 1, "dkdv_mma": 1, "dq_f32": 0,
+                             "dkdv_f32": 0}
+    assert bool(torch.isfinite(qg.grad).all())
 
 
 def test_attention_entry_points_refuse_hd96(cuda):
@@ -1736,7 +1743,7 @@ def test_multifabric_engine_and_server_on_card(cuda):
 # x min(1, the tensor's RMS): a gradient row can be 0 in exact arithmetic),
 # at the forward's tolerances; RMSNorm's dx and dw as allclose
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
 @pytest.mark.parametrize("G,causal", [(1, True), (2, True), (2, False),
                                       (3, False)])
 def test_attention_backward_kernels_match_plain(cuda, dtype, hd, G, causal):
@@ -1810,6 +1817,93 @@ def test_attention_backward_stablelm_shape(cuda):
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and g.shape == w.shape
         assert fa.grad_error_ratio(g, w, ATTN_TOL[torch.bfloat16]) <= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_backward_zamba2_shape(cuda, dtype):
+    """zamba2-7b's heads (32 over 32, hd 112: the tensor cores on zero-
+    padded hd 128 tiles in bf16, the CUDA-core kernels in f32) at seq 320
+    (5 tiles) against the plain backward, causal and not, two calls
+    byte-equal; dQ, dK and dV hold 112 dims."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _attn_inputs(cuda, 1, 320, 320, 32, 1, 112, dtype, seed=112)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(4), device=cuda).to(dtype)
+    for causal in (True, False):
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           with_lse=True)
+        got = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                               causal=causal)
+        want = fa.attention_backward(q, k, v, out, lse, do, causal=causal)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and g.shape == w.shape
+            assert fa.grad_error_ratio(g, w, ATTN_TOL[dtype]) <= 1
+        again = fa.flash_attention_backward_cuda(q, k, v, out, lse, do,
+                                                 causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_reduced_hybrid_on_card_matches_cpu(cuda):
+    """zamba2-7b at its reduced width (f32) on the card: a prefill and 6
+    teacher-forced decode steps give the CPU's logits (1e-3: the kernels
+    and the card's products against the CPU's) and the Mamba states, the
+    engine's greedy tokens are the CPU's, and one training step's loss
+    and gradients are the CPU's (1e-3 relative); the attention kernels
+    (forward and backward) and RMSNorm at d_in ran."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import Request, ServeEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("zamba2-7b").reduced()
+    cpu = tfm.init_params(cfg, seed=0, device="cpu")
+    card = pytree.tree_map(lambda t: t.to(cuda), cpu)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
+    steps = rng.integers(0, cfg.vocab, (6, 4, 1)).astype(np.int32)
+    n0 = (fa.flash_attention_cuda.launches, rn.rmsnorm_cuda.launches)
+    for params, dev in ((cpu, "cpu"), (card, cuda)):
+        logits, cache = tfm.prefill(cfg, params, {"tokens": torch.from_numpy(
+            toks).to(dev)}, max_len=40)
+        out = [logits.cpu()]
+        for t in steps:
+            logits, cache = tfm.decode_step(cfg, params, torch.from_numpy(
+                t).to(dev), cache)
+            out.append(logits.cpu())
+        if dev == "cpu":
+            want, want_h = out, cache["h"]
+    assert fa.flash_attention_cuda.launches > n0[0]
+    assert rn.rmsnorm_cuda.launches > n0[1]
+    for g, w in zip(out, want):
+        torch.testing.assert_close(g, w, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(cache["h"].cpu(), want_h, rtol=1e-3,
+                               atol=1e-3)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, (n,))
+                    .astype(np.int32), max_new_tokens=6)
+            for i, n in enumerate([3, 9, 5, 12, 7, 20])]
+    got = ServeEngine(cfg, card, batch_size=2, max_len=32,
+                      device=cuda).run(reqs)
+    want = ServeEngine(cfg, cpu, batch_size=2, max_len=32,
+                       device="cpu").run(reqs)
+    for g, w in zip(got, want):
+        assert g.uid == w.uid
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=2,
+                        seed=0).batch_for_step(0)
+    n0 = fa.flash_attention_backward_cuda.launches
+    res = []
+    for params in (cpu, card):
+        flat, treedef = pytree.flatten(params)
+        leaves = [x.detach().requires_grad_(True) for x in flat]
+        loss, _ = tfm.loss_fn(cfg, pytree.unflatten(treedef, leaves), batch)
+        res.append((float(loss.detach()), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)]))
+    assert fa.flash_attention_backward_cuda.launches > n0
+    assert abs(res[0][0] - res[1][0]) <= 1e-3 * abs(res[0][0])
+    for w, g in zip(res[0][1], res[1][1]):
+        assert float((g - w).norm()) <= 1e-3 * float(w.norm()) + 1e-12
 
 
 def test_bf16_backward_launches_no_f32_kernel(cuda):

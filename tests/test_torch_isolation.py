@@ -50,7 +50,7 @@ def test_port_imports_without_jax_or_repro():
     assert int(out.stdout.split()[-1]) >= 18   # every module was imported
     names = out.stdout.split()[:-1]
     for m in ("models.moe", "configs.llama4_scout_17b_a16e",
-              "configs.kimi_k2_1t_a32b"):
+              "configs.kimi_k2_1t_a32b", "models.ssm", "configs.zamba2_7b"):
         assert f"repro_torch.{m}" in names, m
 
 

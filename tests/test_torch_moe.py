@@ -41,6 +41,7 @@ from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.convert import (lm_params_from_numpy,  # noqa: E402
                                  train_state_from_numpy)
 from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
@@ -120,8 +121,7 @@ def test_check_supported_takes_moe_and_refuses_the_rest():
     for name in ARCHS:
         tfm.check_supported(get_arch(name))
         tfm.check_supported(get_arch(name).reduced())
-    for name, what in (("zamba2-7b", "hybrid"),
-                       ("whisper-medium", "encoder-decoder"),
+    for name, what in (("whisper-medium", "encoder-decoder"),
                        ("internvl2-76b", "frontend")):
         with pytest.raises(NotImplementedError, match=what):
             tfm.check_supported(get_arch(name))
@@ -517,13 +517,14 @@ def test_launchers_on_the_cpu(name, tmp_path, capsys):
     assert line.startswith(f"done: arch={name} reduced=True resumed=False")
 
 
-def test_attention_head_dims_the_kernels_take():
+def test_attention_head_dims_the_kernels_take(monkeypatch):
     """On tensors off the CPU (here: meta, which no kernel runs) the
     wrapper checks before it builds or launches: hd 96 has no
-    instantiation and raises; hd 112 is a forward width, and the
-    backward refuses it (no fall-back to the plain version)."""
-    assert 112 in fa.FWD_HEAD_DIMS and 112 not in fa.BWD_HEAD_DIMS
-    assert set(fa.BWD_HEAD_DIMS) < set(fa.FWD_HEAD_DIMS)
+    instantiation and raises, forward and backward (no fall-back to the
+    plain version); hd 112 is a width of both, so the backward passes its
+    check and goes on to build the kernels."""
+    assert 112 in fa.FWD_HEAD_DIMS and 112 in fa.BWD_HEAD_DIMS
+    assert set(fa.BWD_HEAD_DIMS) == set(fa.FWD_HEAD_DIMS)
 
     def qkv(hd, dt=torch.bfloat16):
         return (torch.empty((1, 27, 8, hd), device="meta", dtype=dt),
@@ -532,8 +533,17 @@ def test_attention_head_dims_the_kernels_take():
     with pytest.raises(ValueError, match=r"head dims \(16, 32, 64, 112, "
                        r"128\).*hd=96"):
         fa.flash_attention_cuda(q, k, k)
-    q, k = qkv(112)
     lse = torch.empty((1, 8, 27), device="meta")
     with pytest.raises(ValueError, match=r"attention backward takes head "
-                       r"dims \(16, 32, 64, 128\).*hd=112"):
+                       r"dims \(16, 32, 64, 112, 128\).*hd=96"):
+        fa.flash_attention_backward_cuda(q, k, k, q, lse, q)
+
+    class Built(Exception):
+        pass
+
+    def build():
+        raise Built
+    monkeypatch.setattr(_build, "load", build)
+    q, k = qkv(112)
+    with pytest.raises(Built):
         fa.flash_attention_backward_cuda(q, k, k, q, lse, q)
